@@ -1,0 +1,78 @@
+"""Execution policy: which implementation each step of the round uses.
+
+The torch counterpart of ``repro/configs/backend.py`` (its ``_PROFILES``
+and ``ExecPolicy``), cut to what the port has. The profile follows the
+device the tensors live on:
+
+  * ``cpu``  — the plain PyTorch path; ``distill_kl="ref"``.
+  * ``cuda`` — ``distill_kl="fused"``: the K1 kernel pair
+    (kernels/distill_kl.py) computes L_div and L_dis.
+
+A knob set on the config (``scfg.distill_kl_mode`` and friends) wins over
+the profile. Modes the port does not have yet raise
+``NotImplementedError`` here, so no caller silently runs another path.
+Block tables and the autotuner are not ported.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+KL_MODES = ("ref", "fused")
+
+_PROFILES = {"cpu": {"distill_kl": "ref"}, "cuda": {"distill_kl": "fused"}}
+
+# config knobs whose non-default values select a path the reference has
+# and the port does not have yet: knob -> the values the port runs
+_PORTED = {"loop_mode": (None, "python"), "client_loop_mode": (None, "python"),
+           "ensemble_shard_mode": (None, "none"), "teacher_chunk": (None, 0)}
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. A CUDA device without a card
+    raises: nothing falls back to the CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} asked for, but no CUDA device is present; "
+            "pass device='cpu' to run the plain path on the CPU")
+    if dev.type not in _PROFILES:
+        raise ValueError(f"unsupported device type {dev.type!r} "
+                         f"(expected one of {tuple(_PROFILES)})")
+    if dev.type == "cuda" and dev.index is None:
+        # "cuda" names the current card; tensors report it with its index
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def check_kl_mode(mode: str) -> None:
+    if mode not in KL_MODES:
+        raise ValueError(f"unknown distill_kl mode {mode!r} "
+                         f"(expected one of {KL_MODES})")
+
+
+@dataclass(frozen=True)
+class ExecPolicy:
+    backend: str = "cpu"
+    distill_kl: str = "ref"
+
+
+def resolve_exec_policy(scfg=None, *, device="cuda") -> ExecPolicy:
+    """Modes for one run on ``device``: the device's profile, overlaid by
+    any knob the config sets. An ``ExecPolicy`` is returned unchanged.
+    A knob that asks for a path the port does not have raises
+    ``NotImplementedError``."""
+    if isinstance(scfg, ExecPolicy):
+        return scfg
+    for knob, ported in _PORTED.items():
+        if getattr(scfg, knob, None) not in ported:
+            raise NotImplementedError(
+                f"{knob}={getattr(scfg, knob)!r} is not ported yet; the "
+                f"port runs {knob}={ported[-1]!r}")
+    backend = resolve_device(device).type
+    kl = getattr(scfg, "distill_kl_mode", None)
+    pol = ExecPolicy(backend=backend, distill_kl=kl if kl is not None
+                     else _PROFILES[backend]["distill_kl"])
+    check_kl_mode(pol.distill_kl)
+    return pol

@@ -1,0 +1,109 @@
+"""Weights carried between the JAX package and the port.
+
+The reference keeps parameters as nested dicts and lists of arrays
+(tests get them as numpy with ``jax.tree.map(np.asarray, p)``). The
+port's modules name their parameters and buffers by the same paths, so
+a tree maps onto a ``state_dict`` key by key ("stages.1.0.proj.bn.var").
+Only the layouts differ:
+
+  * conv weights: HWIO in the reference, OIHW here;
+  * linear weights: (d_in, d_out) in the reference, (d_out, d_in) here;
+  * BatchNorm scale, bias, mean and var, and biases: copied as they are.
+
+The fc after a conv stack's flatten and the generator's fc keep the
+reference's NHWC feature order (models/cnn.py, core/generator.py), so no
+rows are permuted. The reverse direction (``*_to_ref``) serves the
+tests' comparisons.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.generator import ImgGenerator, img_generator_init
+from repro_torch.models.cnn import CNN, CNNSpec, cnn_init
+
+
+def _flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], np.asarray(tree)
+
+
+def _to_port(key: str, a: np.ndarray) -> np.ndarray:
+    if key.rsplit(".", 1)[-1] == "w":
+        if a.ndim == 4:
+            return a.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+        if a.ndim == 2:
+            return a.T                              # (in, out) -> (out, in)
+    return a
+
+
+def _to_ref(key: str, a: np.ndarray) -> np.ndarray:
+    if key.rsplit(".", 1)[-1] == "w":
+        if a.ndim == 4:
+            return a.transpose(2, 3, 1, 0)          # OIHW -> HWIO
+        if a.ndim == 2:
+            return a.T
+    return a
+
+
+def ref_to_state(tree) -> dict:
+    """A reference parameter tree as a ``state_dict`` of float32 tensors
+    in the port's layouts."""
+    return {k: torch.tensor(np.ascontiguousarray(_to_port(k, a)))
+            for k, a in _flatten(tree)}
+
+
+def state_to_ref(state: dict):
+    """A ``state_dict`` as a reference tree of numpy arrays (lists where
+    the path segment is an index)."""
+    root: dict = {}
+    for key, t in state.items():
+        *path, leaf = key.split(".")
+        node = root
+        for seg in path:
+            node = node.setdefault(seg, {})
+        node[leaf] = np.ascontiguousarray(
+            _to_ref(key, t.detach().cpu().numpy()))
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return listify(root)
+
+
+def load_ref(module: torch.nn.Module, tree) -> torch.nn.Module:
+    """Copy a reference tree into a module built for the same spec."""
+    target = module.net if isinstance(module, CNN) else module
+    target.load_state_dict(ref_to_state(tree), strict=True)
+    return module
+
+
+def cnn_from_ref(tree, spec: CNNSpec, *, device="cuda") -> CNN:
+    return load_ref(cnn_init(spec, device=device), tree)
+
+
+def cnn_to_ref(model: CNN):
+    return state_to_ref(model.net.state_dict())
+
+
+def generator_from_ref(tree, *, nz: int, img_size: int, out_ch: int = 3,
+                       base: int = 64, device="cuda") -> ImgGenerator:
+    gen = img_generator_init(nz=nz, img_size=img_size, out_ch=out_ch,
+                             base=base, device=device)
+    return load_ref(gen, tree)
+
+
+def generator_to_ref(gen: ImgGenerator):
+    return state_to_ref(gen.state_dict())

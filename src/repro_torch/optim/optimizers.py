@@ -1,0 +1,67 @@
+"""SGD with heavy-ball momentum and Adam, as ``repro/optim/optimizers.py``
+computes them.
+
+Each optimizer holds a list of tensors and updates them in place from a
+list of gradients of the same length (``step(grads)``), so callers take
+gradients with ``torch.autograd.grad`` for exactly the tensors they
+train. State is float32, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Iterable, Sequence
+
+import torch
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+
+
+class sgd:
+    """m = μ·m + g;  p = p − lr·m  (torch.optim.SGD's momentum rule; the
+    paper's client optimizer with lr=0.01, μ=0.9)."""
+
+    def __init__(self, params: Sequence[torch.Tensor], lr: float,
+                 momentum: float = 0.0):
+        self.params = list(params)
+        self.lr, self.momentum = lr, momentum
+        self.bufs = [torch.zeros_like(p, dtype=torch.float32)
+                     for p in self.params] if momentum else None
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        if self.bufs is None:
+            for p, g in zip(self.params, grads, strict=True):
+                p.copy_(p.float() - self.lr * g.float())
+            return
+        for p, m, g in zip(self.params, self.bufs, grads, strict=True):
+            m.mul_(self.momentum).add_(g.float())
+            p.copy_(p.float() - self.lr * m)
+
+
+class adam:
+    """Adam with bias correction counted from t = 1 (the paper's generator
+    optimizer, lr=1e-3)."""
+
+    def __init__(self, params: Sequence[torch.Tensor], lr: float,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.params = list(params)
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.m = [torch.zeros_like(p, dtype=torch.float32)
+                  for p in self.params]
+        self.v = [torch.zeros_like(p, dtype=torch.float32)
+                  for p in self.params]
+        self.t = 0
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        self.t += 1
+        bc1 = 1 - self.b1 ** self.t
+        bc2 = 1 - self.b2 ** self.t
+        for p, m, v, g in zip(self.params, self.m, self.v, grads,
+                              strict=True):
+            g = g.float()
+            m.mul_(self.b1).add_((1 - self.b1) * g)
+            v.mul_(self.b2).add_((1 - self.b2) * (g * g))
+            p.copy_(p.float() - self.lr * (m / bc1)
+                    / (torch.sqrt(v / bc2) + self.eps))

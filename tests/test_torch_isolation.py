@@ -1,0 +1,115 @@
+"""The port stands alone: it imports neither JAX nor anything of the JAX
+package, and its entry points never fall back to the CPU."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(len(names), bad)
+assert not bad, bad
+assert "triton" not in sys.modules
+"""
+
+
+def test_importing_every_module_loads_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 20
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_no_source_imports_jax_or_repro(path):
+    for name in _imported_roots(path):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def _entry_points():
+    from repro_torch.configs import backend, smoke
+    from repro_torch.core import img_generator_init, train_dense_server
+    from repro_torch.fl import build_federation
+    from repro_torch.models import CNNSpec, cnn_init
+    from repro_torch import interop
+
+    scfg = smoke()
+    data = {"train": (np.zeros((8, 16, 16, 3), np.float32),
+                      np.zeros(8, np.int32))}
+    return {
+        "cnn_init": lambda: cnn_init(CNNSpec()),
+        "img_generator_init": lambda: img_generator_init(),
+        "build_federation": lambda: build_federation(scfg, data),
+        "train_dense_server": lambda: train_dense_server([], scfg),
+        "resolve_exec_policy": lambda: backend.resolve_exec_policy(scfg),
+        "cnn_from_ref": lambda: interop.cnn_from_ref({}, CNNSpec()),
+    }
+
+
+@pytest.fixture
+def no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+
+
+@pytest.mark.parametrize("name", ["cnn_init", "img_generator_init",
+                                  "build_federation", "train_dense_server",
+                                  "resolve_exec_policy", "cnn_from_ref"])
+def test_entry_points_default_to_cuda_and_raise_without_it(no_gpu, name):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()
+
+
+def test_unported_paths_are_refused():
+    import dataclasses
+
+    from repro_torch.configs import backend, smoke
+    from repro_torch.core import train_dense_server
+    from repro_torch.fl import make_local_step
+    from repro_torch.models import CNNSpec, cnn_init
+
+    for knob in ({"loop_mode": "fused"}, {"client_loop_mode": "grouped"},
+                 {"teacher_chunk": 4}, {"ensemble_shard_mode": "clients"}):
+        with pytest.raises(NotImplementedError):
+            backend.resolve_exec_policy(dataclasses.replace(smoke(), **knob),
+                                        device="cpu")
+    for knob in ({"nan_policy": "skip"}, {"checkpoint_every": 2}):
+        with pytest.raises(NotImplementedError):
+            train_dense_server([], dataclasses.replace(smoke(), **knob),
+                               device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_local_step(cnn_init(CNNSpec(width=0.1), device="cpu"), lr=0.1,
+                        momentum=0.0, use_ldam=True)
