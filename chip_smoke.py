@@ -3,34 +3,56 @@
     python3 chip_smoke.py
 
 from the root of a checkout, on a machine with one NVIDIA card (an H100
-is the target). Needs ``torch`` built for CUDA and ``triton``; the
-kernels are built from the sources in the checkout, with Triton's cache
-under ``build/triton``. It imports ``repro_torch`` and nothing of JAX.
+is the target). Needs ``torch`` built for CUDA, ``triton`` and the CUDA
+toolkit's ``nvcc``; the kernels are built from the sources in the
+checkout, the CUDA C++ ones into ``build/cuda`` (one ``nvcc`` per source,
+started together) and Triton's cache under ``build/triton``. It imports
+``repro_torch`` and nothing of JAX.
 
 Phases; any failure exits non-zero before the result line is printed:
 
   1. setup: the card's name and power limit (``nvidia-smi``), no TF32 in
      matrix products or convolutions (full float32, as the JAX reference
-     computes);
-  2. kernels: K1f and K1b (both teacher-gradient settings) against their
-     plain PyTorch versions at the main path's shape (128, 10), a ragged
-     (1000, 32003) and a vocabulary-scale (4096, 32768), in float32 and
-     bfloat16, each timed with CUDA events beside the plain version and
-     its bound;
-  3. the main path at the paper's full width (``paper_cifar.CONFIG``:
+     computes), the CUDA C++ build with ``nvcc -Xptxas -v``'s register
+     and spill counts;
+  2. kernels, each against its plain PyTorch version and timed with CUDA
+     events beside it and its bound:
+       * K1f and K1b (both teacher-gradient settings) at the DENSE main
+         path's shape (128, 10), a ragged (1000, 32003) and a
+         vocabulary-scale (4096, 32768), in float32 and bfloat16;
+       * K4 at the serve shape (R 8, Hq 24, Hkv 8, D 128, page 16, M 32,
+         ragged seq_lens with 0 and a full table) and a D = 32 shape, in
+         float32 and bfloat16, beside ``F.scaled_dot_product_attention``
+         on the K/V already gathered into a contiguous cache (a
+         yardstick only: it leaves the paging out). The pools are
+         rotated through copies larger than the L2 cache, so each call
+         reads them from device memory, as a decode step does;
+  3. the DENSE main path at the paper's full width (``paper_cifar.CONFIG``:
      five width-1.0 resnet18 clients on 32x32x3 images, batch 128,
      synth_batch 128, nz 100, t_g 30), depth cut to one local epoch and
      two server epochs: ``build_federation`` → ``fedavg`` →
-     ``train_dense_server`` → ``evaluate``. The K1 launch counts are
-     zeroed just before it and must each read epochs·(t_g + s_steps)
-     just after;
+     ``train_dense_server`` → ``evaluate``. Every launch count is zeroed
+     just before it; K1's must each read epochs·(t_g + s_steps) just
+     after, K4's 0;
   4. one server epoch of the main path under ``torch.profiler``: device
      busy share and kernel time by name;
   5. one server step of a small federation on the card (K1 kernels) and
      on the CPU (the plain ``ref`` KL) from the same weights and images:
      the losses, their gradient with respect to the images and the
      student's update must agree to 1e-4 (the CPU path is held to the JAX
-     package by the tests).
+     package by the tests);
+  6. serve_check: llama3.2-3b at full width (d_model 3072, vocab 128256)
+     with depth cut to 2 layers, float32 without TF32: the paged engine
+     (K4) and the dense engine give the same tokens for 6 ragged
+     requests in 4 slots, and K4 launches decode steps × layers times;
+  7. serve, the serving main path: llama3.2-3b at full width and depth,
+     bfloat16, random weights from a seeded ``torch.Generator``; 16
+     requests (prompts of 64–448 tokens, 32–64 new, max_len 512) through
+     8 slots of the paged engine, page 16. Every launch count is zeroed
+     just before it; K4's must read decode steps × 28 just after, K1's 0.
+     Then one decode step of 8 running requests under
+     ``torch.profiler``: device idle share and the top kernels, with
+     K4's share.
 
 Output: a line with the card's name and power limit, one JSON line per
 phase, the ``{"kernels": [...]}`` line, and last the result line
@@ -39,6 +61,7 @@ phase, the ``{"kernels": [...]}`` line, and last the result line
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -62,6 +85,14 @@ MAIN_SHAPE = (128, 10)
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 1e-5)}
 TOL_GRAD = {"float32": (1e-5, 1e-5), "bfloat16": (1.6e-2, 1e-6)}
 STEP_TOL = 1e-4
+
+# K4 shapes: (R, Hq, Hkv, D, page, M). The serve shape is llama3.2-3b's
+# heads at the serve phase's 8 slots and max_len 512; the D = 32 one has
+# smoke()'s heads. atol only: the outputs are convex combinations of V.
+K4_SHAPES = ((8, 24, 8, 128, 16, 32), (6, 4, 2, 32, 16, 8))
+K4_SERVE_SHAPE = K4_SHAPES[0]
+TOL_K4 = {"float32": (0.0, 1e-5), "bfloat16": (0.0, 1e-2)}
+L2_BYTES = 50 * 2 ** 20
 
 
 def sync(torch, dev) -> None:
@@ -100,6 +131,18 @@ def setup():
     precision = full_float32(torch)
     import triton
 
+    from repro_torch.kernels import cuda_build
+
+    t0 = time.perf_counter()
+    try:
+        cuda_build.build(["paged_attention"])
+    except RuntimeError as e:
+        fail(str(e))
+    emit({"cuda_build": {
+        "seconds": time.perf_counter() - t0, "dir": str(cuda_build.BUILD),
+        "ptxas": {n: [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln]
+                  for n, log in cuda_build.build_logs.items()}}})
     emit({"setup": {
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi, "float32_precision": precision,
@@ -130,6 +173,23 @@ def full_float32(torch) -> dict:
 
 
 # -------------------------------------------------------------- kernels --
+
+def launch_counts() -> list:
+    """Every kernel's launch counter (a dict each)."""
+    from repro_torch.kernels import distill_kl, paged_attention
+
+    return [distill_kl.launches, paged_attention.launches]
+
+
+def zero_counts() -> None:
+    for counts in launch_counts():
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts() -> dict:
+    return {k: v for counts in launch_counts() for k, v in counts.items()}
+
 
 def cuda_ms(torch, fn, samples: int = 21) -> float:
     """Median over ``samples`` of the per-call time of a run of calls,
@@ -235,7 +295,6 @@ def main_path(torch, scfg, dev="cuda"):
     from repro_torch.core import evaluate, train_dense_server
     from repro_torch.data import make_classification_data
     from repro_torch.fl import CommLedger, build_federation, fedavg
-    from repro_torch.kernels import distill_kl as K
 
     data = make_classification_data(
         scfg.seed, num_classes=scfg.num_classes, size=scfg.image_size,
@@ -251,21 +310,22 @@ def main_path(torch, scfg, dev="cuda"):
         return out, time.perf_counter() - t0
 
     ledger = CommLedger()
-    for k in K.launches:
-        K.launches[k] = 0
+    zero_counts()
     (clients, _), t_fed = timed(lambda: build_federation(
         scfg, data, device=dev, ledger=ledger, seed=scfg.seed))
     avg, t_avg = timed(lambda: fedavg(clients))
     (student, _, hist), t_dense = timed(lambda: train_dense_server(
         clients, scfg, device=dev))
     acc_dense, t_eval = timed(lambda: evaluate(student, xt, yt))
-    launches = dict(K.launches)
+    launches = read_counts()
 
     want = scfg.epochs * (scfg.t_g + scfg.s_steps)
     # a CPU run (a rehearsal) takes the plain versions and launches nothing
-    if torch.device(dev).type == "cuda" and \
-            launches != {"distill_kl_fwd": want, "distill_kl_bwd": want}:
-        fail(f"K1 launches on the main path {launches}, expected {want} each")
+    if torch.device(dev).type == "cuda" and launches != {
+            "distill_kl_fwd": want, "distill_kl_bwd": want,
+            "paged_attention": 0}:
+        fail(f"launches on the main path {launches}, expected {want} of "
+             "each K1 kernel and no K4")
     losses = hist.gen_loss + hist.dis_loss + [
         v for p in hist.gen_parts for v in p.values()]
     if len(hist.gen_loss) != scfg.epochs or not all(
@@ -295,6 +355,19 @@ def main_path(torch, scfg, dev="cuda"):
 
 
 # -------------------------------------------------------------- profile --
+
+def device_ms(prof) -> dict:
+    """Device time in ms by kernel name from a ``torch.profiler`` run."""
+    per_kernel = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if dev_us and getattr(evt, "device_type", None) is not None \
+                and "CUDA" in str(evt.device_type):
+            per_kernel[evt.key] = per_kernel.get(evt.key, 0.0) + dev_us / 1e3
+    return per_kernel
+
 
 def profile_epoch(torch, scfg, clients, dev="cuda"):
     """One server epoch (t_g generator steps, s_steps student steps) of the
@@ -339,14 +412,7 @@ def profile_epoch(torch, scfg, clients, dev="cuda"):
     with profile(activities=activities) as prof:
         epoch()
     profiled_ms = (time.perf_counter() - t0) * 1e3
-    per_kernel = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0)
-        if dev_us and getattr(evt, "device_type", None) is not None \
-                and "CUDA" in str(evt.device_type):
-            per_kernel[evt.key] = per_kernel.get(evt.key, 0.0) + dev_us / 1e3
+    per_kernel = device_ms(prof)
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     k1_ms = sum(v for k, v in per_kernel.items() if "_kl_" in k)
@@ -460,6 +526,280 @@ def step_agreement(torch, devices=("cuda", "cpu")):
              f"{state_err}")
 
 
+# ------------------------------------------------------------------- K4 --
+
+def k4_inputs(torch, shape, dtype, seed, dev="cuda"):
+    """q, pools with a full table per request, and ragged seq_lens with a
+    0 (its table row on the null block) and a full table."""
+    R, hq, hkv, d, page, m = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_blocks = 1 + R * m
+    q = torch.randn(R, hq, d, generator=gen, device=dev).to(dtype)
+    kp, vp = (torch.randn(n_blocks, page, hkv, d, generator=gen,
+                          device=dev).to(dtype) for _ in range(2))
+    bt = (torch.arange(R * m, dtype=torch.int32, device=dev)
+          + 1).reshape(R, m)
+    seq = torch.randint(1, m * page + 1, (R,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    seq[0], seq[-1] = 0, m * page
+    bt[0] = 0
+    return q, kp, vp, bt, seq
+
+
+def gathered(torch, kp, vp, bt, seq):
+    """The K/V of each request gathered into a contiguous (R, Hkv, T, D)
+    cache and its live mask (R, 1, 1, T), for SDPA."""
+    R, m = bt.shape
+    page, hkv, d = kp.shape[1:]
+    idx = bt.long()
+
+    def one(pool):
+        return pool[idx].reshape(R, m * page, hkv, d).transpose(1, 2) \
+            .contiguous()
+
+    live = torch.arange(m * page, device=bt.device)[None, :] < seq[:, None]
+    return one(kp), one(vp), live[:, None, None, :]
+
+
+def rotating(fn, arg_sets):
+    """A call of ``fn`` on the next of ``arg_sets`` each time."""
+    it = itertools.cycle(arg_sets)
+    return lambda: fn(*next(it))
+
+
+def k4_phase(torch):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attention as PK
+
+    rows = []
+    for shape in K4_SHAPES:
+        R, hq, hkv, d, page, m = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            q, kp, vp, bt, seq = k4_inputs(torch, shape, dtype, sum(shape))
+            got = PK.paged_attention(q, kp, vp, bt, seq)
+            torch.cuda.synchronize()
+            want = PK.paged_attention_plain(q, kp, vp, bt, seq)
+            ok, err = compare(torch, got, want, TOL_K4[dname])
+            zero_rows = bool((got[seq == 0] == 0).all())
+            # copies of the pools (and of the gathered caches) beyond twice
+            # the L2 cache: each timed call reads its inputs from HBM
+            isz = kp.element_size()
+            n_copies = max(1, min(64, -(-2 * L2_BYTES
+                                        // (2 * kp.numel() * isz))))
+            pools = [(q, kp.clone(), vp.clone(), bt, seq)
+                     for _ in range(n_copies)]
+            caches = [(q[:, :, None], *gathered(torch, *p[1:3], bt, seq))
+                      for p in pools]
+            live = int(seq.sum())
+            nbytes = (2 * live * hkv * d * isz + 2 * R * hq * d * isz
+                      + 4 * (int((-(-seq // page)).sum()) + R))
+            b_ms, b_by = bound(nbytes, live * hq * (4 * d + 5))
+            rows.append({
+                "shape": {"R": R, "Hq": hq, "Hkv": hkv, "D": d, "page": page,
+                          "M": m}, "seq_lens": seq.tolist(), "dtype": dname,
+                "ok": ok and zero_rows, "zero_rows_exact": zero_rows,
+                "max_abs_err": err, "tol": TOL_K4[dname],
+                "ms": cuda_ms(torch, rotating(PK.paged_attention, pools)),
+                "plain_ms": cuda_ms(torch, rotating(PK.paged_attention_plain,
+                                                    pools)),
+                "library_ms": cuda_ms(torch, rotating(
+                    lambda qq, k, v, mask: F.scaled_dot_product_attention(
+                        qq, k, v, attn_mask=mask, enable_gqa=True), caches)),
+                "library": "F.scaled_dot_product_attention on the gathered "
+                           "K/V (paging left out)",
+                "bound_ms": b_ms, "bound_by": b_by, "live_tokens": live,
+                "l2_rotation_copies": n_copies})
+            del pools, caches
+            torch.cuda.empty_cache()
+    for r in rows:
+        emit({"kernel_check": {"name": "paged_attention", **r}})
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} K4 checks disagree with the plain version: {bad}")
+    return rows
+
+
+# -------------------------------------------------------------- serving --
+
+def serve_requests(rng, n, vocab, prompt_range, new_range):
+    """``n`` (prompt, max_new) pairs with lengths drawn from ``rng``."""
+    return [(rng.integers(0, vocab, int(rng.integers(*prompt_range)),
+                          dtype="int32"), int(rng.integers(*new_range)))
+            for _ in range(n)]
+
+
+def run_engine(eng, requests):
+    rids = [eng.submit(p, max_new=g) for p, g in requests]
+    out = eng.drain()
+    return [out[r] for r in rids]
+
+
+def serve_check(torch, dev="cuda"):
+    """Paged (K4) ≡ dense at llama3.2-3b's full width, 2 layers, float32."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.models import transformer as T
+
+    full = get_config("llama3.2-3b")
+    cfg = full.replace(n_layers=2, dtype="float32", param_dtype="float32")
+    params = T.init_model(cfg, seed=1, device=dev)
+    reqs = serve_requests(np.random.default_rng(1), 6, cfg.vocab_size,
+                          (16, 161), (8, 25))
+    kw = {"max_reqs": 4, "max_len": 192, "device": dev}
+    zero_counts()
+    paged_eng = ServeEngine(cfg, params, mode="paged", **kw)
+    paged = run_engine(paged_eng, reqs)
+    launches = read_counts()
+    dense = run_engine(ServeEngine(cfg, params, mode="dense", **kw), reqs)
+    after_dense = read_counts()
+    steps = paged_eng.stats["decode_steps"]
+    same = all(np.array_equal(a, b) for a, b in zip(paged, dense))
+    want = steps * cfg.n_layers
+    emit({"serve_check": {
+        "cfg": {"d_model": cfg.d_model, "vocab": cfg.vocab_size,
+                "n_layers": [full.n_layers, cfg.n_layers],
+                "dtype": cfg.dtype},
+        "requests": [[len(p), g] for p, g in reqs], "max_reqs": 4,
+        "paged_equals_dense": same, "decode_steps": steps,
+        "launches": launches, "expected_k4_launches": want,
+        "tokens_first_request": paged[0].tolist()}})
+    if not same:
+        fail(f"paged and dense engines disagree: {paged} vs {dense}")
+    if launches["paged_attention"] != want or after_dense != launches:
+        fail(f"K4 launches {launches} (after the dense run {after_dense}), "
+             f"expected {want} in the paged run only")
+    del params, paged_eng
+    torch.cuda.empty_cache()
+
+
+def serve_main_path(torch, dev="cuda"):
+    """The serving main path at llama3.2-3b's full width and depth."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("llama3.2-3b")
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, seed=0, device=dev)
+    sync(torch, dev)
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    reqs = serve_requests(np.random.default_rng(0), 16, cfg.vocab_size,
+                          (64, 449), (32, 65))
+    eng = ServeEngine(cfg, params, max_reqs=8, max_len=512, page=16,
+                      device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    out = run_engine(eng, reqs)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    st = eng.stats
+    steps = st["decode_steps"]
+    generated = sum(len(o) for o in out)
+    want = steps * cfg.n_layers
+    ok_tokens = all(len(o) == g and int(o.min()) >= 0
+                    and int(o.max()) < cfg.vocab_size
+                    for o, (_, g) in zip(out, reqs))
+    emit({"serve": {
+        "cfg": {"name": cfg.name, "n_layers": cfg.n_layers,
+                "d_model": cfg.d_model, "heads": [cfg.n_heads,
+                                                  cfg.n_kv_heads],
+                "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+                "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+                "params": n_params},
+        "requests": len(reqs), "prompt_lens": [len(p) for p, _ in reqs],
+        "max_new": [g for _, g in reqs], "max_reqs": 8, "max_len": 512,
+        "page": eng.page, "init_s": t_init, "wall_s": wall,
+        "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+        "decode_steps": steps, "generated": generated,
+        "tok_per_s": generated / wall,
+        "decode_tok_per_s": (generated - len(reqs)) / st["decode_s"],
+        "ms_per_decode_step": st["decode_s"] / max(steps, 1) * 1e3,
+        "launches": launches, "expected_k4_launches": want,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}})
+    if not ok_tokens:
+        fail("the serve phase's token streams are malformed")
+    if launches != {"distill_kl_fwd": 0, "distill_kl_bwd": 0,
+                    "paged_attention": want} or want == 0:
+        fail(f"launches on the serving path {launches}, expected "
+             f"{want} = {steps} decode steps x {cfg.n_layers} of K4")
+    del eng
+    torch.cuda.empty_cache()
+    profile_decode(torch, cfg, params, reqs[:8], dev)
+    return launches
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def profile_decode(torch, cfg, params, reqs, dev="cuda"):
+    """One decode step of 8 running requests under torch.profiler, and
+    the finite logits of a further step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as T
+    from repro_torch.launch.engine import ServeEngine
+
+    eng = ServeEngine(cfg, params, max_reqs=8, max_len=512, page=16,
+                      device=dev)
+    for p, _ in reqs:
+        eng.submit(p, max_new=8)
+    eng.step()                      # admits all 8, then one decode step
+    eng.step()                      # warm
+    t0 = time.perf_counter()
+    eng.step()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+    per_kernel = device_ms(prof)
+    busy_ms = sum(per_kernel.values())
+    k4_ms = sum(v for k, v in per_kernel.items() if "paged_attention" in k)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    # where the host's time goes: self CPU time by operator, and the
+    # number of kernels one step launches
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if "CUDA" not in str(getattr(e, "device_type", ""))),
+                  key=lambda t: -t[1])[:12]
+    n_kernels = sum(e.count for e in prof.key_averages()
+                    if e.key in per_kernel)
+    with torch.inference_mode():
+        logits, _ = T.forward_paged(
+            params, cfg, tokens=torch.tensor(eng._cur, device=dev)[:, None],
+            positions=torch.tensor(eng._seq, device=dev), cache=eng._pools,
+            block_tables=eng._bt)
+        finite = bool(torch.isfinite(logits).all())
+    emit({"profile_decode": {
+        "running": sum(s is not None for s in eng._slots),
+        "step_ms": step_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / step_ms,
+        "k4_ms": k4_ms, "k4_share_of_busy": k4_ms / busy_ms if busy_ms
+        else None, "n_kernel_names": len(per_kernel),
+        "kernels_launched": n_kernels, "top_kernels_ms": top,
+        "top_host_ops_self_ms_count": host,
+        "logits_shape": list(logits.shape), "logits_finite": finite}})
+    if not finite or tuple(logits.shape) != (8, 1, cfg.vocab_size):
+        fail(f"decode logits of shape {tuple(logits.shape)}, finite "
+             f"{finite}")
+    if busy_ms == 0:
+        fail("the profiler saw no device time in a decode step")
+
+
 # ----------------------------------------------------------------- main --
 
 def main() -> None:
@@ -468,6 +808,7 @@ def main() -> None:
     from repro_torch.configs import CONFIG
 
     rows = kernel_phase(torch)
+    k4_rows = k4_phase(torch)
     scfg = dataclasses.replace(CONFIG, local_epochs=1, epochs=2)
     emit({"cuts": {"local_epochs": [CONFIG.local_epochs, scfg.local_epochs],
                    "epochs": [CONFIG.epochs, scfg.epochs],
@@ -483,6 +824,8 @@ def main() -> None:
     profile_epoch(torch, scfg, clients)
     del clients
     step_agreement(torch)
+    serve_check(torch)
+    serve_launches = serve_main_path(torch)
 
     def entry(name, rs, replaces):
         main = next(r for r in rs if r["shape"] == list(MAIN_SHAPE)
@@ -497,13 +840,25 @@ def main() -> None:
                 "shape": list(MAIN_SHAPE), "dtype": "float32",
                 "by_shape": rs}
 
+    R, hq, hkv, d, page, m = K4_SERVE_SHAPE
+    k4 = next(r for r in k4_rows if r["dtype"] == "bfloat16"
+              and r["shape"] == {"R": R, "Hq": hq, "Hkv": hkv, "D": d,
+                                 "page": page, "M": m})
     print(smi, flush=True)
     emit({"seconds_total": time.perf_counter() - t_start})
     emit({"kernels": [
         entry("distill_kl_fwd", rows["fwd"],
               "src/repro/kernels/distill_kl.py:127"),
         entry("distill_kl_bwd", rows["bwd"],
-              "src/repro/kernels/distill_kl.py:186")]})
+              "src/repro/kernels/distill_kl.py:186"),
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:119",
+         "launches": serve_launches["paged_attention"],
+         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
+         "shape": k4["shape"], "dtype": k4["dtype"], "by_shape": k4_rows}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

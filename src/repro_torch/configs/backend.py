@@ -1,17 +1,23 @@
-"""Execution policy: which implementation each step of the round uses.
+"""Execution policy: which implementation each step uses.
 
 The torch counterpart of ``repro/configs/backend.py`` (its ``_PROFILES``
 and ``ExecPolicy``), cut to what the port has. The profile follows the
 device the tensors live on:
 
-  * ``cpu``  — the plain PyTorch path; ``distill_kl="ref"``.
-  * ``cuda`` — ``distill_kl="fused"``: the K1 kernel pair
-    (kernels/distill_kl.py) computes L_div and L_dis.
+  * ``cpu``  — the plain PyTorch path: ``distill_kl="ref"``,
+    ``kernel_vjp="ref"``.
+  * ``cuda`` — the kernels: ``distill_kl="fused"`` (the K1 pair,
+    kernels/distill_kl.py, computes L_div and L_dis) and
+    ``kernel_vjp="fused"`` (K4, kernels/paged_attention.py, serves every
+    paged decode step).
 
-A knob set on the config (``scfg.distill_kl_mode`` and friends) wins over
-the profile. Modes the port does not have yet raise
-``NotImplementedError`` here, so no caller silently runs another path.
-Block tables and the autotuner are not ported.
+A knob set on the config (``scfg.distill_kl_mode``,
+``cfg.kernel_vjp_mode`` and friends) wins over the profile. Modes the
+port does not have yet raise ``NotImplementedError`` here, so no caller
+silently runs another path. ``page`` is the block-pool page size of the
+serving engine, 16 tokens on both profiles as in the reference's
+``_BLOCKS["gpu"]["paged_attention"]``; the other block tables and the
+autotuner are not ported.
 """
 from __future__ import annotations
 
@@ -20,8 +26,11 @@ from dataclasses import dataclass
 import torch
 
 KL_MODES = ("ref", "fused")
+KERNEL_VJP_MODES = ("ref", "autodiff", "fused")
 
-_PROFILES = {"cpu": {"distill_kl": "ref"}, "cuda": {"distill_kl": "fused"}}
+_PROFILES = {"cpu": {"distill_kl": "ref", "kernel_vjp": "ref", "page": 16},
+             "cuda": {"distill_kl": "fused", "kernel_vjp": "fused",
+                      "page": 16}}
 
 # config knobs whose non-default values select a path the reference has
 # and the port does not have yet: knob -> the values the port runs
@@ -52,15 +61,26 @@ def check_kl_mode(mode: str) -> None:
                          f"(expected one of {KL_MODES})")
 
 
+def check_kernel_vjp_mode(mode: str) -> None:
+    if mode not in KERNEL_VJP_MODES:
+        raise ValueError(f"unknown kernel_vjp mode {mode!r} "
+                         f"(expected one of {KERNEL_VJP_MODES})")
+
+
 @dataclass(frozen=True)
 class ExecPolicy:
     backend: str = "cpu"
     distill_kl: str = "ref"
+    kernel_vjp: str = "ref"
+    page: int = 16
 
 
 def resolve_exec_policy(scfg=None, *, device="cuda") -> ExecPolicy:
     """Modes for one run on ``device``: the device's profile, overlaid by
-    any knob the config sets. An ``ExecPolicy`` is returned unchanged.
+    any knob the config sets. ``scfg`` is a ``DenseExperimentConfig``, an
+    ``ArchConfig`` (the model layers read its ``kernel_vjp_mode``, as the
+    reference's ``arch_policy`` does) or None. An ``ExecPolicy`` is
+    returned unchanged.
     A knob that asks for a path the port does not have raises
     ``NotImplementedError``."""
     if isinstance(scfg, ExecPolicy):
@@ -71,8 +91,13 @@ def resolve_exec_policy(scfg=None, *, device="cuda") -> ExecPolicy:
                 f"{knob}={getattr(scfg, knob)!r} is not ported yet; the "
                 f"port runs {knob}={ported[-1]!r}")
     backend = resolve_device(device).type
+    prof = _PROFILES[backend]
     kl = getattr(scfg, "distill_kl_mode", None)
-    pol = ExecPolicy(backend=backend, distill_kl=kl if kl is not None
-                     else _PROFILES[backend]["distill_kl"])
+    vjp = getattr(scfg, "kernel_vjp_mode", None)
+    pol = ExecPolicy(backend=backend,
+                     distill_kl=kl if kl is not None else prof["distill_kl"],
+                     kernel_vjp=vjp if vjp is not None
+                     else prof["kernel_vjp"], page=prof["page"])
     check_kl_mode(pol.distill_kl)
+    check_kernel_vjp_mode(pol.kernel_vjp)
     return pol

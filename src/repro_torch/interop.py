@@ -14,12 +14,22 @@ The fc after a conv stack's flatten and the generator's fc keep the
 reference's NHWC feature order (models/cnn.py, core/generator.py), so no
 rows are permuted. The reverse direction (``*_to_ref``) serves the
 tests' comparisons.
+
+The LM stack (``models/transformer.py``) keeps the reference's tree and
+layouts as they are: ``embed.table``, ``final_norm.scale`` and the
+stacked ``blocks`` (``attn.{wq,wk,wv,wo}.w``, ``mlp.{gate,up,down}.w``,
+``norm1/norm2.scale``), with linear weights (d_in, d_out) and a leading
+layer axis. ``lm_params_from_reference`` and ``paged_cache_from_reference``
+carry such trees (and a block pool with its block table) across as they
+are; bfloat16 arrays keep their bits. The reverse direction returns
+numpy, bfloat16 widened exactly to float32.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.backend import resolve_device
 from repro_torch.core.generator import ImgGenerator, img_generator_init
 from repro_torch.models.cnn import CNN, CNNSpec, cnn_init
 
@@ -51,6 +61,80 @@ def _to_ref(key: str, a: np.ndarray) -> np.ndarray:
         if a.ndim == 2:
             return a.T
     return a
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":                 # ml_dtypes' bfloat16
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def tree_from_reference(tree, *, device="cuda"):
+    """A nested dict of arrays as the same dict of tensors on ``device``."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: tree_from_reference(v, device=dev) for k, v in tree.items()}
+    return _tensor(np.asarray(tree), dev)
+
+
+def tree_to_reference(tree):
+    """A nested dict of tensors as the same dict of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: tree_to_reference(v) for k, v in tree.items()}
+    return _numpy(tree)
+
+
+def lm_params_from_reference(tree, cfg, *, device="cuda") -> dict:
+    """The reference's LM parameter tree (``transformer.init_model``) as
+    the port's, checked against ``cfg``'s shapes."""
+    params = tree_from_reference(tree, device=device)
+    d, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
+    want = {("embed", "table"): (cfg.vocab_size, d),
+            ("final_norm", "scale"): (d,),
+            ("blocks", "attn", "wq", "w"): (L, d, cfg.n_heads * hd),
+            ("blocks", "attn", "wk", "w"): (L, d, cfg.n_kv_heads * hd),
+            ("blocks", "attn", "wv", "w"): (L, d, cfg.n_kv_heads * hd),
+            ("blocks", "attn", "wo", "w"): (L, cfg.n_heads * hd, d),
+            ("blocks", "mlp", "gate", "w"): (L, d, cfg.d_ff),
+            ("blocks", "mlp", "up", "w"): (L, d, cfg.d_ff),
+            ("blocks", "mlp", "down", "w"): (L, cfg.d_ff, d),
+            ("blocks", "norm1", "scale"): (L, d),
+            ("blocks", "norm2", "scale"): (L, d)}
+    got = dict(_shapes(params))
+    if got != want:
+        raise ValueError(f"the parameter tree does not fit {cfg.name}: "
+                         f"{got} against {want}")
+    return params
+
+
+def _shapes(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _shapes(v, (*path, k))
+        else:
+            yield (*path, k), tuple(v.shape)
+
+
+def lm_params_to_reference(params: dict):
+    return tree_to_reference(params)
+
+
+def paged_cache_from_reference(pools, block_tables, *, device="cuda"):
+    """A reference block pool (``paging.init_paged_cache``) and its
+    block table as the port's ``(pools, block_tables)``."""
+    return (tree_from_reference(pools, device=device),
+            _tensor(np.asarray(block_tables, np.int32), resolve_device(device)))
+
+
+def paged_cache_to_reference(pools, block_tables):
+    return tree_to_reference(pools), _numpy(block_tables)
 
 
 def ref_to_state(tree) -> dict:

@@ -1,2 +1,3 @@
-"""Kernels of the port and their plain versions (kernels/distill_kl.py)
-and oracles (kernels/ref.py)."""
+"""Kernels of the port and their plain versions (kernels/distill_kl.py,
+kernels/paged_attention.py), oracles (kernels/ref.py), the CUDA C++
+sources (kernels/csrc/) and their build (kernels/cuda_build.py)."""

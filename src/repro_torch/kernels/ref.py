@@ -1,10 +1,13 @@
-"""Plain PyTorch oracles for the kernels (``repro/kernels/ref.py:140-160``).
+"""Plain PyTorch oracles for the kernels (``repro/kernels/ref.py:62-92,
+140-160``).
 
 Each uses the most direct formulation (materialized log-softmax, torch
 autograd), so a test compares two different derivations, not two copies
 of one.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -28,3 +31,31 @@ def distill_kl_grads(teacher_logits, student_logits, g):
     with torch.enable_grad():
         kl = distill_kl(t, s)
         return torch.autograd.grad(kl, (t, s), g.float())
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
+                    scale=None):
+    """Gather-then-materialize paged decode attention: the plain version
+    of K4 (kernels/paged_attention.py) and the CPU profile's route.
+
+    q: (R, Hq, D); k/v_pool: (P, page, Hkv, D); block_tables: (R, M)
+    int32; seq_lens: (R,) live cached tokens per request. Gathers each
+    request's whole (M·page) context, then a masked softmax in float32;
+    rows with ``seq_lens == 0`` give exact zeros. (R, Hq, D) in q's
+    dtype."""
+    R, hq, d = q.shape
+    _, page, hkv, _ = k_pool.shape
+    m_slots = block_tables.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    idx = block_tables.long()
+    k = k_pool[idx].reshape(R, m_slots * page, hkv, d).float()
+    v = v_pool[idx].reshape(R, m_slots * page, hkv, d).float()
+    qg = q.reshape(R, hkv, hq // hkv, d).float()
+    scores = torch.einsum("rkgd,rtkd->rkgt", qg, k) * scale
+    live = (torch.arange(m_slots * page, device=q.device)[None, :]
+            < seq_lens[:, None])[:, None, None]
+    p = torch.softmax(torch.where(live, scores, NEG_INF), dim=-1)
+    p = torch.where(live, p, 0.0)
+    out = torch.einsum("rkgt,rtkd->rkgd", p, v)
+    return out.reshape(R, hq, d).to(q.dtype)

@@ -1,5 +1,6 @@
 """Convolution, linear and BatchNorm layers for the CNN zoo and the
-generator (``repro/models/layers.py:22-40,137-196``).
+generator (``repro/models/layers.py:22-40,137-196``), and the LM layers
+of the transformer trunk (``:22-135``).
 
 Layers work on NCHW tensors (the port permutes the public NHWC images
 once, at the model's edge). Two places where torch's defaults differ
@@ -12,6 +13,16 @@ from the reference are written out by hand:
   * ``batchnorm`` normalizes with the biased batch variance and keeps
     running statistics as ``0.9·old + 0.1·batch`` of the biased
     variance; ``nn.BatchNorm2d`` would store the unbiased one.
+
+The LM layers are functions over dicts of tensors named as the
+reference's parameter tree, so ``interop`` carries a tree across key by
+key with no change of layout: ``linear`` weights stay (d_in, d_out).
+``lead`` on an init prepends axes, so one draw makes a stack of layers
+(the reference vmaps its inits over a layer axis). Their hazards:
+
+  * ``rmsnorm`` normalizes in float32, casts back, and only then
+    multiplies by the scale, in the activation dtype;
+  * RoPE rotates halves (x[:h], x[h:]), not interleaved pairs.
 """
 from __future__ import annotations
 
@@ -114,3 +125,88 @@ class BatchNorm(nn.Module):
             return normalize(x, mu, var, self.scale, self.bias, self.eps)
         return normalize(x, self.mean, self.var, self.scale, self.bias,
                          self.eps)
+
+
+# ------------------------------------------------------------ LM layers --
+
+def _normal(shape, std: float, generator, dtype) -> torch.Tensor:
+    """N(0, std²) drawn in float32 on the generator's device, then cast."""
+    w = torch.randn(shape, generator=generator, device=generator.device)
+    return (w * std).to(dtype)
+
+
+def linear_init(d_in: int, d_out: int, *, generator, dtype,
+                   lead: tuple = ()) -> dict:
+    return {"w": _normal((*lead, d_in, d_out), 1.0 / math.sqrt(d_in),
+                         generator, dtype)}
+
+
+def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x @ w with w of shape (d_in, d_out), in the activation dtype."""
+    return x @ p["w"].to(x.dtype)
+
+
+def rmsnorm_init(d: int, *, dtype, device, lead: tuple = ()) -> dict:
+    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return y.to(x.dtype) * p["scale"].to(x.dtype)
+
+
+def embed_init(vocab: int, d: int, *, generator, dtype) -> dict:
+    return {"table": _normal((vocab, d), 1.0 / math.sqrt(d), generator,
+                             dtype)}
+
+
+def embed(p: dict, ids: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """Rows of the table, cast after the gather (the same values as the
+    reference's cast-then-take)."""
+    x = p["table"][ids]
+    return x if compute_dtype is None else x.to(compute_dtype)
+
+
+def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Tied-weights readout: (..., d) @ (d, vocab)."""
+    return x @ p["table"].to(x.dtype).T
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int,
+                 theta: float = 10000.0):
+    """positions: (...,) int -> cos, sin of shape (..., head_dim // 2),
+    float32."""
+    half = head_dim // 2
+    exps = -torch.arange(half, dtype=torch.float32,
+                         device=positions.device) / half
+    ang = positions[..., None].float() * torch.pow(theta, exps)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, Dh); cos/sin: (S, Dh//2) or (B, S, Dh//2). Rotates
+    the halves in float32 and casts back."""
+    half = x.shape[-1] // 2
+    if cos.dim() == x.dim() - 2:            # (S, half) -> over B and H
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    elif cos.dim() == x.dim() - 1:          # (B, S, half) -> over H
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def swiglu_init(d: int, d_ff: int, *, generator, dtype,
+                lead: tuple = ()) -> dict:
+    kw = {"generator": generator, "dtype": dtype, "lead": lead}
+    return {"gate": linear_init(d, d_ff, **kw),
+            "up": linear_init(d, d_ff, **kw),
+            "down": linear_init(d_ff, d, **kw)}
+
+
+def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return linear(p["down"], F.silu(linear(p["gate"], x))
+                     * linear(p["up"], x))

@@ -3,6 +3,7 @@ package, and its entry points never fall back to the CPU."""
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -13,6 +14,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+CUDA_SOURCES = sorted(PKG.rglob("*.cu")) + sorted(PKG.rglob("*.cuh"))
+# the CUDA C++ sources stand alone: the toolkit's headers and nothing of
+# PyTorch, JAX or either package (a plain C interface bound with ctypes)
+CUDA_HEADERS = {"cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h", "stdint.h"}
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -59,14 +64,33 @@ def test_no_source_imports_jax_or_repro(path):
         assert root not in ("jax", "jaxlib", "repro"), (path, name)
 
 
+@pytest.mark.parametrize("path", CUDA_SOURCES, ids=lambda p: p.name)
+def test_cuda_sources_include_only_the_toolkit(path):
+    text = path.read_text()
+    includes = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', text,
+                          re.MULTILINE)
+    assert includes and set(includes) <= CUDA_HEADERS, (path, includes)
+    assert 'extern "C"' in text
+
+
+def test_there_are_cuda_sources():
+    assert [p.name for p in CUDA_SOURCES] == ["paged_attention.cu"]
+
+
 def _entry_points():
     from repro_torch.configs import backend, smoke
     from repro_torch.core import img_generator_init, train_dense_server
     from repro_torch.fl import build_federation
     from repro_torch.models import CNNSpec, cnn_init
     from repro_torch import interop
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import paging
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
 
     scfg = smoke()
+    lm = get_smoke_config("llama3.2-3b")
     data = {"train": (np.zeros((8, 16, 16, 3), np.float32),
                       np.zeros(8, np.int32))}
     return {
@@ -76,6 +100,14 @@ def _entry_points():
         "train_dense_server": lambda: train_dense_server([], scfg),
         "resolve_exec_policy": lambda: backend.resolve_exec_policy(scfg),
         "cnn_from_ref": lambda: interop.cnn_from_ref({}, CNNSpec()),
+        "init_model": lambda: transformer.init_model(lm),
+        "init_cache": lambda: transformer.init_cache(lm, 1, 4),
+        "init_paged_cache": lambda: paging.init_paged_cache(
+            lm, max_reqs=1, n_blocks=2, page=4),
+        "ServeEngine": lambda: ServeEngine(lm),
+        "serve": lambda: serve("llama3.2-3b", batch=1, prompt_len=2, gen=1),
+        "lm_params_from_reference": lambda: interop.lm_params_from_reference(
+            {}, lm),
     }
 
 
@@ -87,7 +119,10 @@ def no_gpu():
 
 @pytest.mark.parametrize("name", ["cnn_init", "img_generator_init",
                                   "build_federation", "train_dense_server",
-                                  "resolve_exec_policy", "cnn_from_ref"])
+                                  "resolve_exec_policy", "cnn_from_ref",
+                                  "init_model", "init_cache",
+                                  "init_paged_cache", "ServeEngine", "serve",
+                                  "lm_params_from_reference"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_gpu, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points()[name]()
