@@ -18,8 +18,9 @@ Phases; any failure exits non-zero before the result line is printed:
   2. kernels, each against its plain PyTorch version and timed with CUDA
      events beside it and its bound:
        * K1f and K1b (both teacher-gradient settings) at the DENSE main
-         path's shape (128, 10), a ragged (1000, 32003) and a
-         vocabulary-scale (4096, 32768), in float32 and bfloat16;
+         path's shape (128, 10), a ragged (1000, 32003), a
+         vocabulary-scale (4096, 32768) and the LLM path's (1024, 128256)
+         (B·gen_seq rows of llama's vocabulary), in float32 and bfloat16;
        * K4 at the serve shape (R 8, Hq 24, Hkv 8, D 128, page 16, M 32,
          ragged seq_lens with 0 and a full table) and a D = 32 shape, in
          float32 and bfloat16, beside ``F.scaled_dot_product_attention``
@@ -52,7 +53,27 @@ Phases; any failure exits non-zero before the result line is printed:
      just before it; K4's must read decode steps × 28 just after, K1's 0.
      Then one decode step of 8 running requests under
      ``torch.profiler``: device idle share and the top kernels, with
-     K4's share.
+     K4's share;
+  8. K2 (K2f, K2q, K2kv, CUDA C++) against its plain versions in float32
+     without TF32 and in bfloat16, at the server shape (B 4, Hq 24, Hkv 8,
+     S 256, D 128), the train shape (B 8), one 4096-token sequence, a
+     ragged D = 32 shape with a window and dead rows, and D = 64; timed
+     beside its bound and ``F.scaled_dot_product_attention`` (its
+     autograd backward for K2q and K2kv);
+  9. train_check: one train step of llama3.2-3b at full width, 2 layers,
+     float32: the K2 route and the plain route agree to 1e-4;
+ 10. dense_llm_check: one generator step and one student step of the
+     example's heterogeneous federation (smoke widths) on the card and on
+     the CPU agree to 1e-4;
+ 11. llm_main_path, the LLM DENSE main path at full width and depth
+     (``dense_llm_oneshot.full()``: two llama3.2-3b clients, a llama3.2-3b
+     student, bfloat16): 3 local train steps a client, the one-shot
+     upload, 2 epochs of 3 generator steps and a student step. Every
+     launch count is zeroed before each step and checked after it (a
+     train step: K2f 2L, K2q L, K2kv L; a generator step: (n+1)L of each
+     and one K1f, K1b; a student step: (n+1)L K2f, L K2q and K2kv, one
+     K1f, K1b); then one epoch under ``torch.profiler`` with K2's share.
+     K2 reads 0 in every earlier phase.
 
 Output: a line with the card's name and power limit, one JSON line per
 phase, the ``{"kernels": [...]}`` line, and last the result line
@@ -74,8 +95,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
-SHAPES = ((128, 10), (1000, 32003), (4096, 32768))     # (R, V)
+# (R, V); (1024, 128256) is the LLM path's: B·gen_seq rows of llama's vocab
+SHAPES = ((128, 10), (1000, 32003), (4096, 32768), (1024, 128256))
 MAIN_SHAPE = (128, 10)
 # f32: the kernel and its plain version differ only in summation order.
 # bf16 inputs: both upcast the same values and compute in float32, so the
@@ -92,6 +115,18 @@ STEP_TOL = 1e-4
 K4_SHAPES = ((8, 24, 8, 128, 16, 32), (6, 4, 2, 32, 16, 8))
 K4_SERVE_SHAPE = K4_SHAPES[0]
 TOL_K4 = {"float32": (0.0, 1e-5), "bfloat16": (0.0, 1e-2)}
+# K2 shapes: (name, B, Hq, Hkv, Sq, Sk, D, causal, window). The server's
+# and the train step's are llama3.2-3b's heads at the LLM main path's
+# batches; "long" one 4096-token sequence; "ragged_d32" the smoke heads
+# with Sq > Sk (dead rows), a window and ragged tiles; "d64" musicgen's
+# heads. Tolerance: float32 without TF32 on both sides, 1e-4; bfloat16
+# gradients are stored in bfloat16, 1e-2 of each tensor's largest entry.
+K2_SHAPES = (("server", 4, 24, 8, 256, 256, 128, True, 0),
+             ("train", 8, 24, 8, 256, 256, 128, True, 0),
+             ("long", 1, 24, 8, 4096, 4096, 128, True, 0),
+             ("ragged_d32", 2, 4, 2, 300, 200, 32, True, 64),
+             ("d64", 4, 32, 32, 256, 256, 64, True, 0))
+TOL_K2 = {"float32": 1e-4, "bfloat16": 1e-2}
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -135,7 +170,7 @@ def setup():
 
     t0 = time.perf_counter()
     try:
-        cuda_build.build(["paged_attention"])
+        cuda_build.build(["paged_attention", "flash_attention"])
     except RuntimeError as e:
         fail(str(e))
     emit({"cuda_build": {
@@ -176,9 +211,11 @@ def full_float32(torch) -> dict:
 
 def launch_counts() -> list:
     """Every kernel's launch counter (a dict each)."""
-    from repro_torch.kernels import distill_kl, paged_attention
+    from repro_torch.kernels import (distill_kl, flash_attention,
+                                     paged_attention)
 
-    return [distill_kl.launches, paged_attention.launches]
+    return [distill_kl.launches, paged_attention.launches,
+            flash_attention.launches]
 
 
 def zero_counts() -> None:
@@ -189,6 +226,14 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     return {k: v for counts in launch_counts() for k, v in counts.items()}
+
+
+def expected(**nonzero) -> dict:
+    """Every counter at 0 but those named."""
+    want = {k: 0 for k in read_counts()}
+    assert set(nonzero) <= set(want), nonzero
+    want.update(nonzero)
+    return want
 
 
 def cuda_ms(torch, fn, samples: int = 21) -> float:
@@ -219,8 +264,8 @@ def compare(torch, got, want, tol):
     return ok, float(err.max())
 
 
-def bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound(nbytes: float, ops: float, peak: float = FP32_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -321,9 +366,8 @@ def main_path(torch, scfg, dev="cuda"):
 
     want = scfg.epochs * (scfg.t_g + scfg.s_steps)
     # a CPU run (a rehearsal) takes the plain versions and launches nothing
-    if torch.device(dev).type == "cuda" and launches != {
-            "distill_kl_fwd": want, "distill_kl_bwd": want,
-            "paged_attention": 0}:
+    if torch.device(dev).type == "cuda" and launches != expected(
+            distill_kl_fwd=want, distill_kl_bwd=want):
         fail(f"launches on the main path {launches}, expected {want} of "
              "each K1 kernel and no K4")
     losses = hist.gen_loss + hist.dis_loss + [
@@ -669,7 +713,8 @@ def serve_check(torch, dev="cuda"):
         "tokens_first_request": paged[0].tolist()}})
     if not same:
         fail(f"paged and dense engines disagree: {paged} vs {dense}")
-    if launches["paged_attention"] != want or after_dense != launches:
+    if launches != expected(paged_attention=want) \
+            or after_dense != launches:
         fail(f"K4 launches {launches} (after the dense run {after_dense}), "
              f"expected {want} in the paged run only")
     del params, paged_eng
@@ -728,8 +773,7 @@ def serve_main_path(torch, dev="cuda"):
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}})
     if not ok_tokens:
         fail("the serve phase's token streams are malformed")
-    if launches != {"distill_kl_fwd": 0, "distill_kl_bwd": 0,
-                    "paged_attention": want} or want == 0:
+    if launches != expected(paged_attention=want) or want == 0:
         fail(f"launches on the serving path {launches}, expected "
              f"{want} = {steps} decode steps x {cfg.n_layers} of K4")
     del eng
@@ -800,7 +844,459 @@ def profile_decode(torch, cfg, params, reqs, dev="cuda"):
         fail("the profiler saw no device time in a decode step")
 
 
+# ------------------------------------------------------------------- K2 --
+
+def k2_phase(torch):
+    """K2f, K2q and K2kv against their plain versions, timed beside their
+    bound and beside F.scaled_dot_product_attention (forward, and its
+    autograd backward as the yardstick of the backward pair)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    rows = {"fwd": [], "dq": [], "dkv": []}
+    for name, B, hq, hkv, sq, sk, d, causal, window in K2_SHAPES:
+        kw = {"causal": causal, "window": window}
+        live = FA.mask(sq, sk, device="cuda", **kw)
+        n_live = int(live.sum()) * B * hq
+        sdpa_kw = ({"is_causal": True} if causal and not window
+                   and sq == sk else {"attn_mask": live})
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            tol = TOL_K2[dname]
+            isz = 4 if dtype == torch.float32 else 2
+            peak = FP32_OPS_PER_S if dtype == torch.float32 \
+                else BF16_OPS_PER_S
+            gen = torch.Generator(device="cuda").manual_seed(sq + sk + d)
+            q = torch.randn(B, hq, sq, d, generator=gen,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn(B, hkv, sk, d, generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            do = torch.randn(B, hq, sq, d, generator=gen,
+                             device="cuda").to(dtype)
+            o, lse = FA.flash_attention_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            po, plse = FA.flash_attention_fwd_plain(q, k, v, **kw)
+            ok_o, err_o = compare(torch, o, po, (tol, tol))
+            ok_l, err_l = compare(torch, lse, plse, (tol, tol))
+            dead = plse == FA.NEG_INF
+            dead_exact = bool((lse[dead] == FA.NEG_INF).all()
+                              and (o[dead] == 0).all())
+            # both backward versions from the kernel's residuals
+            dof = do.float().reshape(B * hq, sq, d)
+            delta = (dof * o).sum(dim=-1)
+            dq = FA.flash_attention_bwd_dq(q, k, v, dof, lse, delta, **kw)
+            dk, dv = FA.flash_attention_bwd_dkv(q, k, v, dof, lse, delta,
+                                                **kw)
+            torch.cuda.synchronize()
+            want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+            errs = [_grad_err(a, b) for a, b in zip((dq, dk, dv), want)]
+            abs_errs = [float((a.float() - b.float()).abs().max())
+                        for a, b in zip((dq, dk, dv), want)]
+            dq_dead = bool((dq.reshape(B * hq, sq, d)[dead] == 0).all())
+
+            qr, kr, vr = (t.detach().clone().requires_grad_(True)
+                          for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qr, kr, vr,
+                                                 enable_gqa=True, **sdpa_kw)
+            lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+                out, (qr, kr, vr), do, retain_graph=True))
+            plain_bwd = cuda_ms(torch, lambda: FA.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, **kw))
+            shape = {"name": name, "B": B, "Hq": hq, "Hkv": hkv, "Sq": sq,
+                     "Sk": sk, "D": d, "causal": causal, "window": window}
+            qkv_bytes = (B * hq * sq + 2 * B * hkv * sk) * d * isz
+            row_bytes = B * hq * sq * 4
+            common = {"shape": shape, "dtype": dname, "tol": tol,
+                      "live_pairs": n_live, "dead_rows": int(dead.sum())}
+            b_ms, b_by = bound(qkv_bytes + B * hq * sq * d * 4 + row_bytes,
+                               4 * d * n_live, peak)
+            rows["fwd"].append({
+                **common, "ok": ok_o and ok_l and dead_exact,
+                "max_abs_err": max(err_o, err_l), "dead_rows_exact":
+                dead_exact,
+                "ms": cuda_ms(torch, lambda: FA.flash_attention_fwd(
+                    q, k, v, **kw)),
+                "plain_ms": cuda_ms(torch, lambda: FA.flash_attention_fwd_plain(
+                    q, k, v, **kw)),
+                "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, enable_gqa=True, **sdpa_kw)),
+                "bound_ms": b_ms, "bound_by": b_by})
+            in_bytes = qkv_bytes + B * hq * sq * d * 4 + 2 * row_bytes
+            b_ms, b_by = bound(in_bytes + B * hq * sq * d * isz,
+                               6 * d * n_live, peak)
+            rows["dq"].append({
+                **common, "ok": errs[0] <= tol and dq_dead,
+                "max_abs_err": abs_errs[0], "max_rel_err": errs[0],
+                "dead_rows_exact": dq_dead,
+                "ms": cuda_ms(torch, lambda: FA.flash_attention_bwd_dq(
+                    q, k, v, dof, lse, delta, **kw)),
+                "plain_ms": plain_bwd, "library_ms": lib_bwd,
+                "bound_ms": b_ms, "bound_by": b_by})
+            b_ms, b_by = bound(in_bytes + 2 * B * hkv * sk * d * isz,
+                               8 * d * n_live, peak)
+            rows["dkv"].append({
+                **common, "ok": max(errs[1:]) <= tol,
+                "max_abs_err": max(abs_errs[1:]),
+                "max_rel_err": max(errs[1:]),
+                "ms": cuda_ms(torch, lambda: FA.flash_attention_bwd_dkv(
+                    q, k, v, dof, lse, delta, **kw)),
+                "plain_ms": plain_bwd, "library_ms": lib_bwd,
+                "bound_ms": b_ms, "bound_by": b_by})
+            del q, k, v, do, o, lse, po, plse, dof, delta, dq, dk, dv, \
+                want, qr, kr, vr, out
+            torch.cuda.empty_cache()
+    for which, rs in rows.items():
+        for r in rs:
+            emit({"kernel_check": {"name": f"flash_attention_{which}"
+                                   if which == "fwd"
+                                   else f"flash_attention_bwd_{which}",
+                                   **r}})
+    bad = [r for rs in rows.values() for r in rs if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} K2 checks disagree with the plain versions: {bad}")
+    return rows
+
+
+# ------------------------------------------------- LLM DENSE on the card --
+
+def _grad_err(a, b) -> float:
+    """max |a − b| over max |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+def train_check(torch, dev="cuda"):
+    """One train step of llama3.2-3b at full width, depth 2, float32
+    without TF32, through the K2 route and the plain ("ref") route from
+    the same weights and batch: loss, grad_norm and every clipped
+    gradient agree to STEP_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches, make_lm_data
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+
+    full = get_config("llama3.2-3b")
+    cfg = full.replace(n_layers=2, dtype="float32", param_dtype="float32")
+    params = T.init_model(cfg, seed=3, device=dev)
+    toks = make_lm_data(3, vocab=cfg.vocab_size, n_tokens=200_000)
+    x, y = next(lm_batches(toks, 8, 256, seed=3, steps=1))
+    batch = {"tokens": torch.from_numpy(x).to(dev),
+             "labels": torch.from_numpy(y).to(dev)}
+    out = {}
+    for mode in ("fused", "ref"):
+        c = cfg.replace(kernel_vjp_mode=mode)
+        state = ST.make_train_state(c, params=params, device=dev)
+        state["opt"] = _Capture(state["opt"].params)
+        zero_counts()
+        state, m = ST.make_train_step(c)(state, batch)
+        sync(torch, dev)
+        out[mode] = (float(m["loss"]), float(m["grad_norm"]),
+                     state["opt"].grads, read_counts())
+    (la, na, ga, ca), (lb, nb, gb, cb) = out["fused"], out["ref"]
+    L = cfg.n_layers
+    loss_err = abs(la - lb) / abs(lb)
+    norm_err = abs(na - nb) / abs(nb)
+    grad_err = max(_grad_err(a, b) for a, b in zip(ga, gb))
+    want = expected(flash_attention_fwd=2 * L, flash_attention_bwd_dq=L,
+                    flash_attention_bwd_dkv=L)
+    emit({"train_check": {
+        "cfg": {"d_model": cfg.d_model, "n_layers": [full.n_layers, L],
+                "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+                "remat": cfg.remat, "batch": [8, 256]},
+        "loss": [la, lb], "grad_norm": [na, nb], "loss_rel_err": loss_err,
+        "grad_norm_rel_err": norm_err, "grads_max_err_rel_to_max": grad_err,
+        "launches": {"fused": ca, "ref": cb}, "tol": STEP_TOL}})
+    if max(loss_err, norm_err, grad_err) > STEP_TOL:
+        fail(f"the K2 train step disagrees with the plain route: loss "
+             f"{loss_err}, grad_norm {norm_err}, gradients {grad_err}")
+    if ca != want or cb != expected():
+        fail(f"train_check launches {ca} (K2 route), {cb} (ref), expected "
+             f"{want} and none")
+    del params, state, out
+    torch.cuda.empty_cache()
+
+
+def dense_llm_check(torch, devices=("cuda", "cpu")):
+    """One gen_step and one student_step of the example's heterogeneous
+    federation at smoke widths (llama, qwen, musicgen clients, phi3
+    student, vocab 256) on the card (K1, K2) and on the CPU (the plain
+    versions), from the same weights and noise: losses and the
+    generator's and student's gradients agree to STEP_TOL."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import dense_llm as DL
+    from repro_torch.core.generator import tok_generator_init
+    from repro_torch.models import transformer as T
+
+    archs = ("llama3.2-3b", "qwen1.5-4b", "musicgen-large")
+    ccfgs = [get_smoke_config(a).replace(vocab_size=256) for a in archs]
+    scfg = get_smoke_config("phi3-medium-14b").replace(vocab_size=256)
+    rng = np.random.default_rng(11)
+    z = rng.standard_normal((8, 16)).astype(np.float32)
+    y = rng.integers(0, 256, (8, 32))
+    out = {}
+    for dev in devices:
+        init = torch.Generator().manual_seed(11)
+        cparams = [T.init_model(c, generator=init, device=dev)
+                   for c in ccfgs]
+        stu = T.init_model(scfg, generator=init, device=dev)
+        for t in T.leaves(stu):
+            t.requires_grad_(True)
+        gen = tok_generator_init(nz=16, seq=32, d_model=scfg.d_model, d_g=64,
+                                 n_classes=256, generator=init, device=dev)
+        gen_step, student_step, _, _ = DL.make_llm_dense_steps(
+            scfg, ccfgs, s_lr=3e-4, device=dev)
+        zt, yt = torch.tensor(z, device=dev), torch.tensor(y, device=dev)
+        g_cap, s_cap = _Capture(gen.parameters()), _Capture(T.leaves(stu))
+        zero_counts()
+        gl, parts = gen_step(gen, g_cap, stu, cparams, zt, yt)
+        dl = student_step(stu, s_cap, gen, cparams, zt, yt)
+        sync(torch, dev)
+        out[dev] = (np.array([float(gl), *(float(v) for v in parts.values()),
+                              float(dl)]), g_cap.grads, s_cap.grads,
+                    read_counts())
+    (sa, ga, ta, ca), (sb, gb, tb, _) = (out[d] for d in devices)
+    scalar_err = float(np.max(np.abs(sa - sb) / np.maximum(np.abs(sb), 1)))
+    g_err = max(_grad_err(a, b) for a, b in zip(ga, gb))
+    s_err = max(_grad_err(a, b) for a, b in zip(ta, tb))
+    emit({"dense_llm_check": {
+        "losses_cuda": sa.tolist(), "losses_cpu": sb.tolist(),
+        "losses_max_rel_err": scalar_err,
+        "gen_grad_max_err_rel_to_max": g_err,
+        "student_grad_max_err_rel_to_max": s_err,
+        "launches_cuda": ca, "tol": STEP_TOL}})
+    if max(scalar_err, g_err, s_err) > STEP_TOL:
+        fail(f"the DENSE LLM steps on the card disagree with the CPU: "
+             f"losses {scalar_err}, generator {g_err}, student {s_err}")
+    if not all(ca[k] for k in ca if k != "paged_attention"):
+        fail(f"dense_llm_check launched not every K1/K2 kernel: {ca}")
+
+
+def _peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def llm_main_path(torch, dev="cuda"):
+    """The LLM DENSE main path at full width (``dense_llm_oneshot.full()``:
+    two llama3.2-3b clients and a llama3.2-3b student, 28 layers,
+    bfloat16): each client's local train steps, the one-shot upload, then
+    per epoch t_g generator steps and one student step. Every launch
+    count is zeroed before each step and checked after it."""
+    from repro_torch.core import dense_llm as DL
+    from repro_torch.core.generator import tok_generator_init
+    from repro_torch.data import lm_batches, make_lm_data
+    from repro_torch.fl.protocol import CommLedger, param_bytes
+    from repro_torch.launch import dense_llm_oneshot as ONE
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+
+    oc = ONE.full()
+    cfgs = [oc.arch_config(a) for a in oc.client_archs]
+    n, L = len(cfgs), cfgs[0].n_layers
+    emit({"llm_cuts": {
+        "clients": list(oc.client_archs), "student": oc.student_arch,
+        "n_layers": L, "d_model": cfgs[0].d_model,
+        "vocab": cfgs[0].vocab_size, "dtype": cfgs[0].dtype,
+        "client_steps": oc.client_steps,
+        "client_batch": [ONE.CLIENT_BATCH, oc.client_seq],
+        "server_batch": [oc.batch, oc.gen_seq], "nz": oc.nz, "d_g": oc.d_g,
+        "epochs": oc.epochs, "t_g": ONE.T_G, "cut": "depth of training: "
+        "3 local steps a client, 2 server epochs; no width, depth or batch "
+        "cut"}})
+
+    def stage(fn, want, label):
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(torch, dev)
+        dt = time.perf_counter() - t0
+        got = read_counts()
+        if got != want:
+            fail(f"launches in {label}: {got}, expected {want}")
+        return res, dt, _peak_gib(torch)
+
+    ledger = CommLedger()
+    client_params, train_s, train_peak, client_loss = [], [], [], []
+    for i, cfg in enumerate(cfgs):
+        state = ST.make_train_state(cfg, lr=oc.client_lr, seed=i, device=dev)
+        step = ST.make_train_step(cfg)
+        toks = make_lm_data(i, vocab=cfg.vocab_size,
+                            n_tokens=oc.client_tokens)
+        for x, y in lm_batches(toks, ONE.CLIENT_BATCH, oc.client_seq, seed=i,
+                               steps=oc.client_steps):
+            b = {"tokens": torch.from_numpy(x).to(dev),
+                 "labels": torch.from_numpy(y).to(dev)}
+            (state, m), dt, peak = stage(
+                lambda: step(state, b),
+                expected(flash_attention_fwd=2 * L,
+                         flash_attention_bwd_dq=L,
+                         flash_attention_bwd_dkv=L), f"client {i}'s train step")
+            train_s.append(dt)
+            train_peak.append(peak)
+            client_loss.append(float(m["loss"]))
+        p = DL._frozen(state["params"])
+        del state, step, m
+        ledger.record("up", f"client{i}", param_bytes(p),
+                      "round0-model-upload")
+        client_params.append(p)
+
+    stu_cfg = oc.arch_config(oc.student_arch)
+    student = T.init_model(stu_cfg, seed=ONE.SEED, device=dev)
+    for t in T.leaves(student):
+        t.requires_grad_(True)
+    gen = tok_generator_init(nz=oc.nz, seq=oc.gen_seq,
+                             d_model=stu_cfg.d_model, d_g=oc.d_g,
+                             n_classes=stu_cfg.vocab_size,
+                             generator=torch.Generator().manual_seed(ONE.SEED),
+                             device=dev)
+    gen_step, student_step, make_g_opt, make_s_opt = \
+        DL.make_llm_dense_steps(stu_cfg, cfgs, g_lr=oc.g_lr, s_lr=oc.s_lr,
+                                device=dev)
+    g_opt, s_opt = make_g_opt(gen), make_s_opt(student)
+    draws = torch.Generator(device=dev).manual_seed(ONE.SEED)
+    want_gen = expected(flash_attention_fwd=(n + 1) * L,
+                        flash_attention_bwd_dq=(n + 1) * L,
+                        flash_attention_bwd_dkv=(n + 1) * L,
+                        distill_kl_fwd=1, distill_kl_bwd=1)
+    want_stu = expected(flash_attention_fwd=(n + 1) * L,
+                        flash_attention_bwd_dq=L, flash_attention_bwd_dkv=L,
+                        distill_kl_fwd=1, distill_kl_bwd=1)
+    hist = {"gen_loss": [], "gen_parts": [], "dis_loss": []}
+    gen_s, stu_s, gen_peak, stu_peak, epoch_s = [], [], [], [], []
+    totals = {k: 0 for k in read_counts()}
+    for _ in range(oc.epochs):
+        z = torch.randn((oc.batch, oc.nz), generator=draws, device=dev)
+        y = torch.randint(0, stu_cfg.vocab_size, (oc.batch, oc.gen_seq),
+                          generator=draws, device=dev)
+        t_epoch = 0.0
+        for _ in range(ONE.T_G):
+            (gl, parts), dt, peak = stage(
+                lambda: gen_step(gen, g_opt, student, client_params, z, y),
+                want_gen, "gen_step")
+            gen_s.append(dt)
+            gen_peak.append(peak)
+            t_epoch += dt
+        dl, dt, peak = stage(
+            lambda: student_step(student, s_opt, gen, client_params, z, y),
+            want_stu, "student_step")
+        stu_s.append(dt)
+        stu_peak.append(peak)
+        epoch_s.append(t_epoch + dt)
+        hist["gen_loss"].append(float(gl))
+        hist["gen_parts"].append({k: float(v) for k, v in parts.items()})
+        hist["dis_loss"].append(float(dl))
+    for want, k in ((expected(flash_attention_fwd=2 * L,
+                              flash_attention_bwd_dq=L,
+                              flash_attention_bwd_dkv=L),
+                     n * oc.client_steps),
+                    (want_gen, oc.epochs * ONE.T_G), (want_stu, oc.epochs)):
+        for name, c in want.items():
+            totals[name] += c * k
+    losses = client_loss + hist["gen_loss"] + hist["dis_loss"] + [
+        v for p in hist["gen_parts"] for v in p.values()]
+    if not all(v == v and abs(v) != float("inf") for v in losses):
+        fail(f"LLM main-path losses are not finite: {hist}, {client_loss}")
+    if ledger.rounds != 1 or ledger.downlink_bytes != 0 or \
+            ledger.uplink_bytes != sum(param_bytes(p) for p in client_params):
+        fail(f"not one-shot: {ledger.rounds} rounds, "
+             f"{ledger.downlink_bytes} B down")
+    emit({"llm_main_path": {
+        "params_per_model": sum(t.numel() for t in T.leaves(student)),
+        "seconds": {"train_step": train_s, "gen_step": gen_s,
+                    "student_step": stu_s, "epoch": epoch_s},
+        "seconds_per_train_step_median": statistics.median(train_s),
+        "seconds_per_gen_step_median": statistics.median(gen_s),
+        "seconds_per_student_step_median": statistics.median(stu_s),
+        "seconds_per_epoch_last": epoch_s[-1],
+        "peak_mem_gib": {"train_step": max(train_peak),
+                         "gen_step": max(gen_peak),
+                         "student_step": max(stu_peak)},
+        "launches_per_step": {"train_step": expected(
+            flash_attention_fwd=2 * L, flash_attention_bwd_dq=L,
+            flash_attention_bwd_dkv=L), "gen_step": want_gen,
+            "student_step": want_stu},
+        "launches_total": totals,
+        "uplink_bytes": ledger.uplink_bytes, "rounds": ledger.rounds,
+        "client_loss": client_loss, **hist}})
+    return totals, (gen_step, student_step, g_opt, s_opt, gen, student,
+                    client_params, oc, stu_cfg, draws)
+
+
+def profile_llm_epoch(torch, ctx, dev="cuda"):
+    """One server epoch of the LLM main path (t_g generator steps and a
+    student step) under torch.profiler: device idle share, top kernels,
+    K2's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.dense_llm_oneshot import T_G
+
+    (gen_step, student_step, g_opt, s_opt, gen, student, cparams, oc,
+     stu_cfg, draws) = ctx
+    z = torch.randn((oc.batch, oc.nz), generator=draws, device=dev)
+    y = torch.randint(0, stu_cfg.vocab_size, (oc.batch, oc.gen_seq),
+                      generator=draws, device=dev)
+
+    def epoch():
+        for _ in range(T_G):
+            gen_step(gen, g_opt, student, cparams, z, y)
+        student_step(student, s_opt, gen, cparams, z, y)
+        sync(torch, dev)
+
+    t0 = time.perf_counter()
+    epoch()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    activities = [ProfilerActivity.CPU]
+    if torch.device(dev).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        epoch()
+    per_kernel = device_ms(prof)
+    busy_ms = sum(per_kernel.values())
+    k2 = {w: sum(v for k, v in per_kernel.items() if f"{w}_kernel<" in k)
+          for w in ("fwd", "dq", "dkv")}
+    k1_ms = sum(v for k, v in per_kernel.items() if "_kl_" in k)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
+    # where the host's time goes: self CPU time by operator, and the
+    # number of kernels the epoch launches
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if "CUDA" not in str(getattr(e, "device_type", ""))),
+                  key=lambda t: -t[1])[:12]
+    n_kernels = sum(e.count for e in prof.key_averages()
+                    if e.key in per_kernel)
+    emit({"profile_llm_epoch": {
+        "epoch_ms": epoch_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / epoch_ms,
+        "k2_ms": k2, "k2_share_of_busy": sum(k2.values()) / busy_ms
+        if busy_ms else None, "k1_ms": k1_ms,
+        "n_kernel_names": len(per_kernel), "kernels_launched": n_kernels,
+        "top_kernels_ms": top, "top_host_ops_self_ms_count": host}})
+    if busy_ms == 0 or not all(k2.values()):
+        fail(f"the profiler saw no K2 time in an LLM epoch: {k2}")
+
+
 # ----------------------------------------------------------------- main --
+
+def k2_entry(name, rs, line, launches):
+    """The kernels line's entry of a K2 kernel: the server shape in
+    bfloat16 (the LLM main path's gen_step and student_step), its
+    launches over the LLM main path."""
+    main = next(r for r in rs if r["shape"]["name"] == "server"
+                and r["dtype"] == "bfloat16")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "shape": main["shape"],
+            "dtype": main["dtype"], "by_shape": rs}
+
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -809,6 +1305,7 @@ def main() -> None:
 
     rows = kernel_phase(torch)
     k4_rows = k4_phase(torch)
+    k2_rows = k2_phase(torch)
     scfg = dataclasses.replace(CONFIG, local_epochs=1, epochs=2)
     emit({"cuts": {"local_epochs": [CONFIG.local_epochs, scfg.local_epochs],
                    "epochs": [CONFIG.epochs, scfg.epochs],
@@ -826,6 +1323,11 @@ def main() -> None:
     step_agreement(torch)
     serve_check(torch)
     serve_launches = serve_main_path(torch)
+    train_check(torch)
+    dense_llm_check(torch)
+    llm_launches, llm_ctx = llm_main_path(torch)
+    profile_llm_epoch(torch, llm_ctx)
+    del llm_ctx
 
     def entry(name, rs, replaces):
         main = next(r for r in rs if r["shape"] == list(MAIN_SHAPE)
@@ -858,7 +1360,12 @@ def main() -> None:
          "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
-         "shape": k4["shape"], "dtype": k4["dtype"], "by_shape": k4_rows}]})
+         "shape": k4["shape"], "dtype": k4["dtype"], "by_shape": k4_rows},
+        *(k2_entry(name, k2_rows[which], line, llm_launches)
+          for name, which, line in (
+              ("flash_attention_fwd", "fwd", 171),
+              ("flash_attention_bwd_dq", "dq", 342),
+              ("flash_attention_bwd_dkv", "dkv", 370)))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

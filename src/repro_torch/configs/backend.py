@@ -8,8 +8,11 @@ device the tensors live on:
     ``kernel_vjp="ref"``.
   * ``cuda`` — the kernels: ``distill_kl="fused"`` (the K1 pair,
     kernels/distill_kl.py, computes L_div and L_dis) and
-    ``kernel_vjp="fused"`` (K4, kernels/paged_attention.py, serves every
-    paged decode step).
+    ``kernel_vjp="fused"``: K2 (kernels/flash_attention.py, behind
+    ``FlashAttention`` with its own backward) runs every attention layer
+    without a cache, in training, in the LLM DENSE steps and in the
+    ensemble's forward; K4 (kernels/paged_attention.py) serves every
+    paged decode step.
 
 A knob set on the config (``scfg.distill_kl_mode``,
 ``cfg.kernel_vjp_mode`` and friends) wins over the profile. Modes the

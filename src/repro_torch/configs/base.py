@@ -1,9 +1,9 @@
-"""Architecture configurations of the LMs the port serves
+"""Architecture configurations of the LMs the port serves and trains
 (``repro/configs/base.py``).
 
-``ArchConfig`` copies the reference's fields that the dense (attention)
-family reads, under the same names and defaults; ``head_dim`` is derived
-from ``d_model // n_heads`` when left at 0. Each ported architecture has
+``ArchConfig`` copies the reference's fields that the dense and audio
+(attention) families read, under the same names and defaults;
+``head_dim`` is derived from ``d_model // n_heads`` when left at 0. Each ported architecture has
 a module exporting ``CONFIG`` (the published shape) and ``smoke()`` (a
 reduced variant for CPU tests), as in the reference.
 """
@@ -27,12 +27,14 @@ class ArchConfig:
     head_dim: int = 0               # 0 -> d_model // n_heads
     d_ff: int = 1024
     vocab_size: int = 1024
+    qkv_bias: bool = False
     rope_theta: float = 10_000.0
     max_seq_len: int = 131_072
     sliding_window: int = 0
 
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
+    remat: bool = True              # recompute each layer in the backward
     use_blockwise_attn: bool = True
     attn_block_q: int = 1024
     attn_block_kv: int = 1024
@@ -50,14 +52,14 @@ class ArchConfig:
 
 # architecture id -> module of the port; the reference's other
 # architectures, and the slice of ROADMAP.md that brings each
-_PORTED = {"llama3-2-3b": "repro_torch.configs.llama3_2_3b"}
+_PORTED = {"llama3-2-3b": "repro_torch.configs.llama3_2_3b",
+           "qwen1-5-4b": "repro_torch.configs.qwen1_5_4b",
+           "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
+           "musicgen-large": "repro_torch.configs.musicgen_large"}
 _NOT_YET = {
-    "mamba2-130m": "the ssm/hybrid serving slice",
-    "zamba2-7b": "the ssm/hybrid serving slice",
+    "mamba2-130m": "the ssm/hybrid slice",
+    "zamba2-7b": "the ssm/hybrid slice",
     "gemma3-4b": "the dense-mode-only families (sliding window)",
-    "qwen1-5-4b": "the dense-mode-only families (QKV bias)",
-    "phi3-medium-14b": "the dense-mode-only families",
-    "musicgen-large": "the dense-mode-only families (audio)",
     "deepseek-v2-236b": "the dense-mode-only families (moe, MLA)",
     "deepseek-v2-lite-16b": "the dense-mode-only families (moe, MLA)",
     "llama3-2-vision-11b": "the dense-mode-only families (vlm)",

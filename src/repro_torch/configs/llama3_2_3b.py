@@ -13,4 +13,5 @@ CONFIG = ArchConfig(
 def smoke() -> ArchConfig:
     return CONFIG.replace(
         n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32,
-        d_ff=256, vocab_size=512, dtype="float32", param_dtype="float32")
+        d_ff=256, vocab_size=512, dtype="float32", param_dtype="float32",
+        remat=False)

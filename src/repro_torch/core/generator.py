@@ -1,13 +1,24 @@
-"""The DENSE image generator (``repro/core/generator.py:23-64``).
+"""The DENSE generators (``repro/core/generator.py``).
 
-DCGAN-style, as DAFL and the paper use it: fc → BN → 2×(nearest 2×
+``ImgGenerator`` (``:23-64``), the image path, is DCGAN-style, as DAFL and the paper use it: fc → BN → 2×(nearest 2×
 upsample, 3x3 conv, BN, leaky relu 0.2) → 3x3 conv → tanh. The
 generator's BatchNorms always normalize with batch statistics and keep
 no running ones. The fc output is read as an NHWC (B, s0, s0, 2·base)
 tensor, as in the reference, so its weights carry over unchanged; the
 convs work on its NCHW view.
+
+``TokGenerator`` (``:67-103``), the LM path, maps (z, y) to a sequence
+of soft embeddings that decoder LMs take through ``forward(...,
+embeds=)``: z projected and added to a learned position table (and to a
+label embedding, indexed by one label a sequence), then blocks of a
+token mixer (a linear over the sequence axis) and a gelu MLP, each
+after a LayerNorm with a residual, and a readout to d_model. Parameters
+are named as the reference's tree (``blocks.<i>.mix.w``), so
+``interop`` carries it across.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -75,3 +86,91 @@ def img_generator_init(*, nz: int = 100, img_size: int = 32, out_ch: int = 3,
 def img_generator(gen: ImgGenerator, z: torch.Tensor) -> torch.Tensor:
     """z: (B, nz) -> images (B, H, W, C) in (-1, 1)."""
     return gen(z)
+
+
+# ---------------------------------------------------------------- LM path --
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+
+    def forward(self, x):
+        return L.layernorm({"scale": self.scale, "bias": self.bias}, x)
+
+
+class GeluMLP(nn.Module):
+    def __init__(self, d: int, d_ff: int, *, generator):
+        super().__init__()
+        self.up = L.Linear(d, d_ff, generator=generator)
+        self.down = L.Linear(d_ff, d, generator=generator)
+
+    def forward(self, x):
+        return L.gelu_mlp({"up": self.up.as_dict(),
+                           "down": self.down.as_dict()}, x)
+
+
+class TokBlock(nn.Module):
+    def __init__(self, seq: int, d_g: int, *, generator):
+        super().__init__()
+        self.norm1 = LayerNorm(d_g)
+        self.mix = L.Linear(seq, seq, generator=generator)   # token mixer
+        self.norm2 = LayerNorm(d_g)
+        self.mlp = GeluMLP(d_g, 4 * d_g, generator=generator)
+
+    def forward(self, h):
+        h = h + self.mix(self.norm1(h).transpose(1, 2)).transpose(1, 2)
+        return h + self.mlp(self.norm2(h))
+
+
+class Embedding(nn.Module):
+    def __init__(self, n: int, d: int, *, generator):
+        super().__init__()
+        self.table = nn.Parameter(torch.randn((n, d), generator=generator)
+                                  / math.sqrt(d))
+
+
+class TokGenerator(nn.Module):
+    def __init__(self, *, nz: int, seq: int, d_model: int, d_g: int,
+                 n_blocks: int, n_classes: int, generator: torch.Generator):
+        super().__init__()
+        self.pos = nn.Parameter(torch.randn((seq, d_g), generator=generator)
+                                * 0.02)
+        self.z_proj = L.Linear(nz, d_g, generator=generator)
+        self.out = L.Linear(d_g, d_model, generator=generator)
+        self.blocks = nn.ModuleList(TokBlock(seq, d_g, generator=generator)
+                                    for _ in range(n_blocks))
+        self.label = Embedding(n_classes, d_g, generator=generator) \
+            if n_classes else None
+
+    def forward(self, z: torch.Tensor, labels: torch.Tensor | None = None):
+        """z: (B, nz); labels: (B,) int or None -> (B, seq, d_model)."""
+        h = self.z_proj(z)[:, None, :] + self.pos[None]
+        if labels is not None and self.label is not None:
+            h = h + self.label.table[labels.long()][:, None, :]
+        for blk in self.blocks:
+            h = blk(h)
+        return self.out(h)
+
+
+def tok_generator_init(*, nz: int = 64, seq: int = 64, d_model: int,
+                       d_g: int = 256, n_blocks: int = 2, n_classes: int = 0,
+                       generator: torch.Generator | None = None,
+                       device="cuda") -> TokGenerator:
+    """A new token generator in float32; ``n_classes > 0`` adds the label
+    table (class-conditional synthesis). Weights are drawn from
+    ``generator`` (a CPU ``torch.Generator``, seeded 0 when None) and
+    moved to ``device``."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return TokGenerator(nz=nz, seq=seq, d_model=d_model, d_g=d_g,
+                        n_blocks=n_blocks, n_classes=n_classes,
+                        generator=generator).to(dev)
+
+
+def tok_generator(gen: TokGenerator, z: torch.Tensor,
+                  labels: torch.Tensor | None = None) -> torch.Tensor:
+    """z: (B, nz) -> soft embeddings (B, seq, d_model)."""
+    return gen(z, labels)

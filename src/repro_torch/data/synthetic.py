@@ -1,5 +1,6 @@
-"""Procedural image data: the port's own copy of
-``repro/data/synthetic.py:make_classification_data``.
+"""Procedural data: the port's own copies of
+``repro/data/synthetic.py``'s ``make_classification_data`` (images) and
+``make_lm_data`` (a Markov token stream).
 
 CIFAR is not available offline; each class has a fixed low-frequency
 template and samples are random shifts, per-sample gains and Gaussian
@@ -51,3 +52,17 @@ def make_classification_data(seed: int, *, num_classes=10, size=32, ch=3,
         return x[perm].astype(np.float32), y[perm]
 
     return {"train": sample(train_per_class), "test": sample(test_per_class)}
+
+
+def make_lm_data(seed: int, *, vocab=512, n_tokens=200_000, order_bias=0.9):
+    """Markov token stream: each token strongly predicts a successor band
+    (learnable structure for LM smoke training). int32 (n_tokens,)."""
+    rng = np.random.default_rng(seed)
+    succ = rng.integers(0, vocab, vocab)
+    toks = np.empty((n_tokens,), np.int32)
+    toks[0] = rng.integers(vocab)
+    jumps = rng.random(n_tokens) > order_bias
+    rand = rng.integers(0, vocab, n_tokens)
+    for i in range(1, n_tokens):
+        toks[i] = rand[i] if jumps[i] else (succ[toks[i - 1]] + i % 3) % vocab
+    return toks

@@ -21,14 +21,17 @@ from repro_torch.core.ensemble import Client
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.fl.client import local_update
 from repro_torch.models.cnn import CNN, CNNSpec, cnn_init
+from repro_torch.models.transformer import leaves
 
 EVENT_KINDS = ("delivered", "dropped", "delayed", "rejected")
 
 
-def param_bytes(model: torch.nn.Module) -> int:
-    """Bytes of every parameter and BN statistic (what an upload holds)."""
-    return sum(t.numel() * t.element_size()
-               for t in model.state_dict().values())
+def param_bytes(model) -> int:
+    """Bytes of what an upload holds: every parameter and BN statistic of
+    a module, or every tensor of an LM's nested dict of parameters."""
+    tensors = model.state_dict().values() \
+        if isinstance(model, torch.nn.Module) else leaves(model)
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 @dataclass

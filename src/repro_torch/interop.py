@@ -10,6 +10,10 @@ Only the layouts differ:
   * linear weights: (d_in, d_out) in the reference, (d_out, d_in) here;
   * BatchNorm scale, bias, mean and var, and biases: copied as they are.
 
+The token generator (``core/generator.TokGenerator``) names its
+parameters as the reference's tree, whose blocks are a list
+("blocks.0.mix.w"), and maps onto its ``state_dict`` the same way.
+
 The fc after a conv stack's flatten and the generator's fc keep the
 reference's NHWC feature order (models/cnn.py, core/generator.py), so no
 rows are permuted. The reverse direction (``*_to_ref``) serves the
@@ -18,7 +22,8 @@ tests' comparisons.
 The LM stack (``models/transformer.py``) keeps the reference's tree and
 layouts as they are: ``embed.table``, ``final_norm.scale`` and the
 stacked ``blocks`` (``attn.{wq,wk,wv,wo}.w``, ``mlp.{gate,up,down}.w``,
-``norm1/norm2.scale``), with linear weights (d_in, d_out) and a leading
+``norm1/norm2.scale``, and the q, k and v biases ``attn.{wq,wk,wv}.b``
+where ``cfg.qkv_bias``), with linear weights (d_in, d_out) and a leading
 layer axis. ``lm_params_from_reference`` and ``paged_cache_from_reference``
 carry such trees (and a block pool with its block table) across as they
 are; bfloat16 arrays keep their bits. The reverse direction returns
@@ -30,7 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.backend import resolve_device
-from repro_torch.core.generator import ImgGenerator, img_generator_init
+from repro_torch.core.generator import (ImgGenerator, TokGenerator,
+                                       img_generator_init,
+                                       tok_generator_init)
 from repro_torch.models.cnn import CNN, CNNSpec, cnn_init
 
 
@@ -92,8 +99,9 @@ def tree_to_reference(tree):
 
 
 def lm_params_from_reference(tree, cfg, *, device="cuda") -> dict:
-    """The reference's LM parameter tree (``transformer.init_model``) as
-    the port's, checked against ``cfg``'s shapes."""
+    """The reference's LM parameter tree (``transformer.init_model``, the
+    dense or audio family) as the port's, checked against ``cfg``'s
+    shapes (the q, k and v biases where ``cfg.qkv_bias``)."""
     params = tree_from_reference(tree, device=device)
     d, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
     want = {("embed", "table"): (cfg.vocab_size, d),
@@ -107,6 +115,10 @@ def lm_params_from_reference(tree, cfg, *, device="cuda") -> dict:
             ("blocks", "mlp", "down", "w"): (L, cfg.d_ff, d),
             ("blocks", "norm1", "scale"): (L, d),
             ("blocks", "norm2", "scale"): (L, d)}
+    if cfg.qkv_bias:
+        for name, width in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                            ("wv", cfg.n_kv_heads)):
+            want[("blocks", "attn", name, "b")] = (L, width * hd)
     got = dict(_shapes(params))
     if got != want:
         raise ValueError(f"the parameter tree does not fit {cfg.name}: "
@@ -190,4 +202,23 @@ def generator_from_ref(tree, *, nz: int, img_size: int, out_ch: int = 3,
 
 
 def generator_to_ref(gen: ImgGenerator):
+    return state_to_ref(gen.state_dict())
+
+
+def tok_generator_from_reference(tree, *, seq: int, d_model: int,
+                                 device="cuda") -> TokGenerator:
+    """The reference's token generator (``tok_generator_init``; its
+    blocks a list) as a ``TokGenerator``; nz, d_g, the number of blocks
+    and of classes are read off the tree."""
+    nz, d_g = np.asarray(tree["z_proj"]["w"]).shape
+    label = tree.get("label")
+    gen = tok_generator_init(
+        nz=nz, seq=seq, d_model=d_model, d_g=d_g,
+        n_blocks=len(tree["blocks"]),
+        n_classes=0 if label is None else np.asarray(label["table"]).shape[0],
+        device=device)
+    return load_ref(gen, tree)
+
+
+def tok_generator_to_reference(gen: TokGenerator):
     return state_to_ref(gen.state_dict())

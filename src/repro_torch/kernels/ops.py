@@ -1,4 +1,4 @@
-"""Public kernel entry points (``repro/kernels/ops.py:220-293``).
+"""Public kernel entry points (``repro/kernels/ops.py:154-293``).
 
 ``distill_kl`` always goes through the K1 pair (``DistillKL``); the
 choice between it and the materialized formula lives one level up, in
@@ -6,16 +6,24 @@ choice between it and the materialized formula lives one level up, in
 CPU its wrappers take their plain versions, on a CUDA device they launch
 the Triton kernels or raise.
 
-``paged_attention`` is routed by ``policy.kernel_vjp``, as in the
-reference: ``"ref"`` runs the gather-then-softmax plain version
-(``kernels/ref.py``), anything else K4 (``kernels/paged_attention.py``,
-CUDA C++ on the card).
+``flash_attention`` and ``paged_attention`` are routed by
+``policy.kernel_vjp``, as in the reference:
+
+  * ``"ref"`` runs the materialized plain version (``kernels/ref.py``),
+    differentiated by torch autograd;
+  * ``"fused"`` runs the kernels: K2 behind ``FlashAttention``, with its
+    own backward (``kernels/flash_attention.py``), and K4
+    (``kernels/paged_attention.py``);
+  * ``"autodiff"`` runs the bare forward kernel. As in the reference it
+    cannot be differentiated, so ``flash_attention`` raises when an input
+    requires a gradient.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.backend import resolve_exec_policy
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.distill_kl import DistillKL
@@ -27,6 +35,27 @@ def distill_kl(teacher_logits: torch.Tensor, student_logits: torch.Tensor,
     differentiable through the K1 backward."""
     return DistillKL.apply(teacher_logits.contiguous(),
                            student_logits.contiguous(), with_teacher_grad)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    policy=None) -> torch.Tensor:
+    """Attention over q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D), the q
+    tokens the last Sq of the keys; (B, Hq, Sq, D) in q's dtype.
+    ``policy`` (an ``ExecPolicy``; None resolves q's device profile)
+    picks the plain version, K2 with its backward, or K2's bare
+    forward."""
+    mode = resolve_exec_policy(policy, device=q.device).kernel_vjp
+    if mode == "ref":
+        return _ref.attention(q, k, v, causal=causal, window=window)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if mode == "fused":
+        return _fa.FlashAttention.apply(q, k, v, causal, window, None)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(
+            "kernel_vjp='autodiff' runs K2's forward alone, which cannot be "
+            "differentiated (as in the reference): use 'fused' or 'ref'")
+    o_f32, _ = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    return o_f32.reshape(q.shape).to(q.dtype)
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,

@@ -1,5 +1,5 @@
-"""Plain PyTorch oracles for the kernels (``repro/kernels/ref.py:62-92,
-140-160``).
+"""Plain PyTorch oracles for the kernels (``repro/kernels/ref.py:17-59,
+62-92, 140-160``).
 
 Each uses the most direct formulation (materialized log-softmax, torch
 autograd), so a test compares two different derivations, not two copies
@@ -12,6 +12,44 @@ import math
 import torch
 
 NEG_INF = -2.0 ** 30
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              scale=None):
+    """Materialized-softmax attention, the O(S²)-memory oracle of K2 and
+    the ``"ref"`` route of ``ops.flash_attention``.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), Hq a multiple of Hkv; the q
+    tokens are the last Sq of the Sk keys. ``window`` w > 0 keeps keys
+    with q_pos − k_pos < w. Scores and probabilities in float32, the
+    output in q's dtype. A row with no live key averages v uniformly, as
+    the reference's softmax over an all-NEG_INF row does."""
+    B, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(B, hkv, hq // hkv, sq, d).float()
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) * scale
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    live = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        live &= k_pos <= q_pos
+    if window:
+        live &= q_pos - k_pos < window
+    probs = torch.softmax(torch.where(live, scores, NEG_INF), dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", probs, v.float())
+    return out.reshape(B, hq, sq, d).to(q.dtype)
+
+
+def attention_grads(q, k, v, g, *, causal: bool = True, window: int = 0,
+                    scale=None):
+    """Autograd of ``attention`` under the output cotangent ``g``:
+    (dq, dk, dv), the ground truth for the K2 backward."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        out = attention(*leaves, causal=causal, window=window, scale=scale)
+        return torch.autograd.grad(out, leaves, g)
 
 
 def distill_kl(teacher_logits: torch.Tensor,

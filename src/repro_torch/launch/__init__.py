@@ -1,3 +1,4 @@
-"""Serving: the paged continuous-batching engine (engine.py) over the
-block pool (paging.py), its dense-mode steps (steps.py) and the CLI
-(serve.py)."""
+"""Entry points: the paged continuous-batching serving engine (engine.py)
+over the block pool (paging.py) and its CLI (serve.py); LM training
+(train.py) and LLM-scale DENSE (dense_llm_oneshot.py); the steps they
+share (steps.py)."""

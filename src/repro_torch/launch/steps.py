@@ -1,11 +1,47 @@
-"""Prefill and decode steps against a dense cache
-(``repro/launch/steps.py:69,84``): the serving engine's dense mode, the
-sequential oracle its paged mode is held to."""
+"""Step functions shared by the entry points (``repro/launch/steps.py``): the
+LM train state and step (``:17-49``), used by ``launch/train.py`` and
+the LLM DENSE clients, and the prefill and decode steps against a dense
+cache (``:69,84``), the serving engine's dense mode and the sequential
+oracle its paged mode is held to."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch import optim
 from repro_torch.models import transformer as T
+
+
+def make_train_state(cfg, *, lr: float = 3e-4, seed: int = 0,
+                     params: dict | None = None, device="cuda") -> dict:
+    """{"params", "opt", "step"}: ``params`` (default: ``init_model`` from
+    ``seed`` on ``device``) made trainable in place, and Adam at ``lr``
+    over them (float32 moments, as the reference keeps them)."""
+    if params is None:
+        params = T.init_model(cfg, seed=seed, device=device)
+    tensors = T.leaves(params)
+    for t in tensors:
+        t.requires_grad_(True)
+    return {"params": params, "opt": optim.adam(tensors, lr), "step": 0}
+
+
+def make_train_step(cfg, *, clip: float = 1.0):
+    """``train_step(state, batch) -> (state, metrics)``: the gradient of
+    ``loss_fn`` over ``batch`` ({"tokens", "labels"} (B, S), optional
+    "mask"), clipped to global norm ``clip``, one Adam step of the
+    state's optimizer (its learning rate is the state's), in place.
+    Metrics are 0-d tensors: loss, ce, moe_aux and grad_norm (before
+    clipping)."""
+    def train_step(state, batch):
+        opt = state["opt"]
+        loss, parts = T.loss_fn(state["params"], cfg, batch)
+        grads, gnorm = optim.clip_by_global_norm(
+            torch.autograd.grad(loss, opt.params), clip)
+        opt.step(grads)
+        state["step"] += 1
+        return state, {"loss": loss.detach(), "ce": parts["ce"].detach(),
+                       "moe_aux": parts["moe_aux"], "grad_norm": gnorm}
+
+    return train_step
 
 
 def make_prefill_step(cfg):

@@ -1,23 +1,27 @@
-"""Grouped-query attention of the dense family, on its cache paths
+"""Grouped-query attention of the dense and audio families
 (``repro/models/attention.py:23-253``).
 
-``gqa_apply`` prefills a dense cache and decodes against it;
-``gqa_apply_paged`` decodes one token per request against the serving
-engine's block pool through ``kernels.ops.paged_attention`` (K4 on the
-card). Query head ``h`` attends with KV head ``h // G``
-(``h = kv·G + g``, G = n_heads / n_kv_heads), and masked scores are set
-to ``NEG_INF = -2^30``, as in the reference.
+``gqa_apply`` attends over x alone (training, the LLM DENSE steps),
+prefills a dense cache and decodes against it; ``gqa_apply_paged``
+decodes one token per request against the serving engine's block pool
+through ``kernels.ops.paged_attention`` (K4 on the card). Query head
+``h`` attends with KV head ``h // G`` (``h = kv·G + g``, G = n_heads /
+n_kv_heads), masked scores are set to ``NEG_INF = -2^30``, and q, k and
+v carry a bias where ``cfg.qkv_bias`` (qwen), as in the reference.
+
+Without a cache, the route follows the execution policy as in the
+reference (``attention.py:152-172``): under a kernel profile
+(``kernel_vjp != "ref"``, the cuda default) ``kernels.ops.flash_attention``
+runs K2 on (B, H, S, D) copies of q, k and v, causal with window 0 (the
+port has no sliding-window pattern) under the contract that the
+positions are contiguous from 0; under ``"ref"`` the plain ``_sdpa``
+runs. Prefill with a cache stays on ``_sdpa`` on every profile, as in
+the reference.
 
 Caches and pools are updated in place and returned (the reference
 returns updated copies): a decode step writes one row, not a new cache.
-
-Two routes of the reference are not ported and raise
-``NotImplementedError`` rather than run another path in their place:
-
-  * ``cache=None`` under a kernel profile (``kernel_vjp != "ref"``, the
-    cuda default): the reference's flash-attention route, K2;
-  * the blockwise online-softmax prefill for S ≥ 4096
-    (``_use_blockwise``).
+The blockwise online-softmax prefill for S ≥ 4096 (``_use_blockwise``)
+is not ported and raises ``NotImplementedError``.
 
 ``_sdpa`` stays plain torch matmul and softmax: the reference computes it
 in XLA, outside any Pallas kernel.
@@ -39,9 +43,10 @@ BLOCKWISE_MIN = 4096
 def gqa_init(cfg, *, generator, dtype, lead: tuple = ()) -> dict:
     d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kw = {"generator": generator, "dtype": dtype, "lead": lead}
-    return {"wq": L.linear_init(d, h * hd, **kw),
-            "wk": L.linear_init(d, kh * hd, **kw),
-            "wv": L.linear_init(d, kh * hd, **kw),
+    qkv = dict(kw, bias=cfg.qkv_bias)
+    return {"wq": L.linear_init(d, h * hd, **qkv),
+            "wk": L.linear_init(d, kh * hd, **qkv),
+            "wv": L.linear_init(d, kh * hd, **qkv),
             "wo": L.linear_init(h * hd, d, **kw)}
 
 
@@ -82,23 +87,26 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
 
     Prefill: a cache to fill from ``cache_pos`` (default positions[0]).
     Decode: S == 1 against the cached K/V. ``cache=None`` attends over x
-    alone (the plain route only). Returns (y, cache)."""
+    alone, through K2 under a kernel profile (positions must then be
+    0..S-1). Returns (y, cache)."""
     B, S, _ = x.shape
     T = S if cache is None else cache["k"].shape[1]
-    if cache is None and \
-            resolve_exec_policy(cfg, device=x.device).kernel_vjp != "ref":
-        raise NotImplementedError(
-            "attention without a cache under a kernel profile is the "
-            "reference's flash-attention route (K2), which is not ported "
-            "yet; it comes with the LLM DENSE slice (ROADMAP.md)")
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cos, sin = L.rope_cos_sin(positions, hd, cfg.rope_theta)
+    q, k, v = _qkv(p, x, cfg, cos, sin)
+
+    pol = resolve_exec_policy(cfg, device=x.device)
+    if cache is None and pol.kernel_vjp != "ref":
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True, window=0,
+                                  policy=pol)
+        out = out.transpose(1, 2).reshape(B, S, h * hd)
+        return L.linear(p["wo"], out.to(x.dtype)), None
     if cfg.use_blockwise_attn and _use_blockwise(S, T, cfg.attn_block_q,
                                                  cfg.attn_block_kv):
         raise NotImplementedError(
             f"the blockwise prefill (S={S} >= {BLOCKWISE_MIN}) is not "
             "ported yet (ROADMAP.md)")
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cos, sin = L.rope_cos_sin(positions, hd, cfg.rope_theta)
-    q, k, v = _qkv(p, x, cfg, cos, sin)
 
     if cache is not None:
         pos = int(positions[0] if cache_pos is None else cache_pos)

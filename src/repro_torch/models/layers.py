@@ -22,7 +22,10 @@ key with no change of layout: ``linear`` weights stay (d_in, d_out).
 
   * ``rmsnorm`` normalizes in float32, casts back, and only then
     multiplies by the scale, in the activation dtype;
-  * RoPE rotates halves (x[:h], x[h:]), not interleaved pairs.
+  * RoPE rotates halves (x[:h], x[h:]), not interleaved pairs;
+  * ``layernorm`` (the token generator's) uses the biased variance and
+    eps 1e-5; ``gelu_mlp`` the tanh form of gelu, ``jax.nn.gelu``'s
+    default.
 """
 from __future__ import annotations
 
@@ -89,6 +92,11 @@ class Linear(nn.Module):
     def forward(self, x):
         return F.linear(x, self.w, self.b)
 
+    def as_dict(self) -> dict:
+        """The weights as the functional LM layers take them: w as
+        (d_in, d_out) (a view), b."""
+        return {"w": self.w.T, "b": self.b}
+
 
 class BatchNorm(nn.Module):
     """BatchNorm over axis 1 with scale/bias parameters and running
@@ -136,14 +144,22 @@ def _normal(shape, std: float, generator, dtype) -> torch.Tensor:
 
 
 def linear_init(d_in: int, d_out: int, *, generator, dtype,
-                   lead: tuple = ()) -> dict:
-    return {"w": _normal((*lead, d_in, d_out), 1.0 / math.sqrt(d_in),
-                         generator, dtype)}
+                lead: tuple = (), bias: bool = False) -> dict:
+    p = {"w": _normal((*lead, d_in, d_out), 1.0 / math.sqrt(d_in),
+                      generator, dtype)}
+    if bias:
+        p["b"] = torch.zeros((*lead, d_out), dtype=dtype,
+                             device=generator.device)
+    return p
 
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x @ w with w of shape (d_in, d_out), in the activation dtype."""
-    return x @ p["w"].to(x.dtype)
+    """x @ w (+ b) with w of shape (d_in, d_out), in the activation
+    dtype."""
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
 
 
 def rmsnorm_init(d: int, *, dtype, device, lead: tuple = ()) -> dict:
@@ -154,6 +170,15 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return y.to(x.dtype) * p["scale"].to(x.dtype)
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Normalizes in float32 with the biased variance, casts back, then
+    scales and shifts in the activation dtype."""
+    xf = x.float()
+    var, mu = torch.var_mean(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
 
 
 def embed_init(vocab: int, d: int, *, generator, dtype) -> dict:
@@ -210,3 +235,9 @@ def swiglu_init(d: int, d_ff: int, *, generator, dtype,
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     return linear(p["down"], F.silu(linear(p["gate"], x))
                      * linear(p["up"], x))
+
+
+def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """down(gelu(up(x))) with the tanh form of gelu, as ``jax.nn.gelu``
+    computes it by default."""
+    return linear(p["down"], F.gelu(linear(p["up"], x), approximate="tanh"))

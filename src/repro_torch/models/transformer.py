@@ -1,27 +1,30 @@
-"""The LM trunk of the dense (attention) family
-(``repro/models/transformer.py:64,134,176,263,458-545``).
+"""The LM trunk of the dense and audio (attention) families
+(``repro/models/transformer.py:64,134,176,263,458-574``).
 
 Parameters are a dict of tensors named as the reference's tree:
 ``embed.table``, ``final_norm.scale`` and ``blocks``, whose leaves carry
 a leading layer axis (the reference scans them; the port loops over the
-layers and indexes that axis, a view). Caches and block pools keep the
+layers, viewing each by ``layer`` or, in ``forward``, by one ``unstack``). Caches and block pools keep the
 reference's layouts as well, so ``interop`` carries either across as it
-is.
+is. The audio family (musicgen) runs the dense blocks over codec tokens.
 
   * ``init_model`` / ``init_cache`` — parameters drawn from a
     ``torch.Generator``; a dense (L, B, T, Kh, Dh) cache of zeros.
-  * ``forward`` — prefill into a cache and decode against it
-    (``tokens`` (B, S), a cache, ``cache_pos``); without a cache it runs
-    only on the plain profile (``models/attention.py``).
+  * ``forward`` — over ``tokens`` or soft ``embeds`` (the token
+    generator's), without a cache (K2 on the card, each layer recomputed
+    in the backward when ``remat``), prefill into a cache and decode
+    against it.
   * ``forward_paged`` — one continuous-batching decode step over the
     block pool, through K4 on the card.
+  * ``loss_fn`` — next-token cross-entropy.
 
-Other families (moe, ssm, hybrid, vlm, audio) and sliding-window
-patterns raise ``NotImplementedError``.
+Other families (moe, ssm, hybrid, vlm) and sliding-window patterns raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.backend import resolve_device
 from repro_torch.models import attention as A
@@ -29,14 +32,14 @@ from repro_torch.models import layers as L
 
 
 def check_ported(cfg) -> None:
-    """Raise unless the port has ``cfg``'s family: dense, every layer
-    global."""
-    if cfg.family != "dense" or cfg.sliding_window:
+    """Raise unless the port has ``cfg``'s family: dense or audio (the
+    same blocks), every layer global."""
+    if cfg.family not in ("dense", "audio") or cfg.sliding_window:
         raise NotImplementedError(
             f"family {cfg.family!r} (sliding_window={cfg.sliding_window}) "
-            "is not ported yet; the port runs the dense family without a "
-            "sliding window (ROADMAP.md lists the slices that bring the "
-            "others)")
+            "is not ported yet; the port runs the dense and audio families "
+            "without a sliding window (ROADMAP.md lists the slices that "
+            "bring the others)")
 
 
 def layer(tree: dict, i: int) -> dict:
@@ -44,6 +47,21 @@ def layer(tree: dict, i: int) -> dict:
     axis (views)."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def unstack(tree: dict, n: int) -> list:
+    """The ``n`` layers of a stacked tree as views, one ``unbind`` a leaf:
+    its backward stacks a leaf's gradients once, where indexing each
+    layer (``layer``) would add ``n`` full-size zero-padded gradients."""
+    per = {k: unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+           for k, v in tree.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
+def leaves(tree: dict) -> list:
+    """The tensors of a nested dict, in insertion order."""
+    return [t for v in tree.values()
+            for t in (leaves(v) if isinstance(v, dict) else [v])]
 
 
 def init_model(cfg, *, seed: int = 0, generator: torch.Generator | None = None,
@@ -90,23 +108,34 @@ def _dense_block(p, x, cfg, positions, cache, cache_pos):
     return x + L.swiglu(p["mlp"], L.rmsnorm(p["norm2"], x))
 
 
-def forward(params: dict, cfg, *, tokens: torch.Tensor,
+def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None,
             positions: torch.Tensor | None = None, cache: dict | None = None,
-            cache_pos: int | None = None):
-    """Run the trunk over ``tokens`` (B, S). positions: (S,) absolute
-    positions (default arange(S)). cache: from ``init_cache``; prefill
-    fills it and decode updates it, in place. Returns (logits (B, S, V),
-    cache)."""
+            cache_pos: int | None = None, remat: bool | None = None):
+    """Run the trunk over ``tokens`` (B, S) or soft ``embeds`` (B, S, D),
+    cast to ``cfg.dtype``. positions: (S,) absolute positions (default
+    arange(S)). cache: from ``init_cache``; prefill fills it and decode
+    updates it, in place. Without a cache, ``remat`` (default
+    ``cfg.remat``) recomputes each layer in the backward
+    (``torch.utils.checkpoint``). Returns (logits (B, S, V), cache)."""
     check_ported(cfg)
-    x = L.embed(params["embed"], tokens, compute_dtype=getattr(torch,
-                                                               cfg.dtype))
+    dtype = getattr(torch, cfg.dtype)
+    if embeds is None:
+        x = L.embed(params["embed"], tokens, compute_dtype=dtype)
+    else:
+        x = embeds.to(dtype)
     if positions is None:
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=tokens.device)
-    for i in range(cfg.n_layers):
-        c_l = None if cache is None else layer(cache["layers"], i)
-        x = _dense_block(layer(params["blocks"], i), x, cfg, positions, c_l,
-                         cache_pos)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+    use_remat = (cfg.remat if remat is None else remat) and cache is None \
+        and torch.is_grad_enabled()
+    for i, p_l in enumerate(unstack(params["blocks"], cfg.n_layers)):
+        if use_remat:
+            x = checkpoint(_dense_block, p_l, x, cfg, positions, None, None,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            c_l = None if cache is None else layer(cache["layers"], i)
+            x = _dense_block(p_l, x, cfg, positions, c_l, cache_pos)
     x = L.rmsnorm(params["final_norm"], x)
     return L.unembed(params["embed"], x), cache
 
@@ -135,3 +164,20 @@ def forward_paged(params: dict, cfg, *, tokens: torch.Tensor,
         x = x + L.swiglu(p["mlp"], L.rmsnorm(p["norm2"], x))
     x = L.rmsnorm(params["final_norm"], x)
     return L.unembed(params["embed"], x), cache
+
+
+def loss_fn(params: dict, cfg, batch: dict):
+    """Next-token cross-entropy over ``batch["tokens"]`` (B, S) against
+    ``batch["labels"]`` (B, S): float32 log-softmax NLL, averaged over
+    the tokens, or over ``batch["mask"]`` where given. Returns (loss,
+    {"ce", "moe_aux"}); the dense families have no router, so moe_aux is
+    0 and the loss is the cross-entropy."""
+    logits, _ = forward(params, cfg, tokens=batch["tokens"])
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        loss = nll.mean()
+    else:
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss, {"ce": loss, "moe_aux": torch.zeros((), device=loss.device)}

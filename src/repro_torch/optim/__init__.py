@@ -1,3 +1,4 @@
-from repro_torch.optim.optimizers import adam, global_norm, sgd
+from repro_torch.optim.optimizers import (adam, clip_by_global_norm,
+                                          global_norm, sgd)
 
-__all__ = ["adam", "global_norm", "sgd"]
+__all__ = ["adam", "clip_by_global_norm", "global_norm", "sgd"]

@@ -1,5 +1,5 @@
-"""SGD with heavy-ball momentum and Adam, as ``repro/optim/optimizers.py``
-computes them.
+"""SGD with heavy-ball momentum, Adam and global-norm clipping, as
+``repro/optim/optimizers.py`` computes them.
 
 Each optimizer holds a list of tensors and updates them in place from a
 list of gradients of the same length (``step(grads)``), so callers take
@@ -15,6 +15,14 @@ import torch
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+
+
+def clip_by_global_norm(tensors: Sequence[torch.Tensor], max_norm: float):
+    """Scale every tensor by min(1, max_norm / ‖tensors‖) in float32 and
+    cast back. Returns (clipped list, the global norm)."""
+    n = global_norm(tensors)
+    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
+    return [(t.float() * scale).to(t.dtype) for t in tensors], n
 
 
 class sgd:

@@ -1,6 +1,8 @@
 """The kernels on the card against their plain versions, and the launch
 counts: K1 (Triton) against torch autograd too, K4 (CUDA C++) through
-one paged decode step. Skips without a CUDA card.
+one paged decode step, K2 (CUDA C++: K2f, K2q, K2kv) with dead rows,
+windows and ragged tails, and through one train step. Skips without a
+CUDA card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -11,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import distill_kl as K
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as PK
 
@@ -122,3 +125,66 @@ def test_forward_paged_launches_k4_once_per_layer(cuda):
     assert PK.launches["paged_attention"] - before == cfg.n_layers
     assert logits.shape == (3, 1, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
+
+
+# (B, Hq, Hkv, Sq, Sk, D, causal, window): the server's heads, dead rows
+# (causal Sq > Sk), a window, causal=False, ragged tails at every D
+K2_CASES = [(2, 24, 8, 256, 256, 128, True, 0),
+            (1, 3, 1, 100, 37, 32, True, 0),
+            (1, 4, 2, 150, 150, 32, True, 20),
+            (1, 4, 4, 70, 130, 64, True, 0),
+            (1, 4, 2, 50, 90, 64, False, 16)]
+
+
+@pytest.mark.parametrize("B,hq,hkv,sq,sk,d,causal,window", K2_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_match_plain_versions(
+        cuda, B, hq, hkv, sq, sk, d, causal, window, dtype):
+    """K2f, K2q and K2kv against the plain pair; float32 to 1e-4 (no TF32
+    in either), bfloat16 gradients, stored in bfloat16, to 1e-2 of each
+    tensor's largest entry."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + d)
+    q = torch.randn(B, hq, sq, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(B, hkv, sk, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, hq, sq, d, generator=gen, device=cuda).to(dtype)
+    kw = {"causal": causal, "window": window}
+    o, lse = FA.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    po, plse = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(o, po, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+    dead = plse == FA.NEG_INF
+    assert bool((lse[dead] == FA.NEG_INF).all())
+    assert bool((o[dead] == 0).all())
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = FA.flash_attention_bwd_plain(q, k, v, po, plse, do, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        err = (a.float() - b.float()).abs().max()
+        assert float(err) <= tol * float(b.float().abs().max())
+    assert bool((got[0].reshape(B * hq, sq, d)[dead] == 0).all())
+
+
+def test_train_step_launches_k2_per_layer(cuda):
+    """One train step with remat: K2f twice a layer (the forward and its
+    recomputation), K2q and K2kv once."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps as ST
+
+    cfg = get_smoke_config("llama3.2-3b").replace(remat=True)
+    state = ST.make_train_state(cfg, device=cuda)
+    x = torch.randint(0, cfg.vocab_size, (2, 17), device=cuda)
+    before = dict(FA.launches)
+    state, m = ST.make_train_step(cfg)(state, {"tokens": x[:, :-1],
+                                               "labels": x[:, 1:]})
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in FA.launches.items()}
+    L = cfg.n_layers
+    assert got == {"flash_attention_fwd": 2 * L,
+                   "flash_attention_bwd_dq": L,
+                   "flash_attention_bwd_dkv": L}
+    assert bool(torch.isfinite(m["loss"])) and float(m["grad_norm"]) > 0

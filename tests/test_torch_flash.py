@@ -1,0 +1,184 @@
+"""K2's plain versions (``repro_torch/kernels/flash_attention.py``) against
+the JAX package: the materialized oracle (``repro.kernels.ref.attention``
+and ``attention_grads``) and the Pallas kernels themselves, run in
+interpret mode with 16-wide blocks so that every shape has ragged tails.
+Also ``FlashAttention`` on the CPU against torch autograd of the port's
+materialized oracle, and ``ops.flash_attention``'s routing.
+
+Inputs are float32 from numpy with a seed. Tolerance rtol = atol = 1e-5:
+float32 on both sides, summed in another order. Rows with no live key
+(causal with Sq > Sk) are held to the interpret-mode kernel exactly
+(o = 0, lse = NEG_INF, zero gradients); the materialized oracle averages
+v uniformly there, so it is compared on the live rows only.
+"""
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as R_ref
+
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as T_ref
+
+R_FA = importlib.import_module("repro.kernels.flash_attention")
+
+TOL = 1e-5
+BLOCK = 16
+
+# (B, Hq, Hkv, Sq, Sk, causal, window): GQA g ∈ {1, 2, 3}, Sq = Sk ∈
+# {24, 40}, Sq < Sk, causal Sq > Sk (dead rows), a window, causal=False
+CASES = {
+    "g1_s24": (2, 2, 2, 24, 24, True, 0),
+    "g2_s40": (1, 4, 2, 40, 40, True, 0),
+    "g3_s40": (1, 3, 1, 40, 40, True, 0),
+    "sq_lt_sk": (1, 4, 2, 24, 40, True, 0),
+    "dead_rows": (1, 2, 1, 40, 24, True, 0),
+    "window": (1, 4, 2, 40, 40, True, 7),
+    "not_causal": (1, 3, 1, 24, 40, False, 0),
+}
+D = 32
+
+
+def _inputs(B, hq, hkv, sq, sk, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return f(B, hq, sq, D), f(B, hkv, sk, D), f(B, hkv, sk, D), \
+        f(B, hq, sq, D)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a.copy()) for a in arrays]
+
+
+def _live_rows(sq, sk, causal):
+    rows = np.arange(sq)
+    return rows + (sk - sq) >= 0 if causal else np.ones(sq, bool)
+
+
+@pytest.fixture(scope="module", params=sorted(CASES))
+def case(request):
+    """The case, its inputs, and the interpret-mode kernels' forward
+    statistics and gradients."""
+    B, hq, hkv, sq, sk, causal, window = CASES[request.param]
+    q, k, v, do = _inputs(B, hq, hkv, sq, sk, sum(CASES[request.param][:5]))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    out, o_f32, lse = R_FA.flash_attention(
+        jq, jk, jv, causal=causal, window=window, block_q=BLOCK,
+        block_k=BLOCK, interpret=True, return_stats=True)
+    grads = R_FA.flash_attention_bwd(
+        jq, jk, jv, o_f32, lse, jnp.asarray(do), causal=causal,
+        window=window, block_q=BLOCK, block_k=BLOCK, interpret=True)
+    return dict(shape=CASES[request.param], q=q, k=k, v=v, do=do,
+                out=np.asarray(out), o_f32=np.asarray(o_f32),
+                lse=np.asarray(lse), grads=[np.asarray(g) for g in grads])
+
+
+def _close(got, want, tol=TOL):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(got, np.asarray(want), rtol=tol, atol=tol)
+
+
+def test_forward_plain_matches_interpret_kernel(case):
+    B, hq, hkv, sq, sk, causal, window = case["shape"]
+    o, lse = FA.flash_attention_fwd_plain(*_t(case["q"], case["k"],
+                                              case["v"]),
+                                          causal=causal, window=window)
+    assert tuple(o.shape) == (B * hq, sq, D) and tuple(lse.shape) == (
+        B * hq, sq)
+    _close(o, case["o_f32"])
+    _close(lse, case["lse"])
+    dead = ~_live_rows(sq, sk, causal)
+    # rows with no live key: exactly NEG_INF and exact zeros, as the kernel
+    np.testing.assert_array_equal(lse.numpy()[:, dead], FA.NEG_INF)
+    np.testing.assert_array_equal(case["lse"][:, dead], FA.NEG_INF)
+    assert not o.numpy()[:, dead].any()
+
+
+def test_backward_plain_matches_interpret_kernel(case):
+    _, _, _, sq, sk, causal, window = case["shape"]
+    q, k, v, do = _t(case["q"], case["k"], case["v"], case["do"])
+    o, lse = _t(case["o_f32"], case["lse"])
+    got = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    for a, b in zip(got, case["grads"]):
+        _close(a, b)
+    dead = ~_live_rows(sq, sk, causal)
+    assert not got[0].numpy()[:, :, dead].any()
+
+
+def test_plain_matches_materialized_oracle_on_live_rows(case):
+    """The plain pair against ``repro.kernels.ref``'s oracle and its
+    autodiff, on the rows that see a key (the oracle's cotangent is zero
+    on the others, so its gradients compare in full)."""
+    B, hq, hkv, sq, sk, causal, window = case["shape"]
+    live = _live_rows(sq, sk, causal)
+    do = case["do"] * live[None, None, :, None]
+    jargs = [jnp.asarray(a) for a in (case["q"], case["k"], case["v"])]
+    want = np.asarray(R_ref.attention(*jargs, causal=causal, window=window))
+    want_g = R_ref.attention_grads(*jargs, jnp.asarray(do), causal=causal,
+                                   window=window)
+    q, k, v = _t(case["q"], case["k"], case["v"])
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    _close(o.reshape(B, hq, sq, D)[:, :, live], want[:, :, live])
+    got_g = FA.flash_attention_bwd(q, k, v, o, lse,
+                                   torch.from_numpy(do), causal=causal,
+                                   window=window)
+    for a, b in zip(got_g, want_g):
+        _close(a, b)
+    # the port's oracle is the reference's, dead rows included
+    _close(T_ref.attention(q, k, v, causal=causal, window=window), want)
+    for a, b in zip(T_ref.attention_grads(q, k, v, torch.from_numpy(do),
+                                          causal=causal, window=window),
+                    want_g):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("name", ["g3_s40", "window", "sq_lt_sk"])
+def test_flash_attention_function_matches_autograd_of_oracle(name):
+    """``FlashAttention`` on the CPU (its plain pair) against torch autograd
+    of the materialized oracle, under a non-uniform cotangent; the
+    cotangent arrives strided (a transposed view) as the trunk's does."""
+    B, hq, hkv, sq, sk, causal, window = CASES[name]
+    q, k, v, do = _t(*_inputs(B, hq, hkv, sq, sk, 7))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = FA.FlashAttention.apply(*leaves, causal, window, None)
+    g_strided = do.transpose(2, 3).contiguous().transpose(2, 3)
+    got = torch.autograd.grad(out, leaves, g_strided)
+    want_out = T_ref.attention(q, k, v, causal=causal, window=window)
+    _close(out, want_out)
+    for a, b in zip(got, T_ref.attention_grads(q, k, v, do, causal=causal,
+                                               window=window)):
+        _close(a, b)
+
+
+def test_ops_routes_by_policy():
+    from repro_torch.configs.backend import ExecPolicy
+
+    q, k, v, _ = _t(*_inputs(1, 4, 2, 24, 24, 3))
+    want = T_ref.attention(q, k, v)
+    for mode in ("ref", "fused", "autodiff"):
+        got = ops.flash_attention(q, k, v, policy=ExecPolicy(
+            kernel_vjp=mode))
+        _close(got, want)
+    with pytest.raises(ValueError, match="autodiff"):
+        ops.flash_attention(q.requires_grad_(True), k, v,
+                            policy=ExecPolicy(kernel_vjp="autodiff"))
+
+
+def test_wrapper_checks_its_inputs():
+    q, k, v, do = _t(*_inputs(1, 4, 2, 24, 24, 3))
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        FA.flash_attention_fwd(q, k[:, :1].repeat(1, 3, 1, 1).contiguous(),
+                               v[:, :1].repeat(1, 3, 1, 1).contiguous())
+    with pytest.raises(TypeError, match="share one of"):
+        FA.flash_attention_fwd(q, k.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3),
+                               k, v)
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="lse must be"):
+        FA.flash_attention_bwd(q, k, v, o, lse[:, :3], do)

@@ -74,7 +74,8 @@ def test_cuda_sources_include_only_the_toolkit(path):
 
 
 def test_there_are_cuda_sources():
-    assert [p.name for p in CUDA_SOURCES] == ["paged_attention.cu"]
+    assert [p.name for p in CUDA_SOURCES] == ["flash_attention.cu",
+                                              "paged_attention.cu"]
 
 
 def _entry_points():
@@ -88,6 +89,11 @@ def _entry_points():
     from repro_torch.launch.engine import ServeEngine
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer
+    from repro_torch.core.dense_llm import make_llm_dense_steps
+    from repro_torch.core.generator import tok_generator_init
+    from repro_torch.launch.dense_llm_oneshot import dense_llm_oneshot
+    from repro_torch.launch.steps import make_train_state
+    from repro_torch.launch.train import train
 
     scfg = smoke()
     lm = get_smoke_config("llama3.2-3b")
@@ -108,6 +114,16 @@ def _entry_points():
         "serve": lambda: serve("llama3.2-3b", batch=1, prompt_len=2, gen=1),
         "lm_params_from_reference": lambda: interop.lm_params_from_reference(
             {}, lm),
+        "tok_generator_init": lambda: tok_generator_init(d_model=8),
+        "tok_generator_from_reference": lambda:
+            interop.tok_generator_from_reference(
+                {"z_proj": {"w": np.zeros((2, 4))}, "blocks": []}, seq=4,
+                d_model=8),
+        "make_train_state": lambda: make_train_state(lm),
+        "train": lambda: train("llama3.2-3b", steps=1, batch=1, seq=4,
+                               smoke=True),
+        "make_llm_dense_steps": lambda: make_llm_dense_steps(lm, [lm]),
+        "dense_llm_oneshot": lambda: dense_llm_oneshot(),
     }
 
 
@@ -122,7 +138,12 @@ def no_gpu():
                                   "resolve_exec_policy", "cnn_from_ref",
                                   "init_model", "init_cache",
                                   "init_paged_cache", "ServeEngine", "serve",
-                                  "lm_params_from_reference"])
+                                  "lm_params_from_reference",
+                                  "tok_generator_init",
+                                  "tok_generator_from_reference",
+                                  "make_train_state", "train",
+                                  "make_llm_dense_steps",
+                                  "dense_llm_oneshot"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_gpu, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points()[name]()
@@ -148,3 +169,11 @@ def test_unported_paths_are_refused():
     with pytest.raises(NotImplementedError):
         make_local_step(cnn_init(CNNSpec(width=0.1), device="cpu"), lr=0.1,
                         momentum=0.0, use_ldam=True)
+    from repro_torch.launch.train import train
+
+    with pytest.raises(NotImplementedError, match="model parallelism"):
+        train("llama3.2-3b", steps=1, batch=1, seq=4, smoke=True,
+              model_parallel=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="checkpoints"):
+        train("llama3.2-3b", steps=1, batch=1, seq=4, smoke=True,
+              ckpt="x.npz", device="cpu")

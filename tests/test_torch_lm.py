@@ -70,7 +70,7 @@ def test_config_fields_match_reference(which):
 def test_config_registry_routes():
     assert T_base.get_config("llama3_2_3b") == T_llama.CONFIG
     assert T_base.get_smoke_config("llama3.2-3b") == T_llama.smoke()
-    for name in ("mamba2-130m", "zamba2-7b", "gemma3-4b", "qwen1.5-4b"):
+    for name in ("mamba2-130m", "zamba2-7b", "gemma3-4b"):
         with pytest.raises(NotImplementedError, match="slice|families"):
             T_base.get_config(name)
     with pytest.raises(KeyError, match="unknown arch"):
@@ -308,14 +308,21 @@ def test_scatter_prefill_matches_reference(model):
 def test_unported_routes_raise(model):
     rc, tc, rp, tp = model
     ta = T_T.layer(tp["blocks"], 0)["attn"]
-    x = torch.zeros((1, 4, tc.d_model))
-    # the reference's K2 route: no cache under a kernel profile
-    with pytest.raises(NotImplementedError, match="K2"):
-        T_A.gqa_apply(ta, x, tc.replace(kernel_vjp_mode="fused"),
-                      positions=torch.arange(4))
-    with pytest.raises(NotImplementedError, match="K2"):
-        T_T.forward(tp, tc.replace(kernel_vjp_mode="fused"),
-                    tokens=torch.zeros((1, 4), dtype=torch.int32))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 4, tc.d_model)).astype(np.float32))
+    # the reference's K2 route (no cache under a kernel profile) runs, on
+    # the CPU through FlashAttention's plain pair, and matches "ref"
+    for mode in ("fused", "autodiff"):
+        got, cache = T_A.gqa_apply(ta, x, tc.replace(kernel_vjp_mode=mode),
+                                   positions=torch.arange(4))
+        assert cache is None
+        _close(got, T_A.gqa_apply(ta, x, tc.replace(kernel_vjp_mode="ref"),
+                                  positions=torch.arange(4))[0])
+    toks = torch.tensor([[3, 1, 4, 1]], dtype=torch.int32)
+    _close(T_T.forward(tp, tc.replace(kernel_vjp_mode="fused"),
+                       tokens=toks)[0],
+           T_T.forward(tp, tc.replace(kernel_vjp_mode="ref"), tokens=toks)[0],
+           TOL_LOGITS)
     # the blockwise prefill
     long = torch.zeros((1, 4096, tc.d_model))
     with pytest.raises(NotImplementedError, match="blockwise"):
