@@ -9,71 +9,100 @@ checkout, the CUDA C++ ones into ``build/cuda`` (one ``nvcc`` per source,
 started together) and Triton's cache under ``build/triton``. It imports
 ``repro_torch`` and nothing of JAX.
 
-Phases; any failure exits non-zero before the result line is printed:
+Phases, in the order they run; any failure exits non-zero before the
+result line is printed:
 
   1. setup: the card's name and power limit (``nvidia-smi``), no TF32 in
      matrix products or convolutions (full float32, as the JAX reference
-     computes), the CUDA C++ build with ``nvcc -Xptxas -v``'s register
-     and spill counts;
-  2. kernels, each against its plain PyTorch version and timed with CUDA
-     events beside it and its bound:
-       * K1f and K1b (both teacher-gradient settings) at the DENSE main
-         path's shape (128, 10), a ragged (1000, 32003), a
-         vocabulary-scale (4096, 32768) and the LLM path's (1024, 128256)
-         (B·gen_seq rows of llama's vocabulary), in float32 and bfloat16;
-       * K4 at the serve shape (R 8, Hq 24, Hkv 8, D 128, page 16, M 32,
-         ragged seq_lens with 0 and a full table) and a D = 32 shape, in
-         float32 and bfloat16, beside ``F.scaled_dot_product_attention``
-         on the K/V already gathered into a contiguous cache (a
-         yardstick only: it leaves the paging out). The pools are
-         rotated through copies larger than the L2 cache, so each call
-         reads them from device memory, as a decode step does;
-  3. the DENSE main path at the paper's full width (``paper_cifar.CONFIG``:
+     computes), the CUDA C++ build (K4, K2, K3, one ``nvcc`` each, all
+     started together) with ``nvcc -Xptxas -v``'s register and spill
+     counts;
+  2. K1f and K1b (Triton, both teacher-gradient settings) against their
+     plain PyTorch versions, timed with CUDA events beside their bound,
+     at the DENSE main path's shape (128, 10), a ragged (1000, 32003), a
+     vocabulary-scale (4096, 32768) and the LLM path's (1024, 128256)
+     (B·gen_seq rows of llama's vocabulary), in float32 and bfloat16;
+  3. K4 at the serve shape (R 8, Hq 24, Hkv 8, D 128, page 16, M 32,
+     ragged seq_lens with 0 and a full table), a D = 32 shape and
+     zamba2-7b's shared block (Hq = Hkv = 32, D = 112), in float32 and
+     bfloat16, beside ``F.scaled_dot_product_attention`` on the K/V
+     already gathered into a contiguous cache (a yardstick only: it
+     leaves the paging out). The pools are rotated through copies larger
+     than the L2 cache, so each call reads them from device memory, as a
+     decode step does;
+  4. K2 (K2f, K2q, K2kv, CUDA C++) against its plain versions in float32
+     without TF32 and in bfloat16, at the server shape (B 4, Hq 24, Hkv 8,
+     S 256, D 128), the train shape (B 8), one 4096-token sequence, a
+     ragged D = 32 shape with a window and dead rows, D = 64 and D = 112
+     (zamba2's shared block at B 2, S 512); timed beside its bound and
+     ``F.scaled_dot_product_attention`` (its autograd backward for K2q
+     and K2kv);
+  5. the DENSE main path at the paper's full width (``paper_cifar.CONFIG``:
      five width-1.0 resnet18 clients on 32x32x3 images, batch 128,
      synth_batch 128, nz 100, t_g 30), depth cut to one local epoch and
      two server epochs: ``build_federation`` → ``fedavg`` →
      ``train_dense_server`` → ``evaluate``. Every launch count is zeroed
      just before it; K1's must each read epochs·(t_g + s_steps) just
-     after, K4's 0;
-  4. one server epoch of the main path under ``torch.profiler``: device
+     after, every other kernel's 0;
+  6. one server epoch of the main path under ``torch.profiler``: device
      busy share and kernel time by name;
-  5. one server step of a small federation on the card (K1 kernels) and
+  7. one server step of a small federation on the card (K1 kernels) and
      on the CPU (the plain ``ref`` KL) from the same weights and images:
      the losses, their gradient with respect to the images and the
      student's update must agree to 1e-4 (the CPU path is held to the JAX
      package by the tests);
-  6. serve_check: llama3.2-3b at full width (d_model 3072, vocab 128256)
+  8. serve_check: llama3.2-3b at full width (d_model 3072, vocab 128256)
      with depth cut to 2 layers, float32 without TF32: the paged engine
      (K4) and the dense engine give the same tokens for 6 ragged
      requests in 4 slots, and K4 launches decode steps × layers times;
-  7. serve, the serving main path: llama3.2-3b at full width and depth,
+  9. serve, the serving main path: llama3.2-3b at full width and depth,
      bfloat16, random weights from a seeded ``torch.Generator``; 16
      requests (prompts of 64–448 tokens, 32–64 new, max_len 512) through
      8 slots of the paged engine, page 16. Every launch count is zeroed
-     just before it; K4's must read decode steps × 28 just after, K1's 0.
-     Then one decode step of 8 running requests under
+     just before it; K4's must read decode steps × 28 just after, the
+     others 0. Then one decode step of 8 running requests under
      ``torch.profiler``: device idle share and the top kernels, with
      K4's share;
-  8. K2 (K2f, K2q, K2kv, CUDA C++) against its plain versions in float32
-     without TF32 and in bfloat16, at the server shape (B 4, Hq 24, Hkv 8,
-     S 256, D 128), the train shape (B 8), one 4096-token sequence, a
-     ragged D = 32 shape with a window and dead rows, and D = 64; timed
-     beside its bound and ``F.scaled_dot_product_attention`` (its
-     autograd backward for K2q and K2kv);
-  9. train_check: one train step of llama3.2-3b at full width, 2 layers,
+ 10. train_check: one train step of llama3.2-3b at full width, 2 layers,
      float32: the K2 route and the plain route agree to 1e-4;
- 10. dense_llm_check: one generator step and one student step of the
+ 11. dense_llm_check: one generator step and one student step of the
      example's heterogeneous federation (smoke widths) on the card and on
      the CPU agree to 1e-4;
- 11. llm_main_path, the LLM DENSE main path at full width and depth
+ 12. llm_main_path, the LLM DENSE main path at full width and depth
      (``dense_llm_oneshot.full()``: two llama3.2-3b clients, a llama3.2-3b
      student, bfloat16): 3 local train steps a client, the one-shot
      upload, 2 epochs of 3 generator steps and a student step. Every
      launch count is zeroed before each step and checked after it (a
      train step: K2f 2L, K2q L, K2kv L; a generator step: (n+1)L of each
      and one K1f, K1b; a student step: (n+1)L K2f, L K2q and K2kv, one
-     K1f, K1b); then one epoch under ``torch.profiler`` with K2's share.
-     K2 reads 0 in every earlier phase.
+     K1f, K1b); then one epoch under ``torch.profiler`` with K2's share;
+ 13. K3 (K3f, K3b, CUDA C++) against its plain versions (the chunked
+     formula in PyTorch and autograd through it): mamba2-130m's train
+     shape (8, 256, 24 heads, P 64, N 128, chunk 256) and zamba2-7b's
+     prefill (1, 448, 112 heads, P 64, N 64, a ragged tail) in bfloat16
+     and float32, one 4096-token sequence (16 chunks) in bfloat16, and a
+     ragged, grouped shape with an initial state in float32, also held to
+     the sequential recurrence; timed beside its bound (no PyTorch call
+     computes the scan);
+ 14. ssm_serve_check: zamba2-7b (7 layers: a super-block of 6 mamba
+     blocks and the shared block, and one tail block) and mamba2-130m (2
+     layers) at full width, float32: paged ≡ dense engine for 6 requests
+     of up to 300 tokens (two chunks, a ragged tail) in 4 slots, K3f once
+     a mamba block a prefill and K4 once a shared-block application a
+     decode step;
+ 15. ssm_serve: zamba2-7b at full width and depth (81 mamba blocks, 13
+     applications of the shared block, bfloat16), the serve phase's 16
+     requests through 8 slots: K3f must read prefills × 81 and K4 decode
+     steps × 13; then one profiled decode step;
+ 16. ssm_train_check: one zamba2-7b train step at full width, 7 layers,
+     float32, batch 2 × 512 (two chunks): the K3/K2 route and the plain
+     route agree to 1e-4 (K3f 2 × 7 with remat, K3b 7, K2 on the one
+     shared-block application);
+ 17. ssm_llm_main_path, the LLM DENSE main path with the ssm family
+     (``dense_llm_oneshot.full_ssm()``: two mamba2-130m clients and a
+     mamba2-130m student, full width and depth, bfloat16), counted step by
+     step as in 12 with K3f and K3b in place of K2; then one epoch under
+     ``torch.profiler`` with K3's share.
 
 Output: a line with the card's name and power limit, one JSON line per
 phase, the ``{"kernels": [...]}`` line, and last the result line
@@ -108,25 +137,54 @@ MAIN_SHAPE = (128, 10)
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 1e-5)}
 TOL_GRAD = {"float32": (1e-5, 1e-5), "bfloat16": (1.6e-2, 1e-6)}
 STEP_TOL = 1e-4
+# The per-head scalars of a mamba block (a_log, dt_bias, d_skip) get one
+# gradient entry a head, a sum over every position of the batch of terms
+# that cancel (dcs's row and column sums of dseg, its reverse cumsum):
+# float32 summation order shows at ~1e-4 of the largest entry there, so
+# they are held to 1e-3; ssm_train_check reports the plain route against
+# itself at another chunk size as the floor of that noise.
+SCALAR_TOL = 1e-3
+SCALARS = ("a_log", "dt_bias", "d_skip")
 
 # K4 shapes: (R, Hq, Hkv, D, page, M). The serve shape is llama3.2-3b's
 # heads at the serve phase's 8 slots and max_len 512; the D = 32 one has
-# smoke()'s heads. atol only: the outputs are convex combinations of V.
-K4_SHAPES = ((8, 24, 8, 128, 16, 32), (6, 4, 2, 32, 16, 8))
+# smoke()'s heads; the D = 112 one zamba2-7b's shared block at the same
+# slots. atol only: the outputs are convex combinations of V.
+K4_SHAPES = ((8, 24, 8, 128, 16, 32), (6, 4, 2, 32, 16, 8),
+             (8, 32, 32, 112, 16, 32))
 K4_SERVE_SHAPE = K4_SHAPES[0]
 TOL_K4 = {"float32": (0.0, 1e-5), "bfloat16": (0.0, 1e-2)}
 # K2 shapes: (name, B, Hq, Hkv, Sq, Sk, D, causal, window). The server's
 # and the train step's are llama3.2-3b's heads at the LLM main path's
 # batches; "long" one 4096-token sequence; "ragged_d32" the smoke heads
 # with Sq > Sk (dead rows), a window and ragged tiles; "d64" musicgen's
-# heads. Tolerance: float32 without TF32 on both sides, 1e-4; bfloat16
+# heads; "d112" zamba2-7b's shared block at ssm_train_check's batch.
+# Tolerance: float32 without TF32 on both sides, 1e-4; bfloat16
 # gradients are stored in bfloat16, 1e-2 of each tensor's largest entry.
 K2_SHAPES = (("server", 4, 24, 8, 256, 256, 128, True, 0),
              ("train", 8, 24, 8, 256, 256, 128, True, 0),
              ("long", 1, 24, 8, 4096, 4096, 128, True, 0),
              ("ragged_d32", 2, 4, 2, 300, 200, 32, True, 64),
-             ("d64", 4, 32, 32, 256, 256, 64, True, 0))
+             ("d64", 4, 32, 32, 256, 256, 64, True, 0),
+             ("d112", 2, 32, 32, 512, 512, 112, True, 0))
 TOL_K2 = {"float32": 1e-4, "bfloat16": 1e-2}
+# K3 shapes: (name, B, S, H, P, G, N, chunk, dtype, with an initial state).
+# mamba2-130m's heads at a train step of the SSM LLM path (B 8, seq 256:
+# one chunk), zamba2-7b's at a prefill of 448 tokens (a ragged tail), one
+# 4096-token sequence (16 chunks), and a small ragged, grouped shape that
+# is also held to the sequential recurrence (``ref.ssd``/``ssd_grads``).
+# Tolerance, relative to each tensor's largest entry: float32 1e-4; in
+# bfloat16 y is stored in bfloat16 (1e-2), the states and gradients are
+# float32 from the same bfloat16 inputs (1e-4).
+K3_SHAPES = (("mamba2_train", 8, 256, 24, 64, 1, 128, 256, "bfloat16", False),
+             ("zamba2_prefill", 1, 448, 112, 64, 1, 64, 256, "bfloat16",
+              False),
+             ("long", 1, 4096, 24, 64, 1, 128, 256, "bfloat16", False),
+             ("ragged_grouped", 2, 300, 4, 32, 2, 16, 64, "float32", True),
+             ("mamba2_train", 8, 256, 24, 64, 1, 128, 256, "float32", False),
+             ("zamba2_prefill", 1, 448, 112, 64, 1, 64, 256, "float32",
+              False))
+TOL_K3 = {"float32": 1e-4, "bfloat16": 1e-2}
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -170,7 +228,7 @@ def setup():
 
     t0 = time.perf_counter()
     try:
-        cuda_build.build(["paged_attention", "flash_attention"])
+        cuda_build.build(["paged_attention", "flash_attention", "ssd_scan"])
     except RuntimeError as e:
         fail(str(e))
     emit({"cuda_build": {
@@ -212,10 +270,10 @@ def full_float32(torch) -> dict:
 def launch_counts() -> list:
     """Every kernel's launch counter (a dict each)."""
     from repro_torch.kernels import (distill_kl, flash_attention,
-                                     paged_attention)
+                                     paged_attention, ssd_scan)
 
     return [distill_kl.launches, paged_attention.launches,
-            flash_attention.launches]
+            flash_attention.launches, ssd_scan.launches]
 
 
 def zero_counts() -> None:
@@ -680,56 +738,84 @@ def run_engine(eng, requests):
     return [out[r] for r in rids]
 
 
-def serve_check(torch, dev="cuda"):
-    """Paged (K4) ≡ dense at llama3.2-3b's full width, 2 layers, float32."""
+def trunk_blocks(cfg) -> tuple[int, int]:
+    """(attention blocks, mamba blocks) one pass of the trunk runs: a
+    hybrid applies its shared block once per super-block."""
+    from repro_torch.models.transformer import hybrid_shape
+
+    if cfg.family == "ssm":
+        return 0, cfg.n_layers
+    if cfg.family == "hybrid":
+        return hybrid_shape(cfg)[0], cfg.n_layers
+    return cfg.n_layers, 0
+
+
+def serve_launches(cfg, prefills: int, decode_steps: int) -> dict:
+    """The serving path's counts: K3f once per mamba block a prefill, K4
+    once per attention block a paged decode step (prefill with a cache
+    attends on the plain path, as in the reference)."""
+    n_attn, n_mamba = trunk_blocks(cfg)
+    return expected(paged_attention=decode_steps * n_attn,
+                    ssd_scan_fwd=prefills * n_mamba)
+
+
+def serve_check(torch, dev="cuda", arch="llama3.2-3b", n_layers=2,
+                label="serve_check", prompt_range=(16, 161), max_len=192):
+    """Paged (K4) ≡ dense at ``arch``'s full width, ``n_layers`` deep,
+    float32: the same tokens from both engines, and the launches of
+    each."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.launch.engine import ServeEngine
     from repro_torch.models import transformer as T
 
-    full = get_config("llama3.2-3b")
-    cfg = full.replace(n_layers=2, dtype="float32", param_dtype="float32")
+    full = get_config(arch)
+    cfg = full.replace(n_layers=n_layers, dtype="float32",
+                       param_dtype="float32")
     params = T.init_model(cfg, seed=1, device=dev)
     reqs = serve_requests(np.random.default_rng(1), 6, cfg.vocab_size,
-                          (16, 161), (8, 25))
-    kw = {"max_reqs": 4, "max_len": 192, "device": dev}
+                          prompt_range, (8, 25))
+    kw = {"max_reqs": 4, "max_len": max_len, "device": dev}
     zero_counts()
     paged_eng = ServeEngine(cfg, params, mode="paged", **kw)
     paged = run_engine(paged_eng, reqs)
     launches = read_counts()
+    zero_counts()
     dense = run_engine(ServeEngine(cfg, params, mode="dense", **kw), reqs)
-    after_dense = read_counts()
+    dense_launches = read_counts()
     steps = paged_eng.stats["decode_steps"]
     same = all(np.array_equal(a, b) for a, b in zip(paged, dense))
-    want = steps * cfg.n_layers
-    emit({"serve_check": {
+    want = serve_launches(cfg, len(reqs), steps)
+    want_dense = serve_launches(cfg, len(reqs), 0)
+    emit({label: {
+        "arch": arch, "family": cfg.family,
         "cfg": {"d_model": cfg.d_model, "vocab": cfg.vocab_size,
                 "n_layers": [full.n_layers, cfg.n_layers],
                 "dtype": cfg.dtype},
         "requests": [[len(p), g] for p, g in reqs], "max_reqs": 4,
         "paged_equals_dense": same, "decode_steps": steps,
-        "launches": launches, "expected_k4_launches": want,
+        "launches": launches, "expected_launches": want,
+        "launches_dense_mode": dense_launches,
         "tokens_first_request": paged[0].tolist()}})
     if not same:
-        fail(f"paged and dense engines disagree: {paged} vs {dense}")
-    if launches != expected(paged_attention=want) \
-            or after_dense != launches:
-        fail(f"K4 launches {launches} (after the dense run {after_dense}), "
-             f"expected {want} in the paged run only")
+        fail(f"{label}: paged and dense engines disagree: {paged} vs {dense}")
+    if launches != want or dense_launches != want_dense:
+        fail(f"{label}: launches {launches} (paged), {dense_launches} "
+             f"(dense), expected {want} and {want_dense}")
     del params, paged_eng
     torch.cuda.empty_cache()
 
 
-def serve_main_path(torch, dev="cuda"):
-    """The serving main path at llama3.2-3b's full width and depth."""
+def serve_main_path(torch, dev="cuda", arch="llama3.2-3b", label="serve"):
+    """The serving main path at ``arch``'s full width and depth."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.launch.engine import ServeEngine
     from repro_torch.models import transformer as T
 
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = T.init_model(cfg, seed=0, device=dev)
     sync(torch, dev)
@@ -750,15 +836,16 @@ def serve_main_path(torch, dev="cuda"):
     st = eng.stats
     steps = st["decode_steps"]
     generated = sum(len(o) for o in out)
-    want = steps * cfg.n_layers
+    want = serve_launches(cfg, len(reqs), steps)
     ok_tokens = all(len(o) == g and int(o.min()) >= 0
                     and int(o.max()) < cfg.vocab_size
                     for o, (_, g) in zip(out, reqs))
-    emit({"serve": {
-        "cfg": {"name": cfg.name, "n_layers": cfg.n_layers,
-                "d_model": cfg.d_model, "heads": [cfg.n_heads,
-                                                  cfg.n_kv_heads],
+    emit({label: {
+        "cfg": {"name": cfg.name, "family": cfg.family,
+                "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                "heads": [cfg.n_heads, cfg.n_kv_heads],
                 "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+                "ssm": [cfg.ssm_state, cfg.ssm_head_dim, cfg.n_ssm_heads],
                 "vocab": cfg.vocab_size, "dtype": cfg.dtype,
                 "params": n_params},
         "requests": len(reqs), "prompt_lens": [len(p) for p, _ in reqs],
@@ -769,16 +856,20 @@ def serve_main_path(torch, dev="cuda"):
         "tok_per_s": generated / wall,
         "decode_tok_per_s": (generated - len(reqs)) / st["decode_s"],
         "ms_per_decode_step": st["decode_s"] / max(steps, 1) * 1e3,
-        "launches": launches, "expected_k4_launches": want,
+        "launches": launches, "expected_launches": want,
+        "blocks_attention_mamba": trunk_blocks(cfg),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}})
     if not ok_tokens:
-        fail("the serve phase's token streams are malformed")
-    if launches != expected(paged_attention=want) or want == 0:
-        fail(f"launches on the serving path {launches}, expected "
-             f"{want} = {steps} decode steps x {cfg.n_layers} of K4")
+        fail(f"the {label} phase's token streams are malformed")
+    if launches != want or steps == 0:
+        fail(f"launches on the {label} path {launches}, expected {want}: "
+             f"{steps} decode steps x {trunk_blocks(cfg)[0]} of K4, "
+             f"{len(reqs)} prefills x {trunk_blocks(cfg)[1]} of K3f")
     del eng
     torch.cuda.empty_cache()
-    profile_decode(torch, cfg, params, reqs[:8], dev)
+    profile_decode(torch, cfg, params, reqs[:8], dev,
+                   label=f"profile_{label}_decode" if label != "serve"
+                   else "profile_decode")
     return launches
 
 
@@ -790,7 +881,8 @@ def _leaves(tree):
             yield v
 
 
-def profile_decode(torch, cfg, params, reqs, dev="cuda"):
+def profile_decode(torch, cfg, params, reqs, dev="cuda",
+                   label="profile_decode"):
     """One decode step of 8 running requests under torch.profiler, and
     the finite logits of a further step."""
     from torch.profiler import ProfilerActivity, profile
@@ -828,7 +920,7 @@ def profile_decode(torch, cfg, params, reqs, dev="cuda"):
             positions=torch.tensor(eng._seq, device=dev), cache=eng._pools,
             block_tables=eng._bt)
         finite = bool(torch.isfinite(logits).all())
-    emit({"profile_decode": {
+    emit({label: {
         "running": sum(s is not None for s in eng._slots),
         "step_ms": step_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / step_ms,
@@ -958,6 +1050,125 @@ def k2_phase(torch):
     return rows
 
 
+# ------------------------------------------------------------------- K3 --
+
+def k3_inputs(torch, B, S, H, P, G, N, dtype, init, seed, dev="cuda"):
+    """x, dt (float32, as the model passes it), a, b, c, an initial state
+    (zeros unless ``init``), dy and d(final state), on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    x = r(B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(r(B, S, H) - 1.0)
+    a = -torch.exp(r(H) * 0.3)
+    b, c = ((r(B, S, G, N) * 0.3).to(dtype) for _ in range(2))
+    s0 = r(B, H, P, N) * 0.5 if init else torch.zeros(B, H, P, N,
+                                                      device=dev)
+    return x, dt, a, b, c, s0, r(B, S, H, P), r(B, H, P, N)
+
+
+def k3_work(B, S, H, P, G, N, cl, isz):
+    """(forward bytes, forward operations, backward bytes, backward
+    operations) that these inputs need: the live (l >= s) pairs within
+    each chunk's valid positions, 2(N + P) flops a pair forward and
+    2(3N + 2P) backward, 4PN a position forward (y_off, the state
+    deposit) and 10PN backward; each input read and each output written
+    once (the forward writes the chunk states, as in training)."""
+    nc = -(-S // cl)
+    lens = [min(cl, S - i * cl) for i in range(nc)]
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    bh = B * H
+    fwd_ops = bh * (pairs * 2 * (N + P) + 4 * S * P * N)
+    bwd_ops = bh * (pairs * 2 * (3 * N + 2 * P) + 10 * S * P * N)
+    xs, bcs, st = B * S * H * P, B * S * G * N, bh * P * N
+    fwd_bytes = (2 * xs + 2 * bcs) * isz + 4 * (B * S * H + H + 2 * st
+                                                + bh * nc * P * N)
+    bwd_bytes = (xs + 2 * bcs) * isz + 4 * (B * S * H + H + bh * nc * P * N
+                                            + xs + st) \
+        + 4 * (xs + B * S * H + H + 2 * bcs + st)
+    return fwd_bytes, fwd_ops, bwd_bytes, bwd_ops
+
+
+def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
+    """K3f and K3b against their plain versions (the chunked formula in
+    PyTorch and autograd through it), at the small shape also against the
+    sequential recurrence, timed beside their bound. No single PyTorch
+    call computes the SSD scan: library_ms is None."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import ssd_scan as K3
+
+    rows = {"fwd": [], "bwd": []}
+    for name, B, S, H, P, G, N, cl, dname, init in shapes:
+        dtype = getattr(torch, dname)
+        tol = TOL_K3[dname]
+        x, dt, a, b, c, s0, dy, dfin = k3_inputs(
+            torch, B, S, H, P, G, N, dtype, init, S + H + N, dev)
+        y, fin, st = K3.ssd_scan_fwd(x, dt, a, b, c, s0, chunk=cl,
+                                     return_chunk_states=True)
+        torch.cuda.synchronize()
+        py, pfin, pst = K3.ssd_scan_fwd_plain(x, dt, a, b, c, s0, chunk=cl)
+        errs_f = [_grad_err(y, py), _grad_err(fin, pfin),
+                  _grad_err(st, pst)]
+        ok_f = errs_f[0] <= tol and max(errs_f[1:]) <= 1e-4
+        grads = K3.ssd_scan_bwd(x, dt, a, b, c, st, dy, dfin, chunk=cl)
+        torch.cuda.synchronize()
+        want = K3.ssd_scan_bwd_plain(x, dt, a, b, c, pst, dy, dfin, chunk=cl)
+        errs_b = [_grad_err(g, w) for g, w in zip(grads, want)]
+        ok_b = max(errs_b) <= 1e-4
+        oracle = {}
+        if name == "ragged_grouped":       # the sequential recurrence too
+            ry, rfin = R.ssd(x, dt, a, b, c, initial_state=s0)
+            rg = R.ssd_grads(x, dt, a, b, c, s0, dy, dfin)
+            oracle = {"y": _grad_err(y, ry), "final": _grad_err(fin, rfin),
+                      "grads": max(_grad_err(g, w) for g, w in zip(grads,
+                                                                   rg))}
+            ok_f = ok_f and max(oracle["y"], oracle["final"]) <= 1e-4
+            ok_b = ok_b and oracle["grads"] <= 1e-4
+        isz = x.element_size()
+        peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        fb, fo, bb, bo = k3_work(B, S, H, P, G, N, cl, isz)
+        shape = {"name": name, "B": B, "S": S, "H": H, "P": P, "G": G,
+                 "N": N, "chunk": cl, "nc": -(-S // cl),
+                 "initial_state": init}
+        b_ms, b_by = bound(fb, fo, peak)
+        rows["fwd"].append({
+            "shape": shape, "dtype": dname, "ok": ok_f,
+            "max_abs_err": max(float((y.float() - py.float()).abs().max()),
+                               float((fin - pfin).abs().max())),
+            "max_rel_err": {"y": errs_f[0], "final": errs_f[1],
+                            "chunk_states": errs_f[2]},
+            "vs_sequential": oracle.get("y"), "tol": tol,
+            "ms": cuda_ms(torch, lambda: K3.ssd_scan_fwd(
+                x, dt, a, b, c, s0, chunk=cl, return_chunk_states=True)),
+            "plain_ms": cuda_ms(torch, lambda: K3.ssd_scan_fwd_plain(
+                x, dt, a, b, c, s0, chunk=cl)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "ops": fo, "bytes": fb, "ctas": B * H})
+        b_ms, b_by = bound(bb, bo, peak)
+        rows["bwd"].append({
+            "shape": shape, "dtype": dname, "ok": ok_b,
+            "max_abs_err": max(float((g - w).abs().max())
+                               for g, w in zip(grads, want)),
+            "max_rel_err": dict(zip(("dx", "ddt", "da", "db", "dc", "dinit"),
+                                    errs_b)),
+            "vs_sequential": oracle.get("grads"), "tol": 1e-4,
+            "ms": cuda_ms(torch, lambda: K3.ssd_scan_bwd(
+                x, dt, a, b, c, st, dy, dfin, chunk=cl)),
+            "plain_ms": cuda_ms(torch, lambda: K3.ssd_scan_bwd_plain(
+                x, dt, a, b, c, pst, dy, dfin, chunk=cl)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "ops": bo, "bytes": bb, "ctas": B * H})
+        del x, dt, a, b, c, s0, dy, dfin, y, fin, st, py, pfin, pst, grads, \
+            want
+        torch.cuda.empty_cache()
+    for which, rs in rows.items():
+        for r in rs:
+            emit({"kernel_check": {"name": f"ssd_scan_{which}", **r}})
+    bad = [r for rs in rows.values() for r in rs if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} K3 checks disagree with the plain versions: {bad}")
+    return rows
+
+
 # ------------------------------------------------- LLM DENSE on the card --
 
 def _grad_err(a, b) -> float:
@@ -966,54 +1177,98 @@ def _grad_err(a, b) -> float:
                  / b.float().abs().max().clamp(min=1e-30))
 
 
-def train_check(torch, dev="cuda"):
-    """One train step of llama3.2-3b at full width, depth 2, float32
-    without TF32, through the K2 route and the plain ("ref") route from
-    the same weights and batch: loss, grad_norm and every clipped
-    gradient agree to STEP_TOL."""
+def train_launches(cfg) -> dict:
+    """One train step's counts: each attention block K2f (twice with
+    remat: the forward and its recomputation), K2q and K2kv once; each
+    mamba block K3f (twice with remat) and K3b once."""
+    n_attn, n_mamba = trunk_blocks(cfg)
+    r = 2 if cfg.remat else 1
+    return expected(flash_attention_fwd=r * n_attn,
+                    flash_attention_bwd_dq=n_attn,
+                    flash_attention_bwd_dkv=n_attn,
+                    ssd_scan_fwd=r * n_mamba, ssd_scan_bwd=n_mamba)
+
+
+def train_check(torch, dev="cuda", arch="llama3.2-3b", n_layers=2,
+                batch=(8, 256), label="train_check"):
+    """One train step of ``arch`` at full width, ``n_layers`` deep,
+    float32 without TF32, through the kernel route (K2, K3) and the plain
+    ("ref") route from the same weights and batch: loss, grad_norm and
+    every clipped gradient agree to STEP_TOL."""
     from repro_torch.configs import get_config
     from repro_torch.data import lm_batches, make_lm_data
     from repro_torch.launch import steps as ST
     from repro_torch.models import transformer as T
 
-    full = get_config("llama3.2-3b")
-    cfg = full.replace(n_layers=2, dtype="float32", param_dtype="float32")
+    full = get_config(arch)
+    cfg = full.replace(n_layers=n_layers, dtype="float32",
+                       param_dtype="float32")
     params = T.init_model(cfg, seed=3, device=dev)
     toks = make_lm_data(3, vocab=cfg.vocab_size, n_tokens=200_000)
-    x, y = next(lm_batches(toks, 8, 256, seed=3, steps=1))
-    batch = {"tokens": torch.from_numpy(x).to(dev),
-             "labels": torch.from_numpy(y).to(dev)}
+    x, y = next(lm_batches(toks, batch[0], batch[1], seed=3, steps=1))
+    data = {"tokens": torch.from_numpy(x).to(dev),
+            "labels": torch.from_numpy(y).to(dev)}
     out = {}
-    for mode in ("fused", "ref"):
-        c = cfg.replace(kernel_vjp_mode=mode)
+    routes = {"fused": cfg.replace(kernel_vjp_mode="fused"),
+              "ref": cfg.replace(kernel_vjp_mode="ref")}
+    if cfg.ssm_state:       # the plain route at half the chunk: the floor
+        routes["ref_half_chunk"] = cfg.replace(
+            kernel_vjp_mode="ref", ssm_chunk=cfg.ssm_chunk // 2)
+    for mode, c in routes.items():
         state = ST.make_train_state(c, params=params, device=dev)
         state["opt"] = _Capture(state["opt"].params)
+        torch.cuda.reset_peak_memory_stats()
         zero_counts()
-        state, m = ST.make_train_step(c)(state, batch)
+        state, m = ST.make_train_step(c)(state, data)
         sync(torch, dev)
         out[mode] = (float(m["loss"]), float(m["grad_norm"]),
-                     state["opt"].grads, read_counts())
-    (la, na, ga, ca), (lb, nb, gb, cb) = out["fused"], out["ref"]
-    L = cfg.n_layers
+                     state["opt"].grads, read_counts(), _peak_gib(torch))
+        del state, m
+    (la, na, ga, ca, _), (lb, nb, gb, _, _) = out["fused"], out["ref"]
     loss_err = abs(la - lb) / abs(lb)
     norm_err = abs(na - nb) / abs(nb)
-    grad_err = max(_grad_err(a, b) for a, b in zip(ga, gb))
-    want = expected(flash_attention_fwd=2 * L, flash_attention_bwd_dq=L,
-                    flash_attention_bwd_dkv=L)
-    emit({"train_check": {
-        "cfg": {"d_model": cfg.d_model, "n_layers": [full.n_layers, L],
+    names = _leaf_paths(params)
+    is_scalar = [n.rsplit(".", 1)[-1] in SCALARS for n in names]
+    errs = sorted(((_grad_err(a, b), name) for a, b, name in
+                   zip(ga, gb, names)), reverse=True)
+    grad_err = max([e for e, n in errs
+                    if n.rsplit(".", 1)[-1] not in SCALARS], default=0.0)
+    scalar_err = max([e for e, n in errs
+                      if n.rsplit(".", 1)[-1] in SCALARS], default=0.0)
+    floor = None
+    if "ref_half_chunk" in out:
+        gh = out["ref_half_chunk"][2]
+        floor = {"all_but_scalars": max(
+            [_grad_err(a, b) for a, b, sc in zip(gh, gb, is_scalar)
+             if not sc]),
+                 "scalars": max(_grad_err(a, b) for a, b, sc in
+                                zip(gh, gb, is_scalar) if sc)}
+    want = train_launches(cfg)
+    emit({label: {
+        "arch": arch,
+        "cfg": {"d_model": cfg.d_model,
+                "n_layers": [full.n_layers, cfg.n_layers],
                 "vocab": cfg.vocab_size, "dtype": cfg.dtype,
-                "remat": cfg.remat, "batch": [8, 256]},
+                "remat": cfg.remat, "batch": list(batch),
+                "chunk": cfg.ssm_chunk if cfg.ssm_state else None},
         "loss": [la, lb], "grad_norm": [na, nb], "loss_rel_err": loss_err,
         "grad_norm_rel_err": norm_err, "grads_max_err_rel_to_max": grad_err,
-        "launches": {"fused": ca, "ref": cb}, "tol": STEP_TOL}})
-    if max(loss_err, norm_err, grad_err) > STEP_TOL:
-        fail(f"the K2 train step disagrees with the plain route: loss "
-             f"{loss_err}, grad_norm {norm_err}, gradients {grad_err}")
-    if ca != want or cb != expected():
-        fail(f"train_check launches {ca} (K2 route), {cb} (ref), expected "
-             f"{want} and none")
-    del params, state, out
+        "scalar_grads_max_err_rel_to_max": scalar_err if any(is_scalar)
+        else None, "worst_grads": errs[:6],
+        "plain_half_chunk_vs_plain": floor,
+        "launches": {k: v[3] for k, v in out.items()},
+        "peak_mem_gib": {k: v[4] for k, v in out.items()}, "tol": STEP_TOL,
+        "scalar_tol": SCALAR_TOL if any(is_scalar) else None}})
+    if max(loss_err, norm_err, grad_err) > STEP_TOL \
+            or scalar_err > SCALAR_TOL:
+        fail(f"{label}: the kernel train step disagrees with the plain "
+             f"route: loss {loss_err}, grad_norm {norm_err}, gradients "
+             f"{grad_err}, per-head scalars {scalar_err}")
+    plain = {k: v[3] for k, v in out.items() if k != "fused"}
+    if ca != want or any(c != expected() for c in plain.values()):
+        fail(f"{label} launches {ca} (kernel route), {plain} (plain), "
+             f"expected {want} and none")
+    del params, out, ga, gb
     torch.cuda.empty_cache()
 
 
@@ -1070,20 +1325,44 @@ def dense_llm_check(torch, devices=("cuda", "cpu")):
     if max(scalar_err, g_err, s_err) > STEP_TOL:
         fail(f"the DENSE LLM steps on the card disagree with the CPU: "
              f"losses {scalar_err}, generator {g_err}, student {s_err}")
-    if not all(ca[k] for k in ca if k != "paged_attention"):
+    if not all(ca[k] for k in ca if k.startswith(("distill_kl",
+                                                   "flash_attention"))):
         fail(f"dense_llm_check launched not every K1/K2 kernel: {ca}")
+
+
+def _leaf_paths(tree: dict, prefix: str = "") -> list:
+    """The dotted paths of a nested dict's tensors, in ``leaves`` order."""
+    return [p for k, v in tree.items()
+            for p in (_leaf_paths(v, f"{prefix}{k}.") if isinstance(v, dict)
+                      else [prefix + k])]
 
 
 def _peak_gib(torch) -> float:
     return torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def llm_main_path(torch, dev="cuda"):
-    """The LLM DENSE main path at full width (``dense_llm_oneshot.full()``:
-    two llama3.2-3b clients and a llama3.2-3b student, 28 layers,
-    bfloat16): each client's local train steps, the one-shot upload, then
-    per epoch t_g generator steps and one student step. Every launch
-    count is zeroed before each step and checked after it."""
+def server_launches(cfg, n: int, which: str) -> dict:
+    """The counts of one server step of a federation of ``n`` clients and
+    a student of one config: a generator step runs every trunk forward
+    and backward (to the embeddings), a student step every trunk forward
+    and the student's backward; each one K1 pair."""
+    n_attn, n_mamba = trunk_blocks(cfg)
+    bwd = n + 1 if which == "gen_step" else 1
+    return expected(flash_attention_fwd=(n + 1) * n_attn,
+                    flash_attention_bwd_dq=bwd * n_attn,
+                    flash_attention_bwd_dkv=bwd * n_attn,
+                    ssd_scan_fwd=(n + 1) * n_mamba,
+                    ssd_scan_bwd=bwd * n_mamba,
+                    distill_kl_fwd=1, distill_kl_bwd=1)
+
+
+def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
+    """An LLM DENSE main path at full width (``dense_llm_oneshot.full()``
+    by default: two llama3.2-3b clients and a llama3.2-3b student, 28
+    layers, bfloat16; ``full_ssm()``: three mamba2-130m): each client's
+    local train steps, the one-shot upload, then per epoch t_g generator
+    steps and one student step. Every launch count is zeroed before each
+    step and checked after it."""
     from repro_torch.core import dense_llm as DL
     from repro_torch.core.generator import tok_generator_init
     from repro_torch.data import lm_batches, make_lm_data
@@ -1092,10 +1371,14 @@ def llm_main_path(torch, dev="cuda"):
     from repro_torch.launch import steps as ST
     from repro_torch.models import transformer as T
 
-    oc = ONE.full()
+    oc = ONE.full() if oc is None else oc
     cfgs = [oc.arch_config(a) for a in oc.client_archs]
     n, L = len(cfgs), cfgs[0].n_layers
-    emit({"llm_cuts": {
+    if any(c != cfgs[0] for c in cfgs) or oc.arch_config(
+            oc.student_arch) != cfgs[0]:
+        fail(f"{label}: the launch counts assume one config for every "
+             "client and the student")
+    emit({f"{label}_cuts": {
         "clients": list(oc.client_archs), "student": oc.student_arch,
         "n_layers": L, "d_model": cfgs[0].d_model,
         "vocab": cfgs[0].vocab_size, "dtype": cfgs[0].dtype,
@@ -1131,10 +1414,8 @@ def llm_main_path(torch, dev="cuda"):
             b = {"tokens": torch.from_numpy(x).to(dev),
                  "labels": torch.from_numpy(y).to(dev)}
             (state, m), dt, peak = stage(
-                lambda: step(state, b),
-                expected(flash_attention_fwd=2 * L,
-                         flash_attention_bwd_dq=L,
-                         flash_attention_bwd_dkv=L), f"client {i}'s train step")
+                lambda: step(state, b), train_launches(cfg),
+                f"client {i}'s train step")
             train_s.append(dt)
             train_peak.append(peak)
             client_loss.append(float(m["loss"]))
@@ -1158,13 +1439,8 @@ def llm_main_path(torch, dev="cuda"):
                                 device=dev)
     g_opt, s_opt = make_g_opt(gen), make_s_opt(student)
     draws = torch.Generator(device=dev).manual_seed(ONE.SEED)
-    want_gen = expected(flash_attention_fwd=(n + 1) * L,
-                        flash_attention_bwd_dq=(n + 1) * L,
-                        flash_attention_bwd_dkv=(n + 1) * L,
-                        distill_kl_fwd=1, distill_kl_bwd=1)
-    want_stu = expected(flash_attention_fwd=(n + 1) * L,
-                        flash_attention_bwd_dq=L, flash_attention_bwd_dkv=L,
-                        distill_kl_fwd=1, distill_kl_bwd=1)
+    want_gen = server_launches(stu_cfg, n, "gen_step")
+    want_stu = server_launches(stu_cfg, n, "student_step")
     hist = {"gen_loss": [], "gen_parts": [], "dis_loss": []}
     gen_s, stu_s, gen_peak, stu_peak, epoch_s = [], [], [], [], []
     totals = {k: 0 for k in read_counts()}
@@ -1189,22 +1465,21 @@ def llm_main_path(torch, dev="cuda"):
         hist["gen_loss"].append(float(gl))
         hist["gen_parts"].append({k: float(v) for k, v in parts.items()})
         hist["dis_loss"].append(float(dl))
-    for want, k in ((expected(flash_attention_fwd=2 * L,
-                              flash_attention_bwd_dq=L,
-                              flash_attention_bwd_dkv=L),
-                     n * oc.client_steps),
+    for want, k in ((train_launches(cfgs[0]), n * oc.client_steps),
                     (want_gen, oc.epochs * ONE.T_G), (want_stu, oc.epochs)):
         for name, c in want.items():
             totals[name] += c * k
     losses = client_loss + hist["gen_loss"] + hist["dis_loss"] + [
         v for p in hist["gen_parts"] for v in p.values()]
     if not all(v == v and abs(v) != float("inf") for v in losses):
-        fail(f"LLM main-path losses are not finite: {hist}, {client_loss}")
+        fail(f"{label} main-path losses are not finite: {hist}, "
+             f"{client_loss}")
     if ledger.rounds != 1 or ledger.downlink_bytes != 0 or \
             ledger.uplink_bytes != sum(param_bytes(p) for p in client_params):
         fail(f"not one-shot: {ledger.rounds} rounds, "
              f"{ledger.downlink_bytes} B down")
-    emit({"llm_main_path": {
+    emit({f"{label}_main_path": {
+        "arch": oc.student_arch,
         "params_per_model": sum(t.numel() for t in T.leaves(student)),
         "seconds": {"train_step": train_s, "gen_step": gen_s,
                     "student_step": stu_s, "epoch": epoch_s},
@@ -1215,10 +1490,9 @@ def llm_main_path(torch, dev="cuda"):
         "peak_mem_gib": {"train_step": max(train_peak),
                          "gen_step": max(gen_peak),
                          "student_step": max(stu_peak)},
-        "launches_per_step": {"train_step": expected(
-            flash_attention_fwd=2 * L, flash_attention_bwd_dq=L,
-            flash_attention_bwd_dkv=L), "gen_step": want_gen,
-            "student_step": want_stu},
+        "launches_per_step": {"train_step": train_launches(cfgs[0]),
+                              "gen_step": want_gen,
+                              "student_step": want_stu},
         "launches_total": totals,
         "uplink_bytes": ledger.uplink_bytes, "rounds": ledger.rounds,
         "client_loss": client_loss, **hist}})
@@ -1226,10 +1500,10 @@ def llm_main_path(torch, dev="cuda"):
                     client_params, oc, stu_cfg, draws)
 
 
-def profile_llm_epoch(torch, ctx, dev="cuda"):
-    """One server epoch of the LLM main path (t_g generator steps and a
+def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
+    """One server epoch of an LLM main path (t_g generator steps and a
     student step) under torch.profiler: device idle share, top kernels,
-    K2's share."""
+    K2's and K3's shares."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.dense_llm_oneshot import T_G
@@ -1256,8 +1530,11 @@ def profile_llm_epoch(torch, ctx, dev="cuda"):
         epoch()
     per_kernel = device_ms(prof)
     busy_ms = sum(per_kernel.values())
-    k2 = {w: sum(v for k, v in per_kernel.items() if f"{w}_kernel<" in k)
+    k2 = {w: sum(v for k, v in per_kernel.items()
+                 if f"{w}_kernel<" in k and "ssd_" not in k)
           for w in ("fwd", "dq", "dkv")}
+    k3 = {w: sum(v for k, v in per_kernel.items()
+                 if f"ssd_{w}_kernel<" in k) for w in ("fwd", "bwd")}
     k1_ms = sum(v for k, v in per_kernel.items() if "_kl_" in k)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
     # where the host's time goes: self CPU time by operator, and the
@@ -1268,15 +1545,20 @@ def profile_llm_epoch(torch, ctx, dev="cuda"):
                   key=lambda t: -t[1])[:12]
     n_kernels = sum(e.count for e in prof.key_averages()
                     if e.key in per_kernel)
-    emit({"profile_llm_epoch": {
+    emit({label: {
         "epoch_ms": epoch_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / epoch_ms,
         "k2_ms": k2, "k2_share_of_busy": sum(k2.values()) / busy_ms
-        if busy_ms else None, "k1_ms": k1_ms,
+        if busy_ms else None, "k3_ms": k3,
+        "k3_share_of_busy": sum(k3.values()) / busy_ms if busy_ms else None,
+        "k1_ms": k1_ms,
         "n_kernel_names": len(per_kernel), "kernels_launched": n_kernels,
         "top_kernels_ms": top, "top_host_ops_self_ms_count": host}})
-    if busy_ms == 0 or not all(k2.values()):
-        fail(f"the profiler saw no K2 time in an LLM epoch: {k2}")
+    n_attn, n_mamba = trunk_blocks(stu_cfg)
+    if busy_ms == 0 or (n_attn and not all(k2.values())) or (
+            n_mamba and not all(k3.values())):
+        fail(f"{label}: the profiler saw no device time of a kernel the "
+             f"epoch runs: K2 {k2}, K3 {k3}")
 
 
 # ----------------------------------------------------------------- main --
@@ -1298,10 +1580,28 @@ def k2_entry(name, rs, line, launches):
             "dtype": main["dtype"], "by_shape": rs}
 
 
+def k3_entry(name, rs, line, launches):
+    """The kernels line's entry of a K3 kernel: mamba2-130m's train shape
+    in bfloat16 (the SSM LLM main path's train step), its launches over
+    that path."""
+    main = next(r for r in rs if r["shape"]["name"] == "mamba2_train"
+                and r["dtype"] == "bfloat16")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": f"src/repro/kernels/ssd_scan.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "shape": main["shape"],
+            "dtype": main["dtype"], "by_shape": rs}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     torch, smi = setup()
     from repro_torch.configs import CONFIG
+    from repro_torch.launch import dense_llm_oneshot as ONE
 
     rows = kernel_phase(torch)
     k4_rows = k4_phase(torch)
@@ -1328,6 +1628,19 @@ def main() -> None:
     llm_launches, llm_ctx = llm_main_path(torch)
     profile_llm_epoch(torch, llm_ctx)
     del llm_ctx
+    torch.cuda.empty_cache()
+    k3_rows = k3_phase(torch)
+    serve_check(torch, arch="zamba2-7b", n_layers=7, label="ssm_serve_check",
+                prompt_range=(16, 301), max_len=336)
+    serve_check(torch, arch="mamba2-130m", n_layers=2,
+                label="ssm_serve_check", prompt_range=(16, 301), max_len=336)
+    serve_main_path(torch, arch="zamba2-7b", label="ssm_serve")
+    train_check(torch, arch="zamba2-7b", n_layers=7, batch=(2, 512),
+                label="ssm_train_check")
+    ssm_launches, ssm_ctx = llm_main_path(torch, oc=ONE.full_ssm(),
+                                          label="ssm_llm")
+    profile_llm_epoch(torch, ssm_ctx, label="profile_ssm_llm_epoch")
+    del ssm_ctx
 
     def entry(name, rs, replaces):
         main = next(r for r in rs if r["shape"] == list(MAIN_SHAPE)
@@ -1365,7 +1678,10 @@ def main() -> None:
           for name, which, line in (
               ("flash_attention_fwd", "fwd", 171),
               ("flash_attention_bwd_dq", "dq", 342),
-              ("flash_attention_bwd_dkv", "dkv", 370)))]})
+              ("flash_attention_bwd_dkv", "dkv", 370))),
+        *(k3_entry(name, k3_rows[which], line, ssm_launches)
+          for name, which, line in (("ssd_scan_fwd", "fwd", 143),
+                                    ("ssd_scan_bwd", "bwd", 278)))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

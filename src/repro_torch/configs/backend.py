@@ -11,8 +11,11 @@ device the tensors live on:
     ``kernel_vjp="fused"``: K2 (kernels/flash_attention.py, behind
     ``FlashAttention`` with its own backward) runs every attention layer
     without a cache, in training, in the LLM DENSE steps and in the
-    ensemble's forward; K4 (kernels/paged_attention.py) serves every
-    paged decode step.
+    ensemble's forward; K3 (kernels/ssd_scan.py, K3f and K3b behind
+    ``SSDScan``) runs every mamba block outside decode: in training, in
+    the LLM DENSE steps and in every serving prefill, seeded with the
+    cache's state; K4 (kernels/paged_attention.py) serves every paged
+    decode step.
 
 A knob set on the config (``scfg.distill_kl_mode``,
 ``cfg.kernel_vjp_mode`` and friends) wins over the profile. Modes the

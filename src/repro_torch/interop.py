@@ -23,10 +23,15 @@ The LM stack (``models/transformer.py``) keeps the reference's tree and
 layouts as they are: ``embed.table``, ``final_norm.scale`` and the
 stacked ``blocks`` (``attn.{wq,wk,wv,wo}.w``, ``mlp.{gate,up,down}.w``,
 ``norm1/norm2.scale``, and the q, k and v biases ``attn.{wq,wk,wv}.b``
-where ``cfg.qkv_bias``), with linear weights (d_in, d_out) and a leading
-layer axis. ``lm_params_from_reference`` and ``paged_cache_from_reference``
-carry such trees (and a block pool with its block table) across as they
-are; bfloat16 arrays keep their bits. The reverse direction returns
+where ``cfg.qkv_bias``; a mamba block's ``norm.scale`` and
+``mamba.{in_z,in_x,in_bc,in_dt,out_proj}.w``, ``conv_x/conv_bc.{w,b}``
+with w (K, C), ``a_log``, ``dt_bias``, ``d_skip`` and ``norm.scale``;
+a hybrid's ``tail`` and ``shared`` too), with linear weights
+(d_in, d_out) and the leading layer axes. ``lm_params_from_reference``
+and ``paged_cache_from_reference`` carry such trees (and a block pool,
+SSM slots included, with its block table) across as they are: no leaf is
+transposed, and every leaf keeps its dtype (bfloat16 arrays their bits,
+the float32 SSM scalars and states their float32). The reverse direction returns
 numpy, bfloat16 widened exactly to float32.
 """
 from __future__ import annotations
@@ -39,6 +44,7 @@ from repro_torch.core.generator import (ImgGenerator, TokGenerator,
                                        img_generator_init,
                                        tok_generator_init)
 from repro_torch.models.cnn import CNN, CNNSpec, cnn_init
+from repro_torch.models.transformer import hybrid_shape
 
 
 def _flatten(tree, prefix=""):
@@ -98,28 +104,71 @@ def tree_to_reference(tree):
     return _numpy(tree)
 
 
-def lm_params_from_reference(tree, cfg, *, device="cuda") -> dict:
-    """The reference's LM parameter tree (``transformer.init_model``, the
-    dense or audio family) as the port's, checked against ``cfg``'s
-    shapes (the q, k and v biases where ``cfg.qkv_bias``)."""
-    params = tree_from_reference(tree, device=device)
-    d, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
-    want = {("embed", "table"): (cfg.vocab_size, d),
-            ("final_norm", "scale"): (d,),
-            ("blocks", "attn", "wq", "w"): (L, d, cfg.n_heads * hd),
-            ("blocks", "attn", "wk", "w"): (L, d, cfg.n_kv_heads * hd),
-            ("blocks", "attn", "wv", "w"): (L, d, cfg.n_kv_heads * hd),
-            ("blocks", "attn", "wo", "w"): (L, cfg.n_heads * hd, d),
-            ("blocks", "mlp", "gate", "w"): (L, d, cfg.d_ff),
-            ("blocks", "mlp", "up", "w"): (L, d, cfg.d_ff),
-            ("blocks", "mlp", "down", "w"): (L, cfg.d_ff, d),
-            ("blocks", "norm1", "scale"): (L, d),
-            ("blocks", "norm2", "scale"): (L, d)}
+def _dense_shapes(cfg, lead: tuple) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    want = {("attn", "wq", "w"): (*lead, d, cfg.n_heads * hd),
+            ("attn", "wk", "w"): (*lead, d, cfg.n_kv_heads * hd),
+            ("attn", "wv", "w"): (*lead, d, cfg.n_kv_heads * hd),
+            ("attn", "wo", "w"): (*lead, cfg.n_heads * hd, d),
+            ("mlp", "gate", "w"): (*lead, d, cfg.d_ff),
+            ("mlp", "up", "w"): (*lead, d, cfg.d_ff),
+            ("mlp", "down", "w"): (*lead, cfg.d_ff, d),
+            ("norm1", "scale"): (*lead, d),
+            ("norm2", "scale"): (*lead, d)}
     if cfg.qkv_bias:
         for name, width in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
                             ("wv", cfg.n_kv_heads)):
-            want[("blocks", "attn", name, "b")] = (L, width * hd)
-    got = dict(_shapes(params))
+            want[("attn", name, "b")] = (*lead, width * hd)
+    return want
+
+
+def _ssm_shapes(cfg, lead: tuple) -> dict:
+    """A mamba block's leaves: linears (d_in, d_out), conv weights (K, C)
+    (not transposed), a_log, dt_bias and d_skip per head."""
+    d, di, h = cfg.d_model, cfg.d_inner, cfg.n_ssm_heads
+    gn2 = 2 * cfg.ssm_n_groups * cfg.ssm_state
+    m = {("in_z", "w"): (d, di), ("in_x", "w"): (d, di),
+         ("in_bc", "w"): (d, gn2), ("in_dt", "w"): (d, h),
+         ("conv_x", "w"): (cfg.ssm_conv, di), ("conv_x", "b"): (di,),
+         ("conv_bc", "w"): (cfg.ssm_conv, gn2), ("conv_bc", "b"): (gn2,),
+         ("a_log",): (h,), ("dt_bias",): (h,), ("d_skip",): (h,),
+         ("norm", "scale"): (di,), ("out_proj", "w"): (di, d)}
+    want = {("mamba", *k): (*lead, *v) for k, v in m.items()}
+    want[("norm", "scale")] = (*lead, d)
+    return want
+
+
+def lm_param_shapes(cfg) -> dict:
+    """{leaf path: shape} of ``transformer.init_model(cfg)``'s tree."""
+    want = {("embed", "table"): (cfg.vocab_size, cfg.d_model),
+            ("final_norm", "scale"): (cfg.d_model,)}
+
+    def put(name, shapes):
+        want.update({(name, *k): v for k, v in shapes.items()})
+
+    if cfg.family in ("dense", "audio"):
+        put("blocks", _dense_shapes(cfg, (cfg.n_layers,)))
+    elif cfg.family == "ssm":
+        put("blocks", _ssm_shapes(cfg, (cfg.n_layers,)))
+    elif cfg.family == "hybrid":
+        n_super, tail = hybrid_shape(cfg)
+        put("blocks", _ssm_shapes(cfg, (n_super, cfg.attn_every)))
+        if tail:
+            put("tail", _ssm_shapes(cfg, (tail,)))
+        put("shared", _dense_shapes(cfg, ()))
+    else:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    return want
+
+
+def lm_params_from_reference(tree, cfg, *, device="cuda") -> dict:
+    """The reference's LM parameter tree (``transformer.init_model``, a
+    dense, audio, ssm or hybrid family) as the port's, checked against
+    ``cfg``'s shapes (``lm_param_shapes``: the q, k and v biases where
+    ``cfg.qkv_bias``; conv weights (K, C) as they are). Every leaf keeps
+    its dtype: ``a_log``, ``dt_bias`` and ``d_skip`` stay float32."""
+    params = tree_from_reference(tree, device=device)
+    got, want = dict(_shapes(params)), lm_param_shapes(cfg)
     if got != want:
         raise ValueError(f"the parameter tree does not fit {cfg.name}: "
                          f"{got} against {want}")

@@ -7,7 +7,7 @@
 //   K2kv flash_attention_bwd, dk/dv pass  (pallas_call at :370)
 // Inputs, as there (each contiguous):
 //   q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D) in float32, bfloat16 or
-//   float16; query head h reads KV head h / (Hq / Hkv); the q tokens are
+//   float16, D one of 32, 64, 112 (zamba2's shared block) and 128; query head h reads KV head h / (Hq / Hkv); the q tokens are
 //   the last Sq of the Sk keys (seq_off = Sk - Sq).
 //   K2f writes o_f32 (B*Hq, Sq, D) and lse (B*Hq, Sq), both float32.
 //   K2q and K2kv read dO (B*Hq, Sq, D) in float32, lse and
@@ -503,6 +503,7 @@ struct Args {
 
 template <typename T, int D>
 int run(int which, const Args& a) {
+  static_assert(D % 16 == 0, "a thread's columns are tx + 16 j, j < D / 16");
   const dim3 threads(kThreads);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -537,6 +538,7 @@ int run_d(int which, int d, const Args& a) {
   switch (d) {
     case 32: return run<T, 32>(which, a);
     case 64: return run<T, 64>(which, a);
+    case 112: return run<T, 112>(which, a);
     case 128: return run<T, 128>(which, a);
     default: return (int)cudaErrorInvalidValue;
   }

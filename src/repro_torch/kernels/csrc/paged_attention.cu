@@ -9,6 +9,7 @@
 //                                    [j*page, (j+1)*page)
 //   seq_lens     (R,) int32          live cached tokens per request
 //   out          (R, Hq, D)          in q's dtype; arithmetic in float32
+// Head dims 32, 64, 112 (zamba2's shared block) and 128.
 //
 // Design. One CTA of 128 threads per (KV head, request). The G = Hq/Hkv
 // query heads of that KV head are staged in shared memory in float32.
@@ -91,8 +92,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ seq_lens, T* __restrict__ out,
                        int hq, int hkv, int page, int m_slots, float scale) {
-  static_assert(D % 32 == 0, "head dim must be a multiple of the warp");
-  constexpr int kPerLane = D / 32;
+  // a warp's lanes split D; at D = 112 (zamba2) the last slice is ragged
+  constexpr int kPerLane = (D + 31) / 32;
   const int h = blockIdx.x, r = blockIdx.y;
   const int n_g = hq / hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -143,12 +144,13 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       if (t < live) {
         float kv[kPerLane];
 #pragma unroll
-        for (int i = 0; i < kPerLane; ++i) kv[i] = k_s[t * D + lane + 32 * i];
+        for (int i = 0; i < kPerLane; ++i)
+          kv[i] = lane + 32 * i < D ? k_s[t * D + lane + 32 * i] : 0.f;
         for (int g = 0; g < n_g; ++g) {
           float s = 0.f;
 #pragma unroll
           for (int i = 0; i < kPerLane; ++i)
-            s += q_s[g * D + lane + 32 * i] * kv[i];
+            if (lane + 32 * i < D) s += q_s[g * D + lane + 32 * i] * kv[i];
           s = warp_sum(s);
           if (lane == 0) p_s[g * page + t] = s * scale;
         }
@@ -221,6 +223,10 @@ int launch_d(int d, const void* q, const void* k, const void* v,
     case 64:
       launch<T, 64>(q, k, v, bt, seq, out, r, hq, hkv, page, m_slots, scale,
                     smem, stream);
+      break;
+    case 112:
+      launch<T, 112>(q, k, v, bt, seq, out, r, hq, hkv, page, m_slots, scale,
+                     smem, stream);
       break;
     case 128:
       launch<T, 128>(q, k, v, bt, seq, out, r, hq, hkv, page, m_slots, scale,

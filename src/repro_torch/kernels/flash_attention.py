@@ -49,7 +49,7 @@ launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
 
 # torch dtype -> the C interface's dtype code
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (32, 64, 128)          # the kernels' template instances
+HEAD_DIMS = (32, 64, 112, 128)     # the kernels' template instances
 _fn: dict = {}
 
 

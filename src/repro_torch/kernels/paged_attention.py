@@ -39,7 +39,7 @@ launches = {"paged_attention": 0}
 
 # torch dtype -> the C interface's dtype code
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (32, 64, 128)          # the kernel's template instances
+HEAD_DIMS = (32, 64, 112, 128)     # the kernel's template instances
 _SMEM_LIMIT = 48 * 1024            # static launch limit of dynamic smem
 _fn: list = []
 

@@ -1,5 +1,5 @@
 """Plain PyTorch oracles for the kernels (``repro/kernels/ref.py:17-59,
-62-92, 140-160``).
+62-137, 140-160``).
 
 Each uses the most direct formulation (materialized log-softmax, torch
 autograd), so a test compares two different derivations, not two copies
@@ -97,3 +97,41 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
     p = torch.where(live, p, 0.0)
     out = torch.einsum("rkgt,rtkd->rkgd", p, v)
     return out.reshape(R, hq, d).to(q.dtype)
+
+
+def ssd(x, dt, a, b, c, *, initial_state=None):
+    """Step-by-step SSM recurrence, the O(S) sequential oracle of K3
+    (``kernels/ssd_scan.py``).
+
+    x: (B, S, H, P), dt: (B, S, H), a: (H,), b/c: (B, S, G, N); head h
+    reads group h·G // H.
+    s_t = exp(dt_t a) s_{t-1} + dt_t (x_t ⊗ b_t);  y_t = s_t · c_t.
+    Returns (y (B, S, H, P) in x's dtype, final_state (B, H, P, N)
+    float32)."""
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    rep = H // G
+    bb = b.repeat_interleave(rep, dim=2).float()
+    cc = c.repeat_interleave(rep, dim=2).float()
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    s = torch.zeros((B, H, P, N), device=x.device) if initial_state is None \
+        else initial_state.float()
+    ys = []
+    for t in range(S):
+        da = torch.exp(dtf[:, t] * af[None, :])                  # (B, H)
+        s = s * da[..., None, None] + torch.einsum(
+            "bh,bhp,bhn->bhpn", dtf[:, t], xf[:, t], bb[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", s, cc[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((B, 0, H, P))
+    return y.to(x.dtype), s
+
+
+def ssd_grads(x, dt, a, b, c, initial_state, g_y, g_state):
+    """Autograd of ``ssd`` under the cotangents (g_y, g_state): (dx, ddt,
+    da, db, dc, dinitial_state), the ground truth for the K3 backward."""
+    leaves = [t.detach().requires_grad_(True)
+              for t in (x, dt, a, b, c, initial_state)]
+    with torch.enable_grad():
+        y, final = ssd(*leaves[:5], initial_state=leaves[5])
+        return torch.autograd.grad((y, final), leaves,
+                                   (g_y.to(y.dtype), g_state.float()))

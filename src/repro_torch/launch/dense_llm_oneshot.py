@@ -3,7 +3,7 @@ federation of decoder LMs trains locally, uploads once, and the server
 runs the two DENSE stages with the token generator.
 
     PYTHONPATH=src python -m repro_torch.launch.dense_llm_oneshot \
-        [--smoke] [--device cpu]
+        [--smoke] [--ssm] [--device cpu]
 
 ``--smoke`` runs the example's heterogeneous federation at smoke widths:
 llama, qwen (QKV bias) and musicgen (audio) clients and a phi3 student,
@@ -11,7 +11,10 @@ sharing a 256-token vocabulary. Without it, the federation at full width
 on the card: two llama3.2-3b clients and a llama3.2-3b student (DENSE's
 clients must share a vocabulary), with ``launch/train.py``'s defaults for
 local training and the reference's server defaults
-(``core/dense_llm.py:103-111``). ``LLMOneShotConfig`` holds both.
+(``core/dense_llm.py:103-111``); ``--ssm`` takes ``full_ssm()`` instead,
+two mamba2-130m clients and a mamba2-130m student (with ``--smoke``: a
+mamba2 and a zamba2 client and a mamba2 student at smoke widths).
+``LLMOneShotConfig`` holds each.
 
 Each client trains on its own Markov stream (``make_lm_data(seed=i)``, a
 disjoint dialect) with the LM train step, and its upload is recorded in
@@ -24,6 +27,7 @@ ones); by default they come from a ``torch.Generator`` seeded ``SEED``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Callable
@@ -84,6 +88,20 @@ def full() -> LLMOneShotConfig:
         smoke=False, vocab=None, client_steps=3, client_seq=256,
         client_lr=3e-4, client_tokens=200_000, batch=4, gen_seq=256, nz=64,
         d_g=256, epochs=2, s_lr=1e-4)
+
+
+def full_ssm() -> LLMOneShotConfig:
+    """``full()`` with the ssm family: two mamba2-130m clients and a
+    mamba2-130m student at full width and depth (24 layers, d_model 768,
+    vocab 50280), the same local training and server settings."""
+    return dataclasses.replace(full(), client_archs=("mamba2-130m",) * 2,
+                               student_arch="mamba2-130m")
+
+
+# the ssm federation at smoke widths: a mamba2 and a zamba2 client, a
+# mamba2 student
+SMOKE_SSM = LLMOneShotConfig(client_archs=("mamba2-130m", "zamba2-7b"),
+                             student_arch="mamba2-130m")
 
 
 @dataclass
@@ -194,9 +212,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true",
                     help="the example's federation at smoke widths")
+    ap.add_argument("--ssm", action="store_true",
+                    help="the ssm federation (mamba2 clients and student)")
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
-    oc = LLMOneShotConfig() if a.smoke else full()
+    if a.ssm:
+        oc = SMOKE_SSM if a.smoke else full_ssm()
+    else:
+        oc = LLMOneShotConfig() if a.smoke else full()
     res = dense_llm_oneshot(oc, device=a.device)
     print(f"done: {len(res.client_cfgs)} clients, {res.ledger.rounds} round,"
           f" {res.ledger.uplink_bytes} B up; a global student distilled from"

@@ -10,10 +10,12 @@ Two modes:
   * ``"paged"`` (the default where the family supports it) — continuous
     batching over the block pool (launch/paging.py). One decode step
     advances every running request at once through
-    ``transformer.forward_paged``, K4 on the card. Admission runs an
-    exact-length dense prefill of the request and scatters the filled
-    cache into its blocks, so a new request joins the running batch
-    without touching the others.
+    ``transformer.forward_paged``, K4 on the card for every attention
+    block, the mamba blocks' one-token step on their slots. Admission
+    runs an exact-length dense prefill of the request (K3f on the card
+    for every mamba block) and scatters the filled cache into its blocks
+    and slot, so a new request joins the running batch without touching
+    the others.
   * ``"dense"`` — the sequential reference: one request at a time with a
     batch-1 dense cache, the oracle paged mode is held to.
 

@@ -1,5 +1,5 @@
-"""The block-pool KV cache of the serving engine
-(``repro/launch/paging.py:38-193``, the dense family).
+"""The block-pool cache of the serving engine
+(``repro/launch/paging.py:38-193``: the dense, ssm and hybrid families).
 
   * **KV pool** — per attention layer stack, ``(L, P, page, Kh, Dh)``:
     ``P`` blocks of ``page`` tokens. Position ``t`` of the request in
@@ -7,23 +7,29 @@
     t % page)``.
   * **block tables** — ``(max_reqs, M)`` int32, ``M = ceil(max_len /
     page)``; unassigned entries stay 0.
+  * **SSM slots** — every mamba block's state (``ssm``, ``conv_x``,
+    ``conv_bc``) with its batch axis sized to ``max_reqs`` slots, stacked
+    as the block's parameters; the state is O(1) a request, so it is
+    indexed by slot, not paged. A hybrid has both: slots for its mamba
+    blocks, a KV pool per application of its shared block.
   * **free list** — the host-side LIFO ``BlockAllocator``, with the
     reference's order, so block ids (and so pools) compare one to one.
     **Block 0 is reserved** as the null sink: inactive slots keep
     all-zero table rows, so their masked decode writes land there.
 
-Prefill stays dense: a request runs an exact-length ``forward`` prefill,
-then ``scatter_prefill`` copies the filled cache into its blocks.
-
-The reference also pages the ssm and hybrid families (per-slot SSM
-state); the port does not have them yet and raises
-``NotImplementedError`` for them, rather than serve them another way.
+Prefill stays dense: a request runs an exact-length ``forward`` prefill
+(padding would advance the SSM recurrence), then ``scatter_prefill``
+copies the filled cache into its blocks and its slot. Every leaf of the
+slot is overwritten: a free slot's state keeps evolving under the
+inactive slots' decode. The audio family's paged cache (the reference
+has one) is not ported and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.backend import resolve_device, resolve_exec_policy
+from repro_torch.models import transformer as T
 
 PAGED_FAMILIES = ("dense", "audio", "ssm", "hybrid")
 
@@ -82,29 +88,44 @@ class BlockAllocator:
             self._free.append(i)
 
 
-def _check_dense(cfg) -> None:
+PORTED_PAGED = ("dense", "ssm", "hybrid")
+
+
+def _check_paged(cfg) -> None:
+    """Raise unless the port pages ``cfg``'s family."""
     if not supports_paged(cfg):
         raise ValueError(f"no paged cache layout for family {cfg.family!r} "
                          f"(sliding_window={cfg.sliding_window}) — use the "
                          "sequential dense engine mode")
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_PAGED:
         raise NotImplementedError(
             f"the paged cache of family {cfg.family!r} is not ported yet "
-            "(ROADMAP.md: ssm and hybrid come with the ssm/hybrid serving "
-            "slice, audio with the dense-mode-only families)")
+            f"(the port pages {PORTED_PAGED}; ROADMAP.md)")
 
 
 def init_paged_cache(cfg, *, max_reqs: int, n_blocks: int, page: int,
                      device="cuda") -> dict:
-    """The pool tree, ``{"layers": {"k", "v"}}`` of zeros in
-    ``(L, P, page, Kh, Dh)`` and ``cfg.dtype`` (unwritten rows are finite).
-    ``max_reqs`` sizes the reference's SSM slots, which the dense family
-    has none of."""
-    _check_dense(cfg)
-    shape = (cfg.n_layers, n_blocks, page, cfg.n_kv_heads, cfg.head_dim)
-    kw = {"dtype": getattr(torch, cfg.dtype), "device": resolve_device(device)}
-    return {"layers": {"k": torch.zeros(shape, **kw),
-                       "v": torch.zeros(shape, **kw)}}
+    """The pool tree, zeros (unwritten rows are finite), in ``init_cache``'s
+    structure: each attention stack's ``{"k", "v"}`` as ``(L, P, page,
+    Kh, Dh)`` blocks in ``cfg.dtype``, each mamba stack's states with
+    ``max_reqs`` slots."""
+    _check_paged(cfg)
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+
+    def kv_pool(n):
+        shape = (n, n_blocks, page, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+    if cfg.family == "dense":
+        return {"layers": kv_pool(cfg.n_layers)}
+    # the mamba states of a batch of max_reqs (one slot a request) from
+    # init_cache; a hybrid's shared-block cache becomes its block pool
+    c = T.init_cache(cfg, max_reqs, 0, device=dev)
+    if "shared" in c:
+        c["shared"] = kv_pool(T.hybrid_shape(cfg)[0])
+    return c
 
 
 def _scatter_kv(pool: dict, cache: dict, row: torch.Tensor) -> dict:
@@ -122,14 +143,31 @@ def _scatter_kv(pool: dict, cache: dict, row: torch.Tensor) -> dict:
     return pool
 
 
+def _scatter_slot(slots: dict, state: dict, slot: int, *, lead: int = 1):
+    """A batch-1 SSM state tree -> slot ``slot`` of the slot-indexed tree
+    (``lead`` stack axes before the batch axis), every leaf, in place."""
+    pre = (slice(None),) * lead
+    for k, t in state.items():
+        slots[k][pre + (slot,)] = t[pre + (0,)].to(slots[k].dtype)
+    return slots
+
+
 def scatter_prefill(cfg, pools: dict, block_tables: torch.Tensor,
                     filled: dict, slot: int, row: torch.Tensor):
     """Install one admitted request: copy its filled exact-length dense
     prefill cache (``init_cache(cfg, 1, p)`` after ``forward``) into the
-    pool and point block-table row ``slot`` at ``row`` (the allocated
-    block ids, zero-padded to M). In place; returns
+    pool and its slot, and point block-table row ``slot`` at ``row`` (the
+    allocated block ids, zero-padded to M). In place; returns
     ``(pools, block_tables)``."""
-    _check_dense(cfg)
-    _scatter_kv(pools["layers"], filled["layers"], row)
+    _check_paged(cfg)
+    if cfg.family == "dense":
+        _scatter_kv(pools["layers"], filled["layers"], row)
+    elif cfg.family == "ssm":
+        _scatter_slot(pools["layers"], filled["layers"], slot)
+    else:
+        _scatter_slot(pools["layers"], filled["layers"], slot, lead=2)
+        _scatter_kv(pools["shared"], filled["shared"], row)
+        if "tail" in pools:
+            _scatter_slot(pools["tail"], filled["tail"], slot)
     block_tables[slot] = row
     return pools, block_tables

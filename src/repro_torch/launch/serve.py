@@ -12,6 +12,9 @@ Usage (full width unless ``--smoke``; the card unless ``--device cpu``):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         [--smoke] --batch 4 --prompt-len 64 --gen 32 [--mode paged|dense] \
         [--device cuda]
+
+``--arch`` is any ported architecture (``configs.available_archs()``):
+the attention families, mamba2-130m (ssm) and zamba2-7b (hybrid).
 """
 from __future__ import annotations
 

@@ -59,11 +59,12 @@ def make_prefill_step(cfg):
 
 
 def make_serve_step(cfg):
-    """One decode step: a single new token against a pre-filled cache."""
+    """One decode step: a single new token against a pre-filled cache
+    (the mamba blocks' one-token step, ``decode=True``)."""
     def serve_step(params, cache, tokens, pos: int):
         positions = torch.tensor([pos], dtype=torch.int32,
                                  device=tokens.device)
         return T.forward(params, cfg, tokens=tokens, positions=positions,
-                         cache=cache, cache_pos=pos)
+                         cache=cache, cache_pos=pos, decode=True)
 
     return serve_step

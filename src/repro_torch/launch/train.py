@@ -1,10 +1,11 @@
 """LM training (``repro/launch/train.py:28-85``).
 
-Trains an attention LM on the procedural Markov token stream
-(``data.make_lm_data``, ``data.lm_batches``, the reference's streams) with
-``launch/steps.make_train_step``: Adam, global-norm clip 1.0, each layer
-recomputed in the backward where ``cfg.remat`` (the full configs). On the
-card every attention layer runs K2 forward and backward.
+Trains an LM (an attention family, mamba2-130m or zamba2-7b) on the
+procedural Markov token stream (``data.make_lm_data``, ``data.lm_batches``,
+the reference's streams) with ``launch/steps.make_train_step``: Adam,
+global-norm clip 1.0, each block recomputed in the backward where
+``cfg.remat`` (the full configs). On the card every attention layer runs
+K2 forward and backward, every mamba block K3f and K3b.
 
 Usage (full width unless ``--smoke``; the card unless ``--device cpu``):
 

@@ -1,8 +1,10 @@
 """The kernels on the card against their plain versions, and the launch
 counts: K1 (Triton) against torch autograd too, K4 (CUDA C++) through
-one paged decode step, K2 (CUDA C++: K2f, K2q, K2kv) with dead rows,
-windows and ragged tails, and through one train step. Skips without a
-CUDA card.
+one paged decode step and at zamba2's head dim 112, K2 (CUDA C++: K2f,
+K2q, K2kv) with dead rows, windows and ragged tails, at D = 112 and
+through one train step, K3 (CUDA C++: K3f, K3b) with ragged tails,
+groups and an initial state, through ``SSDScan`` and one mamba train
+step. Skips without a CUDA card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -89,7 +91,8 @@ def _paged_inputs(R, hq, hkv, d, page, m, dtype, device):
 
 
 @pytest.mark.parametrize("R,hq,hkv,d,page,m", [
-    (8, 24, 8, 128, 16, 32), (5, 4, 2, 32, 8, 4), (3, 8, 8, 64, 4, 7)])
+    (8, 24, 8, 128, 16, 32), (5, 4, 2, 32, 8, 4), (3, 8, 8, 64, 4, 7),
+    (4, 32, 32, 112, 16, 5)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_kernel_matches_plain_version(cuda, R, hq, hkv, d,
                                                       page, m, dtype):
@@ -133,7 +136,9 @@ K2_CASES = [(2, 24, 8, 256, 256, 128, True, 0),
             (1, 3, 1, 100, 37, 32, True, 0),
             (1, 4, 2, 150, 150, 32, True, 20),
             (1, 4, 4, 70, 130, 64, True, 0),
-            (1, 4, 2, 50, 90, 64, False, 16)]
+            (1, 4, 2, 50, 90, 64, False, 16),
+            (1, 32, 32, 200, 200, 112, True, 0),
+            (2, 4, 4, 70, 100, 112, True, 30)]
 
 
 @pytest.mark.parametrize("B,hq,hkv,sq,sk,d,causal,window", K2_CASES)
@@ -188,3 +193,106 @@ def test_train_step_launches_k2_per_layer(cuda):
                    "flash_attention_bwd_dq": L,
                    "flash_attention_bwd_dkv": L}
     assert bool(torch.isfinite(m["loss"])) and float(m["grad_norm"]) > 0
+
+
+# (B, S, H, P, G, N, chunk): mamba2-130m's heads at a train shape, zamba2's
+# at a ragged prefill, groups with a ragged tail, a chunk clamped into S
+K3_CASES = [(2, 256, 24, 64, 1, 128, 256),
+            (1, 300, 16, 64, 1, 64, 256),
+            (2, 300, 4, 32, 2, 16, 64),
+            (1, 37, 2, 16, 1, 8, 64),
+            (1, 130, 4, 64, 2, 128, 48)]
+
+
+def _ssd_inputs(B, S, H, P, G, N, dtype, device, dt_dtype=torch.float32):
+    gen = torch.Generator(device=device).manual_seed(S * 13 + H + N)
+    r = lambda *s: torch.randn(*s, generator=gen, device=device)
+    x = r(B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(r(B, S, H) - 1.0).to(dt_dtype)
+    a = -torch.exp(r(H) * 0.3)
+    b, c = ((r(B, S, G, N) * 0.3).to(dtype) for _ in range(2))
+    s0 = r(B, H, P, N) * 0.5
+    dy = r(B, S, H, P)
+    dfin = r(B, H, P, N)
+    return x, dt, a, b, c, s0, dy, dfin
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,cl", K3_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernels_match_plain_versions(cuda, B, S, H, P, G, N, cl,
+                                               dtype):
+    """K3f and K3b against the plain pair from the same inputs and
+    initial state; float32 to 1e-4 and bfloat16 (y stored in bfloat16)
+    to 1e-2 of each tensor's largest entry; the gradients are float32
+    on both sides."""
+    from repro_torch.kernels import ssd_scan as K3
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, dt, a, b, c, s0, dy, dfin = _ssd_inputs(B, S, H, P, G, N, dtype, cuda)
+    y, fin, st = K3.ssd_scan_fwd(x, dt, a, b, c, s0, chunk=cl,
+                                 return_chunk_states=True)
+    torch.cuda.synchronize()
+    py, pfin, pst = K3.ssd_scan_fwd_plain(x, dt, a, b, c, s0, chunk=cl)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert y.dtype == dtype and _rel(y, py) <= tol
+    assert _rel(fin, pfin) <= 1e-4 and _rel(st, pst) <= 1e-4
+    got = K3.ssd_scan_bwd(x, dt, a, b, c, st, dy, dfin, chunk=cl)
+    torch.cuda.synchronize()
+    want = K3.ssd_scan_bwd_plain(x, dt, a, b, c, pst, dy, dfin, chunk=cl)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert _rel(g, w) <= 1e-4
+
+
+def test_ssd_scan_autograd_and_launches(cuda):
+    """SSDScan with dt in bfloat16 beside bfloat16 x: one K3f and one K3b
+    launch, the gradients in the inputs' dtypes, against ``ref.ssd_grads``
+    (the sequential recurrence) in float32 to 1e-2 of the largest entry."""
+    from repro_torch.kernels import ssd_scan as K3
+
+    x, dt, a, b, c, s0, dy, dfin = _ssd_inputs(1, 70, 4, 16, 2, 8,
+                                               torch.bfloat16, cuda,
+                                               dt_dtype=torch.bfloat16)
+    leaves = [t.detach().requires_grad_(True) for t in (x, dt, a, b, c, s0)]
+    before = dict(K3.launches)
+    y, fin = K3.SSDScan.apply(*leaves, 32)
+    grads = torch.autograd.grad((y, fin), leaves, (dy.to(y.dtype), dfin))
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in K3.launches.items()} == {
+        "ssd_scan_fwd": 1, "ssd_scan_bwd": 1}
+    want = ref.ssd_grads(*(t.float() for t in (x, dt, a, b, c, s0)),
+                         dy.to(torch.bfloat16).float(), dfin)
+    for g, w, t in zip(grads, want, leaves):
+        assert g.dtype == t.dtype
+        assert _rel(g, w) <= 2e-2
+
+
+def test_ssm_train_step_launches_k3_per_block(cuda):
+    """One mamba2 train step with remat: K3f twice a block (the forward and
+    its recomputation), K3b once; a zamba2 step adds K2 for each
+    application of its shared block."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ssd_scan as K3
+    from repro_torch.launch import steps as ST
+
+    for arch, n_attn in (("mamba2-130m", 0), ("zamba2-7b", 2)):
+        cfg = get_smoke_config(arch).replace(remat=True)
+        state = ST.make_train_state(cfg, device=cuda)
+        x = torch.randint(0, cfg.vocab_size, (2, 41), device=cuda)
+        before = {**K3.launches, **FA.launches}
+        state, m = ST.make_train_step(cfg)(state, {"tokens": x[:, :-1],
+                                                   "labels": x[:, 1:]})
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in {**K3.launches,
+                                             **FA.launches}.items()}
+        L = cfg.n_layers
+        assert got == {"ssd_scan_fwd": 2 * L, "ssd_scan_bwd": L,
+                       "flash_attention_fwd": 2 * n_attn,
+                       "flash_attention_bwd_dq": n_attn,
+                       "flash_attention_bwd_dkv": n_attn}
+        assert bool(torch.isfinite(m["loss"])) and float(m["grad_norm"]) > 0

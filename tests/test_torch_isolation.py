@@ -32,6 +32,9 @@ bad = sorted(m for m in sys.modules
              or m.startswith("repro."))
 print(len(names), bad)
 assert not bad, bad
+for m in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
+          "repro_torch.configs.mamba2_130m", "repro_torch.configs.zamba2_7b"):
+    assert m in names, m
 assert "triton" not in sys.modules
 """
 
@@ -75,7 +78,8 @@ def test_cuda_sources_include_only_the_toolkit(path):
 
 def test_there_are_cuda_sources():
     assert [p.name for p in CUDA_SOURCES] == ["flash_attention.cu",
-                                              "paged_attention.cu"]
+                                              "paged_attention.cu",
+                                              "ssd_scan.cu"]
 
 
 def _entry_points():
@@ -97,6 +101,8 @@ def _entry_points():
 
     scfg = smoke()
     lm = get_smoke_config("llama3.2-3b")
+    mamba = get_smoke_config("mamba2-130m")
+    zamba = get_smoke_config("zamba2-7b")
     data = {"train": (np.zeros((8, 16, 16, 3), np.float32),
                       np.zeros(8, np.int32))}
     return {
@@ -124,6 +130,13 @@ def _entry_points():
                                smoke=True),
         "make_llm_dense_steps": lambda: make_llm_dense_steps(lm, [lm]),
         "dense_llm_oneshot": lambda: dense_llm_oneshot(),
+        "init_model_ssm": lambda: transformer.init_model(mamba),
+        "init_cache_hybrid": lambda: transformer.init_cache(zamba, 1, 4),
+        "init_paged_cache_hybrid": lambda: paging.init_paged_cache(
+            zamba, max_reqs=1, n_blocks=2, page=4),
+        "ServeEngine_ssm": lambda: ServeEngine(mamba),
+        "train_ssm": lambda: train("mamba2-130m", steps=1, batch=1, seq=4,
+                                   smoke=True),
     }
 
 
@@ -143,7 +156,10 @@ def no_gpu():
                                   "tok_generator_from_reference",
                                   "make_train_state", "train",
                                   "make_llm_dense_steps",
-                                  "dense_llm_oneshot"])
+                                  "dense_llm_oneshot", "init_model_ssm",
+                                  "init_cache_hybrid",
+                                  "init_paged_cache_hybrid",
+                                  "ServeEngine_ssm", "train_ssm"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_gpu, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points()[name]()

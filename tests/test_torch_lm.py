@@ -70,7 +70,7 @@ def test_config_fields_match_reference(which):
 def test_config_registry_routes():
     assert T_base.get_config("llama3_2_3b") == T_llama.CONFIG
     assert T_base.get_smoke_config("llama3.2-3b") == T_llama.smoke()
-    for name in ("mamba2-130m", "zamba2-7b", "gemma3-4b"):
+    for name in ("gemma3-4b", "deepseek-v2-lite-16b", "llama3.2-vision-11b"):
         with pytest.raises(NotImplementedError, match="slice|families"):
             T_base.get_config(name)
     with pytest.raises(KeyError, match="unknown arch"):
@@ -327,7 +327,7 @@ def test_unported_routes_raise(model):
     long = torch.zeros((1, 4096, tc.d_model))
     with pytest.raises(NotImplementedError, match="blockwise"):
         T_A.gqa_apply(ta, long, tc, positions=torch.arange(4096))
-    for other in (tc.replace(family="ssm"), tc.replace(family="moe"),
+    for other in (tc.replace(family="vlm"), tc.replace(family="moe"),
                   tc.replace(sliding_window=8)):
         with pytest.raises(NotImplementedError, match="not ported"):
             T_T.init_model(other, device="cpu")
