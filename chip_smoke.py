@@ -31,12 +31,17 @@ result line is printed:
      than the L2 cache, so each call reads them from device memory, as a
      decode step does;
   4. K2 (K2f, K2q, K2kv, CUDA C++) against its plain versions in float32
-     without TF32 and in bfloat16, at the server shape (B 4, Hq 24, Hkv 8,
-     S 256, D 128), the train shape (B 8), one 4096-token sequence, a
-     ragged D = 32 shape with a window and dead rows, D = 64 and D = 112
+     without TF32 and in bfloat16 (and float16 at the server, train, long
+     and D = 64 shapes), at the server shape (B 4, Hq 24, Hkv 8, S 256,
+     D 128), the train shape (B 8), one 4096-token sequence, a ragged
+     D = 32 shape with a window and dead rows, D = 64 and D = 112
      (zamba2's shared block at B 2, S 512); timed beside its bound and
      ``F.scaled_dot_product_attention`` (its autograd backward for K2q
-     and K2kv);
+     and K2kv). Each K2f row names its route: ``sm90`` (the tensor-core
+     kernel, bfloat16 and float16 at D 64 and 128), whose rows also time
+     the ``simt`` kernel (the first version) on the same inputs, or
+     ``simt``; every K2f row also gives its kernel's device time from
+     ``torch.profiler``;
   5. the DENSE main path at the paper's full width (``paper_cifar.CONFIG``:
      five width-1.0 resnet18 clients on 32x32x3 images, batch 128,
      synth_batch 128, nz 100, t_g 30), depth cut to one local epoch and
@@ -75,7 +80,8 @@ result line is printed:
      launch count is zeroed before each step and checked after it (a
      train step: K2f 2L, K2q L, K2kv L; a generator step: (n+1)L of each
      and one K1f, K1b; a student step: (n+1)L K2f, L K2q and K2kv, one
-     K1f, K1b); then one epoch under ``torch.profiler`` with K2's share;
+     K1f, K1b), every K2f launch on the ``sm90`` route; then one epoch
+     under ``torch.profiler`` with K2's share, K2f's by route;
  13. K3 (K3f, K3b, CUDA C++) against its plain versions (the chunked
      formula in PyTorch and autograd through it): mamba2-130m's train
      shape (8, 256, 24 heads, P 64, N 128, chunk 256) and zamba2-7b's
@@ -159,15 +165,22 @@ TOL_K4 = {"float32": (0.0, 1e-5), "bfloat16": (0.0, 1e-2)}
 # batches; "long" one 4096-token sequence; "ragged_d32" the smoke heads
 # with Sq > Sk (dead rows), a window and ragged tiles; "d64" musicgen's
 # heads; "d112" zamba2-7b's shared block at ssm_train_check's batch.
-# Tolerance: float32 without TF32 on both sides, 1e-4; bfloat16
-# gradients are stored in bfloat16, 1e-2 of each tensor's largest entry.
+# float16 runs beside float32 and bfloat16 at the shapes K2f's sm90 route
+# takes on the main paths (K2_FP16). Tolerance: float32 without TF32 on
+# both sides, 1e-4; 16-bit gradients are stored in the input dtype, 1e-2
+# of each tensor's largest entry. K2f's sm90 route (bfloat16, float16 at
+# D 64 and 128) rounds P to the 16-bit type before PV, so each o entry may
+# move by u·max|v| (u = 2^-9 bfloat16, 2^-12 float16): o is held to
+# atol = 2u·max|v|, rtol 0, and lse (float32 scores, float32 l) to 1e-4.
 K2_SHAPES = (("server", 4, 24, 8, 256, 256, 128, True, 0),
              ("train", 8, 24, 8, 256, 256, 128, True, 0),
              ("long", 1, 24, 8, 4096, 4096, 128, True, 0),
              ("ragged_d32", 2, 4, 2, 300, 200, 32, True, 64),
              ("d64", 4, 32, 32, 256, 256, 64, True, 0),
              ("d112", 2, 32, 32, 512, 512, 112, True, 0))
-TOL_K2 = {"float32": 1e-4, "bfloat16": 1e-2}
+K2_FP16 = ("server", "train", "long", "d64")
+TOL_K2 = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 1e-2}
+UNIT_ROUNDOFF = {"bfloat16": 2.0 ** -9, "float16": 2.0 ** -12}
 # K3 shapes: (name, B, S, H, P, G, N, chunk, dtype, with an initial state).
 # mamba2-130m's heads at a train step of the SSM LLM path (B 8, seq 256:
 # one chunk), zamba2-7b's at a prefill of 448 tokens (a ragged tail), one
@@ -228,7 +241,8 @@ def setup():
 
     t0 = time.perf_counter()
     try:
-        cuda_build.build(["paged_attention", "flash_attention", "ssd_scan"])
+        cuda_build.build(["paged_attention", "flash_attention",
+                          "flash_attention_sm90", "ssd_scan"])
     except RuntimeError as e:
         fail(str(e))
     emit({"cuda_build": {
@@ -277,13 +291,23 @@ def launch_counts() -> list:
 
 
 def zero_counts() -> None:
-    for counts in launch_counts():
+    """Every launch counter and K2f's route counts to 0."""
+    from repro_torch.kernels import flash_attention
+
+    for counts in (*launch_counts(), flash_attention.fwd_routes):
         for k in counts:
             counts[k] = 0
 
 
 def read_counts() -> dict:
     return {k: v for counts in launch_counts() for k, v in counts.items()}
+
+
+def read_routes() -> dict:
+    """K2f's launches by route since the last ``zero_counts``."""
+    from repro_torch.kernels import flash_attention
+
+    return dict(flash_attention.fwd_routes)
 
 
 def expected(**nonzero) -> dict:
@@ -938,10 +962,37 @@ def profile_decode(torch, cfg, params, reqs, dev="cuda",
 
 # ------------------------------------------------------------------- K2 --
 
+def device_ms_per_call(torch, fn, match, calls: int = 20) -> float:
+    """Device time a call of the kernels whose names satisfy ``match``,
+    from ``torch.profiler`` over ``calls`` calls after a warm-up: the
+    kernel alone, without the wrapper's host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(v for k, v in device_ms(prof).items() if match(k)) / calls
+
+
+def k2f_kernel(route):
+    """Matches the device name of K2f's kernel on ``route``."""
+    if route == "sm90":
+        return lambda name: "sm90_fwd_kernel<" in name
+    return lambda name: ("fwd_kernel<" in name and "sm90_" not in name
+                         and "ssd_" not in name)
+
+
 def k2_phase(torch):
     """K2f, K2q and K2kv against their plain versions, timed beside their
     bound and beside F.scaled_dot_product_attention (forward, and its
-    autograd backward as the yardstick of the backward pair)."""
+    autograd backward as the yardstick of the backward pair). K2f's rows
+    name their route; an sm90 row also times the simt kernel (the first
+    version) on the same inputs, and every K2f row gives its kernel's
+    device time without the wrapper's host time."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
@@ -953,9 +1004,12 @@ def k2_phase(torch):
         n_live = int(live.sum()) * B * hq
         sdpa_kw = ({"is_causal": True} if causal and not window
                    and sq == sk else {"attn_mask": live})
-        for dtype in (torch.float32, torch.bfloat16):
+        dtypes = (torch.float32, torch.bfloat16) + (
+            (torch.float16,) if name in K2_FP16 else ())
+        for dtype in dtypes:
             dname = str(dtype).split(".")[-1]
             tol = TOL_K2[dname]
+            route = FA.fwd_route(dtype, d)
             isz = 4 if dtype == torch.float32 else 2
             peak = FP32_OPS_PER_S if dtype == torch.float32 \
                 else BF16_OPS_PER_S
@@ -969,8 +1023,14 @@ def k2_phase(torch):
             o, lse = FA.flash_attention_fwd(q, k, v, **kw)
             torch.cuda.synchronize()
             po, plse = FA.flash_attention_fwd_plain(q, k, v, **kw)
-            ok_o, err_o = compare(torch, o, po, (tol, tol))
-            ok_l, err_l = compare(torch, lse, plse, (tol, tol))
+            if route == "sm90":
+                o_tol = (0.0, 2 * UNIT_ROUNDOFF[dname]
+                         * float(v.float().abs().max()))
+                lse_tol = (1e-4, 1e-4)
+            else:
+                o_tol = lse_tol = (tol, tol)
+            ok_o, err_o = compare(torch, o, po, o_tol)
+            ok_l, err_l = compare(torch, lse, plse, lse_tol)
             dead = plse == FA.NEG_INF
             dead_exact = bool((lse[dead] == FA.NEG_INF).all()
                               and (o[dead] == 0).all())
@@ -1003,17 +1063,30 @@ def k2_phase(torch):
                       "live_pairs": n_live, "dead_rows": int(dead.sum())}
             b_ms, b_by = bound(qkv_bytes + B * hq * sq * d * 4 + row_bytes,
                                4 * d * n_live, peak)
-            rows["fwd"].append({
-                **common, "ok": ok_o and ok_l and dead_exact,
-                "max_abs_err": max(err_o, err_l), "dead_rows_exact":
-                dead_exact,
-                "ms": cuda_ms(torch, lambda: FA.flash_attention_fwd(
-                    q, k, v, **kw)),
+            fwd = lambda: FA.flash_attention_fwd(q, k, v, **kw)
+            simt = lambda: FA._fwd_launch(q, k, v, causal, window,
+                                          1 / d ** 0.5, "simt")
+            row = {
+                **common, "route": route, "ok": ok_o and ok_l and dead_exact,
+                "max_abs_err": max(err_o, err_l), "o_max_abs_err": err_o,
+                "lse_max_abs_err": err_l, "o_tol": list(o_tol),
+                "lse_tol": list(lse_tol), "dead_rows_exact": dead_exact,
+                "ms": cuda_ms(torch, fwd),
+                "device_ms": device_ms_per_call(torch, fwd,
+                                                k2f_kernel(route)),
                 "plain_ms": cuda_ms(torch, lambda: FA.flash_attention_fwd_plain(
                     q, k, v, **kw)),
                 "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                     q, k, v, enable_gqa=True, **sdpa_kw)),
-                "bound_ms": b_ms, "bound_by": b_by})
+                "bound_ms": b_ms, "bound_by": b_by}
+            if route == "sm90":
+                row["simt_ms"] = cuda_ms(torch, simt)
+                row["simt_device_ms"] = device_ms_per_call(
+                    torch, simt, k2f_kernel("simt"))
+            if name == "long" and dtype != torch.float32:
+                row["tflops_live"] = 4 * d * n_live / (row["ms"] * 1e-3) \
+                    / 1e12
+            rows["fwd"].append(row)
             in_bytes = qkv_bytes + B * hq * sq * d * 4 + 2 * row_bytes
             b_ms, b_by = bound(in_bytes + B * hq * sq * d * isz,
                                6 * d * n_live, peak)
@@ -1047,6 +1120,11 @@ def k2_phase(torch):
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
     if bad:
         fail(f"{len(bad)} K2 checks disagree with the plain versions: {bad}")
+    want_routes = {(r["shape"]["name"], r["dtype"]): r["route"]
+                   for r in rows["fwd"]}
+    if any((r == "sm90") != (dt != "float32" and n in K2_FP16)
+           for (n, dt), r in want_routes.items()):
+        fail(f"K2f took an unexpected route: {want_routes}")
     return rows
 
 
@@ -1311,8 +1389,8 @@ def dense_llm_check(torch, devices=("cuda", "cpu")):
         sync(torch, dev)
         out[dev] = (np.array([float(gl), *(float(v) for v in parts.values()),
                               float(dl)]), g_cap.grads, s_cap.grads,
-                    read_counts())
-    (sa, ga, ta, ca), (sb, gb, tb, _) = (out[d] for d in devices)
+                    read_counts(), read_routes())
+    (sa, ga, ta, ca, ra), (sb, gb, tb, _, _) = (out[d] for d in devices)
     scalar_err = float(np.max(np.abs(sa - sb) / np.maximum(np.abs(sb), 1)))
     g_err = max(_grad_err(a, b) for a, b in zip(ga, gb))
     s_err = max(_grad_err(a, b) for a, b in zip(ta, tb))
@@ -1321,13 +1399,16 @@ def dense_llm_check(torch, devices=("cuda", "cpu")):
         "losses_max_rel_err": scalar_err,
         "gen_grad_max_err_rel_to_max": g_err,
         "student_grad_max_err_rel_to_max": s_err,
-        "launches_cuda": ca, "tol": STEP_TOL}})
+        "launches_cuda": ca, "fwd_routes_cuda": ra, "tol": STEP_TOL}})
     if max(scalar_err, g_err, s_err) > STEP_TOL:
         fail(f"the DENSE LLM steps on the card disagree with the CPU: "
              f"losses {scalar_err}, generator {g_err}, student {s_err}")
     if not all(ca[k] for k in ca if k.startswith(("distill_kl",
                                                    "flash_attention"))):
         fail(f"dense_llm_check launched not every K1/K2 kernel: {ca}")
+    if sum(ra.values()) != ca["flash_attention_fwd"]:
+        fail(f"dense_llm_check: K2f's routes {ra} do not add up to its "
+             f"{ca['flash_attention_fwd']} launches")
 
 
 def _leaf_paths(tree: dict, prefix: str = "") -> list:
@@ -1367,6 +1448,7 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
     from repro_torch.core.generator import tok_generator_init
     from repro_torch.data import lm_batches, make_lm_data
     from repro_torch.fl.protocol import CommLedger, param_bytes
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import dense_llm_oneshot as ONE
     from repro_torch.launch import steps as ST
     from repro_torch.models import transformer as T
@@ -1389,6 +1471,8 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
         "3 local steps a client, 2 server epochs; no width, depth or batch "
         "cut"}})
 
+    routes = {k: 0 for k in read_routes()}
+
     def stage(fn, want, label):
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -1400,6 +1484,8 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
         got = read_counts()
         if got != want:
             fail(f"launches in {label}: {got}, expected {want}")
+        for k, c in read_routes().items():
+            routes[k] += c
         return res, dt, _peak_gib(torch)
 
     ledger = CommLedger()
@@ -1474,6 +1560,12 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
     if not all(v == v and abs(v) != float("inf") for v in losses):
         fail(f"{label} main-path losses are not finite: {hist}, "
              f"{client_loss}")
+    # every K2f launch took the route its dtype and head dim choose (sm90
+    # for the bfloat16 llama path)
+    route = FA.fwd_route(getattr(torch, cfgs[0].dtype), cfgs[0].head_dim)
+    if routes[route] != totals["flash_attention_fwd"]:
+        fail(f"{label}: K2f's launches by route {routes}, expected all "
+             f"{totals['flash_attention_fwd']} on {route}")
     if ledger.rounds != 1 or ledger.downlink_bytes != 0 or \
             ledger.uplink_bytes != sum(param_bytes(p) for p in client_params):
         fail(f"not one-shot: {ledger.rounds} rounds, "
@@ -1493,7 +1585,7 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
         "launches_per_step": {"train_step": train_launches(cfgs[0]),
                               "gen_step": want_gen,
                               "student_step": want_stu},
-        "launches_total": totals,
+        "launches_total": totals, "fwd_routes": routes,
         "uplink_bytes": ledger.uplink_bytes, "rounds": ledger.rounds,
         "client_loss": client_loss, **hist}})
     return totals, (gen_step, student_step, g_opt, s_opt, gen, student,
@@ -1533,6 +1625,8 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
     k2 = {w: sum(v for k, v in per_kernel.items()
                  if f"{w}_kernel<" in k and "ssd_" not in k)
           for w in ("fwd", "dq", "dkv")}
+    k2f_by_route = {r: sum(v for k, v in per_kernel.items()
+                           if k2f_kernel(r)(k)) for r in ("sm90", "simt")}
     k3 = {w: sum(v for k, v in per_kernel.items()
                  if f"ssd_{w}_kernel<" in k) for w in ("fwd", "bwd")}
     k1_ms = sum(v for k, v in per_kernel.items() if "_kl_" in k)
@@ -1548,7 +1642,8 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
     emit({label: {
         "epoch_ms": epoch_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / epoch_ms,
-        "k2_ms": k2, "k2_share_of_busy": sum(k2.values()) / busy_ms
+        "k2_ms": k2, "k2f_ms_by_route": k2f_by_route,
+        "k2_share_of_busy": sum(k2.values()) / busy_ms
         if busy_ms else None, "k3_ms": k3,
         "k3_share_of_busy": sum(k3.values()) / busy_ms if busy_ms else None,
         "k1_ms": k1_ms,
@@ -1569,15 +1664,18 @@ def k2_entry(name, rs, line, launches):
     launches over the LLM main path."""
     main = next(r for r in rs if r["shape"]["name"] == "server"
                 and r["dtype"] == "bfloat16")
+    source = "flash_attention_sm90.cu" if main.get("route") == "sm90" \
+        else "flash_attention.cu"
     return {"name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
             "launches": launches[name],
             "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
-            "dtype": main["dtype"], "by_shape": rs}
+            "dtype": main["dtype"], "k2f_route": main.get("route"),
+            "device_ms": main.get("device_ms"), "by_shape": rs}
 
 
 def k3_entry(name, rs, line, launches):

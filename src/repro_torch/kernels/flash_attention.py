@@ -19,6 +19,12 @@ and what bounds it: the operations (a causal call does ~2·Sq·Sk·D flops
 a head per matrix product), which this first version computes on the
 CUDA cores in float32.
 
+K2f has two routes, chosen by ``fwd_route`` from the dtype and head dim
+alone: bfloat16 and float16 at D 64 and 128 take ``sm90``, the
+tensor-core kernel of ``csrc/flash_attention_sm90.cu`` (wgmma for both
+products, TMA tile loads into a two-stage ring); every other call takes
+``simt``, the kernel above. ``fwd_routes`` counts the launches of each.
+
 The residual contract is the reference's (``flash_attention.py:396-440``):
 the forward keeps q, k, v, ``o_f32`` (B·Hq, Sq, D) and ``lse`` (B·Hq, Sq);
 the backward computes delta = Σ_d dO·o_f32 from the float32 residual (a
@@ -46,10 +52,14 @@ NEG_INF = -2.0 ** 30
 
 launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0}
+# K2f's launches by route (each also counts in launches["flash_attention_fwd"])
+fwd_routes = {"sm90": 0, "simt": 0}
 
 # torch dtype -> the C interface's dtype code
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (32, 64, 112, 128)     # the kernels' template instances
+SM90_DTYPES = (torch.bfloat16, torch.float16)
+SM90_HEAD_DIMS = (64, 128)
 _fn: dict = {}
 
 
@@ -63,6 +73,11 @@ def _launchers() -> dict:
                            + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _fn[name] = fn
+        sm90 = cuda_build.load("flash_attention_sm90")
+        fn = sm90.flash_attention_fwd_sm90_launch
+        fn.argtypes = _fn["fwd"].argtypes
+        fn.restype = ctypes.c_int
+        _fn["fwd_sm90"] = fn
         err = lib.flash_attention_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -125,6 +140,12 @@ def mask(sq: int, sk: int, *, causal: bool, window: int, device):
 
 # ---------------------------------------------------------------- K2f --
 
+def fwd_route(dtype, d: int) -> str:
+    """K2f's kernel for a CUDA call: ``"sm90"`` (tensor cores) for bfloat16
+    and float16 at D 64 and 128, ``"simt"`` otherwise."""
+    return "sm90" if dtype in SM90_DTYPES and d in SM90_HEAD_DIMS else "simt"
+
+
 def flash_attention_fwd_plain(q, k, v, *, causal=True, window=0, scale=None):
     """The forward's arithmetic over the whole (Sq, Sk): (o_f32 (B·Hq, Sq,
     D), lse (B·Hq, Sq)), float32; rows with no live key give o = 0 and
@@ -154,22 +175,34 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          window=window, scale=scale)
+    return _fwd_launch(q, k, v, causal, window, scale,
+                       fwd_route(q.dtype, q.shape[-1]))
+
+
+def _fwd_launch(q, k, v, causal, window, scale, route):
+    """K2f on CUDA tensors that ``_check`` passed, by the given route
+    (``flash_attention_fwd`` takes ``fwd_route``'s; a measurement may
+    time the simt kernel at a shape the sm90 route takes)."""
     B, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     _check_cuda(d)
     if q.numel() == 0 or sk == 0:       # no key: every row is dead
         return (torch.zeros((B * hq, sq, d), device=q.device),
                 torch.full((B * hq, sq), NEG_INF, device=q.device))
+    if route == "sm90" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("K2f's sm90 route loads q, k and v by TMA, which "
+                         "needs 16-byte aligned tensors")
     o = torch.empty((B * hq, sq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((B * hq, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _launchers()["fwd"](
+        err = _launchers()["fwd_sm90" if route == "sm90" else "fwd"](
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), B, hq, hkv, sq, sk, d, int(causal),
             int(window), scale,
             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "forward (K2f)")
+    _raise_on(err, f"forward (K2f, {route})")
     launches["flash_attention_fwd"] += 1
+    fwd_routes[route] += 1
     return o, lse
 
 

@@ -2,7 +2,8 @@
 counts: K1 (Triton) against torch autograd too, K4 (CUDA C++) through
 one paged decode step and at zamba2's head dim 112, K2 (CUDA C++: K2f,
 K2q, K2kv) with dead rows, windows and ragged tails, at D = 112 and
-through one train step, K3 (CUDA C++: K3f, K3b) with ragged tails,
+through one train step, K2f's tensor-core route (bfloat16, float16 at
+D 64 and 128) and its route counts, K3 (CUDA C++: K3f, K3b) with ragged tails,
 groups and an initial state, through ``SSDScan`` and one mamba train
 step. Skips without a CUDA card.
 
@@ -131,38 +132,73 @@ def test_forward_paged_launches_k4_once_per_layer(cuda):
 
 
 # (B, Hq, Hkv, Sq, Sk, D, causal, window): the server's heads, dead rows
-# (causal Sq > Sk), a window, causal=False, ragged tails at every D
+# (causal Sq > Sk), a window, causal=False, ragged tails at every D; then
+# cases for K2f's sm90 route (bfloat16, float16 at D 64 and 128): Sq and
+# Sk off its tiles (128 q rows; 128 keys at D 64, 64 at D 128), Sq > Sk,
+# windows, causal=False, GQA groups of 3 and 4
 K2_CASES = [(2, 24, 8, 256, 256, 128, True, 0),
             (1, 3, 1, 100, 37, 32, True, 0),
             (1, 4, 2, 150, 150, 32, True, 20),
             (1, 4, 4, 70, 130, 64, True, 0),
             (1, 4, 2, 50, 90, 64, False, 16),
             (1, 32, 32, 200, 200, 112, True, 0),
-            (2, 4, 4, 70, 100, 112, True, 30)]
+            (2, 4, 4, 70, 100, 112, True, 30),
+            (1, 6, 2, 200, 333, 128, True, 0),
+            (1, 8, 2, 300, 170, 64, True, 0),
+            (2, 4, 4, 257, 257, 128, True, 100),
+            (1, 6, 2, 129, 75, 64, False, 0),
+            (1, 3, 1, 1000, 1000, 64, True, 200),
+            (1, 8, 2, 77, 300, 128, False, 50),
+            (1, 4, 1, 64, 64, 128, True, 0)]
 
 
-@pytest.mark.parametrize("B,hq,hkv,sq,sk,d,causal,window", K2_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_kernels_match_plain_versions(
-        cuda, B, hq, hkv, sq, sk, d, causal, window, dtype):
-    """K2f, K2q and K2kv against the plain pair; float32 to 1e-4 (no TF32
-    in either), bfloat16 gradients, stored in bfloat16, to 1e-2 of each
-    tensor's largest entry."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + d)
-    q = torch.randn(B, hq, sq, d, generator=gen, device=cuda).to(dtype)
-    k, v = (torch.randn(B, hkv, sk, d, generator=gen, device=cuda).to(dtype)
-            for _ in range(2))
-    do = torch.randn(B, hq, sq, d, generator=gen, device=cuda).to(dtype)
-    kw = {"causal": causal, "window": window}
-    o, lse = FA.flash_attention_fwd(q, k, v, **kw)
-    torch.cuda.synchronize()
-    po, plse = FA.flash_attention_fwd_plain(q, k, v, **kw)
-    torch.testing.assert_close(o, po, rtol=1e-4, atol=1e-4)
+def _k2_inputs(B, hq, hkv, sq, sk, d, dtype, device):
+    gen = torch.Generator(device=device).manual_seed(sq * 7 + sk + d)
+    q = torch.randn(B, hq, sq, d, generator=gen, device=device).to(dtype)
+    k, v = (torch.randn(B, hkv, sk, d, generator=gen,
+                        device=device).to(dtype) for _ in range(2))
+    do = torch.randn(B, hq, sq, d, generator=gen, device=device).to(dtype)
+    return q, k, v, do
+
+
+def _assert_fwd_close(o, lse, po, plse, v):
+    """K2f's output against the plain version's. The simt route computes
+    in float32 and holds o to 1e-4. The sm90 route rounds P to the input's
+    16-bit type before the PV product, so each o entry may move by
+    Σ p_j ε_j v_j / l with |ε_j| ≤ u (2^-9 bfloat16, 2^-12 float16), at
+    most u·max|v|: o is held to atol = 2u·max|v|, rtol = 0. lse comes
+    from float32 scores and a float32 l on both routes: 1e-4. Rows with
+    no live key are exact on both."""
+    d = o.shape[-1]
+    if FA.fwd_route(v.dtype, d) == "sm90":
+        u = 2.0 ** -9 if v.dtype == torch.bfloat16 else 2.0 ** -12
+        torch.testing.assert_close(
+            o, po, rtol=0, atol=2 * u * float(v.float().abs().max()))
+    else:
+        torch.testing.assert_close(o, po, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
     dead = plse == FA.NEG_INF
     assert bool((lse[dead] == FA.NEG_INF).all())
     assert bool((o[dead] == 0).all())
+    return dead
+
+
+@pytest.mark.parametrize("B,hq,hkv,sq,sk,d,causal,window", K2_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_kernels_match_plain_versions(
+        cuda, B, hq, hkv, sq, sk, d, causal, window, dtype):
+    """K2f, K2q and K2kv against the plain pair; K2f to the bounds of
+    ``_assert_fwd_close``; float32 gradients to 1e-4 (no TF32 in either),
+    16-bit gradients, stored in the input dtype, to 1e-2 of each tensor's
+    largest entry."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _k2_inputs(B, hq, hkv, sq, sk, d, dtype, cuda)
+    kw = {"causal": causal, "window": window}
+    o, lse = FA.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    po, plse = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    dead = _assert_fwd_close(o, lse, po, plse, v)
     got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     want = FA.flash_attention_bwd_plain(q, k, v, po, plse, do, **kw)
@@ -172,6 +208,35 @@ def test_flash_attention_kernels_match_plain_versions(
         err = (a.float() - b.float()).abs().max()
         assert float(err) <= tol * float(b.float().abs().max())
     assert bool((got[0].reshape(B * hq, sq, d)[dead] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 128, "sm90"), (torch.float16, 64, "sm90"),
+    (torch.bfloat16, 112, "simt"), (torch.float32, 128, "simt")])
+def test_flash_attention_fwd_counts_its_route(cuda, dtype, d, route):
+    """One K2f launch counts once in ``launches`` and once under its route
+    in ``fwd_routes``."""
+    q, k, v, _ = _k2_inputs(1, 4, 2, 70, 70, d, dtype, cuda)
+    before, routes = dict(FA.launches), dict(FA.fwd_routes)
+    FA.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in FA.launches.items()} == {
+        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkv": 0}
+    assert {n: c - routes[n] for n, c in FA.fwd_routes.items()} == {
+        "sm90": int(route == "sm90"), "simt": int(route == "simt")}
+
+
+def test_flash_attention_sm90_raises_on_misaligned_tensors(cuda):
+    """TMA needs 16-byte aligned bases: a contiguous view one element into
+    its storage is refused before any launch, never sent elsewhere."""
+    q, k, v, _ = _k2_inputs(1, 4, 2, 70, 70, 64, torch.bfloat16, cuda)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    q_off = buf[1:].view(q.shape).copy_(q)
+    before = dict(FA.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.flash_attention_fwd(q_off, k, v)
+    assert FA.launches == before
 
 
 def test_train_step_launches_k2_per_layer(cuda):

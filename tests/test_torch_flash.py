@@ -182,3 +182,37 @@ def test_wrapper_checks_its_inputs():
     o, lse = FA.flash_attention_fwd(q, k, v)
     with pytest.raises(ValueError, match="lse must be"):
         FA.flash_attention_bwd(q, k, v, o, lse[:, :3], do)
+
+
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_fwd_route_by_dtype_and_head_dim(dtype, d):
+    """K2f's tensor-core route takes exactly the 16-bit dtypes at D 64 and
+    128; every other (dtype, D) the kernels take stays on the simt one."""
+    want = "sm90" if dtype != torch.float32 and d in (64, 128) else "simt"
+    assert FA.fwd_route(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.float16, 128),
+                                     (torch.float32, 128)])
+def test_cpu_forward_takes_plain_version_and_counts_no_launch(dtype, d):
+    """On a CPU tensor the wrapper runs the plain forward, whatever route
+    its dtype and head dim would take on the card, and counts nothing."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dtype) for s in ((1, 4, 20, d), (1, 2, 20, d),
+                                    (1, 2, 20, d)))
+    before, routes = dict(FA.launches), dict(FA.fwd_routes)
+    o, lse = FA.flash_attention_fwd(q, k, v, window=5)
+    po, plse = FA.flash_attention_fwd_plain(q, k, v, window=5)
+    assert torch.equal(o, po) and torch.equal(lse, plse)
+    assert FA.launches == before and FA.fwd_routes == routes
+
+
+def test_launch_and_route_counters_keep_their_keys():
+    assert set(FA.launches) == {"flash_attention_fwd",
+                                "flash_attention_bwd_dq",
+                                "flash_attention_bwd_dkv"}
+    assert set(FA.fwd_routes) == {"sm90", "simt"}

@@ -17,7 +17,10 @@ SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 CUDA_SOURCES = sorted(PKG.rglob("*.cu")) + sorted(PKG.rglob("*.cuh"))
 # the CUDA C++ sources stand alone: the toolkit's headers and nothing of
 # PyTorch, JAX or either package (a plain C interface bound with ctypes)
-CUDA_HEADERS = {"cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h", "stdint.h"}
+# cuda.h for the TMA tensor-map types only: the kernels reach the driver's
+# cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, not -lcuda
+CUDA_HEADERS = {"cuda.h", "cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h",
+                "stdint.h"}
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -78,6 +81,7 @@ def test_cuda_sources_include_only_the_toolkit(path):
 
 def test_there_are_cuda_sources():
     assert [p.name for p in CUDA_SOURCES] == ["flash_attention.cu",
+                                              "flash_attention_sm90.cu",
                                               "paged_attention.cu",
                                               "ssd_scan.cu"]
 
