@@ -80,8 +80,9 @@ result line is printed:
      launch count is zeroed before each step and checked after it (a
      train step: K2f 2L, K2q L, K2kv L; a generator step: (n+1)L of each
      and one K1f, K1b; a student step: (n+1)L K2f, L K2q and K2kv, one
-     K1f, K1b), every K2f launch on the ``sm90`` route; then one epoch
-     under ``torch.profiler`` with K2's share, K2f's by route;
+     K1f, K1b), every K2f, K2q and K2kv launch on the ``sm90`` route;
+     then one epoch under ``torch.profiler`` with K2's share, each K2
+     kernel's time by route;
  13. K3 (K3f, K3b, CUDA C++) against its plain versions (the chunked
      formula in PyTorch and autograd through it): mamba2-130m's train
      shape (8, 256, 24 heads, P 64, N 128, chunk 256) and zamba2-7b's
@@ -163,12 +164,15 @@ TOL_K4 = {"float32": (0.0, 1e-5), "bfloat16": (0.0, 1e-2)}
 # K2 shapes: (name, B, Hq, Hkv, Sq, Sk, D, causal, window). The server's
 # and the train step's are llama3.2-3b's heads at the LLM main path's
 # batches; "long" one 4096-token sequence; "ragged_d32" the smoke heads
-# with Sq > Sk (dead rows), a window and ragged tiles; "d64" musicgen's
-# heads; "d112" zamba2-7b's shared block at ssm_train_check's batch.
-# float16 runs beside float32 and bfloat16 at the shapes K2f's sm90 route
-# takes on the main paths (K2_FP16). Tolerance: float32 without TF32 on
-# both sides, 1e-4; 16-bit gradients are stored in the input dtype, 1e-2
-# of each tensor's largest entry. K2f's sm90 route (bfloat16, float16 at
+# with Sq > Sk (dead rows), a window and ragged tiles, and "ragged_d64"
+# and "ragged_d128" the same at the sm90 routes' head dims, off every tile
+# of K2f, K2q and K2kv; "d64" musicgen's heads; "d112" zamba2-7b's shared
+# block at ssm_train_check's batch. float16 runs beside float32 and
+# bfloat16 at the shapes the sm90 routes take (K2_FP16). Tolerance:
+# float32 without TF32 on both sides, 1e-4; 16-bit gradients are stored
+# in the input dtype, 1e-2 of each tensor's largest entry (the sm90
+# backward also rounds P and dS to the 16-bit type before their
+# products, inside that). K2f's sm90 route (bfloat16, float16 at
 # D 64 and 128) rounds P to the 16-bit type before PV, so each o entry may
 # move by u·max|v| (u = 2^-9 bfloat16, 2^-12 float16): o is held to
 # atol = 2u·max|v|, rtol 0, and lse (float32 scores, float32 l) to 1e-4.
@@ -176,9 +180,11 @@ K2_SHAPES = (("server", 4, 24, 8, 256, 256, 128, True, 0),
              ("train", 8, 24, 8, 256, 256, 128, True, 0),
              ("long", 1, 24, 8, 4096, 4096, 128, True, 0),
              ("ragged_d32", 2, 4, 2, 300, 200, 32, True, 64),
+             ("ragged_d64", 2, 8, 2, 333, 250, 64, True, 100),
+             ("ragged_d128", 2, 6, 2, 270, 199, 128, True, 80),
              ("d64", 4, 32, 32, 256, 256, 64, True, 0),
              ("d112", 2, 32, 32, 512, 512, 112, True, 0))
-K2_FP16 = ("server", "train", "long", "d64")
+K2_FP16 = ("server", "train", "long", "ragged_d64", "ragged_d128", "d64")
 TOL_K2 = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 1e-2}
 UNIT_ROUNDOFF = {"bfloat16": 2.0 ** -9, "float16": 2.0 ** -12}
 # K3 shapes: (name, B, S, H, P, G, N, chunk, dtype, with an initial state).
@@ -291,10 +297,11 @@ def launch_counts() -> list:
 
 
 def zero_counts() -> None:
-    """Every launch counter and K2f's route counts to 0."""
+    """Every launch counter and K2's route counts to 0."""
     from repro_torch.kernels import flash_attention
 
-    for counts in (*launch_counts(), flash_attention.fwd_routes):
+    for counts in (*launch_counts(), flash_attention.fwd_routes,
+                   flash_attention.bwd_routes):
         for k in counts:
             counts[k] = 0
 
@@ -304,10 +311,14 @@ def read_counts() -> dict:
 
 
 def read_routes() -> dict:
-    """K2f's launches by route since the last ``zero_counts``."""
-    from repro_torch.kernels import flash_attention
+    """K2's launches by direction and route since the last
+    ``zero_counts``: ``fwd_sm90``, ``fwd_simt`` (K2f), ``bwd_sm90``,
+    ``bwd_simt`` (K2q and K2kv, each launch once)."""
+    from repro_torch.kernels import flash_attention as FA
 
-    return dict(flash_attention.fwd_routes)
+    return {f"{kind}_{route}": c for kind, counts in (
+        ("fwd", FA.fwd_routes), ("bwd", FA.bwd_routes))
+        for route, c in counts.items()}
 
 
 def expected(**nonzero) -> dict:
@@ -978,21 +989,23 @@ def device_ms_per_call(torch, fn, match, calls: int = 20) -> float:
     return sum(v for k, v in device_ms(prof).items() if match(k)) / calls
 
 
-def k2f_kernel(route):
-    """Matches the device name of K2f's kernel on ``route``."""
+def k2_kernel(which, route):
+    """Matches the device name of K2's ``which`` kernel (``fwd``, ``dq``,
+    ``dkv``) on ``route``: ``sm90_dq_kernel<...>`` on sm90,
+    ``dq_kernel<...>`` on simt (K3's ``ssd_fwd_kernel`` is neither)."""
     if route == "sm90":
-        return lambda name: "sm90_fwd_kernel<" in name
-    return lambda name: ("fwd_kernel<" in name and "sm90_" not in name
+        return lambda name: f"sm90_{which}_kernel<" in name
+    return lambda name: (f"{which}_kernel<" in name and "sm90_" not in name
                          and "ssd_" not in name)
 
 
 def k2_phase(torch):
     """K2f, K2q and K2kv against their plain versions, timed beside their
     bound and beside F.scaled_dot_product_attention (forward, and its
-    autograd backward as the yardstick of the backward pair). K2f's rows
-    name their route; an sm90 row also times the simt kernel (the first
-    version) on the same inputs, and every K2f row gives its kernel's
-    device time without the wrapper's host time."""
+    autograd backward as the yardstick of the backward pair). Every row
+    names its route and gives its kernel's device time without the
+    wrapper's host time; an sm90 row also times the simt kernel (the
+    first version) on the same inputs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
@@ -1010,6 +1023,7 @@ def k2_phase(torch):
             dname = str(dtype).split(".")[-1]
             tol = TOL_K2[dname]
             route = FA.fwd_route(dtype, d)
+            broute = FA.bwd_route(dtype, d)
             isz = 4 if dtype == torch.float32 else 2
             peak = FP32_OPS_PER_S if dtype == torch.float32 \
                 else BF16_OPS_PER_S
@@ -1034,11 +1048,13 @@ def k2_phase(torch):
             dead = plse == FA.NEG_INF
             dead_exact = bool((lse[dead] == FA.NEG_INF).all()
                               and (o[dead] == 0).all())
-            # both backward versions from the kernel's residuals
+            # both backward versions from the kernel's residuals; the sm90
+            # route reads dO in the input dtype, where do is made
             dof = do.float().reshape(B * hq, sq, d)
             delta = (dof * o).sum(dim=-1)
-            dq = FA.flash_attention_bwd_dq(q, k, v, dof, lse, delta, **kw)
-            dk, dv = FA.flash_attention_bwd_dkv(q, k, v, dof, lse, delta,
+            do_k = do.reshape(B * hq, sq, d) if broute == "sm90" else dof
+            dq = FA.flash_attention_bwd_dq(q, k, v, do_k, lse, delta, **kw)
+            dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do_k, lse, delta,
                                                 **kw)
             torch.cuda.synchronize()
             want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
@@ -1073,7 +1089,7 @@ def k2_phase(torch):
                 "lse_tol": list(lse_tol), "dead_rows_exact": dead_exact,
                 "ms": cuda_ms(torch, fwd),
                 "device_ms": device_ms_per_call(torch, fwd,
-                                                k2f_kernel(route)),
+                                                k2_kernel("fwd", route)),
                 "plain_ms": cuda_ms(torch, lambda: FA.flash_attention_fwd_plain(
                     q, k, v, **kw)),
                 "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -1082,34 +1098,43 @@ def k2_phase(torch):
             if route == "sm90":
                 row["simt_ms"] = cuda_ms(torch, simt)
                 row["simt_device_ms"] = device_ms_per_call(
-                    torch, simt, k2f_kernel("simt"))
+                    torch, simt, k2_kernel("fwd", "simt"))
             if name == "long" and dtype != torch.float32:
                 row["tflops_live"] = 4 * d * n_live / (row["ms"] * 1e-3) \
                     / 1e12
             rows["fwd"].append(row)
-            in_bytes = qkv_bytes + B * hq * sq * d * 4 + 2 * row_bytes
-            b_ms, b_by = bound(in_bytes + B * hq * sq * d * isz,
-                               6 * d * n_live, peak)
-            rows["dq"].append({
-                **common, "ok": errs[0] <= tol and dq_dead,
-                "max_abs_err": abs_errs[0], "max_rel_err": errs[0],
-                "dead_rows_exact": dq_dead,
-                "ms": cuda_ms(torch, lambda: FA.flash_attention_bwd_dq(
-                    q, k, v, dof, lse, delta, **kw)),
-                "plain_ms": plain_bwd, "library_ms": lib_bwd,
-                "bound_ms": b_ms, "bound_by": b_by})
-            b_ms, b_by = bound(in_bytes + 2 * B * hkv * sk * d * isz,
-                               8 * d * n_live, peak)
-            rows["dkv"].append({
-                **common, "ok": max(errs[1:]) <= tol,
-                "max_abs_err": max(abs_errs[1:]),
-                "max_rel_err": max(errs[1:]),
-                "ms": cuda_ms(torch, lambda: FA.flash_attention_bwd_dkv(
-                    q, k, v, dof, lse, delta, **kw)),
-                "plain_ms": plain_bwd, "library_ms": lib_bwd,
-                "bound_ms": b_ms, "bound_by": b_by})
-            del q, k, v, do, o, lse, po, plse, dof, delta, dq, dk, dv, \
-                want, qr, kr, vr, out
+            # the backward reads q, k, v, dO (in its route's dtype), lse
+            # and delta once and writes dq, or dk and dv
+            in_bytes = qkv_bytes + 2 * row_bytes \
+                + B * hq * sq * d * (isz if broute == "sm90" else 4)
+            for which, ok, abs_err, rel_err, out_bytes, ops, extra in (
+                    ("dq", errs[0] <= tol and dq_dead, abs_errs[0], errs[0],
+                     B * hq * sq * d * isz, 6 * d * n_live,
+                     {"dead_rows_exact": dq_dead}),
+                    ("dkv", max(errs[1:]) <= tol, max(abs_errs[1:]),
+                     max(errs[1:]), 2 * B * hkv * sk * d * isz,
+                     8 * d * n_live, {})):
+                launch = getattr(FA, f"flash_attention_bwd_{which}")
+                call = lambda r: lambda: launch(
+                    q, k, v, do_k if r == broute else dof, lse, delta,
+                    route=r, **kw)
+                b_ms, b_by = bound(in_bytes + out_bytes, ops, peak)
+                row = {**common, "route": broute, "ok": ok,
+                       "max_abs_err": abs_err, "max_rel_err": rel_err,
+                       **extra, "ms": cuda_ms(torch, call(broute)),
+                       "device_ms": device_ms_per_call(
+                           torch, call(broute), k2_kernel(which, broute)),
+                       "plain_ms": plain_bwd, "library_ms": lib_bwd,
+                       "bound_ms": b_ms, "bound_by": b_by}
+                if broute == "sm90":
+                    row["simt_ms"] = cuda_ms(torch, call("simt"))
+                    row["simt_device_ms"] = device_ms_per_call(
+                        torch, call("simt"), k2_kernel(which, "simt"))
+                if name == "long" and dtype != torch.float32:
+                    row["tflops_live"] = ops / (row["ms"] * 1e-3) / 1e12
+                rows[which].append(row)
+            del q, k, v, do, o, lse, po, plse, dof, do_k, delta, dq, dk, \
+                dv, want, qr, kr, vr, out
             torch.cuda.empty_cache()
     for which, rs in rows.items():
         for r in rs:
@@ -1120,11 +1145,11 @@ def k2_phase(torch):
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
     if bad:
         fail(f"{len(bad)} K2 checks disagree with the plain versions: {bad}")
-    want_routes = {(r["shape"]["name"], r["dtype"]): r["route"]
-                   for r in rows["fwd"]}
+    routes = {(which, r["shape"]["name"], r["dtype"]): r["route"]
+              for which, rs in rows.items() for r in rs}
     if any((r == "sm90") != (dt != "float32" and n in K2_FP16)
-           for (n, dt), r in want_routes.items()):
-        fail(f"K2f took an unexpected route: {want_routes}")
+           for (_, n, dt), r in routes.items()):
+        fail(f"K2 took an unexpected route: {routes}")
     return rows
 
 
@@ -1399,16 +1424,18 @@ def dense_llm_check(torch, devices=("cuda", "cpu")):
         "losses_max_rel_err": scalar_err,
         "gen_grad_max_err_rel_to_max": g_err,
         "student_grad_max_err_rel_to_max": s_err,
-        "launches_cuda": ca, "fwd_routes_cuda": ra, "tol": STEP_TOL}})
+        "launches_cuda": ca, "routes_cuda": ra, "tol": STEP_TOL}})
     if max(scalar_err, g_err, s_err) > STEP_TOL:
         fail(f"the DENSE LLM steps on the card disagree with the CPU: "
              f"losses {scalar_err}, generator {g_err}, student {s_err}")
     if not all(ca[k] for k in ca if k.startswith(("distill_kl",
                                                    "flash_attention"))):
         fail(f"dense_llm_check launched not every K1/K2 kernel: {ca}")
-    if sum(ra.values()) != ca["flash_attention_fwd"]:
-        fail(f"dense_llm_check: K2f's routes {ra} do not add up to its "
-             f"{ca['flash_attention_fwd']} launches")
+    if ra["fwd_sm90"] + ra["fwd_simt"] != ca["flash_attention_fwd"] or \
+            ra["bwd_sm90"] + ra["bwd_simt"] != \
+            ca["flash_attention_bwd_dq"] + ca["flash_attention_bwd_dkv"]:
+        fail(f"dense_llm_check: K2's routes {ra} do not add up to its "
+             f"launches {ca}")
 
 
 def _leaf_paths(tree: dict, prefix: str = "") -> list:
@@ -1560,12 +1587,17 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
     if not all(v == v and abs(v) != float("inf") for v in losses):
         fail(f"{label} main-path losses are not finite: {hist}, "
              f"{client_loss}")
-    # every K2f launch took the route its dtype and head dim choose (sm90
-    # for the bfloat16 llama path)
-    route = FA.fwd_route(getattr(torch, cfgs[0].dtype), cfgs[0].head_dim)
-    if routes[route] != totals["flash_attention_fwd"]:
-        fail(f"{label}: K2f's launches by route {routes}, expected all "
-             f"{totals['flash_attention_fwd']} on {route}")
+    # every K2 launch took the route its dtype and head dim choose (sm90
+    # for the bfloat16 llama path, both directions)
+    dtype, hd = getattr(torch, cfgs[0].dtype), cfgs[0].head_dim
+    for kind, route, n in (
+            ("fwd", FA.fwd_route(dtype, hd), totals["flash_attention_fwd"]),
+            ("bwd", FA.bwd_route(dtype, hd),
+             totals["flash_attention_bwd_dq"]
+             + totals["flash_attention_bwd_dkv"])):
+        if routes[f"{kind}_{route}"] != n:
+            fail(f"{label}: K2's launches by route {routes}, expected all "
+                 f"{n} of {kind} on {route}")
     if ledger.rounds != 1 or ledger.downlink_bytes != 0 or \
             ledger.uplink_bytes != sum(param_bytes(p) for p in client_params):
         fail(f"not one-shot: {ledger.rounds} rounds, "
@@ -1585,7 +1617,9 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
         "launches_per_step": {"train_step": train_launches(cfgs[0]),
                               "gen_step": want_gen,
                               "student_step": want_stu},
-        "launches_total": totals, "fwd_routes": routes,
+        "launches_total": totals,
+        "fwd_routes": {r: routes[f"fwd_{r}"] for r in ("sm90", "simt")},
+        "bwd_routes": {r: routes[f"bwd_{r}"] for r in ("sm90", "simt")},
         "uplink_bytes": ledger.uplink_bytes, "rounds": ledger.rounds,
         "client_loss": client_loss, **hist}})
     return totals, (gen_step, student_step, g_opt, s_opt, gen, student,
@@ -1625,8 +1659,10 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
     k2 = {w: sum(v for k, v in per_kernel.items()
                  if f"{w}_kernel<" in k and "ssd_" not in k)
           for w in ("fwd", "dq", "dkv")}
-    k2f_by_route = {r: sum(v for k, v in per_kernel.items()
-                           if k2f_kernel(r)(k)) for r in ("sm90", "simt")}
+    k2_by_route = {w: {r: sum(v for k, v in per_kernel.items()
+                              if k2_kernel(w, r)(k))
+                       for r in ("sm90", "simt")}
+                   for w in ("fwd", "dq", "dkv")}
     k3 = {w: sum(v for k, v in per_kernel.items()
                  if f"ssd_{w}_kernel<" in k) for w in ("fwd", "bwd")}
     k1_ms = sum(v for k, v in per_kernel.items() if "_kl_" in k)
@@ -1642,7 +1678,7 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
     emit({label: {
         "epoch_ms": epoch_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / epoch_ms,
-        "k2_ms": k2, "k2f_ms_by_route": k2f_by_route,
+        "k2_ms": k2, "k2_ms_by_route": k2_by_route,
         "k2_share_of_busy": sum(k2.values()) / busy_ms
         if busy_ms else None, "k3_ms": k3,
         "k3_share_of_busy": sum(k3.values()) / busy_ms if busy_ms else None,
@@ -1664,7 +1700,7 @@ def k2_entry(name, rs, line, launches):
     launches over the LLM main path."""
     main = next(r for r in rs if r["shape"]["name"] == "server"
                 and r["dtype"] == "bfloat16")
-    source = "flash_attention_sm90.cu" if main.get("route") == "sm90" \
+    source = "flash_attention_sm90.cu" if main["route"] == "sm90" \
         else "flash_attention.cu"
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -1674,7 +1710,7 @@ def k2_entry(name, rs, line, launches):
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
-            "dtype": main["dtype"], "k2f_route": main.get("route"),
+            "dtype": main["dtype"], "k2_route": main["route"],
             "device_ms": main.get("device_ms"), "by_shape": rs}
 
 

@@ -37,10 +37,12 @@ def run(checkout: str) -> dict:
             "seconds": main["seconds"],
             "seconds_per_epoch_last": main["seconds_per_epoch_last"],
             "fwd_routes": main.get("fwd_routes"),
+            "bwd_routes": main.get("bwd_routes"),
             "profiled_epoch_ms": prof["epoch_ms"],
             "device_busy_ms": prof["device_busy_ms"],
             "device_idle_share": prof["device_idle_share"],
             "k2_ms": prof["k2_ms"],
+            "k2_ms_by_route": prof.get("k2_ms_by_route"),
             "top_host_ops_self_ms_count": prof["top_host_ops_self_ms_count"]}
 
 

@@ -1,78 +1,123 @@
-// K2f on Hopper's tensor cores: the flash-attention forward for bfloat16
-// and float16 at head dims 64 and 128, with wgmma and TMA (sm_90a).
+// K2 on Hopper's tensor cores: the flash-attention forward (K2f) and its
+// two backward kernels (K2q, K2kv) for bfloat16 and float16 at head dims
+// 64 and 128, with wgmma and TMA (sm_90a).
 //
-// Replaces the Pallas forward of src/repro/kernels/flash_attention.py:
-// _fwd_flat via flash_attention (pallas_call at :171), whose body is
-// _flash_kernel (:88). It computes exactly what flash_attention.cu's
-// SIMT fwd_kernel computes, with the same contract:
+// Replaces the Pallas kernels of src/repro/kernels/flash_attention.py:
+//   K2f  _fwd_flat via flash_attention, body _flash_kernel (pallas_call at
+//        :171, kernel at :88);
+//   K2q  flash_attention_bwd's dq pass, _flash_bwd_dq_kernel (:342, :223);
+//   K2kv its dk/dv pass, _flash_bwd_dkv_kernel (:370, :260).
+// It computes exactly what flash_attention.cu's SIMT fwd_kernel, dq_kernel
+// and dkv_kernel compute, with the same contract:
 //   q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), contiguous, in bfloat16 or
 //   float16, D 64 or 128; query head h reads KV head h / (Hq / Hkv); the
 //   q tokens are the last Sq of the Sk keys (seq_off = Sk - Sq); key k is
 //   live for query q when k < Sk, q < Sq, (not causal or k <= q +
 //   seq_off) and (window == 0 or q + seq_off - k < window).
-//   Out: o_f32 (B*Hq, Sq, D) and lse (B*Hq, Sq), float32; a row with no
-//   live key gives o = 0 and lse = NEG_INF = -2^30 exactly.
-// The wrapper (kernels/flash_attention.py, fwd_route) sends every other
-// dtype and head dim to fwd_kernel.
+//   K2f writes o_f32 (B*Hq, Sq, D) and lse (B*Hq, Sq), float32; a row with
+//   no live key gives o = 0 and lse = NEG_INF = -2^30 exactly.
+//   K2q and K2kv read dO (B*Hq, Sq, D) in the input's 16-bit type (wgmma
+//   takes its operands there), lse and delta = sum_d dO * o_f32 (B*Hq, Sq)
+//   in float32, recompute p = exp(s * scale - lse) under the mask and
+//   ds = p (dP - delta), and write dq = dS K scale, dk = dS^T Q scale and
+//   dv = P^T dO in the input type. Nothing of size (Sq, Sk) reaches device
+//   memory; K2kv sums each GQA group inside its CTA, without atomics, so
+//   dk and dv are deterministic; a dead row adds nothing and gets dq = 0.
+// The wrapper (kernels/flash_attention.py, fwd_route and bwd_route) sends
+// every other dtype and head dim to flash_attention.cu.
 //
 // Bound on an H100 (989 TFLOP/s bf16/fp16, 3.35 TB/s): a causal call does
-// 4 D flops a live (q, k) pair and moves q, k, v once in 16 bits and
-// o_f32 once in float32. At one 4096-token sequence (24/8 heads, D 128)
-// that is 103 GFLOP against 92 MB: operations bound it. At the LLM path's
-// server and train shapes (S 256) and at D 64 the float32 o_f32 write is
-// over half of the bytes and bytes bound it. So the design does two
-// things: it keeps the tensor cores fed on long rows (both products on
-// wgmma, tiles arriving by TMA while the previous tile computes), and it
-// reads each q, k and v byte once per CTA and writes o_f32 once, straight
-// from the accumulator registers in full 32-byte sectors.
+// 4 D flops a live (q, k) pair forward, 6 D in K2q and 8 D in K2kv, and
+// moves q, k, v (and dO) once in 16 bits and the float32 rows once. At one
+// 4096-token sequence (24/8 heads, D 128) that is 103, 155 and 206 GFLOP
+// against ~100 MB: operations bound all three. At the LLM path's server
+// and train shapes (S 256) and at D 64 the forward's float32 o_f32 write
+// is over half of its bytes and bytes bound it; the backward stays near
+// the balance. So the design keeps the tensor cores fed on long rows
+// (every product on wgmma, tiles arriving by TMA while the previous tile
+// computes) and reads each tile once per CTA.
 //
-// Design. One CTA per (b*Hq + h, 128-row q-block), launched longest rows
-// first (blockIdx.y = 0 is the last q-block), so the causal triangle's
-// long rows do not form the tail wave. 288 threads: two consumer
-// warpgroups of 64 q rows each and one producer warp.
-//   Producer (one thread): Q once, then each live k-tile's K and V by TMA
-//     (cp.async.bulk.tensor, 3-D maps (D, S, B*H), so a ragged tail past
-//     Sk or Sq reads zeros from its own head, never the next head's rows)
-//     into a two-stage ring with a full and an empty mbarrier per stage.
-//     Dead tiles (past the causal diagonal, before the window) are never
-//     loaded. With SWIZZLE_128B a box is at most 128 bytes wide, so a
-//     D-128 row is two 64-column boxes: every tile is stored as D/64
-//     halves of (rows, 64), each in the 128-byte swizzled layout.
-//   Consumers (per warpgroup, per tile):
-//     S = Q K^T with wgmma m64nBKk16, both operands K-major in shared
-//       memory (SS): D/16 instructions, the descriptor stepping 32 B per
-//       k16 inside a swizzle atom and to the next half every 4 steps;
-//     the online softmax on the accumulator fragments in registers, in
-//       the log2 domain: a row's values sit in the 4 threads of a quad
-//       (two __shfl_xor_sync); the mask is evaluated only on tiles that
-//       straddle the diagonal, the window's edge or the ragged end; a
-//       masked score is -inf and the running max starts at NEG_INF, so
-//       p = 0 there and exp(NEG_INF - NEG_INF) never counts; l sums the
-//       float32 p;
-//     O = O * alpha + P V with wgmma m64nDk16, A = P from registers (RS):
-//       P is rounded to the input's 16-bit type and the accumulator's
-//       (row, column pair) layout is the A fragment's, so the repacking
-//       is a pairwise pack; B = V, stored key-major, which is MN-major for
-//       this product: transpose-B is set, the descriptor's leading offset
-//       steps between the two 64-column halves and its stride offset
-//       between 8-key groups;
-//     a warpgroup whose 64 rows see none of a tile only releases it.
-//   Epilogue: o = acc / max(l, 1e-30) written as float32, lse = m + log l
-//   where l > 0 and NEG_INF elsewhere; rows past Sq are never written.
-// Rounding P to 16 bits before PV (as every tensor-core flash attention
-// does) moves each o entry by at most u max|v| (u = 2^-9 bf16, 2^-12
-// fp16); lse comes from float32 scores and a float32 l.
+// The common shape. One producer warp (one thread issues the TMA loads:
+// cp.async.bulk.tensor, 3-D maps (D, S, B*H), so a ragged tail past Sk or
+// Sq reads zeros from its own head, never the next head's rows) feeds a
+// two-stage ring with a full and an empty mbarrier per stage; two consumer
+// warpgroups of 64 rows each run the products. One CTA an SM. K2f has 288
+// threads. ptxas gives such a CTA, rounded up to whole warpgroups, 168
+// registers a thread, where the backward's accumulators spilled (up to
+// 920 bytes a thread in K2kv); so K2q and K2kv have 384 threads, a whole
+// producer warpgroup of which one warp works, and setmaxnreg moves
+// registers from it (down to 40) to the consumers (up to 232).
+// With SWIZZLE_128B a box is at most 128 bytes wide, so a D-128 row is two
+// 64-column boxes: every tile is stored as D/64 halves of (rows, 64), each
+// in the 128-byte swizzled layout. Dead tiles (past the causal diagonal,
+// before the window) are never loaded. Every product is one of two wgmma
+// forms:
+//   SS, m64nNk16, A and B both K-major in shared memory (QK^T and its
+//     kin): D/16 instructions, the descriptor stepping 32 B per k16 inside
+//     a swizzle atom and to the next half every 4 steps;
+//   RS, m64nDk16, A from registers, B MN-major (transpose-B): B is a tile
+//     stored row-major with D contiguous whose rows are the reduction axis
+//     (V in PV); the descriptor's leading offset steps between the two
+//     64-column halves and its stride offset between 8-row groups. A is an
+//     accumulator of an SS product: the accumulator's (row, column pair)
+//     layout is the A fragment's, so the repacking is a pairwise pack to
+//     the input's 16-bit type.
+// The mask is evaluated only on tiles that straddle the diagonal, the
+// window's edge or a ragged end; a tile that holds a dead row (Sq > Sk,
+// before the window) always straddles one of them. Under the mask p is set
+// to 0 by a select, never by the arithmetic (exp(s - NEG_INF) overflows).
+// A warpgroup whose 64 rows see none of a tile only releases it.
+//
+// K2f: one CTA per (b*Hq + h, 128-row q-block), longest q-blocks first
+//   (blockIdx.y = 0 is the last q-block), so the causal triangle's long
+//   rows do not form the tail wave. The producer loads Q once, then each
+//   live k-tile's K and V. Per warpgroup and tile: S = Q K^T (SS); the
+//   online softmax on the accumulator fragments in the log2 domain (a
+//   row's values sit in the 4 threads of a quad: two __shfl_xor_sync; a
+//   masked score is -inf and the running max starts at NEG_INF, so p = 0
+//   there and exp(NEG_INF - NEG_INF) never counts; l sums the float32 p);
+//   O = O * alpha + P V (RS, V as B). Epilogue: o = acc / max(l, 1e-30) as
+//   float32, lse = m + log l where l > 0 and NEG_INF elsewhere. Rounding P
+//   to 16 bits before PV moves each o entry by at most u max|v| (u = 2^-9
+//   bf16, 2^-12 fp16); lse comes from float32 scores and a float32 l.
+// K2q: the same grid, order and tiles. The producer loads Q and dO once,
+//   then each live k-tile's K and V. Per warpgroup and tile: S = Q K^T and
+//   dP = dO V^T (SS, issued together, one wait); p = exp2(S scale log2e -
+//   lse log2e) under the mask and ds = p (dP - delta), lse and delta held
+//   per row in registers, all in float32; dQ += dS K (RS, dS packed to 16
+//   bits, K as B, exactly PV's descriptor with K in V's place). Epilogue:
+//   dq = acc * scale in the input type; rows past Sq are never written, a
+//   dead row stores 0.
+// K2kv: one CTA per (b*Hkv + kv, 128-key block); each warpgroup owns 64
+//   keys, the CTA loads K and V once. The producer walks the g query heads
+//   of the KV head and, for each, the q-tiles (BQ rows) that see the CTA's
+//   keys (q_range); it brings each tile's Q and dO by TMA, and its lse
+//   (times log2e) and delta with plain loads by the warp's 32 lanes into
+//   the stage's rows (the full barrier counts the 32 lanes and the TMA
+//   bytes). Per warpgroup and tile, on the transposed scores, so that every
+//   product is SS or RS with no transpose through shared memory: S^T = K
+//   Q^T and dP^T = V dO^T (SS, K-major); P^T and dS^T in float32 registers,
+//   lse and delta indexed by column; dV += P^T dO and dK += dS^T Q (RS, A
+//   packed from the accumulators, B the dO or Q tile, which is MN-major
+//   for these products: transpose-B). Epilogue: dk = acc * scale and dv in
+//   the input type; keys past Sk are never written. Registers: the dK and
+//   dV accumulators are D floats a thread, S^T and dP^T BQ; BQ is 64 at
+//   D 128 and 128 at D 64, so the four come to 192 either way, inside the
+//   consumers' 232.
+// Rounding P and dS to 16 bits at the pack (as every tensor-core flash
+// attention does) is the only rounding before the float32 accumulators.
 //
 // Left for later: ping-pong between the two consumer warpgroups,
-// overlapping softmax with wgmma inside a warpgroup, a persistent tile
-// scheduler, clusters with TMA multicast, o in 16 bits, fp8.
+// overlapping the softmax with wgmma inside a warpgroup, a persistent tile
+// scheduler, clusters with TMA multicast, o in 16 bits, fp8, one launch
+// for both backward kernels.
 //
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
 // reached through the runtime's driver entry point (cudaGetDriverEntryPoint
 // or, from CUDA 12.5, its ByVersion form), so the library needs no -lcuda.
-// The C interface has flash_attention_fwd_launch's argument list, sets the
-// dynamic shared-memory limit, launches once on the given stream and
-// returns the first CUDA error.
+// Each C entry has the argument list of its flash_attention.cu namesake,
+// sets the dynamic shared-memory limit, launches once on the given stream
+// and returns the first CUDA error.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -82,9 +127,15 @@
 
 namespace {
 
-constexpr int kBQ = 128;                    // q rows a CTA
+constexpr int kBQ = 128;                    // q rows a CTA (K2f, K2q)
+constexpr int kBKV = 128;                   // keys a CTA (K2kv)
 constexpr int kConsumers = 256;             // two warpgroups of 64 rows
-constexpr int kThreads = kConsumers + 32;   // and one producer warp
+constexpr int kThreads = kConsumers + 32;   // and one producer warp (K2f)
+// K2q and K2kv: a whole producer warpgroup, whose registers setmaxnreg
+// moves to the consumers (168 each at entry; 128 x 128 freed, 256 x 64
+// taken)
+constexpr int kBwdThreads = kConsumers + 128;
+constexpr uint32_t kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kStages = 2;
 constexpr float kNegInf = -1073741824.0f;   // -2^30, the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
@@ -96,13 +147,20 @@ template <int D> struct TileK {
   static constexpr int value = D == 64 ? 128 : 64;
 };
 
+// K2kv's q-tile: 128 rows at D 64, 64 at D 128 (the dK and dV accumulators
+// and S^T, dP^T then come to 192 floats a thread at either D)
+template <int D> struct TileQ {
+  static constexpr int value = D == 64 ? 128 : 64;
+};
+
 // dtype tags for the wgmma overloads
 struct Bf16 {};
 struct F16 {};
 
 struct Geometry {
   int hq, hkv, sq, sk, causal, window, seq_off;
-  float scale_log2;   // the softmax scale times log2(e)
+  float scale;        // the softmax scale
+  float scale_log2;   // and times log2(e)
 };
 
 // a masked score: -inf, so that its p is 0 whatever the running max
@@ -124,6 +182,23 @@ __device__ __forceinline__ void k_range(int q0, int rows, const Geometry& g,
   const int q_last = min(q0 + rows, g.sq) - 1;
   hi = g.causal ? min(g.sk, q_last + g.seq_off + 1) : g.sk;
   lo = g.window ? max(0, q0 + g.seq_off - g.window + 1) : 0;
+}
+
+// the queries [lo, hi) that see any of the keys [k0, k0 + keys)
+__device__ __forceinline__ void q_range(int k0, int keys, const Geometry& g,
+                                        int& lo, int& hi) {
+  const int k_last = min(k0 + keys, g.sk) - 1;
+  lo = g.causal ? max(0, k0 - g.seq_off) : 0;
+  hi = g.window ? min(g.sq, k_last + g.window - g.seq_off) : g.sq;
+}
+
+// every (q, k) of rows [q0, q0 + rows) and keys [k0, k0 + keys) is live:
+// the tile straddles no edge of the mask
+__device__ __forceinline__ bool tile_live(int q0, int rows, int k0, int keys,
+                                          const Geometry& g) {
+  return q0 + rows <= g.sq && k0 + keys <= g.sk &&
+         !(g.causal && k0 + keys - 1 > q0 + g.seq_off) &&
+         !(g.window && q0 + rows - 1 + g.seq_off - k0 >= g.window);
 }
 
 // ------------------------------------------------------ PTX wrappers --
@@ -174,6 +249,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// a warpgroup's registers a thread, set once on each side of the role split
+template <uint32_t N> __device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <uint32_t N> __device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -536,6 +619,400 @@ sm90_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ------------------------------------------------------------------ K2q --
+
+template <typename Tag, int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+sm90_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_do,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, uint16_t* __restrict__ dq,
+               Geometry g) {
+  constexpr int BK = TileK<D>::value;
+  constexpr int NH = D / 64;
+  constexpr uint32_t kQHalf = kBQ * 128;
+  constexpr uint32_t kKVHalf = BK * 128;
+  constexpr uint32_t kQBytes = NH * kQHalf;
+  constexpr uint32_t kKVBytes = NH * kKVHalf;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;                          // [NH][kBQ][64]
+  const uint32_t do_s = q_s + kQBytes;                // [NH][kBQ][64]
+  const uint32_t k_s = do_s + kQBytes;                // [kStages][NH][BK][64]
+  const uint32_t v_s = k_s + kStages * kKVBytes;      // [kStages][NH][BK][64]
+  const uint32_t q_full = v_s + kStages * kKVBytes;   // then full[], empty[]
+  const uint32_t full = q_full + 8, empty = full + 8 * kStages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest rows first
+  const int b = bh / g.hq, h = bh % g.hq;
+  const int kvh = b * g.hkv + h / (g.hq / g.hkv);
+  int lo, hi;
+  k_range(q0, kBQ, g, lo, hi);
+  const int kt0 = lo < hi ? lo / BK * BK : hi;
+  const int n_tiles = lo < hi ? (hi - kt0 + BK - 1) / BK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers / 32);   // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {         // ---- the producer warpgroup
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers && n_tiles > 0) {
+      mbar_expect_tx(q_full, 2 * kQBytes);
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh) {
+        tma_load(q_s + hh * kQHalf, &tm_q, q_full, 64 * hh, q0, bh);
+        tma_load(do_s + hh * kQHalf, &tm_do, q_full, 64 * hh, q0, bh);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(empty + 8 * s, (t / kStages - 1) & 1);
+        const uint32_t bar = full + 8 * s;
+        const int k0 = kt0 + t * BK;
+        mbar_expect_tx(bar, 2 * kKVBytes);
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh) {
+          tma_load(k_s + s * kKVBytes + hh * kKVHalf, &tm_k, bar, 64 * hh, k0,
+                   kvh);
+          tma_load(v_s + s * kKVBytes + hh * kKVHalf, &tm_v, bar, 64 * hh, k0,
+                   kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups
+  regs_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int qw0 = q0 + 64 * wg;                    // the warpgroup's rows
+  const int row0 = qw0 + 16 * (tid / 32) + lane / 4;   // and row0 + 8
+  int wlo, whi;
+  k_range(qw0, 64, g, wlo, whi);
+  const bool rows_in = qw0 < g.sq;
+  const uint32_t q_wg = q_s + wg * 64 * 128, do_wg = do_s + wg * 64 * 128;
+  float lse2[2], dlt[2];   // lse log2(e) and delta of rows row0, row0 + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const bool in = row < g.sq;
+    lse2[r] = in ? lse[(size_t)bh * g.sq + row] * kLog2e : 0.f;
+    dlt[r] = in ? delta[(size_t)bh * g.sq + row] : 0.f;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if (n_tiles > 0) mbar_wait(q_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const int k0 = kt0 + t * BK;
+    mbar_wait(full + 8 * s, (t / kStages) & 1);
+    if (rows_in && k0 < whi && k0 + BK > wlo) {
+      const uint32_t k_t = k_s + s * kKVBytes, v_t = v_s + s * kKVBytes;
+      // S = Q K^T and dP = dO V^T
+      float sc[BK / 2], dp[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = dp[i] = 0.f;
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc,
+                 desc_sw128(q_wg + (kk / 4) * kQHalf + (kk % 4) * 32, 16,
+                            1024),
+                 desc_sw128(k_t + (kk / 4) * kKVHalf + (kk % 4) * 32, 16,
+                            1024),
+                 kk > 0, Tag{});
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dp,
+                 desc_sw128(do_wg + (kk / 4) * kQHalf + (kk % 4) * 32, 16,
+                            1024),
+                 desc_sw128(v_t + (kk / 4) * kKVHalf + (kk % 4) * 32, 16,
+                            1024),
+                 kk > 0, Tag{});
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // p into sc; sc[i] is row row0 + 8 ((i / 2) % 2), column
+      // k0 + 8 (i / 4) + 2 (lane % 4) + i % 2
+      if (tile_live(qw0, 64, k0, BK, g)) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          sc[i] = exp2f(fmaf(sc[i], g.scale_log2, -lse2[(i / 2) % 2]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int r = (i / 2) % 2;
+          const int c = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+          sc[i] = live(row0 + 8 * r, c, g)
+                      ? exp2f(fmaf(sc[i], g.scale_log2, -lse2[r]))
+                      : 0.f;
+        }
+      }
+      // dS in the A-fragment layout: ds[kk][j] packs entries 8 kk + 2 j, +1
+      uint32_t ds[BK / 16][4];
+#pragma unroll
+      for (int i = 0; i < BK / 2; i += 2) {
+        const int r = (i / 2) % 2;
+        ds[i / 8][(i % 8) / 2] = pack2(sc[i] * (dp[i] - dlt[r]),
+                                       sc[i + 1] * (dp[i + 1] - dlt[r]),
+                                       Tag{});
+      }
+
+      // dQ += dS K
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs(acc, ds[kk], desc_sw128(k_t + kk * 16 * 128, kKVHalf, 1024),
+                 Tag{});
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+
+  // dq = acc * scale; a row that saw no live key stores 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= g.sq) continue;
+    uint16_t* dq_row = dq + ((size_t)bh * g.sq + row) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dq_row + 8 * j) =
+          pack2(acc[4 * j + 2 * r] * g.scale,
+                acc[4 * j + 2 * r + 1] * g.scale, Tag{});
+  }
+}
+
+// ----------------------------------------------------------------- K2kv --
+
+template <typename Tag, int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+sm90_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_do,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, uint16_t* __restrict__ dk,
+                uint16_t* __restrict__ dv, Geometry g) {
+  constexpr int BQ = TileQ<D>::value;
+  constexpr int NH = D / 64;
+  constexpr uint32_t kKHalf = kBKV * 128;     // bytes of a (kBKV, 64) half
+  constexpr uint32_t kQHalf = BQ * 128;       // bytes of a (BQ, 64) half
+  constexpr uint32_t kKBytes = NH * kKHalf;
+  constexpr uint32_t kQBytes = NH * kQHalf;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t k_s = base;                          // [NH][kBKV][64]
+  const uint32_t v_s = k_s + kKBytes;                 // [NH][kBKV][64]
+  const uint32_t q_s = v_s + kKBytes;                 // [kStages][NH][BQ][64]
+  const uint32_t do_s = q_s + kStages * kQBytes;      // [kStages][NH][BQ][64]
+  const uint32_t row_s = do_s + kStages * kQBytes;    // [kStages][2][BQ] f32
+  const uint32_t kv_full = row_s + kStages * 2 * BQ * 4;
+  const uint32_t full = kv_full + 8, empty = full + 8 * kStages;
+  // the rows at their generic address: lse log2(e), then delta, a stage
+  float* const rows_p = reinterpret_cast<float*>(smem_raw + (row_s - raw));
+
+  const int bkv = blockIdx.x, k0 = blockIdx.y * kBKV;
+  const int b = bkv / g.hkv, kv = bkv % g.hkv;
+  const int n_g = g.hq / g.hkv;
+  int lo, hi;
+  q_range(k0, kBKV, g, lo, hi);
+  const int qt0 = lo < hi ? lo / BQ * BQ : hi;
+  const int n_qt = lo < hi ? (hi - qt0 + BQ - 1) / BQ : 0;
+  const int n_tiles = n_g * n_qt;            // (query head, q-tile) pairs
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 32);             // the producer warp's lanes
+      mbar_init(empty + 8 * s, kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {         // ---- the producer warpgroup
+    regs_dec<kProducerRegs>();
+    const int lane = threadIdx.x - kConsumers;
+    if (lane >= 32) return;                     // its first warp works
+    if (n_tiles > 0 && lane == 0) {
+      mbar_expect_tx(kv_full, 2 * kKBytes);
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh) {
+        tma_load(k_s + hh * kKHalf, &tm_k, kv_full, 64 * hh, k0, bkv);
+        tma_load(v_s + hh * kKHalf, &tm_v, kv_full, 64 * hh, k0, bkv);
+      }
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      const int qq0 = qt0 + (t % n_qt) * BQ;
+      const int bh = b * g.hq + kv * n_g + t / n_qt;
+      if (t >= kStages) mbar_wait(empty + 8 * s, (t / kStages - 1) & 1);
+      float* rows = rows_p + s * 2 * BQ;
+      for (int r = lane; r < BQ; r += 32) {
+        const int row = qq0 + r;
+        const bool in = row < g.sq;
+        rows[r] = in ? lse[(size_t)bh * g.sq + row] * kLog2e : 0.f;
+        rows[BQ + r] = in ? delta[(size_t)bh * g.sq + row] : 0.f;
+      }
+      const uint32_t bar = full + 8 * s;
+      if (lane == 0) {
+        mbar_expect_tx(bar, 2 * kQBytes);      // also lane 0's arrival
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh) {
+          tma_load(q_s + s * kQBytes + hh * kQHalf, &tm_q, bar, 64 * hh, qq0,
+                   bh);
+          tma_load(do_s + s * kQBytes + hh * kQHalf, &tm_do, bar, 64 * hh,
+                   qq0, bh);
+        }
+      } else {
+        mbar_arrive(bar);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups
+  regs_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int kw0 = k0 + 64 * wg;                    // the warpgroup's keys
+  const int key0 = kw0 + 16 * (tid / 32) + lane / 4;   // and key0 + 8
+  int wlo, whi;
+  q_range(kw0, 64, g, wlo, whi);
+  const bool keys_in = kw0 < g.sk;
+  const uint32_t k_wg = k_s + wg * 64 * 128, v_wg = v_s + wg * 64 * 128;
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  if (n_tiles > 0) mbar_wait(kv_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const int qq0 = qt0 + (t % n_qt) * BQ;
+    mbar_wait(full + 8 * s, (t / kStages) & 1);
+    if (keys_in && qq0 < whi && qq0 + BQ > wlo) {
+      const uint32_t q_t = q_s + s * kQBytes, do_t = do_s + s * kQBytes;
+      const float* rows = rows_p + s * 2 * BQ;
+      // S^T = K Q^T and dP^T = V dO^T
+      float sc[BQ / 2], dp[BQ / 2];
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) sc[i] = dp[i] = 0.f;
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc,
+                 desc_sw128(k_wg + (kk / 4) * kKHalf + (kk % 4) * 32, 16,
+                            1024),
+                 desc_sw128(q_t + (kk / 4) * kQHalf + (kk % 4) * 32, 16,
+                            1024),
+                 kk > 0, Tag{});
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dp,
+                 desc_sw128(v_wg + (kk / 4) * kKHalf + (kk % 4) * 32, 16,
+                            1024),
+                 desc_sw128(do_t + (kk / 4) * kQHalf + (kk % 4) * 32, 16,
+                            1024),
+                 kk > 0, Tag{});
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P^T into sc; sc[i] is key key0 + 8 ((i / 2) % 2), query
+      // qq0 + 8 (i / 4) + 2 (lane % 4) + i % 2
+      if (tile_live(qq0, BQ, kw0, 64, g)) {
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          const int c = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+          sc[i] = exp2f(fmaf(sc[i], g.scale_log2, -rows[c]));
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          const int c = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+          sc[i] = live(qq0 + c, key0 + 8 * ((i / 2) % 2), g)
+                      ? exp2f(fmaf(sc[i], g.scale_log2, -rows[c]))
+                      : 0.f;
+        }
+      }
+      // P^T and dS^T in the A-fragment layout
+      uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+#pragma unroll
+      for (int i = 0; i < BQ / 2; i += 2) {
+        const int c = 8 * (i / 4) + 2 * (lane % 4);
+        pf[i / 8][(i % 8) / 2] = pack2(sc[i], sc[i + 1], Tag{});
+        dsf[i / 8][(i % 8) / 2] =
+            pack2(sc[i] * (dp[i] - rows[BQ + c]),
+                  sc[i + 1] * (dp[i + 1] - rows[BQ + c + 1]), Tag{});
+      }
+
+      // dV += P^T dO and dK += dS^T Q
+      fence_regs(dva);
+      fence_regs(dka);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(dva, pf[kk], desc_sw128(do_t + kk * 16 * 128, kQHalf, 1024),
+                 Tag{});
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(dka, dsf[kk], desc_sw128(q_t + kk * 16 * 128, kQHalf, 1024),
+                 Tag{});
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dva);
+      fence_regs(dka);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+
+  // dk = acc * scale, dv = acc; keys past Sk are never written
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= g.sk) continue;
+    const size_t off = ((size_t)bkv * g.sk + key) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
+          pack2(dka[4 * j + 2 * r] * g.scale,
+                dka[4 * j + 2 * r + 1] * g.scale, Tag{});
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+          pack2(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1], Tag{});
+    }
+  }
+}
+
 // ------------------------------------------------------------- launches --
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -579,58 +1056,140 @@ bool make_map(CUtensorMap* map, EncodeTiled enc, CUtensorMapDataType dt,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D> constexpr size_t smem_bytes() {
-  // alignment slack, Q, the K and V rings, the barriers
-  return 1024 + (size_t)kBQ * D * 2 + 2 * kStages * (size_t)TileK<D>::value * D * 2
-         + 8 * (1 + 2 * kStages);
+// each kernel's dynamic shared memory: the alignment slack, the tiles,
+// K2kv's rows, the barriers
+template <int D> constexpr size_t fwd_smem() {
+  return 1024 + (size_t)kBQ * D * 2 +
+         2 * kStages * (size_t)TileK<D>::value * D * 2 + 8 * (1 + 2 * kStages);
+}
+template <int D> constexpr size_t dq_smem() {
+  return fwd_smem<D>() + (size_t)kBQ * D * 2;
+}
+template <int D> constexpr size_t dkv_smem() {
+  return 1024 + 2 * (size_t)kBKV * D * 2 +
+         2 * kStages * (size_t)TileQ<D>::value * D * 2 +
+         kStages * 2 * (size_t)TileQ<D>::value * 4 + 8 * (1 + 2 * kStages);
+}
+
+constexpr CUtensorMapDataType map_dtype(Bf16) {
+  return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+constexpr CUtensorMapDataType map_dtype(F16) {
+  return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse_in, *delta;
+  void *o, *lse, *dq, *dk, *dv;
+  int b;
+  Geometry g;
+  cudaStream_t stream;
+};
+
+enum Which { kFwd, kDq, kDkv };
+
+// the four maps over q, dO (box rows q_rows) and k, v (box rows k_rows);
+// dO's is left out when a.dout is null (the forward)
+template <typename Tag, int D>
+bool make_maps(CUtensorMap (&m)[4], const Args& a, int q_rows, int k_rows) {
+  const EncodeTiled enc = encode_tiled();
+  const CUtensorMapDataType dt = map_dtype(Tag{});
+  const int bq = a.b * a.g.hq, bkv = a.b * a.g.hkv;
+  return enc && make_map(&m[0], enc, dt, a.q, D, a.g.sq, bq, q_rows) &&
+         (!a.dout || make_map(&m[1], enc, dt, a.dout, D, a.g.sq, bq, q_rows)) &&
+         make_map(&m[2], enc, dt, a.k, D, a.g.sk, bkv, k_rows) &&
+         make_map(&m[3], enc, dt, a.v, D, a.g.sk, bkv, k_rows);
+}
+
+template <typename Kernel>
+int prepare(Kernel kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <typename Tag, int D>
-int run(CUtensorMapDataType dt, const void* q, const void* k, const void* v,
-        void* o, void* lse, int b, const Geometry& g, cudaStream_t stream) {
-  const EncodeTiled enc = encode_tiled();
-  if (!enc) return (int)cudaErrorNotSupported;
-  CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, enc, dt, q, D, g.sq, b * g.hq, kBQ) ||
-      !make_map(&tk, enc, dt, k, D, g.sk, b * g.hkv, TileK<D>::value) ||
-      !make_map(&tv, enc, dt, v, D, g.sk, b * g.hkv, TileK<D>::value))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<D>();
-  int err = (int)cudaFuncSetAttribute(
-      sm90_fwd_kernel<Tag, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err) return err;
-  const dim3 grid(b * g.hq, (g.sq + kBQ - 1) / kBQ);
-  sm90_fwd_kernel<Tag, D><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<float*>(o), static_cast<float*>(lse), g);
+int run(Which which, const Args& a) {
+  CUtensorMap m[4];
+  const float* lse = static_cast<const float*>(a.lse_in);
+  const float* delta = static_cast<const float*>(a.delta);
+  const dim3 q_grid(a.b * a.g.hq, (a.g.sq + kBQ - 1) / kBQ);
+  int err;
+  if (which == kFwd) {
+    if (!make_maps<Tag, D>(m, a, kBQ, TileK<D>::value))
+      return (int)cudaErrorInvalidValue;
+    if ((err = prepare(sm90_fwd_kernel<Tag, D>, fwd_smem<D>()))) return err;
+    sm90_fwd_kernel<Tag, D><<<q_grid, kThreads, fwd_smem<D>(), a.stream>>>(
+        m[0], m[2], m[3], static_cast<float*>(a.o),
+        static_cast<float*>(a.lse), a.g);
+  } else if (which == kDq) {
+    if (!make_maps<Tag, D>(m, a, kBQ, TileK<D>::value))
+      return (int)cudaErrorInvalidValue;
+    if ((err = prepare(sm90_dq_kernel<Tag, D>, dq_smem<D>()))) return err;
+    sm90_dq_kernel<Tag, D><<<q_grid, kBwdThreads, dq_smem<D>(), a.stream>>>(
+        m[0], m[1], m[2], m[3], lse, delta, static_cast<uint16_t*>(a.dq),
+        a.g);
+  } else {
+    if (!make_maps<Tag, D>(m, a, TileQ<D>::value, kBKV))
+      return (int)cudaErrorInvalidValue;
+    if ((err = prepare(sm90_dkv_kernel<Tag, D>, dkv_smem<D>()))) return err;
+    const dim3 grid(a.b * a.g.hkv, (a.g.sk + kBKV - 1) / kBKV);
+    sm90_dkv_kernel<Tag, D><<<grid, kBwdThreads, dkv_smem<D>(),
+                                a.stream>>>(
+        m[0], m[1], m[2], m[3], lse, delta, static_cast<uint16_t*>(a.dk),
+        static_cast<uint16_t*>(a.dv), a.g);
+  }
   return (int)cudaGetLastError();
+}
+
+// dtype: 1 bfloat16, 2 float16 (0, float32, is not taken); d: 64 or 128
+int dispatch(Which which, int dtype, int d, int hq, int hkv, int sq, int sk,
+             int causal, int window, float scale, Args& a) {
+  if (a.b <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || sk <= 0 ||
+      window < 0 || (sq + kBQ - 1) / kBQ > 65535 ||
+      (sk + kBKV - 1) / kBKV > 65535)
+    return (int)cudaErrorInvalidValue;
+  a.g = Geometry{hq, hkv, sq, sk, causal, window, sk - sq, scale,
+                 scale * kLog2e};
+  if (dtype == 1 && d == 64) return run<Bf16, 64>(which, a);
+  if (dtype == 1 && d == 128) return run<Bf16, 128>(which, a);
+  if (dtype == 2 && d == 64) return run<F16, 64>(which, a);
+  if (dtype == 2 && d == 128) return run<F16, 128>(which, a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 1 bfloat16, 2 float16 (0, float32, is not taken); d: 64 or 128.
-// Returns a cudaError_t.
+// Each returns a cudaError_t.
 extern "C" int flash_attention_fwd_sm90_launch(
     int dtype, const void* q, const void* k, const void* v, void* o,
     void* lse, int b, int hq, int hkv, int sq, int sk, int d, int causal,
     int window, float scale, void* stream) {
-  if (b <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || sk <= 0 ||
-      window < 0 || (sq + kBQ - 1) / kBQ > 65535)
-    return (int)cudaErrorInvalidValue;
-  const Geometry g{hq, hkv, sq, sk, causal, window, sk - sq,
-                   scale * kLog2e};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 64)
-    return run<Bf16, 64>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, o, lse, b,
-                         g, st);
-  if (dtype == 1 && d == 128)
-    return run<Bf16, 128>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, o, lse,
-                          b, g, st);
-  if (dtype == 2 && d == 64)
-    return run<F16, 64>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, q, k, v, o, lse, b,
-                        g, st);
-  if (dtype == 2 && d == 128)
-    return run<F16, 128>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, q, k, v, o, lse, b,
-                         g, st);
-  return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse; a.b = b;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return dispatch(kFwd, dtype, d, hq, hkv, sq, sk, causal, window, scale, a);
+}
+
+extern "C" int flash_attention_sm90_bwd_dq_launch(
+    int dtype, const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int b, int hq, int hkv,
+    int sq, int sk, int d, int causal, int window, float scale,
+    void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse_in = lse; a.delta = delta;
+  a.dq = dq; a.b = b;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return dispatch(kDq, dtype, d, hq, hkv, sq, sk, causal, window, scale, a);
+}
+
+extern "C" int flash_attention_sm90_bwd_dkv_launch(
+    int dtype, const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int b, int hq,
+    int hkv, int sq, int sk, int d, int causal, int window, float scale,
+    void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse_in = lse; a.delta = delta;
+  a.dk = dk; a.dv = dv; a.b = b;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return dispatch(kDkv, dtype, d, hq, hkv, sq, sk, causal, window, scale, a);
 }

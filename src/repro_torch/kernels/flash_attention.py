@@ -19,11 +19,14 @@ and what bounds it: the operations (a causal call does ~2·Sq·Sk·D flops
 a head per matrix product), which this first version computes on the
 CUDA cores in float32.
 
-K2f has two routes, chosen by ``fwd_route`` from the dtype and head dim
-alone: bfloat16 and float16 at D 64 and 128 take ``sm90``, the
-tensor-core kernel of ``csrc/flash_attention_sm90.cu`` (wgmma for both
-products, TMA tile loads into a two-stage ring); every other call takes
-``simt``, the kernel above. ``fwd_routes`` counts the launches of each.
+Each kernel has two routes, chosen from the dtype and head dim alone
+(``fwd_route`` for K2f, ``bwd_route`` for K2q and K2kv, one rule):
+bfloat16 and float16 at D 64 and 128 take ``sm90``, the tensor-core
+kernels of ``csrc/flash_attention_sm90.cu`` (wgmma for every tile
+product, TMA tile loads into a two-stage ring); every other call takes
+``simt``, the kernels above. ``fwd_routes`` and ``bwd_routes`` count the
+launches of each. The backward's sm90 route reads dO in the input's
+16-bit type, as wgmma takes it; the simt route reads it in float32.
 
 The residual contract is the reference's (``flash_attention.py:396-440``):
 the forward keeps q, k, v, ``o_f32`` (B·Hq, Sq, D) and ``lse`` (B·Hq, Sq);
@@ -54,6 +57,8 @@ launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0}
 # K2f's launches by route (each also counts in launches["flash_attention_fwd"])
 fwd_routes = {"sm90": 0, "simt": 0}
+# K2q's and K2kv's launches by route: a backward counts once per kernel
+bwd_routes = {"sm90": 0, "simt": 0}
 
 # torch dtype -> the C interface's dtype code
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -74,10 +79,14 @@ def _launchers() -> dict:
             fn.restype = ctypes.c_int
             _fn[name] = fn
         sm90 = cuda_build.load("flash_attention_sm90")
-        fn = sm90.flash_attention_fwd_sm90_launch
-        fn.argtypes = _fn["fwd"].argtypes
-        fn.restype = ctypes.c_int
-        _fn["fwd_sm90"] = fn
+        for name, symbol in (("fwd", "flash_attention_fwd_sm90_launch"),
+                             ("bwd_dq", "flash_attention_sm90_bwd_dq_launch"),
+                             ("bwd_dkv",
+                              "flash_attention_sm90_bwd_dkv_launch")):
+            fn = getattr(sm90, symbol)
+            fn.argtypes = _fn[name].argtypes
+            fn.restype = ctypes.c_int
+            _fn[f"{name}_sm90"] = fn
         err = lib.flash_attention_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -118,6 +127,14 @@ def _check_cuda(d: int) -> None:
 
 def _scale(q, scale):
     return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+
+
+def _check_aligned(which: str, *tensors) -> None:
+    """The sm90 route reads these tensors by TMA, which needs 16-byte
+    aligned bases: anything else is refused before a launch."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"K2's sm90 {which} loads its tiles by TMA, which "
+                         "needs 16-byte aligned tensors")
 
 
 def _raise_on(err: int, which: str) -> None:
@@ -189,9 +206,8 @@ def _fwd_launch(q, k, v, causal, window, scale, route):
     if q.numel() == 0 or sk == 0:       # no key: every row is dead
         return (torch.zeros((B * hq, sq, d), device=q.device),
                 torch.full((B * hq, sq), NEG_INF, device=q.device))
-    if route == "sm90" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("K2f's sm90 route loads q, k and v by TMA, which "
-                         "needs 16-byte aligned tensors")
+    if route == "sm90":
+        _check_aligned("forward", q, k, v)
     o = torch.empty((B * hq, sq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((B * hq, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -232,11 +248,21 @@ def flash_attention_bwd_plain(q, k, v, o_f32, lse, do, *, causal=True,
             dv.to(v.dtype))
 
 
+def bwd_route(dtype, d: int) -> str:
+    """K2q's and K2kv's kernels for a CUDA call, by ``fwd_route``'s rule:
+    ``"sm90"`` (tensor cores) for bfloat16 and float16 at D 64 and 128,
+    ``"simt"`` otherwise."""
+    return fwd_route(dtype, d)
+
+
 def flash_attention_bwd(q, k, v, o_f32, lse, do, *, causal=True, window=0,
                         scale=None):
     """Gradients of the attention under the output cotangent ``do``
     (B, Hq, Sq, D), from the forward's residuals: (dq, dk, dv) in the
-    input dtypes. ``do`` may be strided; it is read as float32."""
+    input dtypes. ``do`` may be strided. delta = Σ_d dO·o_f32 is taken in
+    float32; the simt kernels read dO in float32, the sm90 ones in q's
+    16-bit dtype (exact on the autograd path, where the cotangent arrives
+    in q's dtype; a float32 ``do`` is rounded once)."""
     _check(q, k, v, window)
     B, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -257,13 +283,15 @@ def flash_attention_bwd(q, k, v, o_f32, lse, do, *, causal=True, window=0,
     _check_cuda(d)
     dof = do.float().contiguous().reshape(B * hq, sq, d)
     delta = (dof * o_f32).sum(dim=-1)
+    if bwd_route(q.dtype, d) == "sm90":
+        dof = do.to(q.dtype).contiguous().reshape(B * hq, sq, d)
     kw = {"causal": causal, "window": window, "scale": scale}
     return (flash_attention_bwd_dq(q, k, v, dof, lse, delta, **kw),
             *flash_attention_bwd_dkv(q, k, v, dof, lse, delta, **kw))
 
 
-def _bwd_launch(which, q, k, v, dof, lse, delta, outs, causal, window,
-                scale):
+def _bwd_launch(which, q, k, v, do, lse, delta, outs, causal, window,
+                scale, route):
     B, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if q.device.type != "cuda":
@@ -271,38 +299,49 @@ def _bwd_launch(which, q, k, v, dof, lse, delta, outs, causal, window,
                          "flash_attention_bwd runs the plain version on the "
                          "CPU")
     _check_cuda(d)
+    route = bwd_route(q.dtype, d) if route is None else route
     if q.numel() == 0 or sk == 0:       # no key: no gradient
         for t in outs:
             t.zero_()
         return
+    do = do.to(torch.float32 if route == "simt" else q.dtype)
+    if route == "sm90":
+        _check_aligned(which, q, k, v, do)
     with torch.cuda.device(q.device):
-        err = _launchers()[f"bwd_{which}"](
+        err = _launchers()[f"bwd_{which}" + ("_sm90" if route == "sm90"
+                                             else "")](
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dof.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             *(t.data_ptr() for t in outs), B, hq, hkv, sq, sk, d,
             int(causal), int(window), _scale(q, scale),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, f"{which} (K2{'q' if which == 'dq' else 'kv'})")
+    _raise_on(err, f"{which} (K2{'q' if which == 'dq' else 'kv'}, {route})")
     launches[f"flash_attention_bwd_{which}"] += 1
+    bwd_routes[route] += 1
 
 
-def flash_attention_bwd_dq(q, k, v, dof, lse, delta, *, causal=True,
-                           window=0, scale=None):
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
+                           window=0, scale=None, route=None):
     """K2q alone on CUDA tensors: dq in q's dtype from dO (B·Hq, Sq, D),
-    lse and delta (B·Hq, Sq), all float32 and contiguous (as
-    ``flash_attention_bwd`` prepares them)."""
+    lse and delta (B·Hq, Sq) float32, all contiguous (as
+    ``flash_attention_bwd`` prepares them). ``route`` None takes
+    ``bwd_route``'s (a measurement may name ``"simt"`` to time the first
+    version). dO is converted to the route's dtype if it is not in it:
+    float32 for simt (exact), q's dtype for sm90 (a float32 dO rounds
+    once)."""
     dq = torch.empty_like(q)
-    _bwd_launch("dq", q, k, v, dof, lse, delta, (dq,), causal, window, scale)
+    _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), causal, window, scale,
+                route)
     return dq
 
 
-def flash_attention_bwd_dkv(q, k, v, dof, lse, delta, *, causal=True,
-                            window=0, scale=None):
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
+                            window=0, scale=None, route=None):
     """K2kv alone on CUDA tensors: (dk, dv) in k's dtype, from the same
     inputs as ``flash_attention_bwd_dq``."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("dkv", q, k, v, dof, lse, delta, (dk, dv), causal, window,
-                scale)
+    _bwd_launch("dkv", q, k, v, do, lse, delta, (dk, dv), causal, window,
+                scale, route)
     return dk, dv
 
 

@@ -2,8 +2,9 @@
 counts: K1 (Triton) against torch autograd too, K4 (CUDA C++) through
 one paged decode step and at zamba2's head dim 112, K2 (CUDA C++: K2f,
 K2q, K2kv) with dead rows, windows and ragged tails, at D = 112 and
-through one train step, K2f's tensor-core route (bfloat16, float16 at
-D 64 and 128) and its route counts, K3 (CUDA C++: K3f, K3b) with ragged tails,
+through one train step, the tensor-core routes of K2f and of K2q/K2kv
+(bfloat16, float16 at D 64 and 128), their route counts and their
+refusal of misaligned tensors, K3 (CUDA C++: K3f, K3b) with ragged tails,
 groups and an initial state, through ``SSDScan`` and one mamba train
 step. Skips without a CUDA card.
 
@@ -133,8 +134,9 @@ def test_forward_paged_launches_k4_once_per_layer(cuda):
 
 # (B, Hq, Hkv, Sq, Sk, D, causal, window): the server's heads, dead rows
 # (causal Sq > Sk), a window, causal=False, ragged tails at every D; then
-# cases for K2f's sm90 route (bfloat16, float16 at D 64 and 128): Sq and
-# Sk off its tiles (128 q rows; 128 keys at D 64, 64 at D 128), Sq > Sk,
+# cases for the sm90 routes (bfloat16, float16 at D 64 and 128): Sq and
+# Sk off their tiles (K2f and K2q: 128 q rows, 128 keys at D 64, 64 at
+# D 128; K2kv: 128 keys, 128 q rows at D 64, 64 at D 128), Sq > Sk,
 # windows, causal=False, GQA groups of 3 and 4
 K2_CASES = [(2, 24, 8, 256, 256, 128, True, 0),
             (1, 3, 1, 100, 37, 32, True, 0),
@@ -225,6 +227,41 @@ def test_flash_attention_fwd_counts_its_route(cuda, dtype, d, route):
         "flash_attention_bwd_dkv": 0}
     assert {n: c - routes[n] for n, c in FA.fwd_routes.items()} == {
         "sm90": int(route == "sm90"), "simt": int(route == "simt")}
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 128, "sm90"), (torch.float16, 64, "sm90"),
+    (torch.bfloat16, 112, "simt"), (torch.float32, 128, "simt")])
+def test_flash_attention_bwd_counts_its_route(cuda, dtype, d, route):
+    """One backward launches K2q and K2kv once each, each counting once in
+    ``launches`` and once under its route in ``bwd_routes``."""
+    q, k, v, do = _k2_inputs(1, 4, 2, 70, 70, d, dtype, cuda)
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    before, routes = dict(FA.launches), dict(FA.bwd_routes)
+    FA.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in FA.launches.items()} == {
+        "flash_attention_fwd": 0, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkv": 1}
+    assert {n: c - routes[n] for n, c in FA.bwd_routes.items()} == {
+        "sm90": 2 * (route == "sm90"), "simt": 2 * (route == "simt")}
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "do"])
+def test_flash_attention_sm90_bwd_raises_on_misaligned_tensors(cuda, which):
+    """The sm90 backward reads q, k, v and dO by TMA: a contiguous view one
+    element into its storage is refused before any launch, never sent to
+    the simt kernels."""
+    t = dict(zip("q k v do".split(),
+                 _k2_inputs(1, 4, 2, 70, 70, 64, torch.bfloat16, cuda)))
+    o, lse = FA.flash_attention_fwd(t["q"], t["k"], t["v"])
+    buf = torch.empty(t[which].numel() + 1, dtype=torch.bfloat16,
+                      device=cuda)
+    t[which] = buf[1:].view(t[which].shape).copy_(t[which])
+    before, routes = dict(FA.launches), dict(FA.bwd_routes)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.flash_attention_bwd(t["q"], t["k"], t["v"], o, lse, t["do"])
+    assert FA.launches == before and FA.bwd_routes == routes
 
 
 def test_flash_attention_sm90_raises_on_misaligned_tensors(cuda):

@@ -211,8 +211,39 @@ def test_cpu_forward_takes_plain_version_and_counts_no_launch(dtype, d):
     assert FA.launches == before and FA.fwd_routes == routes
 
 
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_bwd_route_by_dtype_and_head_dim(dtype, d):
+    """K2q's and K2kv's tensor-core route takes exactly what K2f's does:
+    the 16-bit dtypes at D 64 and 128."""
+    want = "sm90" if dtype != torch.float32 and d in (64, 128) else "simt"
+    assert FA.bwd_route(dtype, d) == want == FA.fwd_route(dtype, d)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.float16, 128),
+                                     (torch.float32, 128)])
+def test_cpu_backward_takes_plain_version_and_counts_no_launch(dtype, d):
+    """On CPU tensors the backward runs the plain version, whatever route
+    its dtype and head dim would take on the card, and counts nothing."""
+    rng = np.random.default_rng(d + 1)
+    q, k, v, do = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        .to(dtype) for s in ((1, 4, 20, d), (1, 2, 20, d), (1, 2, 20, d),
+                             (1, 4, 20, d)))
+    o, lse = FA.flash_attention_fwd_plain(q, k, v, window=5)
+    before, routes = dict(FA.launches), dict(FA.bwd_routes)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, window=5)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, window=5)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+    assert FA.launches == before and FA.bwd_routes == routes
+
+
 def test_launch_and_route_counters_keep_their_keys():
     assert set(FA.launches) == {"flash_attention_fwd",
                                 "flash_attention_bwd_dq",
                                 "flash_attention_bwd_dkv"}
     assert set(FA.fwd_routes) == {"sm90", "simt"}
+    assert set(FA.bwd_routes) == {"sm90", "simt"}
