@@ -22,14 +22,18 @@ result line is printed:
      at the DENSE main path's shape (128, 10), a ragged (1000, 32003), a
      vocabulary-scale (4096, 32768) and the LLM path's (1024, 128256)
      (B·gen_seq rows of llama's vocabulary), in float32 and bfloat16;
-  3. K4 at the serve shape (R 8, Hq 24, Hkv 8, D 128, page 16, M 32,
-     ragged seq_lens with 0 and a full table), a D = 32 shape and
-     zamba2-7b's shared block (Hq = Hkv = 32, D = 112), in float32 and
-     bfloat16, beside ``F.scaled_dot_product_attention`` on the K/V
-     already gathered into a contiguous cache (a yardstick only: it
-     leaves the paging out). The pools are rotated through copies larger
-     than the L2 cache, so each call reads them from device memory, as a
-     decode step does;
+  3. K4 (its ``sm90`` route, the split-context kernel and its merge) at
+     the serve shape (R 8, Hq 24, Hkv 8, D 128, page 16, M 32, ragged
+     seq_lens with 0 and a full table), a D = 32 shape, zamba2-7b's
+     shared block (Hq = Hkv = 32, D = 112) and a long shape (M 256,
+     up to 4096 tokens), in float32 and bfloat16 (and float16 at the
+     serve and long shapes), against its plain version, beside its
+     device time (``torch.profiler``), the first version (the ``simt``
+     route) on the same inputs and ``F.scaled_dot_product_attention`` on
+     the K/V already gathered into a contiguous cache (a yardstick only:
+     it leaves the paging out). The pools are rotated through copies
+     larger than the L2 cache, so each call reads them from device
+     memory, as a decode step does;
   4. K2 (K2f, K2q, K2kv, CUDA C++) against its plain versions in float32
      without TF32 and in bfloat16 (and float16 at the server, train, long
      and D = 64 shapes), at the server shape (B 4, Hq 24, Hkv 8, S 256,
@@ -59,13 +63,14 @@ result line is printed:
   8. serve_check: llama3.2-3b at full width (d_model 3072, vocab 128256)
      with depth cut to 2 layers, float32 without TF32: the paged engine
      (K4) and the dense engine give the same tokens for 6 ragged
-     requests in 4 slots, and K4 launches decode steps × layers times;
+     requests in 4 slots, and K4 launches decode steps × layers times,
+     every launch on the ``sm90`` route;
   9. serve, the serving main path: llama3.2-3b at full width and depth,
      bfloat16, random weights from a seeded ``torch.Generator``; 16
      requests (prompts of 64–448 tokens, 32–64 new, max_len 512) through
      8 slots of the paged engine, page 16. Every launch count is zeroed
-     just before it; K4's must read decode steps × 28 just after, the
-     others 0. Then one decode step of 8 running requests under
+     just before it; K4's must read decode steps × 28 just after, all on
+     ``sm90``, the others 0. Then one decode step of 8 running requests under
      ``torch.profiler``: device idle share and the top kernels, with
      K4's share;
  10. train_check: one train step of llama3.2-3b at full width, 2 layers,
@@ -96,11 +101,11 @@ result line is printed:
      layers) at full width, float32: paged ≡ dense engine for 6 requests
      of up to 300 tokens (two chunks, a ragged tail) in 4 slots, K3f once
      a mamba block a prefill and K4 once a shared-block application a
-     decode step;
+     decode step, on ``sm90``;
  15. ssm_serve: zamba2-7b at full width and depth (81 mamba blocks, 13
      applications of the shared block, bfloat16), the serve phase's 16
      requests through 8 slots: K3f must read prefills × 81 and K4 decode
-     steps × 13; then one profiled decode step;
+     steps × 13 (on ``sm90``); then one profiled decode step;
  16. ssm_train_check: one zamba2-7b train step at full width, 7 layers,
      float32, batch 2 × 512 (two chunks): the K3/K2 route and the plain
      route agree to 1e-4 (K3f 2 × 7 with remat, K3b 7, K2 on the one
@@ -156,11 +161,16 @@ SCALARS = ("a_log", "dt_bias", "d_skip")
 # K4 shapes: (R, Hq, Hkv, D, page, M). The serve shape is llama3.2-3b's
 # heads at the serve phase's 8 slots and max_len 512; the D = 32 one has
 # smoke()'s heads; the D = 112 one zamba2-7b's shared block at the same
-# slots. atol only: the outputs are convex combinations of V.
+# slots; the long one llama3.2-3b's heads at 8 requests of up to 4096
+# tokens (ragged, ~67 MB of live K/V in bfloat16). float16 runs beside
+# float32 and bfloat16 at the serve and long shapes (K4_FP16). atol
+# only: the outputs are convex combinations of V.
 K4_SHAPES = ((8, 24, 8, 128, 16, 32), (6, 4, 2, 32, 16, 8),
-             (8, 32, 32, 112, 16, 32))
+             (8, 32, 32, 112, 16, 32), (8, 24, 8, 128, 16, 256))
 K4_SERVE_SHAPE = K4_SHAPES[0]
-TOL_K4 = {"float32": (0.0, 1e-5), "bfloat16": (0.0, 1e-2)}
+K4_FP16 = (K4_SHAPES[0], K4_SHAPES[3])
+TOL_K4 = {"float32": (0.0, 1e-5), "bfloat16": (0.0, 1e-2),
+          "float16": (0.0, 1e-2)}
 # K2 shapes: (name, B, Hq, Hkv, Sq, Sk, D, causal, window). The server's
 # and the train step's are llama3.2-3b's heads at the LLM main path's
 # batches; "long" one 4096-token sequence; "ragged_d32" the smoke heads
@@ -297,11 +307,11 @@ def launch_counts() -> list:
 
 
 def zero_counts() -> None:
-    """Every launch counter and K2's route counts to 0."""
-    from repro_torch.kernels import flash_attention
+    """Every launch counter and K2's and K4's route counts to 0."""
+    from repro_torch.kernels import flash_attention, paged_attention
 
     for counts in (*launch_counts(), flash_attention.fwd_routes,
-                   flash_attention.bwd_routes):
+                   flash_attention.bwd_routes, paged_attention.routes):
         for k in counts:
             counts[k] = 0
 
@@ -311,14 +321,23 @@ def read_counts() -> dict:
 
 
 def read_routes() -> dict:
-    """K2's launches by direction and route since the last
-    ``zero_counts``: ``fwd_sm90``, ``fwd_simt`` (K2f), ``bwd_sm90``,
-    ``bwd_simt`` (K2q and K2kv, each launch once)."""
+    """K2's and K4's launches by route since the last ``zero_counts``:
+    ``fwd_sm90``, ``fwd_simt`` (K2f), ``bwd_sm90``, ``bwd_simt`` (K2q and
+    K2kv, each launch once), ``k4_sm90``, ``k4_simt``."""
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PK
 
     return {f"{kind}_{route}": c for kind, counts in (
-        ("fwd", FA.fwd_routes), ("bwd", FA.bwd_routes))
+        ("fwd", FA.fwd_routes), ("bwd", FA.bwd_routes), ("k4", PK.routes))
         for route, c in counts.items()}
+
+
+def check_k4_routes(label, launches, routes) -> None:
+    """Every K4 launch of a phase took the sm90 route."""
+    n = launches["paged_attention"]
+    if routes["k4_sm90"] != n or routes["k4_simt"]:
+        fail(f"{label}: K4's launches by route {routes}, expected all {n} "
+             f"on sm90")
 
 
 def expected(**nonzero) -> dict:
@@ -705,14 +724,22 @@ def rotating(fn, arg_sets):
 
 
 def k4_phase(torch):
+    """K4's sm90 route against its plain version at every K4 shape, timed
+    beside its bound, the plain version, SDPA on the gathered K/V, its
+    device time without the wrapper's host time (the kernel and its
+    merge, ``torch.profiler``) and the first version (``simt``) on the
+    same inputs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import paged_attention as PK
 
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for shape in K4_SHAPES:
         R, hq, hkv, d, page, m = shape
-        for dtype in (torch.float32, torch.bfloat16):
+        dtypes = (torch.float32, torch.bfloat16) + (
+            (torch.float16,) if shape in K4_FP16 else ())
+        for dtype in dtypes:
             dname = str(dtype).split(".")[-1]
             q, kp, vp, bt, seq = k4_inputs(torch, shape, dtype, sum(shape))
             got = PK.paged_attention(q, kp, vp, bt, seq)
@@ -733,12 +760,23 @@ def k4_phase(torch):
             nbytes = (2 * live * hkv * d * isz + 2 * R * hq * d * isz
                       + 4 * (int((-(-seq // page)).sum()) + R))
             b_ms, b_by = bound(nbytes, live * hq * (4 * d + 5))
+            n_split, pps = PK.split_plan(R, hkv, m, page, n_sm)
+            sm90 = rotating(PK.paged_attention, pools)
+            simt = rotating(lambda *a: PK.paged_attention(*a, route="simt"),
+                            pools)
+            device = device_ms_per_call(
+                torch, sm90, lambda n: "sm90_paged_attention" in n)
             rows.append({
                 "shape": {"R": R, "Hq": hq, "Hkv": hkv, "D": d, "page": page,
                           "M": m}, "seq_lens": seq.tolist(), "dtype": dname,
+                "route": "sm90", "splits": n_split, "pages_a_split": pps,
                 "ok": ok and zero_rows, "zero_rows_exact": zero_rows,
                 "max_abs_err": err, "tol": TOL_K4[dname],
-                "ms": cuda_ms(torch, rotating(PK.paged_attention, pools)),
+                "ms": cuda_ms(torch, sm90), "device_ms": device,
+                "first_version_ms": cuda_ms(torch, simt),
+                "first_version_device_ms": device_ms_per_call(
+                    torch, simt, lambda n: "paged_attention_kernel<" in n
+                    and "sm90_" not in n),
                 "plain_ms": cuda_ms(torch, rotating(PK.paged_attention_plain,
                                                     pools)),
                 "library_ms": cuda_ms(torch, rotating(
@@ -746,7 +784,9 @@ def k4_phase(torch):
                         qq, k, v, attn_mask=mask, enable_gqa=True), caches)),
                 "library": "F.scaled_dot_product_attention on the gathered "
                            "K/V (paging left out)",
-                "bound_ms": b_ms, "bound_by": b_by, "live_tokens": live,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_share_of_device_ms": b_ms / device if device
+                else None, "live_tokens": live,
                 "l2_rotation_copies": n_copies})
             del pools, caches
             torch.cuda.empty_cache()
@@ -815,7 +855,7 @@ def serve_check(torch, dev="cuda", arch="llama3.2-3b", n_layers=2,
     zero_counts()
     paged_eng = ServeEngine(cfg, params, mode="paged", **kw)
     paged = run_engine(paged_eng, reqs)
-    launches = read_counts()
+    launches, routes = read_counts(), read_routes()
     zero_counts()
     dense = run_engine(ServeEngine(cfg, params, mode="dense", **kw), reqs)
     dense_launches = read_counts()
@@ -831,6 +871,7 @@ def serve_check(torch, dev="cuda", arch="llama3.2-3b", n_layers=2,
         "requests": [[len(p), g] for p, g in reqs], "max_reqs": 4,
         "paged_equals_dense": same, "decode_steps": steps,
         "launches": launches, "expected_launches": want,
+        "k4_routes": {r: routes[f"k4_{r}"] for r in ("sm90", "simt")},
         "launches_dense_mode": dense_launches,
         "tokens_first_request": paged[0].tolist()}})
     if not same:
@@ -838,6 +879,7 @@ def serve_check(torch, dev="cuda", arch="llama3.2-3b", n_layers=2,
     if launches != want or dense_launches != want_dense:
         fail(f"{label}: launches {launches} (paged), {dense_launches} "
              f"(dense), expected {want} and {want_dense}")
+    check_k4_routes(label, launches, routes)
     del params, paged_eng
     torch.cuda.empty_cache()
 
@@ -867,7 +909,7 @@ def serve_main_path(torch, dev="cuda", arch="llama3.2-3b", label="serve"):
     out = run_engine(eng, reqs)
     sync(torch, dev)
     wall = time.perf_counter() - t0
-    launches = read_counts()
+    launches, routes = read_counts(), read_routes()
     st = eng.stats
     steps = st["decode_steps"]
     generated = sum(len(o) for o in out)
@@ -892,6 +934,7 @@ def serve_main_path(torch, dev="cuda", arch="llama3.2-3b", label="serve"):
         "decode_tok_per_s": (generated - len(reqs)) / st["decode_s"],
         "ms_per_decode_step": st["decode_s"] / max(steps, 1) * 1e3,
         "launches": launches, "expected_launches": want,
+        "k4_routes": {r: routes[f"k4_{r}"] for r in ("sm90", "simt")},
         "blocks_attention_mamba": trunk_blocks(cfg),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}})
     if not ok_tokens:
@@ -900,6 +943,7 @@ def serve_main_path(torch, dev="cuda", arch="llama3.2-3b", label="serve"):
         fail(f"launches on the {label} path {launches}, expected {want}: "
              f"{steps} decode steps x {trunk_blocks(cfg)[0]} of K4, "
              f"{len(reqs)} prefills x {trunk_blocks(cfg)[1]} of K3f")
+    check_k4_routes(label, launches, routes)
     del eng
     torch.cuda.empty_cache()
     profile_decode(torch, cfg, params, reqs[:8], dev,
@@ -940,6 +984,8 @@ def profile_decode(torch, cfg, params, reqs, dev="cuda",
     per_kernel = device_ms(prof)
     busy_ms = sum(per_kernel.values())
     k4_ms = sum(v for k, v in per_kernel.items() if "paged_attention" in k)
+    k4_merge_ms = sum(v for k, v in per_kernel.items()
+                      if "paged_attention_merge" in k)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     # where the host's time goes: self CPU time by operator, and the
     # number of kernels one step launches
@@ -959,7 +1005,8 @@ def profile_decode(torch, cfg, params, reqs, dev="cuda",
         "running": sum(s is not None for s in eng._slots),
         "step_ms": step_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / step_ms,
-        "k4_ms": k4_ms, "k4_share_of_busy": k4_ms / busy_ms if busy_ms
+        "k4_ms": k4_ms, "k4_merge_ms": k4_merge_ms,
+        "k4_share_of_busy": k4_ms / busy_ms if busy_ms
         else None, "n_kernel_names": len(per_kernel),
         "kernels_launched": n_kernels, "top_kernels_ms": top,
         "top_host_ops_self_ms_count": host,
@@ -1807,6 +1854,8 @@ def main() -> None:
          "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
+         "k4_route": k4["route"], "device_ms": k4["device_ms"],
+         "first_version_ms": k4["first_version_ms"],
          "shape": k4["shape"], "dtype": k4["dtype"], "by_shape": k4_rows},
         *(k2_entry(name, k2_rows[which], line, llm_launches)
           for name, which, line in (

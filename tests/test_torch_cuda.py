@@ -1,6 +1,8 @@
 """The kernels on the card against their plain versions, and the launch
-counts: K1 (Triton) against torch autograd too, K4 (CUDA C++) through
-one paged decode step and at zamba2's head dim 112, K2 (CUDA C++: K2f,
+counts: K1 (Triton) against torch autograd too, K4 (CUDA C++, both
+routes, every dtype, head dims 32 to 128, split and unsplit contexts)
+against both plain versions, through one paged decode step on the sm90
+route and its refusal of misaligned pools, K2 (CUDA C++: K2f,
 K2q, K2kv) with dead rows, windows and ragged tails, at D = 112 and
 through one train step, the tensor-core routes of K2f and of K2q/K2kv
 (bfloat16, float16 at D 64 and 128), their route counts and their
@@ -92,19 +94,35 @@ def _paged_inputs(R, hq, hkv, d, page, m, dtype, device):
     return q, kp, vp, bt, seq
 
 
+# (R, Hq, Hkv, D, page, M): the serve shape (8 splits of 4 slots on an
+# H100's 132 SMs), small tables, zamba2's D 112 (3 splits of 11: M not a
+# multiple), the long shape (9 splits of 29), a page of 8 (3 splits of 8
+# over M 20), and G = 8 and 5, which the sm90 route takes in query-head
+# groups of 4 and 1
 @pytest.mark.parametrize("R,hq,hkv,d,page,m", [
     (8, 24, 8, 128, 16, 32), (5, 4, 2, 32, 8, 4), (3, 8, 8, 64, 4, 7),
-    (4, 32, 32, 112, 16, 5)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    (4, 32, 32, 112, 16, 5), (8, 32, 32, 112, 16, 32),
+    (8, 24, 8, 128, 16, 256), (5, 4, 2, 32, 8, 20), (2, 16, 2, 64, 16, 9),
+    (3, 5, 1, 64, 16, 6)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("route", ["sm90", "simt"])
 def test_paged_attention_kernel_matches_plain_version(cuda, R, hq, hkv, d,
-                                                      page, m, dtype):
+                                                      page, m, dtype, route):
     args = _paged_inputs(R, hq, hkv, d, page, m, dtype, cuda)
-    got = PK.paged_attention(*args)
+    got = PK.paged_attention(*args, route=route)
     torch.cuda.synchronize()
-    want = PK.paged_attention_plain(*args)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, pps = PK.split_plan(R, hkv, m, page, n_sm)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    assert bool((got[0] == 0).all())
+    for want in (PK.paged_attention_plain(*args),
+                 PK.paged_attention_split_plain(*args, pps=pps)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    seq = args[4]
+    assert bool((got[seq == 0] == 0).all()) and bool((got[0] == 0).all())
+    # a fixed order of sums: the same bits from run to run
+    assert torch.equal(got, PK.paged_attention(*args, route=route))
 
 
 def test_forward_paged_launches_k4_once_per_layer(cuda):
@@ -130,6 +148,45 @@ def test_forward_paged_launches_k4_once_per_layer(cuda):
     assert PK.launches["paged_attention"] - before == cfg.n_layers
     assert logits.shape == (3, 1, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
+
+
+def test_forward_paged_takes_sm90_and_misaligned_pools_raise(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import paging
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke_config("llama3.2-3b")
+    params = T.init_model(cfg, seed=0, device=cuda)
+    pools = paging.init_paged_cache(cfg, max_reqs=3, n_blocks=7, page=4,
+                                    device=cuda)
+    bt = torch.tensor([[1, 2], [0, 0], [3, 4]], dtype=torch.int32,
+                      device=cuda)
+    before = dict(PK.routes)
+    with torch.inference_mode():
+        T.forward_paged(params, cfg,
+                        tokens=torch.ones((3, 1), dtype=torch.int32,
+                                          device=cuda),
+                        positions=torch.tensor([5, 0, 2], dtype=torch.int32,
+                                               device=cuda),
+                        cache=pools, block_tables=bt)
+    torch.cuda.synchronize()
+    assert PK.routes["sm90"] - before["sm90"] == cfg.n_layers
+    assert PK.routes["simt"] == before["simt"]
+
+    q, kp, vp, bt, seq = _paged_inputs(3, 4, 2, 32, 8, 4, torch.bfloat16,
+                                       cuda)
+    flat = torch.empty(kp.numel() + 1, dtype=kp.dtype, device=cuda)
+    shifted = flat[1:].view(kp.shape)     # contiguous, 2 bytes off
+    shifted.copy_(kp)
+    with pytest.raises(ValueError, match="16-byte"):
+        PK.paged_attention(q, shifted, vp, bt, seq)
+    # the first version reads by scalars and takes it
+    torch.testing.assert_close(
+        PK.paged_attention(q, shifted, vp, bt, seq, route="simt").float(),
+        PK.paged_attention_plain(q, kp, vp, bt, seq).float(), rtol=1e-2,
+        atol=1e-2)
+    with pytest.raises(ValueError, match="unknown K4 route"):
+        PK.paged_attention(q, kp, vp, bt, seq, route="tma")
 
 
 # (B, Hq, Hkv, Sq, Sk, D, causal, window): the server's heads, dead rows
