@@ -14,8 +14,8 @@ result line is printed:
 
   1. setup: the card's name and power limit (``nvidia-smi``), no TF32 in
      matrix products or convolutions (full float32, as the JAX reference
-     computes), the CUDA C++ build (K4, K2, K3, one ``nvcc`` each, all
-     started together) with ``nvcc -Xptxas -v``'s register and spill
+     computes), the CUDA C++ build (K4, K2 and its sm90 route, K3 and
+     K3f's sm90 route, one ``nvcc`` each, all started together) with ``nvcc -Xptxas -v``'s register and spill
      counts;
   2. K1f and K1b (Triton, both teacher-gradient settings) against their
      plain PyTorch versions, timed with CUDA events beside their bound,
@@ -90,31 +90,39 @@ result line is printed:
      kernel's time by route;
  13. K3 (K3f, K3b, CUDA C++) against its plain versions (the chunked
      formula in PyTorch and autograd through it): mamba2-130m's train
-     shape (8, 256, 24 heads, P 64, N 128, chunk 256) and zamba2-7b's
-     prefill (1, 448, 112 heads, P 64, N 64, a ragged tail) in bfloat16
-     and float32, one 4096-token sequence (16 chunks) in bfloat16, and a
-     ragged, grouped shape with an initial state in float32, also held to
-     the sequential recurrence; timed beside its bound (no PyTorch call
-     computes the scan);
+     shape (8, 256, 24 heads, P 64, N 128, chunk 256) in bfloat16,
+     float16 and float32, zamba2-7b's prefill (1, 448, 112 heads, P 64,
+     N 64) in bfloat16 and float32, one 4096-token sequence (16 chunks),
+     zamba2's widths at 300 tokens (a tail of 44) and 100 (a clamped
+     chunk) with an initial state in bfloat16, and a ragged, grouped shape
+     with an initial state in float32, also held to the sequential
+     recurrence; timed beside its bound (no PyTorch call computes the
+     scan), each row with its kernels' device time (``torch.profiler``).
+     Each K3f row names its route: ``sm90`` (the chunk-parallel
+     tensor-core kernels, 16 bits at P 64, N 64/128), whose rows also
+     time the first version (``simt``) on the same inputs, compare two
+     calls bit for bit and give y's error over its rounding bound, or
+     ``simt``; K3b reads the states the forward wrote;
  14. ssm_serve_check: zamba2-7b (7 layers: a super-block of 6 mamba
      blocks and the shared block, and one tail block) and mamba2-130m (2
      layers) at full width, float32: paged ≡ dense engine for 6 requests
      of up to 300 tokens (two chunks, a ragged tail) in 4 slots, K3f once
-     a mamba block a prefill and K4 once a shared-block application a
-     decode step, on ``sm90``;
+     a mamba block a prefill (on ``simt``, float32) and K4 once a
+     shared-block application a decode step, on ``sm90``;
  15. ssm_serve: zamba2-7b at full width and depth (81 mamba blocks, 13
      applications of the shared block, bfloat16), the serve phase's 16
      requests through 8 slots: K3f must read prefills × 81 and K4 decode
-     steps × 13 (on ``sm90``); then one profiled decode step;
+     steps × 13, both on ``sm90``; then one profiled decode step;
  16. ssm_train_check: one zamba2-7b train step at full width, 7 layers,
      float32, batch 2 × 512 (two chunks): the K3/K2 route and the plain
-     route agree to 1e-4 (K3f 2 × 7 with remat, K3b 7, K2 on the one
-     shared-block application);
+     route agree to 1e-4 (K3f 2 × 7 with remat, on ``simt``, K3b 7, K2 on
+     the one shared-block application);
  17. ssm_llm_main_path, the LLM DENSE main path with the ssm family
      (``dense_llm_oneshot.full_ssm()``: two mamba2-130m clients and a
      mamba2-130m student, full width and depth, bfloat16), counted step by
-     step as in 12 with K3f and K3b in place of K2; then one epoch under
-     ``torch.profiler`` with K3's share.
+     step as in 12 with K3f and K3b in place of K2, every K3f launch on
+     ``sm90``; then one epoch under ``torch.profiler`` with K3's share,
+     K3f's device time by route.
 
 Output: a line with the card's name and power limit, one JSON line per
 phase, the ``{"kernels": [...]}`` line, and last the result line
@@ -199,21 +207,30 @@ TOL_K2 = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 1e-2}
 UNIT_ROUNDOFF = {"bfloat16": 2.0 ** -9, "float16": 2.0 ** -12}
 # K3 shapes: (name, B, S, H, P, G, N, chunk, dtype, with an initial state).
 # mamba2-130m's heads at a train step of the SSM LLM path (B 8, seq 256:
-# one chunk), zamba2-7b's at a prefill of 448 tokens (a ragged tail), one
-# 4096-token sequence (16 chunks), and a small ragged, grouped shape that
-# is also held to the sequential recurrence (``ref.ssd``/``ssd_grads``).
-# Tolerance, relative to each tensor's largest entry: float32 1e-4; in
-# bfloat16 y is stored in bfloat16 (1e-2), the states and gradients are
-# float32 from the same bfloat16 inputs (1e-4).
+# one chunk), zamba2-7b's at a prefill of 448 tokens (two full chunks),
+# one 4096-token sequence (16 chunks), zamba2's widths at 300 tokens (a
+# tail of 44, not a multiple of 64) and at 100 (the chunk clamped to 100),
+# both with an initial state, and a small ragged, grouped shape that is
+# also held to the sequential recurrence (``ref.ssd``/``ssd_grads``). K3f
+# takes its sm90 route in 16 bits at P 64 and N 64 or 128 (every shape but
+# the float32 ones and ragged_grouped). Tolerance, relative to each
+# tensor's largest entry: float32 1e-4; in 16 bits y is stored in 16 bits
+# (1e-2), the states and gradients are float32 from the same 16-bit
+# inputs (1e-4). An sm90 row also gives y's error over its rounding bound
+# 2u (sum|terms| + |y|) elementwise (``y_err_over_bound``, at most 1 if
+# the bound holds; u = 2^-9 bfloat16, 2^-12 float16).
 K3_SHAPES = (("mamba2_train", 8, 256, 24, 64, 1, 128, 256, "bfloat16", False),
+             ("mamba2_train", 8, 256, 24, 64, 1, 128, 256, "float16", False),
              ("zamba2_prefill", 1, 448, 112, 64, 1, 64, 256, "bfloat16",
               False),
              ("long", 1, 4096, 24, 64, 1, 128, 256, "bfloat16", False),
+             ("ragged_tail", 1, 300, 112, 64, 1, 64, 256, "bfloat16", True),
+             ("clamped", 1, 100, 112, 64, 1, 64, 256, "bfloat16", True),
              ("ragged_grouped", 2, 300, 4, 32, 2, 16, 64, "float32", True),
              ("mamba2_train", 8, 256, 24, 64, 1, 128, 256, "float32", False),
              ("zamba2_prefill", 1, 448, 112, 64, 1, 64, 256, "float32",
               False))
-TOL_K3 = {"float32": 1e-4, "bfloat16": 1e-2}
+TOL_K3 = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 1e-2}
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -258,7 +275,8 @@ def setup():
     t0 = time.perf_counter()
     try:
         cuda_build.build(["paged_attention", "flash_attention",
-                          "flash_attention_sm90", "ssd_scan"])
+                          "flash_attention_sm90", "ssd_scan",
+                          "ssd_scan_sm90"])
     except RuntimeError as e:
         fail(str(e))
     emit({"cuda_build": {
@@ -307,11 +325,12 @@ def launch_counts() -> list:
 
 
 def zero_counts() -> None:
-    """Every launch counter and K2's and K4's route counts to 0."""
-    from repro_torch.kernels import flash_attention, paged_attention
+    """Every launch counter and K2's, K3f's and K4's route counts to 0."""
+    from repro_torch.kernels import flash_attention, paged_attention, ssd_scan
 
     for counts in (*launch_counts(), flash_attention.fwd_routes,
-                   flash_attention.bwd_routes, paged_attention.routes):
+                   flash_attention.bwd_routes, paged_attention.routes,
+                   ssd_scan.fwd_routes):
         for k in counts:
             counts[k] = 0
 
@@ -321,14 +340,17 @@ def read_counts() -> dict:
 
 
 def read_routes() -> dict:
-    """K2's and K4's launches by route since the last ``zero_counts``:
-    ``fwd_sm90``, ``fwd_simt`` (K2f), ``bwd_sm90``, ``bwd_simt`` (K2q and
-    K2kv, each launch once), ``k4_sm90``, ``k4_simt``."""
+    """K2's, K3f's and K4's launches by route since the last
+    ``zero_counts``: ``fwd_sm90``, ``fwd_simt`` (K2f), ``bwd_sm90``,
+    ``bwd_simt`` (K2q and K2kv, each launch once), ``k3f_sm90``,
+    ``k3f_simt`` (a call once), ``k4_sm90``, ``k4_simt``."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PK
+    from repro_torch.kernels import ssd_scan as K3
 
     return {f"{kind}_{route}": c for kind, counts in (
-        ("fwd", FA.fwd_routes), ("bwd", FA.bwd_routes), ("k4", PK.routes))
+        ("fwd", FA.fwd_routes), ("bwd", FA.bwd_routes),
+        ("k3f", K3.fwd_routes), ("k4", PK.routes))
         for route, c in counts.items()}
 
 
@@ -338,6 +360,24 @@ def check_k4_routes(label, launches, routes) -> None:
     if routes["k4_sm90"] != n or routes["k4_simt"]:
         fail(f"{label}: K4's launches by route {routes}, expected all {n} "
              f"on sm90")
+
+
+def k3f_route(torch, cfg) -> str:
+    """The route K3f takes in ``cfg``'s mamba blocks: sm90 in 16 bits at
+    mamba2-130m's and zamba2-7b's widths, simt in float32."""
+    from repro_torch.kernels import ssd_scan as K3
+
+    return K3.fwd_route(getattr(torch, cfg.dtype), cfg.ssm_head_dim,
+                        cfg.ssm_state)
+
+
+def check_k3_routes(label, launches, routes, route) -> None:
+    """Every K3f launch of a phase took ``route``."""
+    n = launches["ssd_scan_fwd"]
+    if routes[f"k3f_{route}"] != n or sum(
+            routes[f"k3f_{r}"] for r in ("sm90", "simt")) != n:
+        fail(f"{label}: K3f's launches by route {routes}, expected all {n} "
+             f"on {route}")
 
 
 def expected(**nonzero) -> dict:
@@ -764,8 +804,10 @@ def k4_phase(torch):
             sm90 = rotating(PK.paged_attention, pools)
             simt = rotating(lambda *a: PK.paged_attention(*a, route="simt"),
                             pools)
+            kept = {}
             device = device_ms_per_call(
-                torch, sm90, lambda n: "sm90_paged_attention" in n)
+                torch, sm90, lambda n: "sm90_paged_attention" in n,
+                counts=kept)
             rows.append({
                 "shape": {"R": R, "Hq": hq, "Hkv": hkv, "D": d, "page": page,
                           "M": m}, "seq_lens": seq.tolist(), "dtype": dname,
@@ -773,6 +815,7 @@ def k4_phase(torch):
                 "ok": ok and zero_rows, "zero_rows_exact": zero_rows,
                 "max_abs_err": err, "tol": TOL_K4[dname],
                 "ms": cuda_ms(torch, sm90), "device_ms": device,
+                "profiled_records": sum(kept.values()),
                 "first_version_ms": cuda_ms(torch, simt),
                 "first_version_device_ms": device_ms_per_call(
                     torch, simt, lambda n: "paged_attention_kernel<" in n
@@ -872,6 +915,7 @@ def serve_check(torch, dev="cuda", arch="llama3.2-3b", n_layers=2,
         "paged_equals_dense": same, "decode_steps": steps,
         "launches": launches, "expected_launches": want,
         "k4_routes": {r: routes[f"k4_{r}"] for r in ("sm90", "simt")},
+        "k3f_routes": {r: routes[f"k3f_{r}"] for r in ("sm90", "simt")},
         "launches_dense_mode": dense_launches,
         "tokens_first_request": paged[0].tolist()}})
     if not same:
@@ -880,6 +924,7 @@ def serve_check(torch, dev="cuda", arch="llama3.2-3b", n_layers=2,
         fail(f"{label}: launches {launches} (paged), {dense_launches} "
              f"(dense), expected {want} and {want_dense}")
     check_k4_routes(label, launches, routes)
+    check_k3_routes(label, launches, routes, k3f_route(torch, cfg))
     del params, paged_eng
     torch.cuda.empty_cache()
 
@@ -935,6 +980,7 @@ def serve_main_path(torch, dev="cuda", arch="llama3.2-3b", label="serve"):
         "ms_per_decode_step": st["decode_s"] / max(steps, 1) * 1e3,
         "launches": launches, "expected_launches": want,
         "k4_routes": {r: routes[f"k4_{r}"] for r in ("sm90", "simt")},
+        "k3f_routes": {r: routes[f"k3f_{r}"] for r in ("sm90", "simt")},
         "blocks_attention_mamba": trunk_blocks(cfg),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}})
     if not ok_tokens:
@@ -944,6 +990,7 @@ def serve_main_path(torch, dev="cuda", arch="llama3.2-3b", label="serve"):
              f"{steps} decode steps x {trunk_blocks(cfg)[0]} of K4, "
              f"{len(reqs)} prefills x {trunk_blocks(cfg)[1]} of K3f")
     check_k4_routes(label, launches, routes)
+    check_k3_routes(label, launches, routes, k3f_route(torch, cfg))
     del eng
     torch.cuda.empty_cache()
     profile_decode(torch, cfg, params, reqs[:8], dev,
@@ -1020,10 +1067,14 @@ def profile_decode(torch, cfg, params, reqs, dev="cuda",
 
 # ------------------------------------------------------------------- K2 --
 
-def device_ms_per_call(torch, fn, match, calls: int = 20) -> float:
-    """Device time a call of the kernels whose names satisfy ``match``,
-    from ``torch.profiler`` over ``calls`` calls after a warm-up: the
-    kernel alone, without the wrapper's host time."""
+def device_ms_by_name(torch, fn, calls: int = 20, counts=None) -> dict:
+    """Device time of one launch by kernel name: the mean over the
+    records ``torch.profiler`` kept of ``calls`` calls after a warm-up,
+    the kernels alone, without the wrapper's host time. For a kernel a
+    call launches once it is the time a call, and a record the profiler
+    drops does not lower it (late in a long run it kept fewer than
+    ``calls``). ``counts``, a dict, receives the records kept of each
+    name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1033,7 +1084,25 @@ def device_ms_per_call(torch, fn, match, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(v for k, v in device_ms(prof).items() if match(k)) / calls
+    per_kernel = device_ms(prof)
+    kept = {e.key: e.count for e in prof.key_averages()
+            if e.key in per_kernel}
+    if counts is not None:
+        counts.update(kept)
+    return {k: v / max(kept.get(k, calls), 1) for k, v in per_kernel.items()}
+
+
+def device_ms_per_call(torch, fn, match, calls: int = 20,
+                       counts=None) -> float:
+    """Device time a call of the kernels whose names satisfy ``match``,
+    each launched once a call. ``counts``, a dict, receives the records
+    kept of each of those kernels."""
+    kept = {}
+    ms = sum(v for k, v in device_ms_by_name(torch, fn, calls, kept).items()
+             if match(k))
+    if counts is not None:
+        counts.update({k: n for k, n in kept.items() if match(k)})
+    return ms
 
 
 def k2_kernel(which, route):
@@ -1044,6 +1113,17 @@ def k2_kernel(which, route):
         return lambda name: f"sm90_{which}_kernel<" in name
     return lambda name: (f"{which}_kernel<" in name and "sm90_" not in name
                          and "ssd_" not in name)
+
+
+def k3_kernel(which, route):
+    """Matches the device names of K3's ``which`` kernels (``fwd``,
+    ``bwd``) on ``route``: K3f's sm90 route is three kernels, all named
+    ``ssd_sm90_...``; the first versions are ``ssd_fwd_kernel<...>`` and
+    ``ssd_bwd_kernel<...>`` (K3b has only that one)."""
+    if route == "sm90":
+        assert which == "fwd", which
+        return lambda name: "ssd_sm90_" in name
+    return lambda name: f"ssd_{which}_kernel<" in name
 
 
 def k2_phase(torch):
@@ -1129,6 +1209,7 @@ def k2_phase(torch):
             fwd = lambda: FA.flash_attention_fwd(q, k, v, **kw)
             simt = lambda: FA._fwd_launch(q, k, v, causal, window,
                                           1 / d ** 0.5, "simt")
+            kept = {}
             row = {
                 **common, "route": route, "ok": ok_o and ok_l and dead_exact,
                 "max_abs_err": max(err_o, err_l), "o_max_abs_err": err_o,
@@ -1136,12 +1217,14 @@ def k2_phase(torch):
                 "lse_tol": list(lse_tol), "dead_rows_exact": dead_exact,
                 "ms": cuda_ms(torch, fwd),
                 "device_ms": device_ms_per_call(torch, fwd,
-                                                k2_kernel("fwd", route)),
+                                                k2_kernel("fwd", route),
+                                                counts=kept),
                 "plain_ms": cuda_ms(torch, lambda: FA.flash_attention_fwd_plain(
                     q, k, v, **kw)),
                 "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                     q, k, v, enable_gqa=True, **sdpa_kw)),
                 "bound_ms": b_ms, "bound_by": b_by}
+            row["profiled_records"] = sum(kept.values())
             if route == "sm90":
                 row["simt_ms"] = cuda_ms(torch, simt)
                 row["simt_device_ms"] = device_ms_per_call(
@@ -1166,13 +1249,16 @@ def k2_phase(torch):
                     q, k, v, do_k if r == broute else dof, lse, delta,
                     route=r, **kw)
                 b_ms, b_by = bound(in_bytes + out_bytes, ops, peak)
+                kept = {}
                 row = {**common, "route": broute, "ok": ok,
                        "max_abs_err": abs_err, "max_rel_err": rel_err,
                        **extra, "ms": cuda_ms(torch, call(broute)),
                        "device_ms": device_ms_per_call(
-                           torch, call(broute), k2_kernel(which, broute)),
+                           torch, call(broute), k2_kernel(which, broute),
+                           counts=kept),
                        "plain_ms": plain_bwd, "library_ms": lib_bwd,
                        "bound_ms": b_ms, "bound_by": b_by}
+                row["profiled_records"] = sum(kept.values())
                 if broute == "sm90":
                     row["simt_ms"] = cuda_ms(torch, call("simt"))
                     row["simt_device_ms"] = device_ms_per_call(
@@ -1204,25 +1290,26 @@ def k2_phase(torch):
 
 def k3_inputs(torch, B, S, H, P, G, N, dtype, init, seed, dev="cuda"):
     """x, dt (float32, as the model passes it), a, b, c, an initial state
-    (zeros unless ``init``), dy and d(final state), on ``dev``."""
+    (None unless ``init``, as a training step passes none), dy and
+    d(final state), on ``dev``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
     x = r(B, S, H, P).to(dtype)
     dt = torch.nn.functional.softplus(r(B, S, H) - 1.0)
     a = -torch.exp(r(H) * 0.3)
     b, c = ((r(B, S, G, N) * 0.3).to(dtype) for _ in range(2))
-    s0 = r(B, H, P, N) * 0.5 if init else torch.zeros(B, H, P, N,
-                                                      device=dev)
+    s0 = r(B, H, P, N) * 0.5 if init else None
     return x, dt, a, b, c, s0, r(B, S, H, P), r(B, H, P, N)
 
 
-def k3_work(B, S, H, P, G, N, cl, isz):
+def k3_work(B, S, H, P, G, N, cl, isz, init):
     """(forward bytes, forward operations, backward bytes, backward
     operations) that these inputs need: the live (l >= s) pairs within
     each chunk's valid positions, 2(N + P) flops a pair forward and
     2(3N + 2P) backward, 4PN a position forward (y_off, the state
     deposit) and 10PN backward; each input read and each output written
-    once (the forward writes the chunk states, as in training)."""
+    once (the forward writes the chunk states, as in training, and reads
+    an initial state only when ``init``)."""
     nc = -(-S // cl)
     lens = [min(cl, S - i * cl) for i in range(nc)]
     pairs = sum(n * (n + 1) // 2 for n in lens)
@@ -1230,8 +1317,8 @@ def k3_work(B, S, H, P, G, N, cl, isz):
     fwd_ops = bh * (pairs * 2 * (N + P) + 4 * S * P * N)
     bwd_ops = bh * (pairs * 2 * (3 * N + 2 * P) + 10 * S * P * N)
     xs, bcs, st = B * S * H * P, B * S * G * N, bh * P * N
-    fwd_bytes = (2 * xs + 2 * bcs) * isz + 4 * (B * S * H + H + 2 * st
-                                                + bh * nc * P * N)
+    fwd_bytes = (2 * xs + 2 * bcs) * isz + 4 * (
+        B * S * H + H + (2 if init else 1) * st + bh * nc * P * N)
     bwd_bytes = (xs + 2 * bcs) * isz + 4 * (B * S * H + H + bh * nc * P * N
                                             + xs + st) \
         + 4 * (xs + B * S * H + H + 2 * bcs + st)
@@ -1241,8 +1328,12 @@ def k3_work(B, S, H, P, G, N, cl, isz):
 def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
     """K3f and K3b against their plain versions (the chunked formula in
     PyTorch and autograd through it), at the small shape also against the
-    sequential recurrence, timed beside their bound. No single PyTorch
-    call computes the SSD scan: library_ms is None."""
+    sequential recurrence, timed beside their bound, each row with its
+    kernels' device time. A K3f row names its route; an sm90 row also
+    times the first version (the simt route) on the same inputs, checks
+    two calls bit for bit and gives y's error over its rounding bound. K3b
+    reads the states the forward wrote. No single PyTorch call computes
+    the SSD scan: library_ms is None."""
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import ssd_scan as K3
 
@@ -1250,15 +1341,32 @@ def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
     for name, B, S, H, P, G, N, cl, dname, init in shapes:
         dtype = getattr(torch, dname)
         tol = TOL_K3[dname]
+        route = K3.fwd_route(dtype, P, N)
         x, dt, a, b, c, s0, dy, dfin = k3_inputs(
             torch, B, S, H, P, G, N, dtype, init, S + H + N, dev)
-        y, fin, st = K3.ssd_scan_fwd(x, dt, a, b, c, s0, chunk=cl,
-                                     return_chunk_states=True)
+        fwd = lambda r=None: K3.ssd_scan_fwd(
+            x, dt, a, b, c, s0, chunk=cl, return_chunk_states=True, route=r)
+        y, fin, st = fwd()
         torch.cuda.synchronize()
         py, pfin, pst = K3.ssd_scan_fwd_plain(x, dt, a, b, c, s0, chunk=cl)
         errs_f = [_grad_err(y, py), _grad_err(fin, pfin),
                   _grad_err(st, pst)]
         ok_f = errs_f[0] <= tol and max(errs_f[1:]) <= 1e-4
+        extra = {}
+        if route == "sm90":
+            extra["bit_for_bit"] = all(torch.equal(u, v) for u, v in
+                                       zip(fwd(), (y, fin, st)))
+            ok_f = ok_f and extra["bit_for_bit"]
+            # 2u (sum|terms| + |y|): the plain forward on |x|, |b|, |c|
+            # and |initial state| bounds sum|terms| elementwise
+            terms = K3.ssd_scan_fwd_plain(
+                x.float().abs(), dt, a, b.float().abs(), c.float().abs(),
+                None if s0 is None else s0.abs(), chunk=cl)[0]
+            bound_y = 2 * UNIT_ROUNDOFF[dname] * (terms + py.float().abs())
+            extra["y_err_over_bound"] = float(
+                ((y.float() - py.float()).abs() / bound_y.clamp(min=1e-30))
+                .max())
+            del terms, bound_y
         grads = K3.ssd_scan_bwd(x, dt, a, b, c, st, dy, dfin, chunk=cl)
         torch.cuda.synchronize()
         want = K3.ssd_scan_bwd_plain(x, dt, a, b, c, pst, dy, dfin, chunk=cl)
@@ -1275,25 +1383,42 @@ def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
             ok_b = ok_b and oracle["grads"] <= 1e-4
         isz = x.element_size()
         peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
-        fb, fo, bb, bo = k3_work(B, S, H, P, G, N, cl, isz)
+        fb, fo, bb, bo = k3_work(B, S, H, P, G, N, cl, isz, init)
         shape = {"name": name, "B": B, "S": S, "H": H, "P": P, "G": G,
                  "N": N, "chunk": cl, "nc": -(-S // cl),
                  "initial_state": init}
         b_ms, b_by = bound(fb, fo, peak)
-        rows["fwd"].append({
-            "shape": shape, "dtype": dname, "ok": ok_f,
+        row = {
+            "shape": shape, "dtype": dname, "route": route, "ok": ok_f,
             "max_abs_err": max(float((y.float() - py.float()).abs().max()),
                                float((fin - pfin).abs().max())),
             "max_rel_err": {"y": errs_f[0], "final": errs_f[1],
                             "chunk_states": errs_f[2]},
-            "vs_sequential": oracle.get("y"), "tol": tol,
-            "ms": cuda_ms(torch, lambda: K3.ssd_scan_fwd(
-                x, dt, a, b, c, s0, chunk=cl, return_chunk_states=True)),
+            "vs_sequential": oracle.get("y"), "tol": tol, **extra,
+            "ms": cuda_ms(torch, fwd),
             "plain_ms": cuda_ms(torch, lambda: K3.ssd_scan_fwd_plain(
                 x, dt, a, b, c, s0, chunk=cl)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            "ops": fo, "bytes": fb, "ctas": B * H})
+            "ops": fo, "bytes": fb}
+        counts = {}
+        by_name = device_ms_by_name(torch, fwd, counts=counts)
+        row["device_ms"] = sum(v for k, v in by_name.items()
+                               if k3_kernel("fwd", route)(k))
+        # records kept of the route's kernels: 20 calls x 1 (simt) or 3
+        row["profiled_records"] = sum(v for k, v in counts.items()
+                                      if k3_kernel("fwd", route)(k))
+        row["bound_share_of_device_ms"] = b_ms / row["device_ms"]
+        if route == "sm90":             # A, B and C apart
+            row["device_ms_by_phase"] = {
+                ph: sum(v for k, v in by_name.items()
+                        if f"ssd_sm90_{ph}_kernel" in k)
+                for ph in ("chunk_state", "state_pass", "chunk_scan")}
+            row["first_version_ms"] = cuda_ms(torch, lambda: fwd("simt"))
+            row["first_version_device_ms"] = device_ms_per_call(
+                torch, lambda: fwd("simt"), k3_kernel("fwd", "simt"))
+        rows["fwd"].append(row)
         b_ms, b_by = bound(bb, bo, peak)
+        bwd = lambda: K3.ssd_scan_bwd(x, dt, a, b, c, st, dy, dfin, chunk=cl)
         rows["bwd"].append({
             "shape": shape, "dtype": dname, "ok": ok_b,
             "max_abs_err": max(float((g - w).abs().max())
@@ -1301,8 +1426,9 @@ def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
             "max_rel_err": dict(zip(("dx", "ddt", "da", "db", "dc", "dinit"),
                                     errs_b)),
             "vs_sequential": oracle.get("grads"), "tol": 1e-4,
-            "ms": cuda_ms(torch, lambda: K3.ssd_scan_bwd(
-                x, dt, a, b, c, st, dy, dfin, chunk=cl)),
+            "forward_route": route, "ms": cuda_ms(torch, bwd),
+            "device_ms": device_ms_per_call(torch, bwd,
+                                            k3_kernel("bwd", "simt")),
             "plain_ms": cuda_ms(torch, lambda: K3.ssd_scan_bwd_plain(
                 x, dt, a, b, c, pst, dy, dfin, chunk=cl)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
@@ -1316,6 +1442,11 @@ def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
     if bad:
         fail(f"{len(bad)} K3 checks disagree with the plain versions: {bad}")
+    routes = {(r["shape"]["name"], r["dtype"]): r["route"]
+              for r in rows["fwd"]}
+    if any((r == "sm90") != (dn != "float32" and n != "ragged_grouped")
+           for (n, dn), r in routes.items()):
+        fail(f"K3f took an unexpected route: {routes}")
     return rows
 
 
@@ -1372,9 +1503,10 @@ def train_check(torch, dev="cuda", arch="llama3.2-3b", n_layers=2,
         state, m = ST.make_train_step(c)(state, data)
         sync(torch, dev)
         out[mode] = (float(m["loss"]), float(m["grad_norm"]),
-                     state["opt"].grads, read_counts(), _peak_gib(torch))
+                     state["opt"].grads, read_counts(), _peak_gib(torch),
+                     read_routes())
         del state, m
-    (la, na, ga, ca, _), (lb, nb, gb, _, _) = out["fused"], out["ref"]
+    (la, na, ga, ca, _, ra), (lb, nb, gb, _, _, _) = out["fused"], out["ref"]
     loss_err = abs(la - lb) / abs(lb)
     norm_err = abs(na - nb) / abs(nb)
     names = _leaf_paths(params)
@@ -1407,6 +1539,7 @@ def train_check(torch, dev="cuda", arch="llama3.2-3b", n_layers=2,
         else None, "worst_grads": errs[:6],
         "plain_half_chunk_vs_plain": floor,
         "launches": {k: v[3] for k, v in out.items()},
+        "k3f_routes": {r: ra[f"k3f_{r}"] for r in ("sm90", "simt")},
         "peak_mem_gib": {k: v[4] for k, v in out.items()}, "tol": STEP_TOL,
         "scalar_tol": SCALAR_TOL if any(is_scalar) else None}})
     if max(loss_err, norm_err, grad_err) > STEP_TOL \
@@ -1418,6 +1551,7 @@ def train_check(torch, dev="cuda", arch="llama3.2-3b", n_layers=2,
     if ca != want or any(c != expected() for c in plain.values()):
         fail(f"{label} launches {ca} (kernel route), {plain} (plain), "
              f"expected {want} and none")
+    check_k3_routes(label, ca, ra, k3f_route(torch, cfg))
     del params, out, ga, gb
     torch.cuda.empty_cache()
 
@@ -1645,6 +1779,8 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
         if routes[f"{kind}_{route}"] != n:
             fail(f"{label}: K2's launches by route {routes}, expected all "
                  f"{n} of {kind} on {route}")
+    # and every K3f launch its route (sm90 for the bfloat16 mamba2 path)
+    check_k3_routes(label, totals, routes, k3f_route(torch, cfgs[0]))
     if ledger.rounds != 1 or ledger.downlink_bytes != 0 or \
             ledger.uplink_bytes != sum(param_bytes(p) for p in client_params):
         fail(f"not one-shot: {ledger.rounds} rounds, "
@@ -1667,6 +1803,7 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
         "launches_total": totals,
         "fwd_routes": {r: routes[f"fwd_{r}"] for r in ("sm90", "simt")},
         "bwd_routes": {r: routes[f"bwd_{r}"] for r in ("sm90", "simt")},
+        "k3f_routes": {r: routes[f"k3f_{r}"] for r in ("sm90", "simt")},
         "uplink_bytes": ledger.uplink_bytes, "rounds": ledger.rounds,
         "client_loss": client_loss, **hist}})
     return totals, (gen_step, student_step, g_opt, s_opt, gen, student,
@@ -1710,8 +1847,12 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
                               if k2_kernel(w, r)(k))
                        for r in ("sm90", "simt")}
                    for w in ("fwd", "dq", "dkv")}
-    k3 = {w: sum(v for k, v in per_kernel.items()
-                 if f"ssd_{w}_kernel<" in k) for w in ("fwd", "bwd")}
+    k3f_by_route = {r: sum(v for k, v in per_kernel.items()
+                           if k3_kernel("fwd", r)(k))
+                    for r in ("sm90", "simt")}
+    k3 = {"fwd": sum(k3f_by_route.values()),
+          "bwd": sum(v for k, v in per_kernel.items()
+                     if k3_kernel("bwd", "simt")(k))}
     k1_ms = sum(v for k, v in per_kernel.items() if "_kl_" in k)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
     # where the host's time goes: self CPU time by operator, and the
@@ -1728,6 +1869,7 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
         "k2_ms": k2, "k2_ms_by_route": k2_by_route,
         "k2_share_of_busy": sum(k2.values()) / busy_ms
         if busy_ms else None, "k3_ms": k3,
+        "k3f_ms_by_route": k3f_by_route,
         "k3_share_of_busy": sum(k3.values()) / busy_ms if busy_ms else None,
         "k1_ms": k1_ms,
         "n_kernel_names": len(per_kernel), "kernels_launched": n_kernels,
@@ -1737,6 +1879,11 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
             n_mamba and not all(k3.values())):
         fail(f"{label}: the profiler saw no device time of a kernel the "
              f"epoch runs: K2 {k2}, K3 {k3}")
+    want = k3f_route(torch, stu_cfg) if n_mamba else None
+    if n_mamba and (not k3f_by_route[want] or any(
+            v for r, v in k3f_by_route.items() if r != want)):
+        fail(f"{label}: K3f's device time by route {k3f_by_route}, "
+             f"expected all of it on {want}")
 
 
 # ----------------------------------------------------------------- main --
@@ -1764,18 +1911,24 @@ def k2_entry(name, rs, line, launches):
 def k3_entry(name, rs, line, launches):
     """The kernels line's entry of a K3 kernel: mamba2-130m's train shape
     in bfloat16 (the SSM LLM main path's train step), its launches over
-    that path."""
+    that path; K3f's names its route (sm90 there) and the first
+    version's time."""
     main = next(r for r in rs if r["shape"]["name"] == "mamba2_train"
                 and r["dtype"] == "bfloat16")
+    source = "ssd_scan_sm90.cu" if main.get("route") == "sm90" \
+        else "ssd_scan.cu"
     return {"name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/ssd_scan.py:{line}",
             "launches": launches[name],
             "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "shape": main["shape"],
-            "dtype": main["dtype"], "by_shape": rs}
+            "dtype": main["dtype"], "k3_route": main.get("route", "simt"),
+            "device_ms": main["device_ms"],
+            "first_version_ms": main.get("first_version_ms"),
+            "by_shape": rs}
 
 
 def main() -> None:

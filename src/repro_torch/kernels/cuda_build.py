@@ -8,9 +8,9 @@ it into a shared library in seconds, without PyTorch's headers:
          -Xcompiler -fPIC -Xptxas -v -o build/cuda/lib<name>-<hash>.so
 
 The library goes to ``build/cuda/`` at the root of the checkout, named by
-a hash of its source and flags, so an edited source is rebuilt and
-concurrent builders never see a half-written file (each writes a private
-temporary and renames it). ``build_logs[name]`` keeps ``nvcc``'s output
+a hash of its source, the port's headers it includes and the flags, so an
+edited source or header is rebuilt and concurrent builds never see a
+half-written file (each writes a private temporary and renames it). ``build_logs[name]`` keeps ``nvcc``'s output
 (``-Xptxas -v``: registers, shared memory and spills per kernel). A
 missing ``nvcc`` or a failed build raises; nothing falls back.
 """
@@ -20,6 +20,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -50,7 +51,12 @@ def nvcc() -> str:
 
 def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    text = src.read_bytes()
+    # the port's own headers the source includes ("sm90_common.cuh")
+    headers = b"".join((CSRC / h.decode()).read_bytes() for h in
+                       re.findall(rb'^\s*#\s*include\s*"([^"]+)"', text,
+                                  re.MULTILINE))
+    digest = hashlib.sha256(text + headers
                             + " ".join(FLAGS).encode()).hexdigest()[:16]
     return src, BUILD / f"lib{name}-{digest}.so"
 

@@ -85,10 +85,6 @@ def ssd_scan(x, dt, a, b, c, initial_state=None, *, chunk: int,
         return _ref.ssd(x, dt, a, b, c, initial_state=initial_state)
     cl = min(int(chunk), int(x.shape[1]))
     if mode == "fused":
-        if initial_state is None:
-            B, _, H, P = x.shape
-            initial_state = torch.zeros((B, H, P, b.shape[3]),
-                                        device=x.device)
         return _ssd.SSDScan.apply(x, dt, a, b, c, initial_state, cl)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad

@@ -16,12 +16,16 @@ Replaces the Pallas kernels of ``repro/kernels/ssd_scan.py``:
     (``ssd_scan.py:315-317``).
 
 Why CUDA C++ and not Triton: the work is a chunked recurrence with matrix
-products in it, neither an elementwise pass nor a reduction. The source,
-``csrc/ssd_scan.cu``, says how it is laid out (one CTA per (b, h) looping
-over the chunks, the intra-chunk products tiled over the tiles on or
-below the diagonal) and what bounds it: the operations, ~cl²(N + P)/2 +
-2·cl·P·N multiply-adds a chunk and head forward, computed in this first
-version on the CUDA cores in float32.
+products in it, neither an elementwise pass nor a reduction. K3f has two
+routes, chosen from the dtype and the widths alone (``fwd_route``):
+``sm90``, for bfloat16 and float16 at P 64 and N 64 or 128 (mamba2-130m's
+and zamba2-7b's widths), the chunk-parallel tensor-core kernels of
+``csrc/ssd_scan_sm90.cu`` (chunk states, a pass over them, the chunk
+scan: three launches, every product on wgmma); ``simt``, every other
+call (float32, other P or N), the first version in ``csrc/ssd_scan.cu``
+(one CTA per (b, h) looping over the chunks on the CUDA cores), which a
+direct call may also name to time it. ``fwd_routes`` counts the calls of
+each. Each source says what bounds it; K3b is the first version's.
 
 Layout, as the reference's: x (B, S, H, P), dt (B, S, H), a (H,), b and c
 (B, S, G, N), initial_state (B, H, P, N); head h reads group h·G // H.
@@ -29,8 +33,10 @@ Any S: the ragged tail of the last chunk is masked inside the kernel (dt,
 x, b, c and dy read as zeros past S), so it deposits nothing in the state.
 
 Beside each kernel, its plain version: the forward is the chunked formula
-in PyTorch with the same tail masking (``ssd_scan_fwd_plain``), the
-backward torch autograd through it (``ssd_scan_bwd_plain``). Each wrapper
+in PyTorch with the same tail masking, in the sm90 route's three phases
+(``ssd_scan_fwd_plain``; with that route's 16-bit roundings when the
+tests ask), the backward torch autograd through it
+(``ssd_scan_bwd_plain``). Each wrapper
 checks its inputs, then on a CPU tensor runs the plain version, and on a
 CUDA tensor launches the kernel, built with ``nvcc`` at first use
 (``kernels/cuda_build.py``), on the current stream, or raises.
@@ -47,10 +53,16 @@ import torch.nn.functional as F
 from repro_torch.kernels import cuda_build
 
 launches = {"ssd_scan_fwd": 0, "ssd_scan_bwd": 0}
+# K3f's launches by route (each also counts in launches["ssd_scan_fwd"];
+# an sm90 call's three kernels count once)
+fwd_routes = {"sm90": 0, "simt": 0}
 
 # torch dtype -> the C interface's dtype code
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _THREADS, _FT, _BT = 256, 64, 32        # csrc/ssd_scan.cu's constants
+_TILE = 64 * 128                        # csrc/ssd_scan_sm90.cu's tile bytes
+SM90_DTYPES = (torch.bfloat16, torch.float16)
+SM90_P, SM90_N = 64, (64, 128)
 SMEM_LIMIT = 232_448                    # bytes a block may opt in to
 _fn: dict = {}
 
@@ -65,6 +77,11 @@ def _launchers() -> dict:
                            + ints + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _fn[name] = fn
+        fn = cuda_build.load("ssd_scan_sm90").ssd_scan_fwd_sm90_launch
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn["fwd_sm90"] = fn
         err = lib.ssd_scan_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -72,9 +89,16 @@ def _launchers() -> dict:
     return _fn
 
 
-def smem_bytes(which: str, P: int, N: int, cl: int) -> int:
+def smem_bytes(which: str, P: int, N: int, cl: int,
+               route: str = "simt") -> int:
     """Dynamic shared memory of one K3f (``"fwd"``) or K3b (``"bwd"``)
-    CTA, as ``csrc/ssd_scan.cu`` sizes it."""
+    CTA, as ``csrc/ssd_scan.cu`` sizes it, or for K3f's ``"sm90"`` route
+    the larger of its chunk-state and chunk-scan CTAs
+    (``csrc/ssd_scan_sm90.cu``)."""
+    if route == "sm90":
+        nh, cl_pad = N // 64, -(-cl // 64) * 64
+        return max(1024 + (2 + nh) * _TILE + 3 * 4 * cl,
+                   1024 + (4 * nh + 2) * _TILE + 2 * 4 * cl_pad)
     if which == "fwd":
         floats = (P * (N + 1) + 2 * _FT * (N + 1) + _FT * (P + 1)
                   + _FT * (_FT + 1) + _FT * P + 2 * cl)
@@ -116,12 +140,21 @@ def _check_state(t, shape, name, device) -> None:
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _check_cuda(which: str, P: int, N: int, cl: int) -> None:
-    need = smem_bytes(which, P, N, cl)
+def _check_cuda(which: str, P: int, N: int, cl: int,
+                route: str = "simt") -> None:
+    need = smem_bytes(which, P, N, cl, route)
     if need > SMEM_LIMIT:
-        raise ValueError(f"K3{which[0]} at P={P}, N={N}, chunk {cl} needs "
-                         f"{need} bytes of shared memory, more than the "
-                         f"{SMEM_LIMIT} a block can have")
+        raise ValueError(f"K3{which[0]} ({route}) at P={P}, N={N}, chunk "
+                         f"{cl} needs {need} bytes of shared memory, more "
+                         f"than the {SMEM_LIMIT} a block can have")
+
+
+def _check_aligned(*tensors) -> None:
+    """The sm90 route moves 16 bytes at a time: its tensors' bases must be
+    16-byte aligned, or the call is refused before a launch."""
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError("K3f's sm90 route loads 16 bytes at a time, which "
+                         "needs 16-byte aligned tensors")
 
 
 def _raise_on(err: int, which: str) -> None:
@@ -140,81 +173,150 @@ def _chunk(chunk: int, S: int) -> int:
 
 # ----------------------------------------------------------------- K3f --
 
-def ssd_scan_fwd_plain(x, dt, a, b, c, initial_state=None, *, chunk: int):
-    """The forward's arithmetic in PyTorch, chunk by chunk: (y in x's
-    dtype, final_state, chunk_states (B, H, nc, P, N)), the states
-    float32. The tail past S is zeroed in dt, x, b and c, as the kernel
-    masks it; the exponential is taken only under the causal mask, so
-    autograd through it sees no inf."""
+def _chunked(x, dt, a, b, c, chunk: int):
+    """The plain versions' operands by chunk, float32, zero past S: (cl,
+    nc, x (B, nc, cl, H, P), dt (B, nc, cl, H), b and c (B, nc, cl, H, N)
+    with each head's group, cs (B, nc, cl, H) the within-chunk cumsum of
+    dt a)."""
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     cl = _chunk(chunk, S)
     nc = -(-S // cl)
     pad = nc * cl - S
-    rep = H // G
     xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(B, nc, cl, H, P)
     dtf = F.pad(dt.float(), (0, 0, 0, pad)).reshape(B, nc, cl, H)
     bf, cf = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)).reshape(B, nc, cl, G, N)
-              .repeat_interleave(rep, dim=3) for t in (b, c))
-    cs = torch.cumsum(dtf * a.float(), dim=2)             # (B, nc, cl, H)
-    csh = cs.permute(0, 1, 3, 2)                          # (B, nc, H, cl)
-    tril = torch.ones((cl, cl), dtype=torch.bool, device=x.device).tril()
-    seg = (csh[..., :, None] - csh[..., None, :]).masked_fill(
-        ~tril, float("-inf"))
-    decay = torch.exp(seg)                                # (B, nc, H, l, s)
-    cb = torch.einsum("bclhn,bcshn->bchls", cf, bf)
-    att = cb * decay * dtf.permute(0, 1, 3, 2)[..., None, :]
-    y = torch.einsum("bchls,bcshp->bclhp", att, xf)
-    w = dtf * torch.exp(cs[:, :, -1:] - cs)               # (B, nc, cl, H)
-    deposit = torch.einsum("bclh,bclhp,bclhn->bchpn", w, xf, bf)
+              .repeat_interleave(H // G, dim=3) for t in (b, c))
+    return cl, nc, xf, dtf, bf, cf, torch.cumsum(dtf * a.float(), dim=2)
+
+
+def ssd_scan_fwd_plain(x, dt, a, b, c, initial_state=None, *, chunk: int,
+                       emulate=None):
+    """The forward's arithmetic in PyTorch, chunk by chunk, in the sm90
+    route's three phases: (A) each chunk's cs, decay e^{cs_end} and
+    deposit X^T (w . B), w_l = dt_l e^{cs_end - cs_l}; (B) the pass over
+    the chunks, S_in[c] = S, S = decay_c S + deposit_c; (C) each chunk's y
+    from the masked (C B^T) e^{cs_l - cs_s} dt_s against X and
+    e^{cs_l} C S_in^T. Returns (y in x's dtype, final_state,
+    chunk_states (B, H, nc, P, N)), the states float32. The tail past S
+    is zeroed in dt, x, b and c, as the kernels mask it; the exponential
+    is taken only under the causal mask, so autograd through it sees no
+    inf. ``emulate`` (bfloat16 or float16) takes the sm90 kernels'
+    rounding points in that dtype: w . X split into hi = rn(w x) and
+    lo = rn(w x - hi), each against B; att and S_in rounded before their
+    products. The tests use it; no main path does."""
+    B, S, H, P = x.shape
+    N = b.shape[3]
+    r16 = (lambda t: t) if emulate is None \
+        else (lambda t: t.to(emulate).float())
+    cl, nc, xf, dtf, bf, cf, cs = _chunked(x, dt, a, b, c, chunk)
+    # A: chunk states
+    decay = torch.exp(cs[:, :, -1])                       # (B, nc, H)
+    xw = xf * (dtf * torch.exp(cs[:, :, -1:] - cs))[..., None]
+    hi = r16(xw)
+    deposit = torch.einsum("bclhp,bclhn->bchpn", hi, bf)
+    if emulate is not None:
+        deposit = deposit + torch.einsum("bclhp,bclhn->bchpn", r16(xw - hi),
+                                         bf)
+    # B: the pass over the chunks
     s = torch.zeros((B, H, P, N), device=x.device) if initial_state is None \
         else initial_state.float()
     entering = []
     for ci in range(nc):
         entering.append(s)
-        s = torch.exp(cs[:, ci, -1])[..., None, None] * s + deposit[:, ci]
+        s = decay[:, ci][..., None, None] * s + deposit[:, ci]
     states = torch.stack(entering, dim=2)                 # (B, H, nc, P, N)
-    y = y + torch.exp(cs)[..., None] * torch.einsum(
-        "bclhn,bhcpn->bclhp", cf, states)
+    # C: the chunk scan
+    csh = cs.permute(0, 1, 3, 2)                          # (B, nc, H, cl)
+    tril = torch.ones((cl, cl), dtype=torch.bool, device=x.device).tril()
+    seg = (csh[..., :, None] - csh[..., None, :]).masked_fill(
+        ~tril, float("-inf"))
+    att = r16(torch.einsum("bclhn,bcshn->bchls", cf, bf) * torch.exp(seg)
+              * dtf.permute(0, 1, 3, 2)[..., None, :])
+    y = torch.einsum("bchls,bcshp->bclhp", att, xf) \
+        + torch.exp(cs)[..., None] * torch.einsum("bclhn,bhcpn->bclhp", cf,
+                                                  r16(states))
     y = y.reshape(B, nc * cl, H, P)[:, :S]
     return y.to(x.dtype), s, states
 
 
+def fwd_route(dtype, P: int, N: int) -> str:
+    """K3f's kernel for a CUDA call: ``"sm90"`` (the chunk-parallel
+    tensor-core kernels) for bfloat16 and float16 at P 64 and N 64 or 128,
+    ``"simt"`` (the first version) otherwise."""
+    return "sm90" if dtype in SM90_DTYPES and P == SM90_P and N in SM90_N \
+        else "simt"
+
+
 def ssd_scan_fwd(x, dt, a, b, c, initial_state=None, *, chunk: int,
-                 return_chunk_states: bool = False):
+                 return_chunk_states: bool = False, route=None):
     """SSD forward. Returns (y (B, S, H, P) in x's dtype, final_state
     (B, H, P, N) float32), and the chunk states (B, H, nc, P, N) when
-    ``return_chunk_states``. ``chunk`` is clamped into S."""
+    ``return_chunk_states``. ``chunk`` is clamped into S. On a CUDA
+    tensor ``route`` None takes ``fwd_route``'s kernel; a measurement may
+    name ``"simt"`` to time the first version where sm90 is the route. A
+    named route is a kernel's: on the CPU it raises."""
     _check(x, dt, a, b, c)
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     if initial_state is not None:
         _check_state(initial_state, (B, H, P, N), "initial_state", x.device)
     if x.device.type == "cpu":
+        if route is not None:
+            raise ValueError(f"route {route!r} names a CUDA kernel; on the "
+                             "CPU ssd_scan_fwd runs the plain version")
         y, final, states = ssd_scan_fwd_plain(x, dt, a, b, c, initial_state,
                                               chunk=chunk)
         return (y, final, states) if return_chunk_states else (y, final)
+    own = fwd_route(x.dtype, P, N)
+    route = own if route is None else route
+    if route not in ("sm90", "simt") or (route == "sm90" and own != "sm90"):
+        raise ValueError(f"K3f has no route {route!r} for {x.dtype} at "
+                         f"P={P}, N={N} (sm90 takes bfloat16 and float16 at "
+                         f"P {SM90_P}, N {SM90_N})")
     cl = _chunk(chunk, S)
     nc = -(-S // cl)
-    _check_cuda("fwd", P, N, cl)
+    _check_cuda("fwd", P, N, cl, route)
     x, dt, b, c = (t.contiguous() for t in (x, dt, b, c))
     a = a.float().contiguous()
-    init = torch.zeros((B, H, P, N), device=x.device) \
-        if initial_state is None else initial_state.float().contiguous()
+    dev = x.device
     y = torch.empty_like(x)
-    final = torch.empty((B, H, P, N), device=x.device)
-    states = torch.empty((B, H, nc, P, N), device=x.device) \
-        if return_chunk_states else None
-    with torch.cuda.device(x.device):
-        err = _launchers()["fwd"](
-            _DTYPES[x.dtype], _DTYPES[dt.dtype], x.data_ptr(), dt.data_ptr(),
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), init.data_ptr(),
-            y.data_ptr(), final.data_ptr(),
-            None if states is None else states.data_ptr(),
-            B, S, H, P, G, N, cl,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "forward (K3f)")
+    final = torch.empty((B, H, P, N), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "sm90":
+        init = None if initial_state is None \
+            else initial_state.float().contiguous()
+        _check_aligned(x, b, c, init)
+        # one scratch a call, sized by shapes alone: the chunk states when
+        # the caller keeps none, cs (B, H, nc, cl), the decays (B, H, nc)
+        n_st = 0 if return_chunk_states else B * H * nc * P * N
+        n_cs = B * H * nc * cl
+        scratch = torch.empty(n_st + n_cs + B * H * nc, device=dev)
+        states = torch.empty((B, H, nc, P, N), device=dev) \
+            if return_chunk_states else scratch[:n_st].view(B, H, nc, P, N)
+        with torch.cuda.device(dev):
+            err = _launchers()["fwd_sm90"](
+                _DTYPES[x.dtype], _DTYPES[dt.dtype], x.data_ptr(),
+                dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                None if init is None else init.data_ptr(), y.data_ptr(),
+                final.data_ptr(), states.data_ptr(),
+                scratch[n_st:].data_ptr(), scratch[n_st + n_cs:].data_ptr(),
+                B, S, H, P, G, N, cl, stream)
+    else:
+        init = torch.zeros((B, H, P, N), device=dev) \
+            if initial_state is None else initial_state.float().contiguous()
+        states = torch.empty((B, H, nc, P, N), device=dev) \
+            if return_chunk_states else None
+        with torch.cuda.device(dev):
+            err = _launchers()["fwd"](
+                _DTYPES[x.dtype], _DTYPES[dt.dtype], x.data_ptr(),
+                dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                init.data_ptr(), y.data_ptr(), final.data_ptr(),
+                None if states is None else states.data_ptr(),
+                B, S, H, P, G, N, cl, stream)
+    _raise_on(err, f"forward (K3f, {route})")
     launches["ssd_scan_fwd"] += 1
+    fwd_routes[route] += 1
     return (y, final, states) if return_chunk_states else (y, final)
 
 
@@ -278,13 +380,14 @@ def ssd_scan_bwd(x, dt, a, b, c, chunk_states, dy, dfinal, *, chunk: int):
 
 
 class SSDScan(torch.autograd.Function):
-    """The scan with the K3b backward (the reference's ``ssd_scan_vjp``):
+    """The scan with the K3b backward (the reference's ``ssd_scan_vjp``;
+    K3f by ``fwd_route``'s kernel):
     ``SSDScan.apply(x, dt, a, b, c, initial_state, chunk) -> (y,
-    final_state)``, initial_state a (B, H, P, N) tensor (zeros where the
-    caller has none). Saves the inputs and the per-chunk states only
-    (none when no input needs a gradient); the backward re-streams the
-    chunks in reverse. Gradients come back in the inputs' dtypes,
-    d(initial_state) in float32."""
+    final_state)``, initial_state a (B, H, P, N) tensor or None (zeros,
+    which the sm90 route then never reads). Saves the inputs and the
+    per-chunk states only (none when no input needs a gradient); the
+    backward re-streams the chunks in reverse. Gradients come back in
+    the inputs' dtypes, d(initial_state) in float32."""
 
     @staticmethod
     def forward(ctx, x, dt, a, b, c, initial_state, chunk: int):
@@ -302,5 +405,5 @@ class SSDScan(torch.autograd.Function):
         x, dt, a, b, c, states = ctx.saved_tensors
         grads = ssd_scan_bwd(x, dt, a, b, c, states, dy, dfinal,
                              chunk=ctx.chunk)
-        return (*(g.to(t) for g, t in zip(grads[:5], ctx.dtypes)), grads[5],
-                None)
+        return (*(g.to(t) for g, t in zip(grads[:5], ctx.dtypes)),
+                grads[5] if ctx.needs_input_grad[5] else None, None)

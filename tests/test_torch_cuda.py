@@ -6,9 +6,9 @@ route and its refusal of misaligned pools, K2 (CUDA C++: K2f,
 K2q, K2kv) with dead rows, windows and ragged tails, at D = 112 and
 through one train step, the tensor-core routes of K2f and of K2q/K2kv
 (bfloat16, float16 at D 64 and 128), their route counts and their
-refusal of misaligned tensors, K3 (CUDA C++: K3f, K3b) with ragged tails,
-groups and an initial state, through ``SSDScan`` and one mamba train
-step. Skips without a CUDA card.
+refusal of misaligned tensors, K3 (CUDA C++: K3f on both routes, K3b)
+with ragged tails, clamped chunks, groups and an initial state, through
+``SSDScan`` and one mamba train step. Skips without a CUDA card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -355,11 +355,15 @@ def test_train_step_launches_k2_per_layer(cuda):
 
 
 # (B, S, H, P, G, N, chunk): mamba2-130m's heads at a train shape, zamba2's
-# at a ragged prefill, groups with a ragged tail, a chunk clamped into S
+# at a ragged prefill (tail 44) and at a full one, groups with a ragged
+# tail, a chunk clamped into S (37, and 100 at zamba2's widths), a chunk of
+# 48 with groups. K3f takes its sm90 route in 16 bits at P 64, N 64/128.
 K3_CASES = [(2, 256, 24, 64, 1, 128, 256),
             (1, 300, 16, 64, 1, 64, 256),
+            (1, 448, 112, 64, 1, 64, 256),
             (2, 300, 4, 32, 2, 16, 64),
             (1, 37, 2, 16, 1, 8, 64),
+            (1, 100, 8, 64, 1, 64, 256),
             (1, 130, 4, 64, 2, 128, 48)]
 
 
@@ -382,20 +386,29 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("B,S,H,P,G,N,cl", K3_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_ssd_scan_kernels_match_plain_versions(cuda, B, S, H, P, G, N, cl,
                                                dtype):
     """K3f and K3b against the plain pair from the same inputs and
-    initial state; float32 to 1e-4 and bfloat16 (y stored in bfloat16)
-    to 1e-2 of each tensor's largest entry; the gradients are float32
-    on both sides."""
+    initial state; float32 to 1e-4 and 16 bits (y stored in 16 bits) to
+    1e-2 of each tensor's largest entry; the states and gradients are
+    float32 on both sides (1e-4), K3b reading the forward's states. Where
+    K3f takes its sm90 route: one count on it, two calls bit for bit, no
+    initial state and dt in x's type held the same way."""
     from repro_torch.kernels import ssd_scan as K3
 
     torch.backends.cuda.matmul.allow_tf32 = False
     x, dt, a, b, c, s0, dy, dfin = _ssd_inputs(B, S, H, P, G, N, dtype, cuda)
+    route = K3.fwd_route(dtype, P, N)
+    before = dict(K3.fwd_routes)
     y, fin, st = K3.ssd_scan_fwd(x, dt, a, b, c, s0, chunk=cl,
                                  return_chunk_states=True)
     torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in K3.fwd_routes.items()} == {
+        r: int(r == route) for r in ("sm90", "simt")}
+    assert route == ("simt" if dtype == torch.float32 or P != 64
+                     or N not in (64, 128) else "sm90")
     py, pfin, pst = K3.ssd_scan_fwd_plain(x, dt, a, b, c, s0, chunk=cl)
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     assert y.dtype == dtype and _rel(y, py) <= tol
@@ -406,6 +419,31 @@ def test_ssd_scan_kernels_match_plain_versions(cuda, B, S, H, P, G, N, cl,
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
         assert _rel(g, w) <= 1e-4
+    if route != "sm90":
+        return
+    again = K3.ssd_scan_fwd(x, dt, a, b, c, s0, chunk=cl,
+                            return_chunk_states=True)
+    assert all(torch.equal(u, v) for u, v in zip(again, (y, fin, st)))
+    for s_in, d in ((None, dt), (s0, dt.to(dtype))):
+        y2, fin2 = K3.ssd_scan_fwd(x, d, a, b, c, s_in, chunk=cl)
+        py2, pfin2, _ = K3.ssd_scan_fwd_plain(x, d, a, b, c, s_in, chunk=cl)
+        assert _rel(y2, py2) <= tol and _rel(fin2, pfin2) <= 1e-4
+
+
+def test_ssd_scan_sm90_raises_on_misaligned_tensors(cuda):
+    """The sm90 route moves 16 bytes at a time: an x whose base is not
+    16-byte aligned is refused before a launch, and nothing is counted."""
+    from repro_torch.kernels import ssd_scan as K3
+
+    x, dt, a, b, c, s0, _, _ = _ssd_inputs(1, 64, 2, 64, 1, 64,
+                                           torch.bfloat16, cuda)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    odd = flat[1:].view(x.shape)
+    odd.copy_(x)
+    before = dict(K3.fwd_routes)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K3.ssd_scan_fwd(odd, dt, a, b, c, s0, chunk=64)
+    assert K3.fwd_routes == before
 
 
 def test_ssd_scan_autograd_and_launches(cuda):

@@ -15,12 +15,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 CUDA_SOURCES = sorted(PKG.rglob("*.cu")) + sorted(PKG.rglob("*.cuh"))
-# the CUDA C++ sources stand alone: the toolkit's headers and nothing of
-# PyTorch, JAX or either package (a plain C interface bound with ctypes)
+# the CUDA C++ sources stand alone: the toolkit's headers, the port's own
+# (csrc/*.cuh) and nothing of PyTorch, JAX or either package (a plain C
+# interface bound with ctypes)
 # cuda.h for the TMA tensor-map types only: the kernels reach the driver's
 # cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, not -lcuda
 CUDA_HEADERS = {"cuda.h", "cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h",
-                "stdint.h"}
+                "stdint.h"} | {p.name for p in PKG.rglob("*.cuh")}
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -76,14 +77,17 @@ def test_cuda_sources_include_only_the_toolkit(path):
     includes = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', text,
                           re.MULTILINE)
     assert includes and set(includes) <= CUDA_HEADERS, (path, includes)
-    assert 'extern "C"' in text
+    # a library's source exports its C interface; a header only helpers
+    assert ('extern "C"' in text) == (path.suffix == ".cu"), path
 
 
 def test_there_are_cuda_sources():
     assert [p.name for p in CUDA_SOURCES] == ["flash_attention.cu",
                                               "flash_attention_sm90.cu",
                                               "paged_attention.cu",
-                                              "ssd_scan.cu"]
+                                              "ssd_scan.cu",
+                                              "ssd_scan_sm90.cu",
+                                              "sm90_common.cuh"]
 
 
 def _entry_points():

@@ -4,13 +4,17 @@ JAX package: the Pallas kernels themselves (``ssd_scan`` and
 them on the CPU) and the sequential-recurrence oracle
 (``repro.kernels.ref.ssd`` and ``ssd_grads``). Also the port's own
 oracle (``kernels/ref.py``), ``SSDScan`` on the CPU, the prefill→decode
-handoff, and ``ops.ssd_scan``'s routing.
+handoff, and ``ops.ssd_scan``'s routing. The plain forward with K3f's
+sm90 rounding points emulated (``emulate=dtype``) against the
+interpret-mode kernel and against the bound those roundings give; the
+route rule, and a named route refused on the CPU.
 
 Shapes: the reference's ``test_kernels.py:231-236``, a ragged S (the
 tail chunk masked), groups G > 1 and a nonzero initial state. Inputs come
 from numpy with a seed. Tolerance: rtol = atol = 1e-4 in float32 (float32
 on both sides, summed in another order); bfloat16 inputs atol 5e-2 and
-rtol 2e-2, as ``test_kernels.py`` holds its bfloat16 cells.
+rtol 2e-2, as ``test_kernels.py`` holds its bfloat16 cells; float32
+states from emulated 16-bit roundings: 1e-4 of their largest entry.
 """
 import importlib
 
@@ -188,6 +192,21 @@ def test_ssd_scan_function_gradients_and_dtypes():
         _close(g, w.numpy())
 
 
+def test_ssd_scan_function_without_initial_state():
+    """``SSDScan`` given no initial state (as a training step calls it)
+    gives the outputs and gradients it gives from zeros."""
+    x, dt, a, b, c, _, dy, dfin = _t(*_inputs(2, 50, 4, 8, 2, 8, False, 10))
+    leaves = [t.requires_grad_(True) for t in (x, dt, a, b, c)]
+    zeros = torch.zeros(dfin.shape, requires_grad=True)
+    outs = K3.SSDScan.apply(*leaves, None, 16)
+    want = K3.SSDScan.apply(*leaves, zeros, 16)
+    for g, w in zip(outs, want):
+        assert torch.equal(g, w)
+    got = torch.autograd.grad(outs, leaves, (dy, dfin))
+    for g, w in zip(got, torch.autograd.grad(want, leaves, (dy, dfin))):
+        assert torch.equal(g, w)
+
+
 def test_ops_ssd_scan_routing_and_checks():
     x, dt, a, b, c, s0, _, _ = _t(*_inputs(1, 40, 4, 8, 2, 8, True, 11))
     want, want_fin = T_ref.ssd(x, dt, a, b, c, initial_state=s0)
@@ -228,3 +247,85 @@ def test_ops_ssd_scan_routing_and_checks():
     assert K3.smem_bytes("bwd", 64, 128, 256) <= K3.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         K3._check_cuda("bwd", 128, 256, 256)
+
+
+# ------------------------------------------------ K3f's sm90 route --
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_emulated_route_matches_interpret_kernel(case, dtype):
+    """The plain forward with the sm90 route's 16-bit rounding points
+    against the reference's ``ssd_scan`` in interpret mode: y at the
+    bfloat16 cells' tolerance, the float32 states (the hi + lo deposit)
+    to 1e-4 of their largest entry."""
+    x, dt, a, b, c, s0, _, _ = _t(*case["arrs"])
+    y, fin, st = K3.ssd_scan_fwd_plain(x, dt, a, b, c, s0,
+                                       chunk=case["shape"][6], emulate=dtype)
+    rtol, atol = TOL_BF16
+    np.testing.assert_allclose(y.numpy(), case["fwd"][0], rtol=rtol,
+                               atol=atol)
+    for g, w in zip((fin, st), case["fwd"][1:]):
+        assert tuple(g.shape) == w.shape
+        assert _rel(g, torch.from_numpy(np.array(w))) <= 1e-4
+
+
+# (B, S, H, P, G, N, chunk): a ragged tail with groups, and a chunk clamped
+# to S at the route's widths
+EMULATED = {"ragged_grouped": (2, 80, 4, 16, 2, 16, 32),
+            "clamped": (1, 40, 2, 64, 1, 128, 256)}
+
+
+@pytest.mark.parametrize("name", sorted(EMULATED))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_emulation_within_its_bound(name, dtype):
+    """The kernel's rounding points (w . X split into hi + lo, att and
+    S_in rounded to 16 bits) move y by at most 2u (sum|terms| + |y|)
+    elementwise from the unrounded phases (u = 2^-9 bfloat16, 2^-12
+    float16; sum|terms| is the plain forward on |x|, |b|, |c| and
+    |initial state|), and the float32 states by under 1e-4 of their
+    largest entry."""
+    B, S, H, P, G, N, cl = EMULATED[name]
+    x, dt, a, b, c, s0, _, _ = _t(*_inputs(B, S, H, P, G, N, True, S + N))
+    x, b, c = (t.to(dtype) for t in (x, b, c))
+    u = 2.0 ** -9 if dtype == torch.bfloat16 else 2.0 ** -12
+    want = K3.ssd_scan_fwd_plain(x, dt, a, b, c, s0, chunk=cl)
+    got = K3.ssd_scan_fwd_plain(x, dt, a, b, c, s0, chunk=cl,
+                                emulate=dtype)
+    terms = K3.ssd_scan_fwd_plain(x.float().abs(), dt, a, b.float().abs(),
+                                  c.float().abs(), s0.abs(), chunk=cl)[0]
+    err = (got[0].float() - want[0].float()).abs()
+    assert got[0].dtype == dtype
+    assert bool((err <= 2 * u * (terms + want[0].float().abs())).all())
+    assert _rel(got[1], want[1]) <= 1e-4 and _rel(got[2], want[2]) <= 1e-4
+    # the split keeps the deposit: one rounding of w . X would not
+    assert _rel(got[1], want[1]) < 0.1 * u
+
+
+def test_fwd_route_and_its_shared_memory():
+    """sm90 for 16 bits at P 64 and N 64 or 128 alone; its CTAs fit in
+    shared memory at every chunk up to 256."""
+    for dtype in (torch.bfloat16, torch.float16):
+        assert K3.fwd_route(dtype, 64, 64) == "sm90"
+        assert K3.fwd_route(dtype, 64, 128) == "sm90"
+        for P, N in ((32, 64), (64, 32), (64, 256), (128, 128), (64, 16)):
+            assert K3.fwd_route(dtype, P, N) == "simt"
+    for N in (64, 128):
+        assert K3.fwd_route(torch.float32, 64, N) == "simt"
+        for cl in (1, 48, 100, 256):
+            assert K3.smem_bytes("fwd", 64, N, cl, "sm90") <= K3.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("route", ["sm90", "simt"])
+def test_named_route_on_cpu_raises(route):
+    """A named route is a kernel's: on a CPU tensor the wrapper refuses it
+    rather than run the plain version under the kernel's name."""
+    x, dt, a, b, c, _, _, _ = _t(*_inputs(1, 40, 2, 64, 1, 64, False, 13))
+    x, b, c = (t.to(torch.bfloat16) for t in (x, b, c))
+    before = dict(K3.fwd_routes)
+    with pytest.raises(ValueError, match="names a CUDA kernel"):
+        K3.ssd_scan_fwd(x, dt, a, b, c, chunk=16, route=route)
+    assert K3.fwd_routes == before
