@@ -15,8 +15,8 @@ result line is printed:
   1. setup: the card's name and power limit (``nvidia-smi``), no TF32 in
      matrix products or convolutions (full float32, as the JAX reference
      computes), the CUDA C++ build (K4, K2 and its sm90 route, K3 and
-     K3f's sm90 route, one ``nvcc`` each, all started together) with ``nvcc -Xptxas -v``'s register and spill
-     counts;
+     K3's sm90 route, one ``nvcc`` each, all started together) with
+     ``nvcc -Xptxas -v``'s register and spill counts;
   2. K1f and K1b (Triton, both teacher-gradient settings) against their
      plain PyTorch versions, timed with CUDA events beside their bound,
      at the DENSE main path's shape (128, 10), a ragged (1000, 32003), a
@@ -98,11 +98,16 @@ result line is printed:
      with an initial state in float32, also held to the sequential
      recurrence; timed beside its bound (no PyTorch call computes the
      scan), each row with its kernels' device time (``torch.profiler``).
-     Each K3f row names its route: ``sm90`` (the chunk-parallel
-     tensor-core kernels, 16 bits at P 64, N 64/128), whose rows also
-     time the first version (``simt``) on the same inputs, compare two
-     calls bit for bit and give y's error over its rounding bound, or
-     ``simt``; K3b reads the states the forward wrote;
+     Each row names its route: ``sm90`` (the chunk-parallel tensor-core
+     kernels, 16 bits at P 64, N 64/128), whose rows also time the first
+     version (``simt``) on the same inputs, give each kernel's device
+     time (``device_ms_by_phase``) and compare two calls bit for bit, or
+     ``simt``. K3b reads the states the forward wrote and dy in x's dtype,
+     as the model hands it; an sm90 K3f row gives y's error over its
+     rounding bound, an sm90 K3b row its gradients' error against the
+     float32 plain version (1e-2 of each largest entry, d(initial_state)
+     1e-4) and against the route's roundings emulated
+     (``ssd_scan_bwd_chunked_plain``), each over its tolerance;
  14. ssm_serve_check: zamba2-7b (7 layers: a super-block of 6 mamba
      blocks and the shared block, and one tail block) and mamba2-130m (2
      layers) at full width, float32: paged ≡ dense engine for 6 requests
@@ -115,14 +120,14 @@ result line is printed:
      steps × 13, both on ``sm90``; then one profiled decode step;
  16. ssm_train_check: one zamba2-7b train step at full width, 7 layers,
      float32, batch 2 × 512 (two chunks): the K3/K2 route and the plain
-     route agree to 1e-4 (K3f 2 × 7 with remat, on ``simt``, K3b 7, K2 on
-     the one shared-block application);
+     route agree to 1e-4 (K3f 2 × 7 with remat and K3b 7, all on
+     ``simt``, K2 on the one shared-block application);
  17. ssm_llm_main_path, the LLM DENSE main path with the ssm family
      (``dense_llm_oneshot.full_ssm()``: two mamba2-130m clients and a
      mamba2-130m student, full width and depth, bfloat16), counted step by
-     step as in 12 with K3f and K3b in place of K2, every K3f launch on
-     ``sm90``; then one epoch under ``torch.profiler`` with K3's share,
-     K3f's device time by route.
+     step as in 12 with K3f and K3b in place of K2, every K3f and K3b
+     launch on ``sm90``; then one epoch under ``torch.profiler`` with
+     K3's share, K3f's and K3b's device time by route.
 
 Output: a line with the card's name and power limit, one JSON line per
 phase, the ``{"kernels": [...]}`` line, and last the result line
@@ -231,6 +236,12 @@ K3_SHAPES = (("mamba2_train", 8, 256, 24, 64, 1, 128, 256, "bfloat16", False),
              ("zamba2_prefill", 1, 448, 112, 64, 1, 64, 256, "float32",
               False))
 TOL_K3 = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 1e-2}
+# K3b: its gradients; on its sm90 route also against the chunked plain
+# version with the route's roundings emulated (the same arithmetic: sums in
+# another order, a value rounded to the neighbouring 16-bit number), as
+# tests/test_torch_cuda.py holds it
+K3B_GRADS = ("dx", "ddt", "da", "db", "dc", "dinit")
+TOL_K3B_EMULATED = {"bfloat16": 2e-3, "float16": 5e-4}
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -325,12 +336,12 @@ def launch_counts() -> list:
 
 
 def zero_counts() -> None:
-    """Every launch counter and K2's, K3f's and K4's route counts to 0."""
+    """Every launch counter and K2's, K3's and K4's route counts to 0."""
     from repro_torch.kernels import flash_attention, paged_attention, ssd_scan
 
     for counts in (*launch_counts(), flash_attention.fwd_routes,
                    flash_attention.bwd_routes, paged_attention.routes,
-                   ssd_scan.fwd_routes):
+                   ssd_scan.fwd_routes, ssd_scan.bwd_routes):
         for k in counts:
             counts[k] = 0
 
@@ -340,17 +351,18 @@ def read_counts() -> dict:
 
 
 def read_routes() -> dict:
-    """K2's, K3f's and K4's launches by route since the last
+    """K2's, K3's and K4's launches by route since the last
     ``zero_counts``: ``fwd_sm90``, ``fwd_simt`` (K2f), ``bwd_sm90``,
     ``bwd_simt`` (K2q and K2kv, each launch once), ``k3f_sm90``,
-    ``k3f_simt`` (a call once), ``k4_sm90``, ``k4_simt``."""
+    ``k3f_simt``, ``k3b_sm90``, ``k3b_simt`` (a call once), ``k4_sm90``,
+    ``k4_simt``."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PK
     from repro_torch.kernels import ssd_scan as K3
 
     return {f"{kind}_{route}": c for kind, counts in (
         ("fwd", FA.fwd_routes), ("bwd", FA.bwd_routes),
-        ("k3f", K3.fwd_routes), ("k4", PK.routes))
+        ("k3f", K3.fwd_routes), ("k3b", K3.bwd_routes), ("k4", PK.routes))
         for route, c in counts.items()}
 
 
@@ -363,8 +375,9 @@ def check_k4_routes(label, launches, routes) -> None:
 
 
 def k3f_route(torch, cfg) -> str:
-    """The route K3f takes in ``cfg``'s mamba blocks: sm90 in 16 bits at
-    mamba2-130m's and zamba2-7b's widths, simt in float32."""
+    """The route K3f (and K3b, by one rule) takes in ``cfg``'s mamba
+    blocks: sm90 in 16 bits at mamba2-130m's and zamba2-7b's widths, simt
+    in float32."""
     from repro_torch.kernels import ssd_scan as K3
 
     return K3.fwd_route(getattr(torch, cfg.dtype), cfg.ssm_head_dim,
@@ -372,12 +385,13 @@ def k3f_route(torch, cfg) -> str:
 
 
 def check_k3_routes(label, launches, routes, route) -> None:
-    """Every K3f launch of a phase took ``route``."""
-    n = launches["ssd_scan_fwd"]
-    if routes[f"k3f_{route}"] != n or sum(
-            routes[f"k3f_{r}"] for r in ("sm90", "simt")) != n:
-        fail(f"{label}: K3f's launches by route {routes}, expected all {n} "
-             f"on {route}")
+    """Every K3f and every K3b launch of a phase took ``route``."""
+    for kind, name in (("k3f", "ssd_scan_fwd"), ("k3b", "ssd_scan_bwd")):
+        n = launches[name]
+        if routes[f"{kind}_{route}"] != n or sum(
+                routes[f"{kind}_{r}"] for r in ("sm90", "simt")) != n:
+            fail(f"{label}: {kind.upper()}'s launches by route {routes}, "
+                 f"expected all {n} on {route}")
 
 
 def expected(**nonzero) -> dict:
@@ -916,6 +930,7 @@ def serve_check(torch, dev="cuda", arch="llama3.2-3b", n_layers=2,
         "launches": launches, "expected_launches": want,
         "k4_routes": {r: routes[f"k4_{r}"] for r in ("sm90", "simt")},
         "k3f_routes": {r: routes[f"k3f_{r}"] for r in ("sm90", "simt")},
+        "k3b_routes": {r: routes[f"k3b_{r}"] for r in ("sm90", "simt")},
         "launches_dense_mode": dense_launches,
         "tokens_first_request": paged[0].tolist()}})
     if not same:
@@ -981,6 +996,7 @@ def serve_main_path(torch, dev="cuda", arch="llama3.2-3b", label="serve"):
         "launches": launches, "expected_launches": want,
         "k4_routes": {r: routes[f"k4_{r}"] for r in ("sm90", "simt")},
         "k3f_routes": {r: routes[f"k3f_{r}"] for r in ("sm90", "simt")},
+        "k3b_routes": {r: routes[f"k3b_{r}"] for r in ("sm90", "simt")},
         "blocks_attention_mamba": trunk_blocks(cfg),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}})
     if not ok_tokens:
@@ -1117,12 +1133,13 @@ def k2_kernel(which, route):
 
 def k3_kernel(which, route):
     """Matches the device names of K3's ``which`` kernels (``fwd``,
-    ``bwd``) on ``route``: K3f's sm90 route is three kernels, all named
-    ``ssd_sm90_...``; the first versions are ``ssd_fwd_kernel<...>`` and
-    ``ssd_bwd_kernel<...>`` (K3b has only that one)."""
+    ``bwd``) on ``route``: K3f's sm90 route is three kernels named
+    ``ssd_sm90_...``, K3b's five named ``ssd_sm90_bwd_...``; the first
+    versions are ``ssd_fwd_kernel<...>`` and ``ssd_bwd_kernel<...>``."""
+    if route == "sm90" and which == "bwd":
+        return lambda name: "ssd_sm90_bwd_" in name
     if route == "sm90":
-        assert which == "fwd", which
-        return lambda name: "ssd_sm90_" in name
+        return lambda name: "ssd_sm90_" in name and "ssd_sm90_bwd_" not in name
     return lambda name: f"ssd_{which}_kernel<" in name
 
 
@@ -1290,8 +1307,9 @@ def k2_phase(torch):
 
 def k3_inputs(torch, B, S, H, P, G, N, dtype, init, seed, dev="cuda"):
     """x, dt (float32, as the model passes it), a, b, c, an initial state
-    (None unless ``init``, as a training step passes none), dy and
-    d(final state), on ``dev``."""
+    (None unless ``init``, as a training step passes none), dy (in x's
+    dtype, as the model's autograd hands it to K3b) and d(final state),
+    on ``dev``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
     x = r(B, S, H, P).to(dtype)
@@ -1299,17 +1317,18 @@ def k3_inputs(torch, B, S, H, P, G, N, dtype, init, seed, dev="cuda"):
     a = -torch.exp(r(H) * 0.3)
     b, c = ((r(B, S, G, N) * 0.3).to(dtype) for _ in range(2))
     s0 = r(B, H, P, N) * 0.5 if init else None
-    return x, dt, a, b, c, s0, r(B, S, H, P), r(B, H, P, N)
+    return x, dt, a, b, c, s0, r(B, S, H, P).to(dtype), r(B, H, P, N)
 
 
-def k3_work(B, S, H, P, G, N, cl, isz, init):
+def k3_work(B, S, H, P, G, N, cl, isz, init, dy_isz=4):
     """(forward bytes, forward operations, backward bytes, backward
     operations) that these inputs need: the live (l >= s) pairs within
     each chunk's valid positions, 2(N + P) flops a pair forward and
     2(3N + 2P) backward, 4PN a position forward (y_off, the state
     deposit) and 10PN backward; each input read and each output written
     once (the forward writes the chunk states, as in training, and reads
-    an initial state only when ``init``)."""
+    an initial state only when ``init``; the backward reads dy at
+    ``dy_isz`` bytes an element and writes db and dc per group)."""
     nc = -(-S // cl)
     lens = [min(cl, S - i * cl) for i in range(nc)]
     pairs = sum(n * (n + 1) // 2 for n in lens)
@@ -1319,10 +1338,48 @@ def k3_work(B, S, H, P, G, N, cl, isz, init):
     xs, bcs, st = B * S * H * P, B * S * G * N, bh * P * N
     fwd_bytes = (2 * xs + 2 * bcs) * isz + 4 * (
         B * S * H + H + (2 if init else 1) * st + bh * nc * P * N)
-    bwd_bytes = (xs + 2 * bcs) * isz + 4 * (B * S * H + H + bh * nc * P * N
-                                            + xs + st) \
+    bwd_bytes = (xs + 2 * bcs) * isz + xs * dy_isz \
+        + 4 * (B * S * H + H + bh * nc * P * N + st) \
         + 4 * (xs + B * S * H + H + 2 * bcs + st)
     return fwd_bytes, fwd_ops, bwd_bytes, bwd_ops
+
+
+# each K3 route's kernels by phase: a substring of each device name
+K3_KERNELS = {
+    ("fwd", "sm90"): {ph: f"ssd_sm90_{ph}_kernel" for ph in (
+        "chunk_state", "state_pass", "chunk_scan")},
+    ("fwd", "simt"): {"ssd_fwd": "ssd_fwd_kernel<"},
+    ("bwd", "sm90"): {ph: f"ssd_sm90_bwd_{ph}_kernel" for ph in (
+        "deposit", "dstate_pass", "column", "row", "finish")},
+    ("bwd", "simt"): {"ssd_bwd": "ssd_bwd_kernel<"}}
+
+
+def k3_profile(torch, fn, which, route, tries: int = 3) -> dict:
+    """The device time a call of K3's ``which`` kernels on ``route``
+    (``device_ms_by_name`` over 20 calls), each kernel's
+    (``device_ms_by_phase``, on sm90), the records the profiler kept of
+    them and the profiled runs it took: late in this process the profiler
+    at times keeps no record of a kernel of a run, so a run that misses
+    one is profiled again, up to ``tries``; then the phase fails."""
+    kernels = K3_KERNELS[which, route]
+    for run in range(1, tries + 1):
+        counts = {}
+        by_name = device_ms_by_name(torch, fn, counts=counts)
+        names = {ph: [k for k in by_name if sub in k and counts.get(k)]
+                 for ph, sub in kernels.items()}
+        if all(names.values()):
+            by_phase = {ph: sum(by_name[k] for k in ks)
+                        for ph, ks in names.items()}
+            out = {"device_ms": sum(by_phase.values()),
+                   "profiled_records": sum(counts[k] for ks in names.values()
+                                           for k in ks),
+                   "profile_runs": run}
+            if route == "sm90":
+                out["device_ms_by_phase"] = by_phase
+            return out
+    fail(f"K3{which[0]} ({route}): the profiler kept no record of "
+         f"{[ph for ph, ks in names.items() if not ks]} in {tries} runs of "
+         "20 calls")
 
 
 def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
@@ -1367,11 +1424,34 @@ def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
                 ((y.float() - py.float()).abs() / bound_y.clamp(min=1e-30))
                 .max())
             del terms, bound_y
-        grads = K3.ssd_scan_bwd(x, dt, a, b, c, st, dy, dfin, chunk=cl)
+        broute = K3.bwd_route(dtype, P, N)
+        bwd = lambda r=None: K3.ssd_scan_bwd(x, dt, a, b, c, st, dy, dfin,
+                                             chunk=cl, route=r)
+        grads = bwd()
         torch.cuda.synchronize()
         want = K3.ssd_scan_bwd_plain(x, dt, a, b, c, pst, dy, dfin, chunk=cl)
         errs_b = [_grad_err(g, w) for g, w in zip(grads, want)]
-        ok_b = max(errs_b) <= 1e-4
+        # the simt route is float32 throughout; the sm90 route rounds to
+        # 16 bits before its products (d(initial_state) from the float32
+        # dS pass over hi + lo deposits)
+        tol_b = [1e-4] * 6 if broute == "simt" else [1e-2] * 5 + [1e-4]
+        ok_b = all(e <= t for e, t in zip(errs_b, tol_b))
+        bextra = {}
+        if broute == "sm90":
+            emul = K3.ssd_scan_bwd_chunked_plain(
+                x, dt, a, b, c, st, dy, dfin, chunk=cl, emulate=dtype)
+            errs_e = [_grad_err(g, w) for g, w in zip(grads, emul)]
+            tol_e = TOL_K3B_EMULATED[dname]
+            bextra = {
+                "max_rel_err_vs_emulated": dict(zip(K3B_GRADS, errs_e)),
+                "tol_vs_emulated": tol_e,
+                "err_over_tol": {
+                    "vs_float32": max(e / t for e, t in zip(errs_b, tol_b)),
+                    "vs_emulated": max(errs_e) / tol_e},
+                "bit_for_bit": all(torch.equal(u, v)
+                                   for u, v in zip(bwd(), grads))}
+            ok_b = ok_b and max(errs_e) <= tol_e and bextra["bit_for_bit"]
+            del emul
         oracle = {}
         if name == "ragged_grouped":       # the sequential recurrence too
             ry, rfin = R.ssd(x, dt, a, b, c, initial_state=s0)
@@ -1383,7 +1463,8 @@ def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
             ok_b = ok_b and oracle["grads"] <= 1e-4
         isz = x.element_size()
         peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
-        fb, fo, bb, bo = k3_work(B, S, H, P, G, N, cl, isz, init)
+        fb, fo, bb, bo = k3_work(B, S, H, P, G, N, cl, isz, init,
+                                 dy.element_size())
         shape = {"name": name, "B": B, "S": S, "H": H, "P": P, "G": G,
                  "N": N, "chunk": cl, "nc": -(-S // cl),
                  "initial_state": init}
@@ -1400,39 +1481,37 @@ def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
                 x, dt, a, b, c, s0, chunk=cl)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
             "ops": fo, "bytes": fb}
-        counts = {}
-        by_name = device_ms_by_name(torch, fwd, counts=counts)
-        row["device_ms"] = sum(v for k, v in by_name.items()
-                               if k3_kernel("fwd", route)(k))
-        # records kept of the route's kernels: 20 calls x 1 (simt) or 3
-        row["profiled_records"] = sum(v for k, v in counts.items()
-                                      if k3_kernel("fwd", route)(k))
+        row.update(k3_profile(torch, fwd, "fwd", route))
         row["bound_share_of_device_ms"] = b_ms / row["device_ms"]
-        if route == "sm90":             # A, B and C apart
-            row["device_ms_by_phase"] = {
-                ph: sum(v for k, v in by_name.items()
-                        if f"ssd_sm90_{ph}_kernel" in k)
-                for ph in ("chunk_state", "state_pass", "chunk_scan")}
+        if route == "sm90":
             row["first_version_ms"] = cuda_ms(torch, lambda: fwd("simt"))
-            row["first_version_device_ms"] = device_ms_per_call(
-                torch, lambda: fwd("simt"), k3_kernel("fwd", "simt"))
+            row["first_version_device_ms"] = k3_profile(
+                torch, lambda: fwd("simt"), "fwd", "simt")["device_ms"]
         rows["fwd"].append(row)
         b_ms, b_by = bound(bb, bo, peak)
-        bwd = lambda: K3.ssd_scan_bwd(x, dt, a, b, c, st, dy, dfin, chunk=cl)
-        rows["bwd"].append({
-            "shape": shape, "dtype": dname, "ok": ok_b,
+        nc = -(-S // cl)
+        blocks = B * H * sum(-(-min(cl, S - i * cl) // 64) for i in range(nc))
+        brow = {
+            "shape": shape, "dtype": dname, "route": broute, "ok": ok_b,
             "max_abs_err": max(float((g - w).abs().max())
                                for g, w in zip(grads, want)),
-            "max_rel_err": dict(zip(("dx", "ddt", "da", "db", "dc", "dinit"),
-                                    errs_b)),
-            "vs_sequential": oracle.get("grads"), "tol": 1e-4,
+            "max_rel_err": dict(zip(K3B_GRADS, errs_b)),
+            "vs_sequential": oracle.get("grads"),
+            "tol": dict(zip(K3B_GRADS, tol_b)), **bextra,
             "forward_route": route, "ms": cuda_ms(torch, bwd),
-            "device_ms": device_ms_per_call(torch, bwd,
-                                            k3_kernel("bwd", "simt")),
             "plain_ms": cuda_ms(torch, lambda: K3.ssd_scan_bwd_plain(
                 x, dt, a, b, c, pst, dy, dfin, chunk=cl)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            "ops": bo, "bytes": bb, "ctas": B * H})
+            "ops": bo, "bytes": bb,
+            "ctas": {"deposit": B * H * nc, "column": blocks, "row": blocks,
+                     "finish": B * H * nc} if broute == "sm90" else B * H}
+        brow.update(k3_profile(torch, bwd, "bwd", broute))
+        brow["bound_share_of_device_ms"] = b_ms / brow["device_ms"]
+        if broute == "sm90":
+            brow["first_version_ms"] = cuda_ms(torch, lambda: bwd("simt"))
+            brow["first_version_device_ms"] = k3_profile(
+                torch, lambda: bwd("simt"), "bwd", "simt")["device_ms"]
+        rows["bwd"].append(brow)
         del x, dt, a, b, c, s0, dy, dfin, y, fin, st, py, pfin, pst, grads, \
             want
         torch.cuda.empty_cache()
@@ -1442,11 +1521,11 @@ def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
     if bad:
         fail(f"{len(bad)} K3 checks disagree with the plain versions: {bad}")
-    routes = {(r["shape"]["name"], r["dtype"]): r["route"]
-              for r in rows["fwd"]}
-    if any((r == "sm90") != (dn != "float32" and n != "ragged_grouped")
-           for (n, dn), r in routes.items()):
-        fail(f"K3f took an unexpected route: {routes}")
+    for which, rs in rows.items():
+        routes = {(r["shape"]["name"], r["dtype"]): r["route"] for r in rs}
+        if any((r == "sm90") != (dn != "float32" and n != "ragged_grouped")
+               for (n, dn), r in routes.items()):
+            fail(f"K3{which[0]} took an unexpected route: {routes}")
     return rows
 
 
@@ -1540,6 +1619,7 @@ def train_check(torch, dev="cuda", arch="llama3.2-3b", n_layers=2,
         "plain_half_chunk_vs_plain": floor,
         "launches": {k: v[3] for k, v in out.items()},
         "k3f_routes": {r: ra[f"k3f_{r}"] for r in ("sm90", "simt")},
+        "k3b_routes": {r: ra[f"k3b_{r}"] for r in ("sm90", "simt")},
         "peak_mem_gib": {k: v[4] for k, v in out.items()}, "tol": STEP_TOL,
         "scalar_tol": SCALAR_TOL if any(is_scalar) else None}})
     if max(loss_err, norm_err, grad_err) > STEP_TOL \
@@ -1804,6 +1884,7 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
         "fwd_routes": {r: routes[f"fwd_{r}"] for r in ("sm90", "simt")},
         "bwd_routes": {r: routes[f"bwd_{r}"] for r in ("sm90", "simt")},
         "k3f_routes": {r: routes[f"k3f_{r}"] for r in ("sm90", "simt")},
+        "k3b_routes": {r: routes[f"k3b_{r}"] for r in ("sm90", "simt")},
         "uplink_bytes": ledger.uplink_bytes, "rounds": ledger.rounds,
         "client_loss": client_loss, **hist}})
     return totals, (gen_step, student_step, g_opt, s_opt, gen, student,
@@ -1847,12 +1928,11 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
                               if k2_kernel(w, r)(k))
                        for r in ("sm90", "simt")}
                    for w in ("fwd", "dq", "dkv")}
-    k3f_by_route = {r: sum(v for k, v in per_kernel.items()
-                           if k3_kernel("fwd", r)(k))
-                    for r in ("sm90", "simt")}
-    k3 = {"fwd": sum(k3f_by_route.values()),
-          "bwd": sum(v for k, v in per_kernel.items()
-                     if k3_kernel("bwd", "simt")(k))}
+    k3_by_route = {w: {r: sum(v for k, v in per_kernel.items()
+                              if k3_kernel(w, r)(k))
+                       for r in ("sm90", "simt")}
+                   for w in ("fwd", "bwd")}
+    k3 = {w: sum(by.values()) for w, by in k3_by_route.items()}
     k1_ms = sum(v for k, v in per_kernel.items() if "_kl_" in k)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
     # where the host's time goes: self CPU time by operator, and the
@@ -1869,7 +1949,8 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
         "k2_ms": k2, "k2_ms_by_route": k2_by_route,
         "k2_share_of_busy": sum(k2.values()) / busy_ms
         if busy_ms else None, "k3_ms": k3,
-        "k3f_ms_by_route": k3f_by_route,
+        "k3f_ms_by_route": k3_by_route["fwd"],
+        "k3b_ms_by_route": k3_by_route["bwd"],
         "k3_share_of_busy": sum(k3.values()) / busy_ms if busy_ms else None,
         "k1_ms": k1_ms,
         "n_kernel_names": len(per_kernel), "kernels_launched": n_kernels,
@@ -1880,9 +1961,10 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
         fail(f"{label}: the profiler saw no device time of a kernel the "
              f"epoch runs: K2 {k2}, K3 {k3}")
     want = k3f_route(torch, stu_cfg) if n_mamba else None
-    if n_mamba and (not k3f_by_route[want] or any(
-            v for r, v in k3f_by_route.items() if r != want)):
-        fail(f"{label}: K3f's device time by route {k3f_by_route}, "
+    if n_mamba and any(not by[want] or any(v for r, v in by.items()
+                                           if r != want)
+                       for by in k3_by_route.values()):
+        fail(f"{label}: K3's device time by route {k3_by_route}, "
              f"expected all of it on {want}")
 
 
@@ -1911,11 +1993,11 @@ def k2_entry(name, rs, line, launches):
 def k3_entry(name, rs, line, launches):
     """The kernels line's entry of a K3 kernel: mamba2-130m's train shape
     in bfloat16 (the SSM LLM main path's train step), its launches over
-    that path; K3f's names its route (sm90 there) and the first
-    version's time."""
+    that path, its route (sm90 there), source and the first version's
+    (``ssd_scan.cu``'s) time."""
     main = next(r for r in rs if r["shape"]["name"] == "mamba2_train"
                 and r["dtype"] == "bfloat16")
-    source = "ssd_scan_sm90.cu" if main.get("route") == "sm90" \
+    source = "ssd_scan_sm90.cu" if main["route"] == "sm90" \
         else "ssd_scan.cu"
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -1925,9 +2007,11 @@ def k3_entry(name, rs, line, launches):
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "shape": main["shape"],
-            "dtype": main["dtype"], "k3_route": main.get("route", "simt"),
+            "dtype": main["dtype"], "k3_route": main["route"],
             "device_ms": main["device_ms"],
             "first_version_ms": main.get("first_version_ms"),
+            "first_version_device_ms": main.get("first_version_device_ms"),
+            "first_version_source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "by_shape": rs}
 
 

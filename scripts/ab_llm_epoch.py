@@ -12,7 +12,8 @@ then ``ssm_serve`` (zamba2-7b at full width and depth, 16 requests, 8
 slots) and its profiled decode step. Prints one JSON line per run: the
 step and epoch seconds (host clock around work that ends in a
 synchronize), the profiled epoch's device busy time, idle share and its
-K2 or K3 split, and with ``--ssm`` the serving seconds. Needs one CUDA
+K2 or K3 split (each kernel's time by route where the checkout reports
+it), and with ``--ssm`` the serving seconds. Needs one CUDA
 card; compare the two checkouts only within one call.
 """
 from __future__ import annotations
@@ -60,6 +61,9 @@ def run(checkout: str, ssm: bool) -> dict:
             "k2_ms_by_route": prof.get("k2_ms_by_route"),
             "k3_ms": prof.get("k3_ms"),
             "k3f_ms_by_route": prof.get("k3f_ms_by_route"),
+            "k3b_ms_by_route": prof.get("k3b_ms_by_route"),
+            "k3_routes": {k: main.get(k) for k in ("k3f_routes",
+                                                   "k3b_routes")},
             "kernels_launched": prof.get("kernels_launched"),
             "top_host_ops_self_ms_count": prof["top_host_ops_self_ms_count"]}
     if ssm:

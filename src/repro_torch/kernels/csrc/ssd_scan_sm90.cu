@@ -1,32 +1,38 @@
-// K3f on Hopper's tensor cores: the Mamba-2 SSD chunked scan forward,
-// chunk-parallel, for bfloat16 and float16 at head dim P 64 and state
-// width N 64 or 128 (sm_90a).
+// K3 on Hopper's tensor cores: the Mamba-2 SSD chunked scan, forward (K3f)
+// and backward (K3b), chunk-parallel, for bfloat16 and float16 at head dim
+// P 64 and state width N 64 or 128 (sm_90a).
 //
-// Replaces the Pallas kernel of src/repro/kernels/ssd_scan.py:
-//   K3f  ssd_scan / _ssd_kernel (pallas_call at :143, kernel at :64).
-// It computes what ssd_scan.cu's ssd_fwd_kernel computes, with the same
-// contract: x (B, S, H, P) and b, c (B, S, G, N) contiguous in one 16-bit
-// type, dt (B, S, H) in float32 or that type, a (H,) float32, an optional
-// initial state (B, H, P, N) float32 (null: zeros); head h reads group
-// h / (H / G). Within a chunk of cl positions, cs the cumulative sum of
-// dt * a:
+// Replaces the Pallas kernels of src/repro/kernels/ssd_scan.py:
+//   K3f  ssd_scan / _ssd_kernel (pallas_call at :143, kernel at :64);
+//   K3b  ssd_scan_bwd / _ssd_bwd_kernel (pallas_call at :278, kernel at
+//        :168).
+// They compute what ssd_scan.cu's ssd_fwd_kernel and ssd_bwd_kernel
+// compute, with the same contract: x (B, S, H, P) and b, c (B, S, G, N)
+// contiguous in one 16-bit type, dt (B, S, H) in float32 or that type, a
+// (H,) float32, an optional initial state (B, H, P, N) float32 (null:
+// zeros); head h reads group h / (H / G). Within a chunk of cl positions,
+// cs the cumulative sum of dt * a:
 //   y_l = sum_{s<=l} (c_l . b_s) e^{cs_l - cs_s} dt_s x_s + e^{cs_l} c_l . S
 //   S  <- e^{cs_end} S + sum_l e^{cs_end - cs_l} dt_l x_l b_l^T
 // y is written in x's type, the final state and the state entering each
-// chunk (B, H, nc, P, N) in float32 (the backward's only residual). Rows
-// past S (the ragged tail of the last chunk, or a chunk clamped to S) read
-// as zeros, dt = 0 there deposits nothing, and they are never stored; the
-// exponential is taken only under the causal mask (l >= s). The wrapper
-// (kernels/ssd_scan.py, fwd_route) sends float32 and every other P or N
-// to ssd_scan.cu's first version, which a direct call may also name
-// (route "simt") to time it beside this one.
+// chunk (B, H, nc, P, N) in float32 (the backward's only residual). K3b
+// reads those states, dy (B, S, H, P) in float32 or x's type and d(final
+// state), and writes dx, ddt, per-head db and dc, d(initial state) and
+// per-(b, h, chunk) partials of da, all float32. Rows past S (the ragged
+// tail of the last chunk, or a chunk clamped to S) read as zeros, dt = 0
+// there deposits nothing, and they are never stored; the exponential is
+// taken only under the causal mask (l >= s). The wrapper
+// (kernels/ssd_scan.py, fwd_route and bwd_route) sends float32 and every
+// other P or N to ssd_scan.cu's first versions, which a direct call may
+// also name (route "simt") to time them beside these.
 //
-// Design. The TPU walks the chunks in order with the state in VMEM; the
-// first version here did the same in one CTA per (b, h), B * H CTAs (24 at
-// one 4096-token sequence) each serial over its chunks on the CUDA cores.
-// This route splits the work in three launches on one stream, of which
-// only the middle one is sequential in the chunks, and it only moves
-// state-sized float32 vectors:
+// Design. The TPU walks the chunks in order (K3b last-first) with the
+// state or its cotangent in VMEM; the first versions here did the same in
+// one CTA per (b, h), B * H CTAs (24 at one 4096-token sequence) each
+// serial over its chunks on the CUDA cores. These routes split the work in
+// launches on one stream, of which only one is sequential in the chunks,
+// and it only moves state-sized float32 vectors.
+// K3f, three launches:
 //   A  ssd_sm90_chunk_state_kernel, one CTA per (chunk, head, batch): the
 //      chunk's dt, cs (a warp scan, fixed order) and w_l = dt_l
 //      e^{cs_end - cs_l}; it writes cs and e^{cs_end} to the wrapper's
@@ -41,49 +47,91 @@
 //      + sum over the column tiles s0 <= l0 of att X_s, att = (C_blk
 //      B_s^T) e^{cs_l - cs_s} dt_s under the mask, as K2f's forward does
 //      QK^T and PV.
+// K3b, five launches. The only cross-chunk coupling is the state
+// cotangent dS, and it is linear: dS_out[nc-1] = d(final state),
+// dS_out[c-1] = e^{cs_end,c} dS_out[c] + D_c with the deposit
+// D_c = (ecs . dY_c)^T C_c (ecs = e^{cs}), d(initial state) =
+// e^{cs_end,0} dS_out[0] + D_0; everything else is chunk-local given S_in
+// and dS_out.
+//   A' ssd_sm90_bwd_deposit_kernel, one CTA per (chunk, head, batch): A's
+//      body with (ecs, dY, C) for (w, X, B); it also writes dt in float32
+//      to the scratch, so the kernels after it read one type.
+//   B' ssd_sm90_bwd_dstate_pass_kernel: B's loop walking the chunks
+//      last-first from d(final state), in place over the deposits (each
+//      D_c is read before its slot takes dS_out[c]); its last carry is
+//      d(initial state).
+//   C' ssd_sm90_bwd_column_kernel, one CTA per (b, h, chunk, 64-position
+//      column block s0), longest first: over the row tiles l0 >= s0 the
+//      transposed tiles B_s C_l^T and X_s dY_l^T give att^T, dcb^T and
+//      (datt CB decay)^T in registers (K2kv works on transposed scores
+//      the same way); dx_s += att^T dY_l, db_s += dcb^T C_l, and the
+//      column sums ddt_att_s. Once a block: dx_s = w . (B_s dS_out^T),
+//      db_s = w . (X_s dS_out), dw_s = sum_n (X_s dS_out) . b_s.
+//      ssd_sm90_bwd_row_kernel, one CTA per (b, h, chunk, 64-row block
+//      l0), longest first: over s0 <= l0, C_l B_s^T and dY_l X_s^T give
+//      dcb in registers, dc_l += dcb B_s, and the row sums of dseg = datt
+//      CB decay dt_s. Once a block: dc_l = ecs . (dY_l S_in) and
+//      sum_p dy . y_off, y_off = ecs . (C_l S_in^T).
+//      ssd_sm90_bwd_finish_kernel, one CTA per (b, h, chunk): dcs = rows -
+//      dt ddt_att - dw w, dcs_end = sum dw w + e^{cs_end} sum(dS_out .
+//      S_in) (reduced inside the CTA) at the chunk's last row, its reverse
+//      cumsum dda (a warp scan), ddt = ddt_att + dw e^{cs_end - cs} +
+//      dda a, and the chunk's da partial sum dda dt, which the wrapper
+//      sums in a fixed order.
 // Every product is on wgmma (sm90_common.cuh), float32 accumulators:
-//   A  m64nNk16 SS with both operands MN-major (transposed): (w . X)^T
-//      from the x rows as stored (P contiguous), B from the b rows (N
-//      contiguous);
+//   A, A'  m64nNk16 SS with both operands MN-major (transposed):
+//      (w . X)^T or (ecs . dY)^T from the rows as stored (P contiguous),
+//      B or C from their rows (N contiguous);
 //   C  C_blk B_s^T and C_blk S_in^T: m64n64k16 SS, K-major (N contiguous);
 //      att X_s: m64n64k16 RS, att packed from the accumulators, X_s
-//      MN-major (transpose-B), exactly K2f's PV.
-// The 16-bit roundings, which the plain version emulates
-// (ssd_scan_fwd_chunked_plain(emulate=dtype)):
-//   * w . X (the deposit's float32 operand) is split into hi = rn16(w x)
-//     and lo = rn16(w x - hi), two wgmmas into one accumulator, so the
-//     deposit keeps ~16 significant bits (one rounding of w . X would
+//      MN-major (transpose-B), exactly K2f's PV;
+//   C' the score-like tiles (B_s C_l^T, X_s dY_l^T, C_l B_s^T, dY_l X_s^T,
+//      B_s dS_out^T, C_l S_in^T) SS K-major; X_s dS_out and dY_l S_in SS
+//      with the state MN-major; att^T dY_l, dcb^T C_l and dcb B_s RS with
+//      the row tiles MN-major (m64n128k16 at N 128).
+// The 16-bit roundings, which the plain versions emulate
+// (ssd_scan_fwd_plain(emulate=dtype), ssd_scan_bwd_chunked_plain(emulate=
+// dtype)):
+//   * w . X and ecs . dY (the deposits' float32 operands) are split into
+//     hi = rn16(v) and lo = rn16(v - hi), two wgmmas into one accumulator,
+//     so a deposit keeps ~16 significant bits (one rounding of w . X would
 //     move the states by ~4e-3 of their largest entry in bfloat16; the
-//     states and final state are held to 1e-4); w . X, not w . B, is
-//     split: at N 128 it is the smaller operand;
-//   * att is rounded to 16 bits before att X_s, and S_in before C S_in^T
-//     (y is stored in 16 bits, held to 1e-2 of its largest entry: each
-//     rounding moves an entry by at most u sum|terms|, u = 2^-9 bf16,
-//     2^-12 fp16).
-// The state pass in B and every sum stay float32; no atomics, every sum
+//     states, the final state and d(initial state) are held to 1e-4); the
+//     (P = 64)-wide operand, not the N-wide one, is split;
+//   * att, dcb, S_in and dS_out are rounded to 16 bits before their
+//     products (y is stored in 16 bits, held to 1e-2 of its largest entry;
+//     so are K3b's dx, ddt, da, db and dc: each rounding moves a term by
+//     at most u |term|, u = 2^-9 bf16, 2^-12 fp16);
+//   * a float32 dy is read rounded to x's type (once, on its way into
+//     shared memory), so it gives what dy in x's type gives.
+// The passes B and B' and every sum stay float32; no atomics, every sum
 // in a fixed order, so two calls agree bit for bit.
 // Tiles move by 16-byte cp.async (zero-filled past the valid rows) or, for
-// the operands converted on the way (w . X, S_in), by loads and st.shared,
-// into the 128-byte swizzled layout TMA would write (sw128); phase C keeps
-// a two-stage ring of column tiles, the next tile's copies in flight under
-// this tile's products. Not TMA: the tiles are rows of one head strided by
-// H P or G N elements, and encoding tensor maps on the host each call was
-// measured (K2's backward at S 256) to outlast kernels of this size.
+// the operands converted on the way (w . X, ecs . dY, S_in, dS_out, a
+// float32 dy), by loads and st.shared, into the 128-byte swizzled layout
+// TMA would write (sw128); phases C and C' keep a two-stage ring of the
+// walked tiles, the next tile's copies in flight under this tile's
+// products. Not TMA: the tiles are rows of one head strided by H P or G N
+// elements, and encoding tensor maps on the host each call was measured
+// (K2's backward at S 256) to outlast kernels of this size.
 //
 // Bound on an H100 (989 TFLOP/s bf16/fp16, 3.35 TB/s): bytes, at every
 // main-path shape (chip_smoke.py's k3_work): a chunk of 256 at P 64, N 128
-// does ~2 (N + P) flops a live pair and 4 P N a position, ~1 flop a byte
-// of x, b, c and the float32 states it must move, far under the ~295 where
+// does ~2 (N + P) flops a live pair forward and 2 (3N + 2P) backward, 4 P N
+// and 10 P N a position, ~1 and ~3 flops a byte of what it must move
+// (x, b, c, dy and the float32 states and gradients), under the ~295 where
 // the tensor cores would be the limit. So the design aims at the bytes:
 // every input read once per CTA that needs it, b and c shared by the heads
-// of a group through L2 (the grid walks heads fastest), the float32 states
-// written by A and rewritten in place by B, the only traffic beyond the
-// inputs and y. Left for later: a persistent scheduler, fusing A to C,
-// float32 on TF32, other P and N.
+// of a group through L2 (the grid walks heads fastest), the float32
+// (dS) states written by A (A') and rewritten in place by B (B'), and K3b's
+// per-head db and dc (the reference's contract: the wrapper sums them over
+// each group) the traffic beyond the inputs and outputs. Left for later: a
+// persistent scheduler, fusing A to C (A' to C'), a group reduction of db
+// and dc inside the kernel, float32 on TF32, other P and N.
 //
-// The C entry checks the shapes, sets each kernel's dynamic shared-memory
-// limit, launches A, B and C on the given stream and returns the first
-// CUDA error.
+// The C entries check the shapes, set each kernel's dynamic shared-memory
+// limit, launch the route's kernels on the given stream and return the
+// first CUDA error.
 
 #include "sm90_common.cuh"
 
@@ -128,22 +176,57 @@ __device__ __forceinline__ void st_shared16(uint32_t addr, uint4 v) {
                : "memory");
 }
 
-// 8 16-bit values times w, split into hi = rn16(v) and lo = rn16(v - hi)
+// 8 consecutive values as floats: 16-bit ones as they are, float32 ones
+// rounded to 16 bits (a float32 dy is read as if it were in x's type)
 template <typename Tag>
-__device__ __forceinline__ void split_scaled(const uint4 u, float w, uint4& hi,
-                                             uint4& lo) {
+__device__ __forceinline__ void load8(const uint16_t* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
   const uint32_t in[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = to_f32((uint16_t)(in[k] & 0xffffu), Tag{});
+    v[2 * k + 1] = to_f32((uint16_t)(in[k] >> 16), Tag{});
+  }
+}
+template <typename Tag>
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  const float f[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = round16(f[k], Tag{});
+}
+
+// 8 values times w, split into hi = rn16(v) and lo = rn16(v - hi)
+template <typename Tag, typename TV>
+__device__ __forceinline__ void split_scaled(const TV* p, float w, uint4& hi,
+                                             uint4& lo) {
+  float v[8];
+  load8<Tag>(p, v);
   uint32_t h[4], l[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const float v0 = to_f32((uint16_t)(in[k] & 0xffffu), Tag{}) * w;
-    const float v1 = to_f32((uint16_t)(in[k] >> 16), Tag{}) * w;
+    const float v0 = v[2 * k] * w, v1 = v[2 * k + 1] * w;
     const float h0 = round16(v0, Tag{}), h1 = round16(v1, Tag{});
     h[k] = pack2(h0, h1, Tag{});
     l[k] = pack2(v0 - h0, v1 - h1, Tag{});
   }
   hi = make_uint4(h[0], h[1], h[2], h[3]);
   lo = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// two 16-bit values at a shared-memory address, as floats
+template <typename Tag>
+__device__ __forceinline__ float2 ld_shared_pair(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return make_float2(to_f32((uint16_t)(v & 0xffffu), Tag{}),
+                     to_f32((uint16_t)(v >> 16), Tag{}));
+}
+
+// the 16-bit value at (r, col) of a run of swizzled (64, 64) tiles
+__device__ __forceinline__ uint32_t tile_at(uint32_t tiles, int r, int col) {
+  return tiles + (col / 64) * kTile + sw128(r, (col % 64) / 8) + 2 * (col % 8);
 }
 
 // rows [r0, r0 + 64) of a chunk's (rows, 8 W) 16-bit operand into W / 8
@@ -159,6 +242,178 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const uint16_t* src,
     cp_async16(dst + (j / 8) * kTile + sw128(r, j % 8),
                src + (ok ? (size_t)l * row_stride + 8 * j : 0), ok);
   }
+}
+
+// the same for 64 float32 values a row, rounded to 16 bits on the way
+// (loads and st.shared: done when the call returns)
+template <typename Tag>
+__device__ __forceinline__ void load_rows_f32(uint32_t dst, const float* src,
+                                              size_t row_stride, int r0,
+                                              int kv) {
+  for (int e = threadIdx.x; e < kRows * 8; e += kThreads) {
+    const int r = e / 8, j = e % 8;
+    const int l = r0 + r;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (l < kv) {
+      float f[8];
+      load8<Tag>(src + (size_t)l * row_stride + 8 * j, f);
+      v = make_uint4(pack2(f[0], f[1], Tag{}), pack2(f[2], f[3], Tag{}),
+                     pack2(f[4], f[5], Tag{}), pack2(f[6], f[7], Tag{}));
+    }
+    st_shared16(dst + sw128(r, j), v);
+  }
+}
+
+// 64 rows of dy (P = 64 wide) into one tile: by cp.async when dy is 16-bit,
+// rounded from float32 otherwise
+template <typename Tag>
+__device__ __forceinline__ void load_dy(uint32_t dst, const uint16_t* src,
+                                        size_t row_stride, int r0, int kv) {
+  load_rows<8>(dst, src, row_stride, r0, kv);
+}
+template <typename Tag>
+__device__ __forceinline__ void load_dy(uint32_t dst, const float* src,
+                                        size_t row_stride, int r0, int kv) {
+  load_rows_f32<Tag>(dst, src, row_stride, r0, kv);
+}
+
+// a (P, N) float32 state rounded to 16 bits into N / 64 tiles, rows p
+template <typename Tag, int N>
+__device__ __forceinline__ void state_to16(uint32_t dst, const float* src) {
+  for (int e = threadIdx.x; e < kP * N / 8; e += kThreads) {
+    const int p = e / (N / 8), j = e % (N / 8);
+    const float4 v0 = *reinterpret_cast<const float4*>(src + p * N + 8 * j);
+    const float4 v1 =
+        *reinterpret_cast<const float4*>(src + p * N + 8 * j + 4);
+    st_shared16(dst + (j / 8) * kTile + sw128(p, j % 8),
+                make_uint4(pack2(v0.x, v0.y, Tag{}), pack2(v0.z, v0.w, Tag{}),
+                           pack2(v1.x, v1.y, Tag{}),
+                           pack2(v1.z, v1.w, Tag{})));
+  }
+}
+
+// a chunk's dt into dt_s (zeros at and past kv) and the inclusive cumsum of
+// dt * a into cs_s: warp 0, each lane a run of consecutive positions, a
+// shuffle scan giving each run its offset, in a fixed order
+template <typename Tag, typename TD>
+__device__ __forceinline__ void chunk_cs(const TD* dt, size_t i0, int H,
+                                         float av, int cl, int kv,
+                                         float* dt_s, float* cs_s) {
+  const int tid = threadIdx.x, lane = tid % 32;
+  for (int l = tid; l < cl; l += kThreads)
+    dt_s[l] = l < kv ? ld_dt<Tag>(dt, i0 + (size_t)l * H) : 0.f;
+  __syncthreads();
+  if (tid < 32) {
+    const int per = (cl + 31) / 32, l0 = lane * per;
+    float run = 0.f;
+    for (int k = 0; k < per && l0 + k < cl; ++k) run += dt_s[l0 + k] * av;
+    float incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    float acc = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) acc = 0.f;
+    for (int k = 0; k < per && l0 + k < cl; ++k) {
+      acc += dt_s[l0 + k] * av;
+      cs_s[l0 + k] = acc;
+    }
+  }
+  __syncthreads();
+}
+
+// a chunk's deposit V^T (scale . W), (P, N), over its rows l < kv, 64 at a
+// time: V (P = 64 wide, 16-bit or float32) times scale_l split into hi +
+// lo, W (N wide, 16-bit) by cp.async, two m64nNk16 SS wgmmas with both
+// operands MN-major into one accumulator. acc[i] is row p = 16 warp +
+// lane / 4 + 8 ((i / 2) % 2), column n = 8 (i / 4) + 2 (lane % 4) + i % 2.
+template <typename Tag, int N, typename TV>
+__device__ __forceinline__ void deposit(float (&acc)[N / 2], uint32_t vh_s,
+                                        uint32_t vl_s, uint32_t w_s,
+                                        const TV* vb, size_t vrow,
+                                        const uint16_t* wb, size_t wrow,
+                                        const float* scale, int kv) {
+  constexpr int NH = N / 64;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  for (int r0 = 0; r0 < kv; r0 += kRows) {
+    if (r0) __syncthreads();       // every warp is past the last products
+    load_rows<8 * NH>(w_s, wb, wrow, r0, kv);
+    cp_async_commit();
+    for (int e = tid; e < kRows * 8; e += kThreads) {
+      const int r = e / 8, j = e % 8;
+      const int l = r0 + r;
+      uint4 hi = make_uint4(0, 0, 0, 0), lo = hi;
+      if (l < kv)
+        split_scaled<Tag>(vb + (size_t)l * vrow + 8 * j, scale[l], hi, lo);
+      st_shared16(vh_s + sw128(r, j), hi);
+      st_shared16(vl_s + sw128(r, j), lo);
+    }
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      const uint64_t bd = desc_sw128(w_s + kk * 16 * 128, kTile, 1024);
+      wgmma_ss<1, 1>(acc, desc_sw128(vh_s + kk * 16 * 128, kTile, 1024), bd,
+                     1, Tag{});
+      wgmma_ss<1, 1>(acc, desc_sw128(vl_s + kk * 16 * 128, kTile, 1024), bd,
+                     1, Tag{});
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+}
+
+// the deposit's accumulator into a (P, N) float32 state
+template <int N>
+__device__ __forceinline__ void store_state(float* dst,
+                                            const float (&acc)[N / 2]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int p = 16 * warp + lane / 4 + 8 * r;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<float2*>(dst + (size_t)p * N + 8 * j +
+                                 2 * (lane % 4)) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+// the chunks of one (b, h) in order (kRev: last-first), one thread a float4
+// of (P, N), in place: each chunk's slot of `states` holds its deposit and
+// takes the value carried into it, carry = decay_c carry + deposit_c; the
+// carry starts from seed (null: zeros) and ends in last
+template <bool kRev>
+__device__ __forceinline__ void pass_chunks(const float* seed,
+                                            const float* decay,
+                                            float* states, float* last,
+                                            int nc, int pn4) {
+  const int bh = blockIdx.x;
+  const int e = blockIdx.y * kThreads + threadIdx.x;   // a float4 of (P, N)
+  if (e >= pn4) return;
+  float4* const st = reinterpret_cast<float4*>(states) +
+                     (size_t)bh * nc * pn4 + e;
+  float4 s = seed ? reinterpret_cast<const float4*>(seed)[(size_t)bh * pn4 + e]
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  const int step = kRev ? -1 : 1;
+  int c = kRev ? nc - 1 : 0;
+  float4 dep = st[(size_t)c * pn4];
+  for (int i = 0; i < nc; ++i, c += step) {
+    const float4 next = i + 1 < nc ? st[(size_t)(c + step) * pn4] : dep;
+    const float k = decay[(size_t)bh * nc + c];
+    st[(size_t)c * pn4] = s;
+    s = make_float4(fmaf(k, s.x, dep.x), fmaf(k, s.y, dep.y),
+                    fmaf(k, s.z, dep.z), fmaf(k, s.w, dep.w));
+    dep = next;
+  }
+  reinterpret_cast<float4*>(last)[(size_t)bh * pn4 + e] = s;
 }
 
 // --------------------------------------------------- A: chunk states --
@@ -188,34 +443,11 @@ ssd_sm90_chunk_state_kernel(const uint16_t* __restrict__ x,
   const int g = h / (d.H / d.G);
   const int t0 = c * d.cl;
   const int kv = min(d.cl, d.S - t0);          // the chunk's rows in S
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x;
   const size_t bh = (size_t)bi * d.H + h;
-  const float av = a[h];
 
-  for (int l = tid; l < d.cl; l += kThreads)
-    dt_s[l] = l < kv ? ld_dt<Tag>(dt, ((size_t)bi * d.S + t0 + l) * d.H + h)
-                     : 0.f;
-  __syncthreads();
-  if (warp == 0) {
-    // cs, inclusive: each lane sums a run of consecutive positions, a
-    // shuffle scan gives each run its offset, in a fixed order
-    const int per = (d.cl + 31) / 32, l0 = lane * per;
-    float run = 0.f;
-    for (int k = 0; k < per && l0 + k < d.cl; ++k) run += dt_s[l0 + k] * av;
-    float incl = run;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float t = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += t;
-    }
-    float acc = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane == 0) acc = 0.f;
-    for (int k = 0; k < per && l0 + k < d.cl; ++k) {
-      acc += dt_s[l0 + k] * av;
-      cs_s[l0 + k] = acc;
-    }
-  }
-  __syncthreads();
+  chunk_cs<Tag>(dt, ((size_t)bi * d.S + t0) * d.H + h, d.H, a[h], d.cl, kv,
+                dt_s, cs_s);
   const float cs_end = cs_s[d.cl - 1];
   float* const cs_g = cs_out + (bh * d.nc + c) * d.cl;
   for (int l = tid; l < d.cl; l += kThreads) {
@@ -225,59 +457,14 @@ ssd_sm90_chunk_state_kernel(const uint16_t* __restrict__ x,
   if (tid == 0) decay[bh * d.nc + c] = expf(cs_end);
   __syncthreads();
 
-  // the deposit X^T (w . B): (P, N), over the chunk's rows 64 at a time
+  // the deposit X^T (w . B)
   const size_t xrow = (size_t)d.H * kP, brow = (size_t)d.G * N;
-  const uint16_t* const xb = x + ((size_t)bi * d.S + t0) * xrow +
-                             (size_t)h * kP;
-  const uint16_t* const bb = b + ((size_t)bi * d.S + t0) * brow +
-                             (size_t)g * N;
   float acc[N / 2];
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-  for (int r0 = 0; r0 < kv; r0 += kRows) {
-    if (r0) __syncthreads();       // every warp is past the last products
-    load_rows<8 * NH>(b_s, bb, brow, r0, kv);
-    cp_async_commit();
-    for (int e = tid; e < kRows * 8; e += kThreads) {
-      const int r = e / 8, j = e % 8;
-      const int l = r0 + r;
-      uint4 hi = make_uint4(0, 0, 0, 0), lo = hi;
-      if (l < kv)
-        split_scaled<Tag>(
-            *reinterpret_cast<const uint4*>(xb + (size_t)l * xrow + 8 * j),
-            w_s[l], hi, lo);
-      st_shared16(xh_s + sw128(r, j), hi);
-      st_shared16(xl_s + sw128(r, j), lo);
-    }
-    cp_async_wait<0>();
-    fence_proxy_async();
-    __syncthreads();
-    fence_regs(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kRows / 16; ++kk) {
-      const uint64_t bd = desc_sw128(b_s + kk * 16 * 128, kTile, 1024);
-      wgmma_ss<1, 1>(acc, desc_sw128(xh_s + kk * 16 * 128, kTile, 1024), bd,
-                     1, Tag{});
-      wgmma_ss<1, 1>(acc, desc_sw128(xl_s + kk * 16 * 128, kTile, 1024), bd,
-                     1, Tag{});
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
-  }
-  // acc[i] is row p = 16 warp + lane / 4 + 8 ((i / 2) % 2), column
-  // n = 8 (i / 4) + 2 (lane % 4) + i % 2
-  float* const dep = states + (bh * d.nc + c) * (size_t)(kP * N);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int p = 16 * warp + lane / 4 + 8 * r;
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j)
-      *reinterpret_cast<float2*>(dep + (size_t)p * N + 8 * j +
-                                 2 * (lane % 4)) =
-          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-  }
+  deposit<Tag, N>(acc, xh_s, xl_s, b_s,
+                  x + ((size_t)bi * d.S + t0) * xrow + (size_t)h * kP, xrow,
+                  b + ((size_t)bi * d.S + t0) * brow + (size_t)g * N, brow,
+                  w_s, kv);
+  store_state<N>(states + (bh * d.nc + c) * (size_t)(kP * N), acc);
 }
 
 // ----------------------------------------------------- B: state pass --
@@ -287,23 +474,7 @@ ssd_sm90_state_pass_kernel(const float* __restrict__ init,
                            const float* __restrict__ decay, float* states,
                            float* __restrict__ final_state, int nc,
                            int pn4) {
-  const int bh = blockIdx.x;
-  const int e = blockIdx.y * kThreads + threadIdx.x;   // a float4 of (P, N)
-  if (e >= pn4) return;
-  float4* const st = reinterpret_cast<float4*>(states) +
-                     (size_t)bh * nc * pn4 + e;
-  float4 s = init ? reinterpret_cast<const float4*>(init)[(size_t)bh * pn4 + e]
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 dep = st[0];
-  for (int c = 0; c < nc; ++c) {
-    const float4 next = c + 1 < nc ? st[(size_t)(c + 1) * pn4] : dep;
-    const float k = decay[(size_t)bh * nc + c];
-    st[(size_t)c * pn4] = s;                  // the state entering chunk c
-    s = make_float4(fmaf(k, s.x, dep.x), fmaf(k, s.y, dep.y),
-                    fmaf(k, s.z, dep.z), fmaf(k, s.w, dep.w));
-    dep = next;
-  }
-  reinterpret_cast<float4*>(final_state)[(size_t)bh * pn4 + e] = s;
+  pass_chunks<false>(init, decay, states, final_state, nc, pn4);
 }
 
 // ----------------------------------------------------- C: chunk scan --
@@ -357,19 +528,8 @@ ssd_sm90_chunk_scan_kernel(const uint16_t* __restrict__ x,
     dt_s[l] = ld_dt<Tag>(dt, ((size_t)bi * d.S + t0 + l) * d.H + h);
   }
   const bool with_state = has_init || c > 0;
-  if (with_state) {                  // S_in (P, N) float32 to 16 bits
-    const float* const sin = states + ((size_t)bh * d.nc + c) * (kP * N);
-    for (int e = tid; e < kP * 8 * NH; e += kThreads) {
-      const int p = e / (8 * NH), j = e % (8 * NH);
-      const float4 v0 = *reinterpret_cast<const float4*>(sin + p * N + 8 * j);
-      const float4 v1 =
-          *reinterpret_cast<const float4*>(sin + p * N + 8 * j + 4);
-      st_shared16(si_s + (j / 8) * kTile + sw128(p, j % 8),
-                  make_uint4(pack2(v0.x, v0.y, Tag{}), pack2(v0.z, v0.w, Tag{}),
-                             pack2(v1.x, v1.y, Tag{}),
-                             pack2(v1.z, v1.w, Tag{})));
-    }
-  }
+  if (with_state)                    // S_in (P, N) float32 to 16 bits
+    state_to16<Tag, N>(si_s, states + ((size_t)bh * d.nc + c) * (kP * N));
 
   float yacc[32];
 #pragma unroll
@@ -469,6 +629,570 @@ ssd_sm90_chunk_scan_kernel(const uint16_t* __restrict__ x,
   }
 }
 
+// ================================================================= K3b ==
+
+// ------------------------------------------------ A': the dS deposits --
+
+template <typename Tag, int N, typename TD, typename TY>
+__global__ void __launch_bounds__(kThreads)
+ssd_sm90_bwd_deposit_kernel(const TY* __restrict__ dy,
+                            const TD* __restrict__ dt,
+                            const float* __restrict__ a,
+                            const uint16_t* __restrict__ cm,
+                            float* __restrict__ ds, float* __restrict__ cs_out,
+                            float* __restrict__ dt_out,
+                            float* __restrict__ decay, Dims d) {
+  constexpr int NH = N / 64;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t yh_s = base;                 // rn16(ecs dy), rows l
+  const uint32_t yl_s = yh_s + kTile;         // rn16(ecs dy - hi)
+  const uint32_t c_s = yl_s + kTile;          // [NH] tiles of c rows
+  float* const dt_s =
+      reinterpret_cast<float*>(smem_raw + (c_s + NH * kTile - raw));
+  float* const cs_s = dt_s + d.cl;
+  float* const ecs_s = cs_s + d.cl;
+
+  const int c = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+  const int g = h / (d.H / d.G);
+  const int t0 = c * d.cl;
+  const int kv = min(d.cl, d.S - t0);
+  const int tid = threadIdx.x;
+  const size_t bh = (size_t)bi * d.H + h;
+
+  chunk_cs<Tag>(dt, ((size_t)bi * d.S + t0) * d.H + h, d.H, a[h], d.cl, kv,
+                dt_s, cs_s);
+  const size_t v0 = (bh * d.nc + c) * d.cl;
+  for (int l = tid; l < d.cl; l += kThreads) {
+    cs_out[v0 + l] = cs_s[l];
+    dt_out[v0 + l] = dt_s[l];
+    ecs_s[l] = expf(cs_s[l]);
+  }
+  if (tid == 0) decay[bh * d.nc + c] = expf(cs_s[d.cl - 1]);
+  __syncthreads();
+
+  // D_c = (ecs . dY)^T C
+  const size_t yrow = (size_t)d.H * kP, crow = (size_t)d.G * N;
+  float acc[N / 2];
+  deposit<Tag, N>(acc, yh_s, yl_s, c_s,
+                  dy + ((size_t)bi * d.S + t0) * yrow + (size_t)h * kP, yrow,
+                  cm + ((size_t)bi * d.S + t0) * crow + (size_t)g * N, crow,
+                  ecs_s, kv);
+  store_state<N>(ds + (bh * d.nc + c) * (size_t)(kP * N), acc);
+}
+
+// ------------------------------------------- B': the reverse dS pass --
+
+__global__ void __launch_bounds__(kThreads)
+ssd_sm90_bwd_dstate_pass_kernel(const float* __restrict__ dfinal,
+                                const float* __restrict__ decay, float* ds,
+                                float* __restrict__ dinit, int nc, int pn4) {
+  pass_chunks<true>(dfinal, decay, ds, dinit, nc, pn4);
+}
+
+// --------------------------------------- C': the column-block kernel --
+
+// per-row sums of a thread's two accumulator rows over the quad that
+// shares them (lanes 4k..4k+3), in a fixed order
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// One CTA per (b, h, chunk, 64-position column block s0), longest first:
+// over the row tiles l0 >= s0, the transposed tiles B_s C_l^T and
+// X_s dY_l^T give att^T, dcb^T and q^T = (datt CB decay)^T in registers;
+// dx_s += att^T dY_l, db_s += dcb^T C_l (RS, the row tiles MN-major), the
+// column sums of q (ddt_att) as per-row sums. Before the walk, the state
+// terms: dx_s = w . (B_s dS_out^T), db_s = w . (X_s dS_out), dw_s =
+// sum_n (X_s dS_out) . b_s.
+template <typename Tag, int N, typename TY>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_sm90_bwd_column_kernel(const uint16_t* __restrict__ x,
+                           const uint16_t* __restrict__ b,
+                           const uint16_t* __restrict__ cm,
+                           const TY* __restrict__ dy,
+                           const float* __restrict__ ds,
+                           const float* __restrict__ cs_in,
+                           const float* __restrict__ dt_in,
+                           float* __restrict__ dx, float* __restrict__ dbh,
+                           float* __restrict__ ddt_att,
+                           float* __restrict__ dw_out, Dims d) {
+  constexpr int NH = N / 64;
+  constexpr uint32_t kStage = (NH + 1) * kTile;   // C_l tiles, then dY_l
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t b_s = base;                  // [NH] B rows of the block
+  const uint32_t x_s = b_s + NH * kTile;      // X rows of the block
+  const uint32_t ds_s = x_s + kTile;          // [NH] rn16(dS_out), rows p
+  const uint32_t ring = ds_s + NH * kTile;    // [2] stages
+  float* const cs_s =
+      reinterpret_cast<float*>(smem_raw + (ring + 2 * kStage - raw));
+  const int cl_pad = (d.cl + kRows - 1) / kRows * kRows;
+  float* const dt_s = cs_s + cl_pad;
+
+  const int bh = blockIdx.x, c = blockIdx.y, sb = blockIdx.z;
+  const int s0 = sb * kRows, t0 = c * d.cl;
+  const int kv = min(d.cl, d.S - t0);
+  if (s0 >= kv) return;                        // columns past S
+  const int bi = bh / d.H, h = bh % d.H, g = h / (d.H / d.G);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int lr0 = 16 * warp + lane / 4;        // local rows lr0, lr0 + 8
+  const size_t xrow = (size_t)d.H * kP, brow = (size_t)d.G * N;
+  const size_t tok = (size_t)bi * d.S + t0;
+  const uint16_t* const xb = x + tok * xrow + (size_t)h * kP;
+  const TY* const yb = dy + tok * xrow + (size_t)h * kP;
+  const uint16_t* const bb = b + tok * brow + (size_t)g * N;
+  const uint16_t* const cb = cm + tok * brow + (size_t)g * N;
+  const int n_tiles = (kv + kRows - 1) / kRows - sb;   // row tiles l0 >= s0
+  const size_t ch = (size_t)bh * d.nc + c;
+
+  load_rows<8 * NH>(b_s, bb, brow, s0, kv);
+  load_rows<8>(x_s, xb, xrow, s0, kv);
+  load_rows<8 * NH>(ring, cb, brow, s0, kv);
+  load_dy<Tag>(ring + NH * kTile, yb, xrow, s0, kv);
+  cp_async_commit();
+  for (int l = s0 + tid; l < kv; l += kThreads) {
+    cs_s[l] = cs_in[ch * d.cl + l];
+    dt_s[l] = dt_in[ch * d.cl + l];
+  }
+  state_to16<Tag, N>(ds_s, ds + ch * (kP * N));
+  const float cs_end = cs_in[ch * d.cl + d.cl - 1];
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  // dt_s and w_s of the thread's two rows (0 past kv)
+  float dtr[2], wr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = s0 + lr0 + 8 * r;
+    dtr[r] = s < kv ? dt_s[s] : 0.f;
+    wr[r] = s < kv ? dtr[r] * expf(cs_end - cs_s[s]) : 0.f;
+  }
+  // the state terms: B_s dS_out^T (K-major both) into dx, X_s dS_out
+  // (dS_out MN-major) into db
+  float dxa[32], dba[N / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dxa[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) dba[i] = 0.f;
+  fence_regs(dxa);
+  fence_regs(dba);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    wgmma_ss(dxa,
+             desc_sw128(b_s + (kk / 4) * kTile + (kk % 4) * 32, 16, 1024),
+             desc_sw128(ds_s + (kk / 4) * kTile + (kk % 4) * 32, 16, 1024),
+             kk > 0, Tag{});
+#pragma unroll
+  for (int kk = 0; kk < kP / 16; ++kk)
+    wgmma_ss<0, 1>(dba, desc_sw128(x_s + kk * 32, 16, 1024),
+                   desc_sw128(ds_s + kk * 16 * 128, kTile, 1024), kk > 0,
+                   Tag{});
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(dxa);
+  fence_regs(dba);
+  // dw = sum_n (X_s dS_out) . b_s, then the w scaling; dba[i] is row
+  // lr0 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2
+  float dwr[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 2) {
+    const int r = (i / 2) % 2;
+    const float2 bv =
+        ld_shared_pair<Tag>(tile_at(b_s, lr0 + 8 * r, 8 * (i / 4) +
+                                                          2 * (lane % 4)));
+    dwr[r] += dba[i] * bv.x + dba[i + 1] * bv.y;
+    dba[i] *= wr[r];
+    dba[i + 1] *= wr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dxa[i] *= wr[(i / 2) % 2];
+
+  float qr[2] = {0.f, 0.f};                    // the column sums of q
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t) {
+      cp_async_wait<0>();            // tile t's copies landed
+      fence_proxy_async();
+      __syncthreads();               // and every warp is past tile t - 1
+    }
+    if (t + 1 < n_tiles) {
+      const uint32_t nxt = ring + ((t + 1) & 1) * kStage;
+      const int l1 = s0 + (t + 1) * kRows;
+      load_rows<8 * NH>(nxt, cb, brow, l1, kv);
+      load_dy<Tag>(nxt + NH * kTile, yb, xrow, l1, kv);
+      cp_async_commit();
+    }
+    const int l0 = s0 + t * kRows;
+    const uint32_t ct = ring + (t & 1) * kStage, yt = ct + NH * kTile;
+    // B_s C_l^T and X_s dY_l^T
+    float sc[32], da[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = da[i] = 0.f;
+    fence_regs(sc);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_ss(sc,
+               desc_sw128(b_s + (kk / 4) * kTile + (kk % 4) * 32, 16, 1024),
+               desc_sw128(ct + (kk / 4) * kTile + (kk % 4) * 32, 16, 1024),
+               kk > 0, Tag{});
+#pragma unroll
+    for (int kk = 0; kk < kP / 16; ++kk)
+      wgmma_ss(da, desc_sw128(x_s + kk * 32, 16, 1024),
+               desc_sw128(yt + kk * 32, 16, 1024), kk > 0, Tag{});
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(da);
+    // rows s, columns l: live where s <= l < kv; decay e^{cs_l - cs_s}
+    uint32_t fa[4][4], fd[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i / 2) % 2;
+      const int s = s0 + lr0 + 8 * r;
+      const int l = l0 + 8 * (i / 4) + 2 * (lane % 4);
+      float va[2], vd[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const bool live = s <= l + q && l + q < kv;
+        const float e =
+            live ? exp2f((cs_s[l + q] - cs_s[s]) * kLog2e) : 0.f;
+        va[q] = sc[i + q] * e * dtr[r];
+        vd[q] = da[i + q] * e * dtr[r];
+        qr[r] += da[i + q] * sc[i + q] * e;
+      }
+      fa[i / 8][(i % 8) / 2] = pack2(va[0], va[1], Tag{});
+      fd[i / 8][(i % 8) / 2] = pack2(vd[0], vd[1], Tag{});
+    }
+    // dx_s += att^T dY_l, db_s += dcb^T C_l
+    fence_regs(dxa);
+    fence_regs(dba);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      wgmma_rs(dxa, fa[kk], desc_sw128(yt + kk * 16 * 128, kTile, 1024),
+               Tag{});
+      wgmma_rs(dba, fd[kk], desc_sw128(ct + kk * 16 * 128, kTile, 1024),
+               Tag{});
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dxa);
+    fence_regs(dba);
+  }
+
+  // per-row sums, then the rows below kv
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qr[r] = quad_sum(qr[r]);
+    dwr[r] = quad_sum(dwr[r]);
+  }
+  const size_t hrow = (size_t)d.H;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = s0 + lr0 + 8 * r;
+    if (s >= kv) continue;
+    if (lane % 4 == 0) {
+      ddt_att[ch * d.cl + s] = qr[r];
+      dw_out[ch * d.cl + s] = dwr[r];
+    }
+    float* const dxr = dx + ((tok + s) * hrow + h) * kP;
+    float* const dbr = dbh + ((tok + s) * hrow + h) * N;
+#pragma unroll
+    for (int j = 0; j < kP / 8; ++j)
+      *reinterpret_cast<float2*>(dxr + 8 * j + 2 * (lane % 4)) =
+          make_float2(dxa[4 * j + 2 * r], dxa[4 * j + 2 * r + 1]);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<float2*>(dbr + 8 * j + 2 * (lane % 4)) =
+          make_float2(dba[4 * j + 2 * r], dba[4 * j + 2 * r + 1]);
+  }
+}
+
+// ------------------------------------------ C': the row-block kernel --
+
+// One CTA per (b, h, chunk, 64-row block l0), longest first: over the
+// column tiles s0 <= l0, C_l B_s^T and dY_l X_s^T give dcb in registers,
+// dc_l += dcb B_s (RS, B_s MN-major), and the row sums of dseg = q dt_s.
+// Before the walk, the y_off terms: dc_l = ecs . (dY_l S_in) and
+// sum_p dy . y_off, y_off = ecs . (C_l S_in^T). It leaves each row's
+// dseg row sum plus sum_p dy . y_off in rowv.
+template <typename Tag, int N, typename TY>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_sm90_bwd_row_kernel(const uint16_t* __restrict__ x,
+                        const uint16_t* __restrict__ b,
+                        const uint16_t* __restrict__ cm,
+                        const TY* __restrict__ dy,
+                        const float* __restrict__ states,
+                        const float* __restrict__ cs_in,
+                        const float* __restrict__ dt_in,
+                        float* __restrict__ dch, float* __restrict__ rowv,
+                        Dims d) {
+  constexpr int NH = N / 64;
+  constexpr uint32_t kStage = (NH + 1) * kTile;   // B_s tiles, then X_s
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t c_s = base;                  // [NH] C rows of the block
+  const uint32_t y_s = c_s + NH * kTile;      // dY rows of the block
+  const uint32_t si_s = y_s + kTile;          // [NH] rn16(S_in), rows p
+  const uint32_t ring = si_s + NH * kTile;    // [2] stages
+  float* const cs_s =
+      reinterpret_cast<float*>(smem_raw + (ring + 2 * kStage - raw));
+  const int cl_pad = (d.cl + kRows - 1) / kRows * kRows;
+  float* const dt_s = cs_s + cl_pad;
+
+  const int bh = blockIdx.x, c = blockIdx.y;
+  const int rb = gridDim.z - 1 - blockIdx.z;   // longest row blocks first
+  const int l0 = rb * kRows, t0 = c * d.cl;
+  const int kv = min(d.cl, d.S - t0);
+  if (l0 >= kv) return;                        // rows past S
+  const int bi = bh / d.H, h = bh % d.H, g = h / (d.H / d.G);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int lr0 = 16 * warp + lane / 4;        // local rows lr0, lr0 + 8
+  const size_t xrow = (size_t)d.H * kP, brow = (size_t)d.G * N;
+  const size_t tok = (size_t)bi * d.S + t0;
+  const uint16_t* const xb = x + tok * xrow + (size_t)h * kP;
+  const TY* const yb = dy + tok * xrow + (size_t)h * kP;
+  const uint16_t* const bb = b + tok * brow + (size_t)g * N;
+  const uint16_t* const cb = cm + tok * brow + (size_t)g * N;
+  const int n_tiles = rb + 1;                  // column tiles s0 <= l0
+  const size_t ch = (size_t)bh * d.nc + c;
+
+  load_rows<8 * NH>(c_s, cb, brow, l0, kv);
+  load_dy<Tag>(y_s, yb, xrow, l0, kv);
+  load_rows<8 * NH>(ring, bb, brow, 0, kv);
+  load_rows<8>(ring + NH * kTile, xb, xrow, 0, kv);
+  cp_async_commit();
+  const int nl = min(l0 + kRows, kv);          // positions the block reads
+  for (int l = tid; l < nl; l += kThreads) {
+    cs_s[l] = cs_in[ch * d.cl + l];
+    dt_s[l] = dt_in[ch * d.cl + l];
+  }
+  state_to16<Tag, N>(si_s, states + ch * (kP * N));
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  float er[2];                                 // ecs of the thread's rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int l = l0 + lr0 + 8 * r;
+    er[r] = l < kv ? expf(cs_s[l]) : 0.f;
+  }
+  // C_l S_in^T (K-major both) and dY_l S_in (S_in MN-major)
+  float yo[32], dca[N / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) yo[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) dca[i] = 0.f;
+  fence_regs(yo);
+  fence_regs(dca);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    wgmma_ss(yo,
+             desc_sw128(c_s + (kk / 4) * kTile + (kk % 4) * 32, 16, 1024),
+             desc_sw128(si_s + (kk / 4) * kTile + (kk % 4) * 32, 16, 1024),
+             kk > 0, Tag{});
+#pragma unroll
+  for (int kk = 0; kk < kP / 16; ++kk)
+    wgmma_ss<0, 1>(dca, desc_sw128(y_s + kk * 32, 16, 1024),
+                   desc_sw128(si_s + kk * 16 * 128, kTile, 1024), kk > 0,
+                   Tag{});
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(yo);
+  fence_regs(dca);
+  // sum_p dy . y_off; yo[i] is row lr0 + 8 ((i / 2) % 2), column p =
+  // 8 (i / 4) + 2 (lane % 4) + i % 2
+  float rr[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int r = (i / 2) % 2;
+    const float2 yv = ld_shared_pair<Tag>(
+        tile_at(y_s, lr0 + 8 * r, 8 * (i / 4) + 2 * (lane % 4)));
+    rr[r] += er[r] * (yo[i] * yv.x + yo[i + 1] * yv.y);
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) dca[i] *= er[(i / 2) % 2];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t) {
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+    }
+    if (t + 1 < n_tiles) {
+      const uint32_t nxt = ring + ((t + 1) & 1) * kStage;
+      load_rows<8 * NH>(nxt, bb, brow, (t + 1) * kRows, kv);
+      load_rows<8>(nxt + NH * kTile, xb, xrow, (t + 1) * kRows, kv);
+      cp_async_commit();
+    }
+    const int s0 = t * kRows;
+    const uint32_t bt = ring + (t & 1) * kStage, xt = bt + NH * kTile;
+    // C_l B_s^T and dY_l X_s^T
+    float sc[32], da[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = da[i] = 0.f;
+    fence_regs(sc);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_ss(sc,
+               desc_sw128(c_s + (kk / 4) * kTile + (kk % 4) * 32, 16, 1024),
+               desc_sw128(bt + (kk / 4) * kTile + (kk % 4) * 32, 16, 1024),
+               kk > 0, Tag{});
+#pragma unroll
+    for (int kk = 0; kk < kP / 16; ++kk)
+      wgmma_ss(da, desc_sw128(y_s + kk * 32, 16, 1024),
+               desc_sw128(xt + kk * 32, 16, 1024), kk > 0, Tag{});
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(da);
+    // rows l, columns s: live where s <= l < kv
+    uint32_t fd[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i / 2) % 2;
+      const int l = l0 + lr0 + 8 * r;
+      const int s = s0 + 8 * (i / 4) + 2 * (lane % 4);
+      float vd[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const bool live = s + q <= l && l < kv;
+        const float e =
+            live ? exp2f((cs_s[l] - cs_s[s + q]) * kLog2e) : 0.f;
+        const float dts = live ? dt_s[s + q] : 0.f;
+        vd[q] = da[i + q] * e * dts;
+        rr[r] += vd[q] * sc[i + q];
+      }
+      fd[i / 8][(i % 8) / 2] = pack2(vd[0], vd[1], Tag{});
+    }
+    // dc_l += dcb B_s
+    fence_regs(dca);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk)
+      wgmma_rs(dca, fd[kk], desc_sw128(bt + kk * 16 * 128, kTile, 1024),
+               Tag{});
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dca);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) rr[r] = quad_sum(rr[r]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int l = l0 + lr0 + 8 * r;
+    if (l >= kv) continue;
+    if (lane % 4 == 0) rowv[ch * d.cl + l] = rr[r];
+    float* const dcr = dch + ((tok + l) * d.H + h) * N;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<float2*>(dcr + 8 * j + 2 * (lane % 4)) =
+          make_float2(dca[4 * j + 2 * r], dca[4 * j + 2 * r + 1]);
+  }
+}
+
+// ------------------------------------------------ C': the finish --
+
+// the sum of v over the CTA's 128 threads, in a fixed order; every thread
+// gets it (red: 4 floats of shared memory)
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  return (red[0] + red[1]) + (red[2] + red[3]);
+}
+
+// One CTA per (b, h, chunk): dcs_l = rowv_l - dt_l ddt_att_l - dw_l w_l,
+// dcs_end = sum dw w + e^{cs_end} sum(dS_out . S_in) at the chunk's last
+// row, dda its reverse cumsum (warp 0, runs and a shuffle scan, a fixed
+// order), ddt = ddt_att + dw e^{cs_end - cs} + dda a, the da partial
+// sum dda dt.
+__global__ void __launch_bounds__(kThreads)
+ssd_sm90_bwd_finish_kernel(const float* __restrict__ states,
+                           const float* __restrict__ ds,
+                           const float* __restrict__ cs_in,
+                           const float* __restrict__ dt_in,
+                           const float* __restrict__ ddt_att,
+                           const float* __restrict__ dw_in,
+                           const float* __restrict__ rowv,
+                           const float* __restrict__ decay,
+                           const float* __restrict__ a,
+                           float* __restrict__ ddt, float* __restrict__ dap,
+                           Dims d, int pn4) {
+  extern __shared__ float fsm[];
+  float* const dcs_s = fsm;                    // [cl] each
+  float* const e_s = dcs_s + d.cl;
+  __shared__ float red[4];
+  const int bh = blockIdx.x, c = blockIdx.y;
+  const int bi = bh / d.H, h = bh % d.H;
+  const int t0 = c * d.cl, kv = min(d.cl, d.S - t0);
+  const int tid = threadIdx.x, lane = tid % 32;
+  const size_t ch = (size_t)bh * d.nc + c, v0 = ch * d.cl;
+  const float cs_end = cs_in[v0 + d.cl - 1];
+
+  const float4* const s4 = reinterpret_cast<const float4*>(states) + ch * pn4;
+  const float4* const g4 = reinterpret_cast<const float4*>(ds) + ch * pn4;
+  float sg = 0.f;
+  for (int e = tid; e < pn4; e += kThreads) {
+    const float4 s = s4[e], g = g4[e];
+    sg += s.x * g.x + s.y * g.y + s.z * g.z + s.w * g.w;
+  }
+  float dww = 0.f;
+  for (int l = tid; l < kv; l += kThreads) {
+    const float e = expf(cs_end - cs_in[v0 + l]);
+    const float w = dt_in[v0 + l] * e, dw = dw_in[v0 + l];
+    e_s[l] = e;
+    dcs_s[l] = rowv[v0 + l] - dt_in[v0 + l] * ddt_att[v0 + l] - dw * w;
+    dww += dw * w;
+  }
+  sg = block_sum(sg, red);
+  dww = block_sum(dww, red);
+  if (tid >= 32) return;
+  const float dcs_end = dww + decay[ch] * sg;
+  const float av = a[h];
+  // warp 0: lane k takes the run of reversed positions m = k per .. ,
+  // l = kv - 1 - m
+  const int per = (kv + 31) / 32, m0 = lane * per;
+  float run = 0.f;
+  for (int k = 0; k < per && m0 + k < kv; ++k) run += dcs_s[kv - 1 - m0 - k];
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  float acc = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) acc = 0.f;
+  acc += dcs_end;
+  float pda = 0.f;
+  for (int k = 0; k < per && m0 + k < kv; ++k) {
+    const int l = kv - 1 - m0 - k;
+    acc += dcs_s[l];                           // dda_l
+    ddt[((size_t)bi * d.S + t0 + l) * d.H + h] =
+        ddt_att[v0 + l] + dw_in[v0 + l] * e_s[l] + acc * av;
+    pda += acc * dt_in[v0 + l];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) pda += __shfl_xor_sync(0xffffffffu, pda, o);
+  if (lane == 0) dap[ch] = pda;
+}
+
 // ------------------------------------------------------------- launches --
 
 // each kernel's dynamic shared memory: the alignment slack, the tiles, the
@@ -549,6 +1273,110 @@ int dispatch(int dtype, int dt_dtype, int P, const Args& a) {
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ------------------------------------------------------- K3b launches --
+
+// the column and row kernels' dynamic shared memory (kernels/ssd_scan.py's
+// smem_bytes mirrors it); the deposit kernel takes state_smem's
+size_t bwd_block_smem(int n, int cl) {
+  return 1024 + (size_t)(4 * (n / 64) + 3) * kTile +
+         2 * sizeof(float) * ((cl + kRows - 1) / kRows * kRows);
+}
+
+struct BwdArgs {
+  const void *x, *dt, *a, *b, *c, *states, *dy, *dfinal;
+  void *dx, *ddt, *dbh, *dch, *dinit, *scratch;
+  Dims d;
+  cudaStream_t stream;
+};
+
+template <typename Tag, int N, typename TD, typename TY>
+int run_bwd(const BwdArgs& a) {
+  const Dims& d = a.d;
+  const size_t sa = state_smem(N, d.cl), sc = bwd_block_smem(N, d.cl);
+  const size_t sf = 2 * sizeof(float) * d.cl;
+  int err;
+  if ((err = prepare(ssd_sm90_bwd_deposit_kernel<Tag, N, TD, TY>, sa)) ||
+      (err = prepare(ssd_sm90_bwd_column_kernel<Tag, N, TY>, sc)) ||
+      (err = prepare(ssd_sm90_bwd_row_kernel<Tag, N, TY>, sc)) ||
+      (err = prepare(ssd_sm90_bwd_finish_kernel, sf)))
+    return err;
+  const uint16_t* x = static_cast<const uint16_t*>(a.x);
+  const uint16_t* b = static_cast<const uint16_t*>(a.b);
+  const uint16_t* c = static_cast<const uint16_t*>(a.c);
+  const TY* dy = static_cast<const TY*>(a.dy);
+  const float* states = static_cast<const float*>(a.states);
+  // the scratch: the dS buffer (B, H, nc, P, N), then cs, dt, ddt_att, dw
+  // and the row terms (B, H, nc, cl) each, the decays and the da partials
+  // (B, H, nc) each
+  const size_t n_c = (size_t)d.B * d.H * d.nc, n_v = n_c * d.cl;
+  float* const ds = static_cast<float*>(a.scratch);
+  float* const cs = ds + n_c * kP * N;
+  float* const dtv = cs + n_v;
+  float* const ddt_att = dtv + n_v;
+  float* const dw = ddt_att + n_v;
+  float* const rowv = dw + n_v;
+  float* const decay = rowv + n_v;
+  float* const dap = decay + n_c;
+  const int nrb = (d.cl + kRows - 1) / kRows, pn4 = kP * N / 4;
+  ssd_sm90_bwd_deposit_kernel<Tag, N, TD, TY>
+      <<<dim3(d.nc, d.H, d.B), kThreads, sa, a.stream>>>(
+          dy, static_cast<const TD*>(a.dt), static_cast<const float*>(a.a),
+          c, ds, cs, dtv, decay, d);
+  if ((err = (int)cudaGetLastError())) return err;
+  ssd_sm90_bwd_dstate_pass_kernel<<<dim3(d.B * d.H,
+                                         (pn4 + kThreads - 1) / kThreads),
+                                    kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.dfinal), decay, ds,
+      static_cast<float*>(a.dinit), d.nc, pn4);
+  if ((err = (int)cudaGetLastError())) return err;
+  ssd_sm90_bwd_column_kernel<Tag, N, TY>
+      <<<dim3(d.B * d.H, d.nc, nrb), kThreads, sc, a.stream>>>(
+          x, b, c, dy, ds, cs, dtv, static_cast<float*>(a.dx),
+          static_cast<float*>(a.dbh), ddt_att, dw, d);
+  if ((err = (int)cudaGetLastError())) return err;
+  ssd_sm90_bwd_row_kernel<Tag, N, TY>
+      <<<dim3(d.B * d.H, d.nc, nrb), kThreads, sc, a.stream>>>(
+          x, b, c, dy, states, cs, dtv, static_cast<float*>(a.dch), rowv, d);
+  if ((err = (int)cudaGetLastError())) return err;
+  ssd_sm90_bwd_finish_kernel<<<dim3(d.B * d.H, d.nc), kThreads, sf,
+                               a.stream>>>(
+      states, ds, cs, dtv, ddt_att, dw, rowv, decay,
+      static_cast<const float*>(a.a), static_cast<float*>(a.ddt), dap, d,
+      pn4);
+  return (int)cudaGetLastError();
+}
+
+template <typename Tag, typename TD, typename TY>
+int run_bwd_n(const BwdArgs& a) {
+  if (a.d.N == 64) return run_bwd<Tag, 64, TD, TY>(a);
+  if (a.d.N == 128) return run_bwd<Tag, 128, TD, TY>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename Tag>
+int run_bwd_types(int dt_dtype, int dy_dtype, const BwdArgs& a) {
+  if (dt_dtype)
+    return dy_dtype ? run_bwd_n<Tag, uint16_t, uint16_t>(a)
+                    : run_bwd_n<Tag, uint16_t, float>(a);
+  return dy_dtype ? run_bwd_n<Tag, float, uint16_t>(a)
+                  : run_bwd_n<Tag, float, float>(a);
+}
+
+// dtype: 1 bfloat16, 2 float16; dt_dtype and dy_dtype 0 (float32) or dtype
+int dispatch_bwd(int dtype, int dt_dtype, int dy_dtype, int P,
+                 const BwdArgs& a) {
+  const Dims& d = a.d;
+  if (d.B <= 0 || d.S <= 0 || d.H <= 0 || d.G <= 0 || d.H % d.G != 0 ||
+      P != kP || d.cl <= 0 || d.nc != (d.S + d.cl - 1) / d.cl ||
+      d.nc > 65535 || (dt_dtype != 0 && dt_dtype != dtype) ||
+      (dy_dtype != 0 && dy_dtype != dtype))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1) return run_bwd_types<Bf16>(dt_dtype, dy_dtype, a);
+  if (dtype == 2) return run_bwd_types<F16>(dt_dtype, dy_dtype, a);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // init may be null (zeros). chunk_states (B, H, nc, P, N), cs (B, H, nc,
@@ -571,4 +1399,25 @@ extern "C" int ssd_scan_fwd_sm90_launch(int dtype, int dt_dtype,
   a_.d = Dims{B, S, H, G, N, cl, cl > 0 ? (S + cl - 1) / cl : 0};
   a_.stream = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, dt_dtype, P, a_);
+}
+
+// K3b: chunk_states (B, H, nc, P, N) are the forward's entering states,
+// dy (B, S, H, P) in float32 or x's type, dfinal (B, H, P, N) float32;
+// dx, ddt, per-head db and dc (dbh, dch (B, S, H, N)) and dinit come back
+// float32, and the scratch (the wrapper's, float32, sized by shapes: see
+// run_bwd) ends with the (B, H, nc) da partials. Returns a cudaError_t.
+extern "C" int ssd_scan_bwd_sm90_launch(
+    int dtype, int dt_dtype, int dy_dtype, const void* x, const void* dt,
+    const void* a, const void* b, const void* c, const void* chunk_states,
+    const void* dy, const void* dfinal, void* dx, void* ddt, void* dbh,
+    void* dch, void* dinit, void* scratch, int B, int S, int H, int P, int G,
+    int N, int cl, void* stream) {
+  BwdArgs a_{};
+  a_.x = x; a_.dt = dt; a_.a = a; a_.b = b; a_.c = c;
+  a_.states = chunk_states; a_.dy = dy; a_.dfinal = dfinal;
+  a_.dx = dx; a_.ddt = ddt; a_.dbh = dbh; a_.dch = dch; a_.dinit = dinit;
+  a_.scratch = scratch;
+  a_.d = Dims{B, S, H, G, N, cl, cl > 0 ? (S + cl - 1) / cl : 0};
+  a_.stream = static_cast<cudaStream_t>(stream);
+  return dispatch_bwd(dtype, dt_dtype, dy_dtype, P, a_);
 }

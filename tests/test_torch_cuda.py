@@ -6,9 +6,10 @@ route and its refusal of misaligned pools, K2 (CUDA C++: K2f,
 K2q, K2kv) with dead rows, windows and ragged tails, at D = 112 and
 through one train step, the tensor-core routes of K2f and of K2q/K2kv
 (bfloat16, float16 at D 64 and 128), their route counts and their
-refusal of misaligned tensors, K3 (CUDA C++: K3f on both routes, K3b)
-with ragged tails, clamped chunks, groups and an initial state, through
-``SSDScan`` and one mamba train step. Skips without a CUDA card.
+refusal of misaligned tensors, K3 (CUDA C++: K3f and K3b on both
+routes, the sm90 ones also against their emulated roundings) with ragged
+tails, clamped chunks, groups and an initial state, through ``SSDScan``
+and one mamba train step. Skips without a CUDA card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -390,12 +391,13 @@ def _rel(a, b):
                                    torch.float16])
 def test_ssd_scan_kernels_match_plain_versions(cuda, B, S, H, P, G, N, cl,
                                                dtype):
-    """K3f and K3b against the plain pair from the same inputs and
-    initial state; float32 to 1e-4 and 16 bits (y stored in 16 bits) to
-    1e-2 of each tensor's largest entry; the states and gradients are
-    float32 on both sides (1e-4), K3b reading the forward's states. Where
-    K3f takes its sm90 route: one count on it, two calls bit for bit, no
-    initial state and dt in x's type held the same way."""
+    """K3f and K3b's first version (route ``simt``) against the plain pair
+    from the same inputs and initial state; float32 to 1e-4 and 16 bits
+    (y stored in 16 bits) to 1e-2 of each tensor's largest entry; the
+    states and the simt route's gradients are float32 on both sides
+    (1e-4), K3b reading the forward's states. Where K3f takes its sm90
+    route: one count on it, two calls bit for bit, no initial state and
+    dt in x's type held the same way. K3b's sm90 route: the next test."""
     from repro_torch.kernels import ssd_scan as K3
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -409,12 +411,17 @@ def test_ssd_scan_kernels_match_plain_versions(cuda, B, S, H, P, G, N, cl,
         r: int(r == route) for r in ("sm90", "simt")}
     assert route == ("simt" if dtype == torch.float32 or P != 64
                      or N not in (64, 128) else "sm90")
+    assert K3.bwd_route(dtype, P, N) == route
     py, pfin, pst = K3.ssd_scan_fwd_plain(x, dt, a, b, c, s0, chunk=cl)
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     assert y.dtype == dtype and _rel(y, py) <= tol
     assert _rel(fin, pfin) <= 1e-4 and _rel(st, pst) <= 1e-4
-    got = K3.ssd_scan_bwd(x, dt, a, b, c, st, dy, dfin, chunk=cl)
+    before = dict(K3.bwd_routes)
+    got = K3.ssd_scan_bwd(x, dt, a, b, c, st, dy, dfin, chunk=cl,
+                          route="simt")
     torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in K3.bwd_routes.items()} == {
+        "sm90": 0, "simt": 1}
     want = K3.ssd_scan_bwd_plain(x, dt, a, b, c, pst, dy, dfin, chunk=cl)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
@@ -430,38 +437,109 @@ def test_ssd_scan_kernels_match_plain_versions(cuda, B, S, H, P, G, N, cl,
         assert _rel(y2, py2) <= tol and _rel(fin2, pfin2) <= 1e-4
 
 
-def test_ssd_scan_sm90_raises_on_misaligned_tensors(cuda):
-    """The sm90 route moves 16 bytes at a time: an x whose base is not
-    16-byte aligned is refused before a launch, and nothing is counted."""
+# K3b's sm90 route against the chunked plain version with its rounding
+# points emulated: the same arithmetic, so closer than the 1e-2 the
+# 16-bit roundings allow against float32 (sums in another order, and a
+# value the kernel and the emulation round to neighbouring 16-bit numbers)
+TOL_K3B_EMULATED = {torch.bfloat16: 2e-3, torch.float16: 5e-4}
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,cl", [k for k in K3_CASES
+                                            if k[3] == 64
+                                            and k[5] in (64, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_ssd_scan_bwd_sm90_matches_plain_versions(cuda, B, S, H, P, G, N,
+                                                  cl, dtype):
+    """K3b's sm90 route (16 bits at P 64, N 64/128) from the forward's
+    states: one count on it; dx, ddt, da, db and dc within 1e-2 of each
+    largest entry of the float32 plain (autograd), d(initial_state) within
+    1e-4, all within TOL_K3B_EMULATED of ``ssd_scan_bwd_chunked_plain``
+    with the route's roundings; two calls bit for bit; a float32 dy (read
+    rounded to x's type) gives what dy in x's type gives, bit for bit; dt
+    in x's type held the same way."""
     from repro_torch.kernels import ssd_scan as K3
 
-    x, dt, a, b, c, s0, _, _ = _ssd_inputs(1, 64, 2, 64, 1, 64,
-                                           torch.bfloat16, cuda)
-    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
-    odd = flat[1:].view(x.shape)
-    odd.copy_(x)
+    x, dt, a, b, c, s0, dy32, dfin = _ssd_inputs(B, S, H, P, G, N, dtype,
+                                                 cuda)
+    dy = dy32.to(dtype)
+    _, _, st = K3.ssd_scan_fwd(x, dt, a, b, c, s0, chunk=cl,
+                               return_chunk_states=True)
+    before = dict(K3.bwd_routes)
+    got = K3.ssd_scan_bwd(x, dt, a, b, c, st, dy, dfin, chunk=cl)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in K3.bwd_routes.items()} == {
+        "sm90": 1, "simt": 0}
+    want = K3.ssd_scan_bwd_plain(x, dt, a, b, c, st, dy, dfin, chunk=cl)
+    emul = K3.ssd_scan_bwd_chunked_plain(x, dt, a, b, c, st, dy, dfin,
+                                         chunk=cl, emulate=dtype)
+    for i, (g, w, e) in enumerate(zip(got, want, emul)):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) <= (1e-4 if i == 5 else 1e-2), i
+        assert _rel(g, e) <= TOL_K3B_EMULATED[dtype], i
+    for again in (K3.ssd_scan_bwd(x, dt, a, b, c, st, dy, dfin, chunk=cl),
+                  K3.ssd_scan_bwd(x, dt, a, b, c, st, dy32, dfin,
+                                  chunk=cl)):
+        assert all(torch.equal(u, v) for u, v in zip(again, got))
+    d16 = dt.to(dtype)
+    got16 = K3.ssd_scan_bwd(x, d16, a, b, c, st, dy, dfin, chunk=cl)
+    want16 = K3.ssd_scan_bwd_plain(x, d16, a, b, c, st, dy, dfin, chunk=cl)
+    for i, (g, w) in enumerate(zip(got16, want16)):
+        assert _rel(g, w) <= (1e-4 if i == 5 else 1e-2), i
+
+
+def test_ssd_scan_sm90_raises_on_misaligned_tensors(cuda):
+    """The sm90 routes move 16 bytes at a time: an x (K3f) or a dy (K3b)
+    whose base is not 16-byte aligned is refused before a launch, and
+    nothing is counted."""
+    from repro_torch.kernels import ssd_scan as K3
+
+    x, dt, a, b, c, s0, dy, dfin = _ssd_inputs(1, 64, 2, 64, 1, 64,
+                                               torch.bfloat16, cuda)
+
+    def odd(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
     before = dict(K3.fwd_routes)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        K3.ssd_scan_fwd(odd, dt, a, b, c, s0, chunk=64)
+        K3.ssd_scan_fwd(odd(x), dt, a, b, c, s0, chunk=64)
     assert K3.fwd_routes == before
+    _, _, st = K3.ssd_scan_fwd(x, dt, a, b, c, s0, chunk=64,
+                               return_chunk_states=True)
+    before = (dict(K3.bwd_routes), dict(K3.launches))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K3.ssd_scan_bwd(x, dt, a, b, c, st, odd(dy.to(x.dtype)), dfin,
+                        chunk=64)
+    assert (K3.bwd_routes, K3.launches) == before
 
 
-def test_ssd_scan_autograd_and_launches(cuda):
+@pytest.mark.parametrize("B,S,H,P,G,N,route", [(1, 70, 4, 16, 2, 8, "simt"),
+                                               (1, 130, 4, 64, 2, 64,
+                                                "sm90")])
+def test_ssd_scan_autograd_and_launches(cuda, B, S, H, P, G, N, route):
     """SSDScan with dt in bfloat16 beside bfloat16 x: one K3f and one K3b
-    launch, the gradients in the inputs' dtypes, against ``ref.ssd_grads``
-    (the sequential recurrence) in float32 to 1e-2 of the largest entry."""
+    launch, each on its route (the bfloat16 dy the autograd hands K3b
+    read as it is), the gradients in the inputs' dtypes, against
+    ``ref.ssd_grads`` (the sequential recurrence) in float32 to 2e-2 of
+    the largest entry."""
     from repro_torch.kernels import ssd_scan as K3
 
-    x, dt, a, b, c, s0, dy, dfin = _ssd_inputs(1, 70, 4, 16, 2, 8,
+    x, dt, a, b, c, s0, dy, dfin = _ssd_inputs(B, S, H, P, G, N,
                                                torch.bfloat16, cuda,
                                                dt_dtype=torch.bfloat16)
     leaves = [t.detach().requires_grad_(True) for t in (x, dt, a, b, c, s0)]
-    before = dict(K3.launches)
+    before = (dict(K3.launches), dict(K3.fwd_routes), dict(K3.bwd_routes))
     y, fin = K3.SSDScan.apply(*leaves, 32)
     grads = torch.autograd.grad((y, fin), leaves, (dy.to(y.dtype), dfin))
     torch.cuda.synchronize()
-    assert {k: v - before[k] for k, v in K3.launches.items()} == {
+    assert {k: v - before[0][k] for k, v in K3.launches.items()} == {
         "ssd_scan_fwd": 1, "ssd_scan_bwd": 1}
+    for counts, old in zip((K3.fwd_routes, K3.bwd_routes), before[1:]):
+        assert {k: v - old[k] for k, v in counts.items()} == {
+            r: int(r == route) for r in ("sm90", "simt")}
     want = ref.ssd_grads(*(t.float() for t in (x, dt, a, b, c, s0)),
                          dy.to(torch.bfloat16).float(), dfin)
     for g, w, t in zip(grads, want, leaves):
@@ -471,17 +549,26 @@ def test_ssd_scan_autograd_and_launches(cuda):
 
 def test_ssm_train_step_launches_k3_per_block(cuda):
     """One mamba2 train step with remat: K3f twice a block (the forward and
-    its recomputation), K3b once; a zamba2 step adds K2 for each
-    application of its shared block."""
+    its recomputation), K3b once, all on the route the dtype and widths
+    choose (simt at the float32 smoke widths; sm90 with bfloat16 at P 64,
+    N 64); a zamba2 step adds K2 for each application of its shared
+    block."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ssd_scan as K3
     from repro_torch.launch import steps as ST
 
-    for arch, n_attn in (("mamba2-130m", 0), ("zamba2-7b", 2)):
-        cfg = get_smoke_config(arch).replace(remat=True)
+    for arch, n_attn, widths in (
+            ("mamba2-130m", 0, {}), ("zamba2-7b", 2, {}),
+            ("mamba2-130m", 0, dict(dtype="bfloat16", ssm_head_dim=64,
+                                    ssm_state=64))):
+        cfg = get_smoke_config(arch).replace(remat=True, **widths)
+        route = K3.fwd_route(getattr(torch, cfg.dtype), cfg.ssm_head_dim,
+                             cfg.ssm_state)
+        assert route == ("sm90" if widths else "simt")
         state = ST.make_train_state(cfg, device=cuda)
         x = torch.randint(0, cfg.vocab_size, (2, 41), device=cuda)
         before = {**K3.launches, **FA.launches}
+        routes = (dict(K3.fwd_routes), dict(K3.bwd_routes))
         state, m = ST.make_train_step(cfg)(state, {"tokens": x[:, :-1],
                                                    "labels": x[:, 1:]})
         torch.cuda.synchronize()
@@ -492,4 +579,8 @@ def test_ssm_train_step_launches_k3_per_block(cuda):
                        "flash_attention_fwd": 2 * n_attn,
                        "flash_attention_bwd_dq": n_attn,
                        "flash_attention_bwd_dkv": n_attn}
+        for counts, old, n in zip((K3.fwd_routes, K3.bwd_routes), routes,
+                                  (2 * L, L)):
+            assert {k: v - old[k] for k, v in counts.items()} == {
+                r: n * (r == route) for r in ("sm90", "simt")}
         assert bool(torch.isfinite(m["loss"])) and float(m["grad_norm"]) > 0
