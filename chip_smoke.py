@@ -55,17 +55,26 @@ result line is printed:
      after, every other kernel's 0;
   6. one server epoch of the main path under ``torch.profiler``: device
      busy share and kernel time by name;
-  7. one server step of a small federation on the card (K1 kernels) and
+  7. paper_tables, the paper's comparison on the main path's five trained
+     clients at its cuts: FedDF, Fed-DAFL and Fed-ADI (Table 1), DENSE on
+     a federation trained with LDAM (Table 4) and two rounds of
+     multi-round DENSE (Table 5), each with its seconds, seconds an epoch
+     and accuracy; K1's counts zeroed before each and read after it
+     (epochs·s_steps of each for a baseline, epochs·(t_g + s_steps) for
+     DENSE+LDAM, two rounds of that for multi-round), the multi-round
+     ledger (2 rounds, one broadcast of n_clients models) and the phase's
+     peak device memory;
+  8. one server step of a small federation on the card (K1 kernels) and
      on the CPU (the plain ``ref`` KL) from the same weights and images:
      the losses, their gradient with respect to the images and the
      student's update must agree to 1e-4 (the CPU path is held to the JAX
      package by the tests);
-  8. serve_check: llama3.2-3b at full width (d_model 3072, vocab 128256)
+  9. serve_check: llama3.2-3b at full width (d_model 3072, vocab 128256)
      with depth cut to 2 layers, float32 without TF32: the paged engine
      (K4) and the dense engine give the same tokens for 6 ragged
      requests in 4 slots, and K4 launches decode steps × layers times,
      every launch on the ``sm90`` route;
-  9. serve, the serving main path: llama3.2-3b at full width and depth,
+ 10. serve, the serving main path: llama3.2-3b at full width and depth,
      bfloat16, random weights from a seeded ``torch.Generator``; 16
      requests (prompts of 64–448 tokens, 32–64 new, max_len 512) through
      8 slots of the paged engine, page 16. Every launch count is zeroed
@@ -73,12 +82,12 @@ result line is printed:
      ``sm90``, the others 0. Then one decode step of 8 running requests under
      ``torch.profiler``: device idle share and the top kernels, with
      K4's share;
- 10. train_check: one train step of llama3.2-3b at full width, 2 layers,
+ 11. train_check: one train step of llama3.2-3b at full width, 2 layers,
      float32: the K2 route and the plain route agree to 1e-4;
- 11. dense_llm_check: one generator step and one student step of the
+ 12. dense_llm_check: one generator step and one student step of the
      example's heterogeneous federation (smoke widths) on the card and on
      the CPU agree to 1e-4;
- 12. llm_main_path, the LLM DENSE main path at full width and depth
+ 13. llm_main_path, the LLM DENSE main path at full width and depth
      (``dense_llm_oneshot.full()``: two llama3.2-3b clients, a llama3.2-3b
      student, bfloat16): 3 local train steps a client, the one-shot
      upload, 2 epochs of 3 generator steps and a student step. Every
@@ -88,7 +97,7 @@ result line is printed:
      K1f, K1b), every K2f, K2q and K2kv launch on the ``sm90`` route;
      then one epoch under ``torch.profiler`` with K2's share, each K2
      kernel's time by route;
- 13. K3 (K3f, K3b, CUDA C++) against its plain versions (the chunked
+ 14. K3 (K3f, K3b, CUDA C++) against its plain versions (the chunked
      formula in PyTorch and autograd through it): mamba2-130m's train
      shape (8, 256, 24 heads, P 64, N 128, chunk 256) in bfloat16,
      float16 and float32, zamba2-7b's prefill (1, 448, 112 heads, P 64,
@@ -108,24 +117,24 @@ result line is printed:
      float32 plain version (1e-2 of each largest entry, d(initial_state)
      1e-4) and against the route's roundings emulated
      (``ssd_scan_bwd_chunked_plain``), each over its tolerance;
- 14. ssm_serve_check: zamba2-7b (7 layers: a super-block of 6 mamba
+ 15. ssm_serve_check: zamba2-7b (7 layers: a super-block of 6 mamba
      blocks and the shared block, and one tail block) and mamba2-130m (2
      layers) at full width, float32: paged ≡ dense engine for 6 requests
      of up to 300 tokens (two chunks, a ragged tail) in 4 slots, K3f once
      a mamba block a prefill (on ``simt``, float32) and K4 once a
      shared-block application a decode step, on ``sm90``;
- 15. ssm_serve: zamba2-7b at full width and depth (81 mamba blocks, 13
+ 16. ssm_serve: zamba2-7b at full width and depth (81 mamba blocks, 13
      applications of the shared block, bfloat16), the serve phase's 16
      requests through 8 slots: K3f must read prefills × 81 and K4 decode
      steps × 13, both on ``sm90``; then one profiled decode step;
- 16. ssm_train_check: one zamba2-7b train step at full width, 7 layers,
+ 17. ssm_train_check: one zamba2-7b train step at full width, 7 layers,
      float32, batch 2 × 512 (two chunks): the K3/K2 route and the plain
      route agree to 1e-4 (K3f 2 × 7 with remat and K3b 7, all on
      ``simt``, K2 on the one shared-block application);
- 17. ssm_llm_main_path, the LLM DENSE main path with the ssm family
+ 18. ssm_llm_main_path, the LLM DENSE main path with the ssm family
      (``dense_llm_oneshot.full_ssm()``: two mamba2-130m clients and a
      mamba2-130m student, full width and depth, bfloat16), counted step by
-     step as in 12 with K3f and K3b in place of K2, every K3f and K3b
+     step as in 13 with K3f and K3b in place of K2, every K3f and K3b
      launch on ``sm90``; then one epoch under ``torch.profiler`` with
      K3's share, K3f's and K3b's device time by route.
 
@@ -136,6 +145,7 @@ phase, the ``{"kernels": [...]}`` line, and last the result line
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -502,32 +512,42 @@ def kernel_phase(torch):
 
 # ------------------------------------------------------------ main path --
 
-def main_path(torch, scfg, dev="cuda"):
-    from repro_torch.core import evaluate, train_dense_server
+def cifar_data(scfg) -> dict:
+    """The procedural stand-in for CIFAR10 that the DENSE paths train on."""
     from repro_torch.data import make_classification_data
-    from repro_torch.fl import CommLedger, build_federation, fedavg
 
-    data = make_classification_data(
+    return make_classification_data(
         scfg.seed, num_classes=scfg.num_classes, size=scfg.image_size,
         ch=scfg.in_ch, train_per_class=scfg.train_per_class,
         test_per_class=scfg.test_per_class)
+
+
+def timed(torch, dev, fn):
+    """(fn(), its seconds on the host clock, the device synchronized at
+    both ends)."""
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, dev)
+    return out, time.perf_counter() - t0
+
+
+def main_path(torch, scfg, dev="cuda"):
+    from repro_torch.core import evaluate, train_dense_server
+    from repro_torch.fl import CommLedger, build_federation, fedavg
+
+    data = cifar_data(scfg)
     xt, yt = data["test"]
 
-    def timed(fn):
-        sync(torch, dev)
-        t0 = time.perf_counter()
-        out = fn()
-        sync(torch, dev)
-        return out, time.perf_counter() - t0
-
+    clocked = functools.partial(timed, torch, dev)
     ledger = CommLedger()
     zero_counts()
-    (clients, _), t_fed = timed(lambda: build_federation(
+    (clients, _), t_fed = clocked(lambda: build_federation(
         scfg, data, device=dev, ledger=ledger, seed=scfg.seed))
-    avg, t_avg = timed(lambda: fedavg(clients))
-    (student, _, hist), t_dense = timed(lambda: train_dense_server(
+    avg, t_avg = clocked(lambda: fedavg(clients))
+    (student, _, hist), t_dense = clocked(lambda: train_dense_server(
         clients, scfg, device=dev))
-    acc_dense, t_eval = timed(lambda: evaluate(student, xt, yt))
+    acc_dense, t_eval = clocked(lambda: evaluate(student, xt, yt))
     launches = read_counts()
 
     want = scfg.epochs * (scfg.t_g + scfg.s_steps)
@@ -562,6 +582,124 @@ def main_path(torch, scfg, dev="cuda"):
         "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
                          if torch.device(dev).type == "cuda" else None)}})
     return clients, launches
+
+
+# --------------------------------------------------------- paper tables --
+
+PAPER_ROUNDS = 2
+# LDAM (s = 30 on raw logits) trains at an effective rate 30x CE's, and
+# after one local epoch the clients' BN running statistics still lag
+# their weights: on generator images their eval-mode activations grow
+# layer by layer until DENSE's L_BN overflows float32 (inf at epoch 0 on
+# the card at one local epoch; the reference computes the same). More
+# local epochs let the statistics catch up.
+LDAM_LOCAL_EPOCHS = 6
+
+
+def finite(values) -> bool:
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
+def paper_tables(torch, scfg, clients, dev="cuda"):
+    """The paper's comparison on the main path's trained clients and cuts:
+    the one-shot baselines FedDF, Fed-DAFL and Fed-ADI (Table 1), DENSE
+    on a federation trained with LDAM (Table 4) and two rounds of
+    multi-round DENSE (Table 5), one JSON line each. Each run's launch
+    counts are zeroed just before it and must read, just after:
+    epochs·s_steps of each K1 kernel for a baseline (its student steps),
+    epochs·(t_g + s_steps) for DENSE+LDAM and rounds times that for
+    multi-round, nothing else. Every loss must be finite: the baselines
+    and the DENSE driver raise ``FloatingPointError`` on one that is not.
+    Returns each run's K1 launches."""
+    from repro_torch.configs import CONFIG
+    from repro_torch.core import evaluate, train_dense_server
+    from repro_torch.fl import (CommLedger, build_federation,
+                                dense_multi_round, fed_adi, fed_dafl, fed_df,
+                                param_bytes)
+
+    on_card = torch.device(dev).type == "cuda"
+    data = cifar_data(scfg)
+    xt, yt = data["test"]
+    clocked = functools.partial(timed, torch, dev)
+    dense_each = scfg.epochs * (scfg.t_g + scfg.s_steps)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launches = {}
+
+    def report(name, want, accs, **fields):
+        got = read_counts()
+        launches[name] = got
+        # a CPU run (a rehearsal) takes the plain versions
+        if on_card and got != expected(distill_kl_fwd=want,
+                                       distill_kl_bwd=want):
+            fail(f"paper_tables: {name} launched {got}, expected {want} of "
+                 "each K1 kernel and nothing else")
+        if not all(0.0 <= a <= 1.0 for a in accs):
+            fail(f"paper_tables: {name}: accuracy out of [0, 1]: {accs}")
+        emit({"paper_tables": {"run": name, **fields, "launches": got,
+                               "expected_launches_each": want}})
+
+    try:
+        for name, fn in (("fed_df", fed_df), ("fed_dafl", fed_dafl),
+                         ("fed_adi", fed_adi)):
+            zero_counts()
+            (student, _), secs = clocked(lambda: fn(clients, scfg,
+                                                    device=dev))
+            acc = evaluate(student, xt, yt)
+            report(name, scfg.epochs * scfg.s_steps, [acc], seconds=secs,
+                   seconds_per_epoch=secs / scfg.epochs, acc=acc)
+            del student
+
+        ldam = dataclasses.replace(scfg, use_ldam=True,
+                                   local_epochs=LDAM_LOCAL_EPOCHS)
+        zero_counts()
+        (ldam_clients, _), t_fed = clocked(lambda: build_federation(
+            ldam, data, device=dev, seed=scfg.seed))
+        (student, _, hist), t_dense = clocked(lambda: train_dense_server(
+            ldam_clients, ldam, device=dev))
+        if not finite(hist.gen_loss + hist.dis_loss):
+            fail(f"paper_tables: DENSE+LDAM losses are not finite: {hist}")
+        accs = [evaluate(c.model, xt, yt) for c in ldam_clients]
+        acc = evaluate(student, xt, yt)
+        report("dense_ldam", dense_each, accs + [acc],
+               seconds={"build_federation": t_fed,
+                        "train_dense_server": t_dense},
+               seconds_per_epoch=t_dense / scfg.epochs,
+               acc={"clients": accs, "dense": acc},
+               gen_loss=hist.gen_loss, dis_loss=hist.dis_loss,
+               gen_parts=hist.gen_parts)
+        del ldam_clients, student, hist
+
+        ledger = CommLedger()
+        zero_counts()
+        (model, _, accs), secs = clocked(lambda: dense_multi_round(
+            scfg, data, rounds=PAPER_ROUNDS, ledger=ledger, seed=scfg.seed,
+            device=dev, eval_fn=lambda m, spec: evaluate(m, xt, yt)))
+    except FloatingPointError as e:
+        fail(f"paper_tables: {e}")
+    down = scfg.n_clients * param_bytes(model)
+    if ledger.rounds != PAPER_ROUNDS or ledger.downlink_bytes != down:
+        fail(f"paper_tables: multi-round ledger has {ledger.rounds} rounds "
+             f"and {ledger.downlink_bytes} B down, expected {PAPER_ROUNDS} "
+             f"and {down}")
+    report("multi_round", PAPER_ROUNDS * dense_each, accs,
+           rounds=ledger.rounds, seconds=secs,
+           seconds_per_round=secs / PAPER_ROUNDS, acc_after_round=accs,
+           uplink_bytes=ledger.uplink_bytes,
+           downlink_bytes=ledger.downlink_bytes)
+    emit({"paper_tables": {
+        "seconds_total": time.perf_counter() - t0,
+        "peak_mem_gib": _peak_gib(torch) if on_card else None,
+        "cuts": {"local_epochs": [CONFIG.local_epochs, scfg.local_epochs],
+                 "ldam_local_epochs": [CONFIG.local_epochs,
+                                       LDAM_LOCAL_EPOCHS],
+                 "epochs": [CONFIG.epochs, scfg.epochs],
+                 "rounds": PAPER_ROUNDS,
+                 "kept": "main_path's clients, widths, batch, synth_batch, "
+                         "nz and t_g"}}})
+    return {name: {k: r[k] for k in ("distill_kl_fwd", "distill_kl_bwd")}
+            for name, r in launches.items()}
 
 
 # -------------------------------------------------------------- profile --
@@ -818,22 +956,24 @@ def k4_phase(torch):
             sm90 = rotating(PK.paged_attention, pools)
             simt = rotating(lambda *a: PK.paged_attention(*a, route="simt"),
                             pools)
-            kept = {}
+            prof = {}
             device = device_ms_per_call(
                 torch, sm90, lambda n: "sm90_paged_attention" in n,
-                counts=kept)
+                info=prof,
+                name=f"paged_attention sm90 R{R} D{d} M{m} {dname}")
             rows.append({
                 "shape": {"R": R, "Hq": hq, "Hkv": hkv, "D": d, "page": page,
                           "M": m}, "seq_lens": seq.tolist(), "dtype": dname,
                 "route": "sm90", "splits": n_split, "pages_a_split": pps,
                 "ok": ok and zero_rows, "zero_rows_exact": zero_rows,
                 "max_abs_err": err, "tol": TOL_K4[dname],
-                "ms": cuda_ms(torch, sm90), "device_ms": device,
-                "profiled_records": sum(kept.values()),
+                "ms": cuda_ms(torch, sm90), "device_ms": device, **prof,
                 "first_version_ms": cuda_ms(torch, simt),
                 "first_version_device_ms": device_ms_per_call(
                     torch, simt, lambda n: "paged_attention_kernel<" in n
-                    and "sm90_" not in n),
+                    and "sm90_" not in n,
+                    name=f"paged_attention simt R{R} D{d} M{m} "
+                    f"{dname}"),
                 "plain_ms": cuda_ms(torch, rotating(PK.paged_attention_plain,
                                                     pools)),
                 "library_ms": cuda_ms(torch, rotating(
@@ -1108,17 +1248,57 @@ def device_ms_by_name(torch, fn, calls: int = 20, counts=None) -> dict:
     return {k: v / max(kept.get(k, calls), 1) for k, v in per_kernel.items()}
 
 
-def device_ms_per_call(torch, fn, match, calls: int = 20,
-                       counts=None) -> float:
-    """Device time a call of the kernels whose names satisfy ``match``,
-    each launched once a call. ``counts``, a dict, receives the records
-    kept of each of those kernels."""
-    kept = {}
-    ms = sum(v for k, v in device_ms_by_name(torch, fn, calls, kept).items()
-             if match(k))
-    if counts is not None:
-        counts.update({k: n for k, n in kept.items() if match(k)})
-    return ms
+# kernels the profiler kept no record of in any of a call's tries, timed
+# from CUDA events instead (one entry each, in the "profiler" line)
+PROFILER_FALLBACKS = []
+
+
+def device_profile(torch, fn, kernels: dict, calls: int = 20,
+                   tries: int = 3, label: str = "") -> dict:
+    """Device time a call of ``fn`` of each of ``kernels`` (a name → a
+    match on device names; each kernel launched once a call), from
+    ``device_ms_by_name``: ``device_ms`` (their sum), ``device_ms_by_kernel``,
+    the records the profiler kept of them and the profiled runs it took.
+    The profiler at times keeps no record of a kernel of a run, so a run
+    that misses one is profiled again, up to ``tries``. If every run missed
+    one, ``device_ms`` is the call's time from CUDA events (``cuda_ms``:
+    the kernels plus any host time between them, so no less than their
+    device time), ``device_ms_source`` says so, the missed kernels' entries
+    are None and the miss is listed, under ``label``, in
+    ``PROFILER_FALLBACKS``."""
+    for run in range(1, tries + 1):
+        counts = {}
+        by_name = device_ms_by_name(torch, fn, calls, counts)
+        names = {k: [n for n in by_name if match(n) and counts.get(n)]
+                 for k, match in kernels.items()}
+        if all(names.values()):
+            break
+    by_kernel = {k: sum(by_name[n] for n in ns) if ns else None
+                 for k, ns in names.items()}
+    out = {"profiled_records": sum(counts[n] for ns in names.values()
+                                   for n in ns),
+           "profile_runs": run, "device_ms_by_kernel": by_kernel}
+    if all(names.values()):
+        return {**out, "device_ms": sum(by_kernel.values()),
+                "device_ms_source": "profiler"}
+    missed = [k for k, ns in names.items() if not ns]
+    PROFILER_FALLBACKS.append({"label": label, "kernels": missed,
+                               "tries": tries})
+    return {**out, "device_ms": cuda_ms(torch, fn),
+            "device_ms_source": "cuda_events"}
+
+
+def device_ms_per_call(torch, fn, match, calls: int = 20, info=None,
+                       name: str = "kernel") -> float:
+    """``device_profile``'s ``device_ms`` for the kernels whose names
+    satisfy ``match``, launched once a call, called ``name`` where the
+    profiler missed them. ``info``, a dict, receives the rest of its result
+    but ``device_ms_by_kernel``."""
+    prof = device_profile(torch, fn, {"kernel": match}, calls, label=name)
+    if info is not None:
+        info.update({k: v for k, v in prof.items()
+                     if k not in ("device_ms", "device_ms_by_kernel")})
+    return prof["device_ms"]
 
 
 def k2_kernel(which, route):
@@ -1226,26 +1406,27 @@ def k2_phase(torch):
             fwd = lambda: FA.flash_attention_fwd(q, k, v, **kw)
             simt = lambda: FA._fwd_launch(q, k, v, causal, window,
                                           1 / d ** 0.5, "simt")
-            kept = {}
+            prof = {}
             row = {
                 **common, "route": route, "ok": ok_o and ok_l and dead_exact,
                 "max_abs_err": max(err_o, err_l), "o_max_abs_err": err_o,
                 "lse_max_abs_err": err_l, "o_tol": list(o_tol),
                 "lse_tol": list(lse_tol), "dead_rows_exact": dead_exact,
                 "ms": cuda_ms(torch, fwd),
-                "device_ms": device_ms_per_call(torch, fwd,
-                                                k2_kernel("fwd", route),
-                                                counts=kept),
+                "device_ms": device_ms_per_call(
+                    torch, fwd, k2_kernel("fwd", route), info=prof,
+                    name=f"flash_attention_fwd {route} {name} {dname}"),
                 "plain_ms": cuda_ms(torch, lambda: FA.flash_attention_fwd_plain(
                     q, k, v, **kw)),
                 "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                     q, k, v, enable_gqa=True, **sdpa_kw)),
                 "bound_ms": b_ms, "bound_by": b_by}
-            row["profiled_records"] = sum(kept.values())
+            row.update(prof)
             if route == "sm90":
                 row["simt_ms"] = cuda_ms(torch, simt)
                 row["simt_device_ms"] = device_ms_per_call(
-                    torch, simt, k2_kernel("fwd", "simt"))
+                    torch, simt, k2_kernel("fwd", "simt"),
+                    name=f"flash_attention_fwd simt {name} {dname}")
             if name == "long" and dtype != torch.float32:
                 row["tflops_live"] = 4 * d * n_live / (row["ms"] * 1e-3) \
                     / 1e12
@@ -1266,20 +1447,23 @@ def k2_phase(torch):
                     q, k, v, do_k if r == broute else dof, lse, delta,
                     route=r, **kw)
                 b_ms, b_by = bound(in_bytes + out_bytes, ops, peak)
-                kept = {}
+                prof = {}
                 row = {**common, "route": broute, "ok": ok,
                        "max_abs_err": abs_err, "max_rel_err": rel_err,
                        **extra, "ms": cuda_ms(torch, call(broute)),
                        "device_ms": device_ms_per_call(
                            torch, call(broute), k2_kernel(which, broute),
-                           counts=kept),
+                           info=prof, name=f"flash_attention_bwd_{which} "
+                           f"{broute} {name} {dname}"),
                        "plain_ms": plain_bwd, "library_ms": lib_bwd,
                        "bound_ms": b_ms, "bound_by": b_by}
-                row["profiled_records"] = sum(kept.values())
+                row.update(prof)
                 if broute == "sm90":
                     row["simt_ms"] = cuda_ms(torch, call("simt"))
                     row["simt_device_ms"] = device_ms_per_call(
-                        torch, call("simt"), k2_kernel(which, "simt"))
+                        torch, call("simt"), k2_kernel(which, "simt"),
+                        name=f"flash_attention_bwd_{which} simt {name} "
+                        f"{dname}")
                 if name == "long" and dtype != torch.float32:
                     row["tflops_live"] = ops / (row["ms"] * 1e-3) / 1e12
                 rows[which].append(row)
@@ -1354,32 +1538,17 @@ K3_KERNELS = {
     ("bwd", "simt"): {"ssd_bwd": "ssd_bwd_kernel<"}}
 
 
-def k3_profile(torch, fn, which, route, tries: int = 3) -> dict:
-    """The device time a call of K3's ``which`` kernels on ``route``
-    (``device_ms_by_name`` over 20 calls), each kernel's
-    (``device_ms_by_phase``, on sm90), the records the profiler kept of
-    them and the profiled runs it took: late in this process the profiler
-    at times keeps no record of a kernel of a run, so a run that misses
-    one is profiled again, up to ``tries``; then the phase fails."""
-    kernels = K3_KERNELS[which, route]
-    for run in range(1, tries + 1):
-        counts = {}
-        by_name = device_ms_by_name(torch, fn, counts=counts)
-        names = {ph: [k for k in by_name if sub in k and counts.get(k)]
-                 for ph, sub in kernels.items()}
-        if all(names.values()):
-            by_phase = {ph: sum(by_name[k] for k in ks)
-                        for ph, ks in names.items()}
-            out = {"device_ms": sum(by_phase.values()),
-                   "profiled_records": sum(counts[k] for ks in names.values()
-                                           for k in ks),
-                   "profile_runs": run}
-            if route == "sm90":
-                out["device_ms_by_phase"] = by_phase
-            return out
-    fail(f"K3{which[0]} ({route}): the profiler kept no record of "
-         f"{[ph for ph, ks in names.items() if not ks]} in {tries} runs of "
-         "20 calls")
+def k3_profile(torch, fn, which, route, label: str) -> dict:
+    """``device_profile`` of K3's ``which`` kernels on ``route``, each
+    kernel's time as ``device_ms_by_phase`` on sm90."""
+    out = device_profile(torch, fn, {
+        ph: lambda n, sub=sub: sub in n
+        for ph, sub in K3_KERNELS[which, route].items()},
+        label=f"ssd_scan_{which} {route} {label}")
+    by_phase = out.pop("device_ms_by_kernel")
+    if route == "sm90":
+        out["device_ms_by_phase"] = by_phase
+    return out
 
 
 def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
@@ -1481,12 +1650,13 @@ def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
                 x, dt, a, b, c, s0, chunk=cl)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
             "ops": fo, "bytes": fb}
-        row.update(k3_profile(torch, fwd, "fwd", route))
+        row.update(k3_profile(torch, fwd, "fwd", route, f"{name} {dname}"))
         row["bound_share_of_device_ms"] = b_ms / row["device_ms"]
         if route == "sm90":
             row["first_version_ms"] = cuda_ms(torch, lambda: fwd("simt"))
             row["first_version_device_ms"] = k3_profile(
-                torch, lambda: fwd("simt"), "fwd", "simt")["device_ms"]
+                torch, lambda: fwd("simt"), "fwd", "simt",
+                f"{name} {dname}")["device_ms"]
         rows["fwd"].append(row)
         b_ms, b_by = bound(bb, bo, peak)
         nc = -(-S // cl)
@@ -1505,12 +1675,13 @@ def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
             "ops": bo, "bytes": bb,
             "ctas": {"deposit": B * H * nc, "column": blocks, "row": blocks,
                      "finish": B * H * nc} if broute == "sm90" else B * H}
-        brow.update(k3_profile(torch, bwd, "bwd", broute))
+        brow.update(k3_profile(torch, bwd, "bwd", broute, f"{name} {dname}"))
         brow["bound_share_of_device_ms"] = b_ms / brow["device_ms"]
         if broute == "sm90":
             brow["first_version_ms"] = cuda_ms(torch, lambda: bwd("simt"))
             brow["first_version_device_ms"] = k3_profile(
-                torch, lambda: bwd("simt"), "bwd", "simt")["device_ms"]
+                torch, lambda: bwd("simt"), "bwd", "simt",
+                f"{name} {dname}")["device_ms"]
         rows["bwd"].append(brow)
         del x, dt, a, b, c, s0, dy, dfin, y, fin, st, py, pfin, pst, grads, \
             want
@@ -2037,6 +2208,7 @@ def main() -> None:
                             "alpha": scfg.alpha}}})
     clients, launches = main_path(torch, scfg)
     profile_epoch(torch, scfg, clients)
+    paper_launches = paper_tables(torch, scfg, clients)
     del clients
     step_agreement(torch)
     serve_check(torch)
@@ -2067,6 +2239,10 @@ def main() -> None:
         return {"name": name, "route": "triton",
                 "source": "src/repro_torch/kernels/distill_kl.py",
                 "replaces": replaces, "launches": launches[name],
+                "launches_by_path": {
+                    "main_path": launches[name],
+                    "paper_tables": {run: c[name] for run, c in
+                                     paper_launches.items()}},
                 "max_abs_err": main["max_abs_err"], "ms": main["ms"],
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": None,
@@ -2078,6 +2254,7 @@ def main() -> None:
               and r["shape"] == {"R": R, "Hq": hq, "Hkv": hkv, "D": d,
                                  "page": page, "M": m})
     print(smi, flush=True)
+    emit({"profiler": {"fallbacks": PROFILER_FALLBACKS}})
     emit({"seconds_total": time.perf_counter() - t_start})
     emit({"kernels": [
         entry("distill_kl_fwd", rows["fwd"],

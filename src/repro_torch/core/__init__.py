@@ -2,7 +2,7 @@
 the client ensemble (Algorithm 1), for CNN clients (dense.py) and, at
 LLM scale, for decoder-LM clients (dense_llm.py)."""
 from repro_torch.core.dense import (DenseHistory, evaluate, make_dense_steps,
-                                    train_dense_server)
+                                    make_distill_step, train_dense_server)
 from repro_torch.core.ensemble import Client, ensemble_logits
 from repro_torch.core.generator import (ImgGenerator, TokGenerator,
                                         img_generator, img_generator_init,
@@ -13,5 +13,6 @@ from repro_torch.core.losses import (bn_loss, ce_loss, distill_loss,
 __all__ = ["Client", "DenseHistory", "ImgGenerator", "TokGenerator",
            "bn_loss", "ce_loss", "distill_loss", "div_loss",
            "ensemble_logits", "evaluate", "gen_loss", "img_generator",
-           "img_generator_init", "make_dense_steps", "softmax_kl",
+           "img_generator_init", "make_dense_steps", "make_distill_step",
+           "softmax_kl",
            "tok_generator", "tok_generator_init", "train_dense_server"]

@@ -91,22 +91,51 @@ def make_dense_steps(clients: Sequence[Client], scfg, *, use_bn: bool = True,
         return total.detach(), {"ce": l_ce.detach(), "bn": l_bn.detach(),
                                 "div": l_div.detach()}
 
+    distill_step = make_distill_step(clients, scfg, device=device)
+
     def student_step(student, s_opt, gen, z):
         with torch.no_grad():
             x = gen(z)
+        return distill_step(student, s_opt, x)
+
+    return gen_step, student_step
+
+
+def make_distill_step(clients: Sequence[Client], scfg, *, device="cuda"):
+    """The distillation step of Eq. (6), shared by DENSE's stage 2 and
+    the one-shot baselines (``fl/baselines.py``).
+
+    Returns ``step(student, s_opt, x) -> loss``: one SGD step of the
+    student on KL(D(x) ‖ f_S(x)) over the images x, with its BN running
+    statistics updated in place. The ensemble runs without autograd, and
+    the KL goes through the mode the execution policy resolves, without
+    the teacher-side gradient (the kernel's dL/dt stream is skipped).
+    """
+    kl_mode = resolve_exec_policy(scfg, device=device).distill_kl
+    teachers = [c.model for c in clients]
+
+    def step(student, s_opt, x):
+        with torch.no_grad():
             avg = ensemble_logits(teachers, x)
         logits, _ = cnn_apply(student, x, train=True, with_stats=False)
-        # the teacher is constant here: skip the kernel's dL/dt stream
         loss = LS.distill_loss(avg, logits, mode=kl_mode,
                                with_teacher_grad=False)
         s_opt.step(torch.autograd.grad(loss, s_opt.params))
         return loss.detach()
 
-    return gen_step, student_step
+    return step
 
 
 def _model_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
+
+
+def check_clients_on(clients: Sequence[Client], dev: torch.device) -> None:
+    """The server runs where its clients' models live."""
+    for i, c in enumerate(clients):
+        if _model_device(c.model) != dev:
+            raise ValueError(f"client {i} lives on {_model_device(c.model)},"
+                             f" the server runs on {dev}")
 
 
 def train_dense_server(clients: Sequence[Client], scfg,
@@ -148,10 +177,7 @@ def train_dense_server(clients: Sequence[Client], scfg,
     if student is None:
         student = cnn_init(student_spec, generator=init_generator,
                            device=dev)
-    for i, c in enumerate(clients):
-        if _model_device(c.model) != dev:
-            raise ValueError(f"client {i} lives on {_model_device(c.model)},"
-                             f" the server runs on {dev}")
+    check_clients_on(clients, dev)
     if noise is None:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(scfg.seed)

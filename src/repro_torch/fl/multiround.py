@@ -1,0 +1,95 @@
+"""Multi-round DENSE (paper §3.3.4, Table 5; ``repro/fl/multiround.py``).
+
+Homogeneous clients only: every client and the global model are
+``scfg.global_kind``, since the server broadcasts one model back. Round
+r: every client starts from a copy of the round-(r−1) global model (round
+0: its own init), trains ``local_epochs`` on the minibatch stream seeded
+``seed·1000 + r·100 + i`` and uploads once; the server runs DENSE with
+the student warm-started from the previous global model and broadcasts
+the result, except after the last round. The per-client engine and the
+python epoch driver run both phases, so on a CUDA device every DENSE step
+of every round runs the K1 pair.
+
+Upload faults and delayed uploads (``scfg.fault_plan``,
+``scfg.dropout_frac``) are not ported yet.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Callable, Sequence
+
+import torch
+
+from repro_torch.configs.backend import resolve_device, resolve_exec_policy
+from repro_torch.core.dense import train_dense_server
+from repro_torch.core.ensemble import Client
+from repro_torch.data.partition import dirichlet_partition
+from repro_torch.fl.client import local_update
+from repro_torch.fl.protocol import CommLedger, init_model, param_bytes
+from repro_torch.models.cnn import CNN, CNNSpec, cnn_init
+
+
+def dense_multi_round(scfg, data, *, rounds: int,
+                      ledger: CommLedger | None = None,
+                      eval_fn: Callable | None = None, seed: int = 0,
+                      device="cuda",
+                      init_models: Sequence[CNN] | None = None,
+                      server_inputs: Callable | None = None):
+    """Run ``rounds`` rounds of DENSE. Returns (global model, spec,
+    [eval_fn(global model, spec) after each round]).
+
+    The data is split as ``build_federation`` splits it (Dirichlet,
+    ``seed``). Client i's round-0 model is ``init_models[i]`` (trained in
+    place) when given, else drawn from a CPU ``torch.Generator`` seeded
+    ``seed``, which then draws each round's generator (and round 0's
+    student); the latents come from one device generator seeded ``seed``
+    across rounds. ``server_inputs(r) -> dict`` replaces those for round
+    r with ``train_dense_server`` keywords (``gen``, ``noise`` and, in
+    round 0 only, ``student``; later rounds warm-start from the global
+    model): the tests inject the reference's round-r draws there.
+    """
+    dev = resolve_device(device)
+    resolve_exec_policy(scfg, device=dev)      # refuses unported engines
+    if scfg.fault_plan or scfg.dropout_frac:
+        raise NotImplementedError(
+            "upload faults and delayed uploads in multi-round DENSE are "
+            "not ported yet (ROADMAP.md, Queue 1 item 6)")
+    x, y = data["train"]
+    parts = dirichlet_partition(y, scfg.n_clients, scfg.alpha, seed=seed)
+    spec = CNNSpec(kind=scfg.global_kind, num_classes=scfg.num_classes,
+                   in_ch=scfg.in_ch, width=scfg.width,
+                   image_size=scfg.image_size)
+    init_gen = torch.Generator().manual_seed(seed)
+    draws = torch.Generator(device=dev).manual_seed(seed)
+    if init_models is None:
+        init_models = [cnn_init(spec, generator=init_gen, device=dev)
+                       for _ in parts]
+    global_model, accs = None, []
+    for r in range(rounds):
+        clients = []
+        for i, idx in enumerate(parts):
+            model = init_model(init_models, i, spec, dev) \
+                if global_model is None else copy.deepcopy(global_model)
+            model, info = local_update(
+                model, x[idx], y[idx], epochs=scfg.local_epochs,
+                lr=scfg.local_lr, momentum=scfg.local_momentum,
+                batch_size=scfg.batch_size, num_classes=scfg.num_classes,
+                seed=seed * 1000 + r * 100 + i)
+            if ledger is not None:
+                ledger.record("up", f"client{i}", param_bytes(model),
+                              f"round{r}-model-upload")
+            clients.append(Client(spec=spec, model=model, n_data=len(idx),
+                                  class_counts=info["class_counts"]))
+        inputs = dict(server_inputs(r)) if server_inputs is not None \
+            else {"generator": draws, "init_generator": init_gen}
+        if global_model is not None:
+            inputs["student"] = global_model
+        global_model, _, _ = train_dense_server(clients, scfg, spec,
+                                                device=dev, **inputs)
+        if ledger is not None and r + 1 < rounds:
+            for i in range(scfg.n_clients):
+                ledger.record("down", f"client{i}", param_bytes(global_model),
+                              f"round{r}-broadcast")
+        if eval_fn is not None:
+            accs.append(eval_fn(global_model, spec))
+    return global_model, spec, accs

@@ -70,6 +70,19 @@ class CommLedger:
                 and e["kind"] == kind]
 
 
+def init_model(init_models: Sequence[CNN], i: int, spec: CNNSpec,
+               dev: torch.device) -> CNN:
+    """Client i's given initial model, checked against its spec and the
+    device the federation trains on."""
+    model = init_models[i]
+    if model.spec != spec:
+        raise ValueError(f"init_models[{i}] is {model.spec}, "
+                         f"client {i} is {spec}")
+    if next(model.parameters()).device != dev:
+        raise ValueError(f"init_models[{i}] is not on {dev}")
+    return model
+
+
 def build_federation(scfg, data, *, device="cuda",
                      generator: torch.Generator | None = None,
                      ledger: CommLedger | None = None, seed: int = 0,
@@ -96,12 +109,7 @@ def build_federation(scfg, data, *, device="cuda",
                        num_classes=scfg.num_classes, in_ch=scfg.in_ch,
                        width=scfg.width, image_size=scfg.image_size)
         if init_models is not None:
-            model = init_models[i]
-            if model.spec != spec:
-                raise ValueError(f"init_models[{i}] is {model.spec}, "
-                                 f"client {i} is {spec}")
-            if next(model.parameters()).device != dev:
-                raise ValueError(f"init_models[{i}] is not on {dev}")
+            model = init_model(init_models, i, spec, dev)
         else:
             model = cnn_init(spec, generator=generator, device=dev)
         model, info = local_update(

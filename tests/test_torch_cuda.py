@@ -9,7 +9,9 @@ through one train step, the tensor-core routes of K2f and of K2q/K2kv
 refusal of misaligned tensors, K3 (CUDA C++: K3f and K3b on both
 routes, the sm90 ones also against their emulated roundings) with ragged
 tails, clamped chunks, groups and an initial state, through ``SSDScan``
-and one mamba train step. Skips without a CUDA card.
+and one mamba train step; the distillation step of DENSE and the
+one-shot baselines on K1 against the plain route. Skips without a CUDA
+card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -353,6 +355,44 @@ def test_train_step_launches_k2_per_layer(cuda):
                    "flash_attention_bwd_dq": L,
                    "flash_attention_bwd_dkv": L}
     assert bool(torch.isfinite(m["loss"])) and float(m["grad_norm"]) > 0
+
+
+@pytest.mark.parametrize("kind", ["cnn1", "resnet18"])
+def test_distill_step_on_k1_matches_the_plain_route(cuda, kind):
+    """The baselines' (and DENSE's) distillation step on the card: K1f
+    and K1b once each, the same loss and student update as the plain
+    ``ref`` KL on the same card, from the same weights and images."""
+    from repro_torch import optim
+    from repro_torch.configs import DenseExperimentConfig
+    from repro_torch.core import Client, make_distill_step
+    from repro_torch.models import CNNSpec, cnn_init
+
+    spec = CNNSpec(kind=kind, num_classes=10, width=0.25, image_size=32)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.rand((128, 32, 32, 3), generator=gen, device=cuda) * 2 - 1
+    out = {}
+    for mode in ("fused", "ref"):
+        init = torch.Generator().manual_seed(0)
+        clients = [Client(spec=spec, model=cnn_init(spec, generator=init,
+                                                    device=cuda))
+                   for _ in range(3)]
+        student = cnn_init(spec, generator=init, device=cuda)
+        scfg = DenseExperimentConfig(
+            distill_kl_mode=None if mode == "fused" else "ref")
+        step = make_distill_step(clients, scfg, device=cuda)
+        opt = optim.sgd(list(student.parameters()), scfg.s_lr,
+                        momentum=scfg.s_momentum)
+        before = dict(K.launches)
+        loss = step(student, opt, x)
+        torch.cuda.synchronize()
+        out[mode] = (float(loss), [t.clone() for t in
+                                   student.state_dict().values()],
+                     {k: v - before[k] for k, v in K.launches.items()})
+    assert out["fused"][2] == {"distill_kl_fwd": 1, "distill_kl_bwd": 1}
+    assert out["ref"][2] == {"distill_kl_fwd": 0, "distill_kl_bwd": 0}
+    assert out["fused"][0] == pytest.approx(out["ref"][0], rel=1e-4)
+    for a, b in zip(out["fused"][1], out["ref"][1], strict=True):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 # (B, S, H, P, G, N, chunk): mamba2-130m's heads at a train shape, zamba2's

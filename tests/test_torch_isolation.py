@@ -37,7 +37,11 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 for m in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
-          "repro_torch.configs.mamba2_130m", "repro_torch.configs.zamba2_7b"):
+          "repro_torch.configs.mamba2_130m", "repro_torch.configs.zamba2_7b",
+          "repro_torch.fl.baselines", "repro_torch.fl.multiround",
+          "repro_torch.optim.ldam", "repro_torch.optim.schedules",
+          "repro_torch.launch.quickstart",
+          "repro_torch.launch.hetero_oneshot"):
     assert m in names, m
 assert "triton" not in sys.modules
 """
@@ -178,8 +182,7 @@ def test_unported_paths_are_refused():
 
     from repro_torch.configs import backend, smoke
     from repro_torch.core import train_dense_server
-    from repro_torch.fl import make_local_step
-    from repro_torch.models import CNNSpec, cnn_init
+    from repro_torch.fl import build_federation, dense_multi_round
 
     for knob in ({"loop_mode": "fused"}, {"client_loop_mode": "grouped"},
                  {"teacher_chunk": 4}, {"ensemble_shard_mode": "clients"}):
@@ -190,9 +193,12 @@ def test_unported_paths_are_refused():
         with pytest.raises(NotImplementedError):
             train_dense_server([], dataclasses.replace(smoke(), **knob),
                                device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_local_step(cnn_init(CNNSpec(width=0.1), device="cpu"), lr=0.1,
-                        momentum=0.0, use_ldam=True)
+    # upload faults, in the one-shot round and between rounds
+    for run in (build_federation, lambda scfg, data, device:
+                dense_multi_round(scfg, data, rounds=2, device=device)):
+        with pytest.raises(NotImplementedError):
+            run(dataclasses.replace(smoke(), dropout_frac=0.5), {},
+                device="cpu")
     from repro_torch.launch.train import train
 
     with pytest.raises(NotImplementedError, match="model parallelism"):
