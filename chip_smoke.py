@@ -35,17 +35,17 @@ result line is printed:
      larger than the L2 cache, so each call reads them from device
      memory, as a decode step does;
   4. K2 (K2f, K2q, K2kv, CUDA C++) against its plain versions in float32
-     without TF32 and in bfloat16 (and float16 at the server, train, long
-     and D = 64 shapes), at the server shape (B 4, Hq 24, Hkv 8, S 256,
-     D 128), the train shape (B 8), one 4096-token sequence, a ragged
-     D = 32 shape with a window and dead rows, D = 64 and D = 112
-     (zamba2's shared block at B 2, S 512); timed beside its bound and
+     without TF32 and in bfloat16 (and float16 at every shape but D = 32),
+     at the server shape (B 4, Hq 24, Hkv 8, S 256, D 128), the train
+     shape (B 8), one 4096-token sequence, ragged shapes with a window and
+     dead rows at D = 32, 64, 112 and 128, D = 64 and D = 112 (zamba2's
+     shared block at B 2, S 512); timed beside its bound and
      ``F.scaled_dot_product_attention`` (its autograd backward for K2q
-     and K2kv). Each K2f row names its route: ``sm90`` (the tensor-core
-     kernel, bfloat16 and float16 at D 64 and 128), whose rows also time
-     the ``simt`` kernel (the first version) on the same inputs, or
-     ``simt``; every K2f row also gives its kernel's device time from
-     ``torch.profiler``;
+     and K2kv). Each row names its kernel's route: ``sm90`` (the
+     tensor-core kernels, bfloat16 and float16 at D 64, 112 and 128, K2q
+     not at 112), whose rows also time the ``simt`` kernel (the first
+     version) on the same inputs, or ``simt``; every row also gives its
+     kernel's device time from ``torch.profiler``;
   5. the DENSE main path at the paper's full width (``paper_cifar.CONFIG``:
      five width-1.0 resnet18 clients on 32x32x3 images, batch 128,
      synth_batch 128, nz 100, t_g 30), depth cut to one local epoch and
@@ -97,26 +97,26 @@ result line is printed:
      K1f, K1b), every K2f, K2q and K2kv launch on the ``sm90`` route;
      then one epoch under ``torch.profiler`` with K2's share, each K2
      kernel's time by route;
- 14. K3 (K3f, K3b, CUDA C++) against its plain versions (the chunked
-     formula in PyTorch and autograd through it): mamba2-130m's train
-     shape (8, 256, 24 heads, P 64, N 128, chunk 256) in bfloat16,
-     float16 and float32, zamba2-7b's prefill (1, 448, 112 heads, P 64,
-     N 64) in bfloat16 and float32, one 4096-token sequence (16 chunks),
-     zamba2's widths at 300 tokens (a tail of 44) and 100 (a clamped
-     chunk) with an initial state in bfloat16, and a ragged, grouped shape
-     with an initial state in float32, also held to the sequential
-     recurrence; timed beside its bound (no PyTorch call computes the
-     scan), each row with its kernels' device time (``torch.profiler``).
-     Each row names its route: ``sm90`` (the chunk-parallel tensor-core
-     kernels, 16 bits at P 64, N 64/128), whose rows also time the first
-     version (``simt``) on the same inputs, give each kernel's device
-     time (``device_ms_by_phase``) and compare two calls bit for bit, or
-     ``simt``. K3b reads the states the forward wrote and dy in x's dtype,
-     as the model hands it; an sm90 K3f row gives y's error over its
-     rounding bound, an sm90 K3b row its gradients' error against the
-     float32 plain version (1e-2 of each largest entry, d(initial_state)
-     1e-4) and against the route's roundings emulated
-     (``ssd_scan_bwd_chunked_plain``), each over its tolerance;
+ 14. K3 (K3f, K3b, CUDA C++) against its plain versions (the chunked formula
+     in PyTorch and autograd through it): mamba2-130m's train shape (8, 256,
+     24 heads, P 64, N 128, chunk 256) in bfloat16, float16 and float32,
+     zamba2-7b's prefill (1, 448, 112 heads, P 64, N 64) in bfloat16 and
+     float32, its train shape (2, 512, two chunks: ssm_hybrid_train's) in
+     bfloat16 and float16, one 4096-token sequence (16 chunks), zamba2's
+     widths at 300 tokens (a tail of 44) and 100 (a clamped chunk) with an
+     initial state in bfloat16, and a ragged, grouped shape with an initial
+     state in float32, also held to the sequential recurrence; timed beside
+     its bound (no PyTorch call computes the scan), each row with its
+     kernels' device time (``torch.profiler``). Each row names its route:
+     ``sm90`` (the chunk-parallel tensor-core kernels, 16 bits at P 64, N
+     64/128), whose rows also time the first version (``simt``) on the same
+     inputs, give each kernel's device time (``device_ms_by_phase``) and
+     compare two calls bit for bit, or ``simt``. K3b reads the states the
+     forward wrote and dy in x's dtype, as the model hands it; an sm90 K3f
+     row gives y's error over its rounding bound, an sm90 K3b row its
+     gradients' error against the float32 plain version (1e-2 of each
+     largest entry, d(initial_state) 1e-4) and against the route's roundings
+     emulated (``ssd_scan_bwd_chunked_plain``), each over its tolerance;
  15. ssm_serve_check: zamba2-7b (7 layers: a super-block of 6 mamba
      blocks and the shared block, and one tail block) and mamba2-130m (2
      layers) at full width, float32: paged ≡ dense engine for 6 requests
@@ -131,7 +131,18 @@ result line is printed:
      float32, batch 2 × 512 (two chunks): the K3/K2 route and the plain
      route agree to 1e-4 (K3f 2 × 7 with remat and K3b 7, all on
      ``simt``, K2 on the one shared-block application);
- 18. ssm_llm_main_path, the LLM DENSE main path with the ssm family
+ 18. ssm_hybrid_train: zamba2-7b's train step in bfloat16 at full width
+     (d_model 3584, 32/32 heads of 112, P 64, N 64), depth 81 → 13 (two
+     super-blocks of 6 mamba blocks, each followed by the shared block,
+     and a tail block), batch 2 × 512: the plain route's first step (loss,
+     grad_norm), then 3 steps of the kernel route, each counted (K2f 4,
+     K2q 2, K2kv 2, K3f 26, K3b 13), K2f and K2kv on ``sm90`` at D 112,
+     K2q on ``simt``, K3 on ``sm90``; the first loss and grad_norm within
+     2e-4 of the plain route's (limits set from sound and faulty steps:
+     ``scripts/hybrid_step_limits.py``); seconds a step, peak memory,
+     and one more step under ``torch.profiler`` with K2's and K3's device
+     time by route;
+ 19. ssm_llm_main_path, the LLM DENSE main path with the ssm family
      (``dense_llm_oneshot.full_ssm()``: two mamba2-130m clients and a
      mamba2-130m student, full width and depth, bfloat16), counted step by
      step as in 13 with K3f and K3b in place of K2, every K3f and K3b
@@ -200,13 +211,16 @@ TOL_K4 = {"float32": (0.0, 1e-5), "bfloat16": (0.0, 1e-2),
 # with Sq > Sk (dead rows), a window and ragged tiles, and "ragged_d64"
 # and "ragged_d128" the same at the sm90 routes' head dims, off every tile
 # of K2f, K2q and K2kv; "d64" musicgen's heads; "d112" zamba2-7b's shared
-# block at ssm_train_check's batch. float16 runs beside float32 and
-# bfloat16 at the shapes the sm90 routes take (K2_FP16). Tolerance:
+# block at ssm_train_check's and ssm_hybrid_train's batch, and
+# "ragged_d112" its head dim with Sq > Sk, a window, ragged tails past 64
+# and 128 and GQA groups of 4. float16 runs beside float32 and bfloat16 at
+# the shapes the sm90 routes take (K2_FP16; at D 112 only K2f's and
+# K2kv's, K2q stays on simt). Tolerance:
 # float32 without TF32 on both sides, 1e-4; 16-bit gradients are stored
 # in the input dtype, 1e-2 of each tensor's largest entry (the sm90
 # backward also rounds P and dS to the 16-bit type before their
 # products, inside that). K2f's sm90 route (bfloat16, float16 at
-# D 64 and 128) rounds P to the 16-bit type before PV, so each o entry may
+# D 64, 112 and 128) rounds P to the 16-bit type before PV, so each o entry may
 # move by u·max|v| (u = 2^-9 bfloat16, 2^-12 float16): o is held to
 # atol = 2u·max|v|, rtol 0, and lse (float32 scores, float32 l) to 1e-4.
 K2_SHAPES = (("server", 4, 24, 8, 256, 256, 128, True, 0),
@@ -216,8 +230,10 @@ K2_SHAPES = (("server", 4, 24, 8, 256, 256, 128, True, 0),
              ("ragged_d64", 2, 8, 2, 333, 250, 64, True, 100),
              ("ragged_d128", 2, 6, 2, 270, 199, 128, True, 80),
              ("d64", 4, 32, 32, 256, 256, 64, True, 0),
-             ("d112", 2, 32, 32, 512, 512, 112, True, 0))
-K2_FP16 = ("server", "train", "long", "ragged_d64", "ragged_d128", "d64")
+             ("d112", 2, 32, 32, 512, 512, 112, True, 0),
+             ("ragged_d112", 2, 8, 2, 301, 230, 112, True, 90))
+K2_FP16 = ("server", "train", "long", "ragged_d64", "ragged_d128", "d64",
+           "d112", "ragged_d112")
 TOL_K2 = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 1e-2}
 UNIT_ROUNDOFF = {"bfloat16": 2.0 ** -9, "float16": 2.0 ** -12}
 # K3 shapes: (name, B, S, H, P, G, N, chunk, dtype, with an initial state).
@@ -238,6 +254,9 @@ K3_SHAPES = (("mamba2_train", 8, 256, 24, 64, 1, 128, 256, "bfloat16", False),
              ("mamba2_train", 8, 256, 24, 64, 1, 128, 256, "float16", False),
              ("zamba2_prefill", 1, 448, 112, 64, 1, 64, 256, "bfloat16",
               False),
+             ("zamba2_train", 2, 512, 112, 64, 1, 64, 256, "bfloat16",
+              False),
+             ("zamba2_train", 2, 512, 112, 64, 1, 64, 256, "float16", False),
              ("long", 1, 4096, 24, 64, 1, 128, 256, "bfloat16", False),
              ("ragged_tail", 1, 300, 112, 64, 1, 64, 256, "bfloat16", True),
              ("clamped", 1, 100, 112, 64, 1, 64, 256, "bfloat16", True),
@@ -392,6 +411,22 @@ def k3f_route(torch, cfg) -> str:
 
     return K3.fwd_route(getattr(torch, cfg.dtype), cfg.ssm_head_dim,
                         cfg.ssm_state)
+
+
+def check_k2_routes(label, launches, routes, dtype, d) -> None:
+    """Every K2f, K2q and K2kv launch of a phase took the route its dtype
+    and head dim choose (``FA.route``)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    want = {f"{kind}_{r}": 0 for kind in ("fwd", "bwd")
+            for r in ("sm90", "simt")}
+    for kind, which in (("fwd", "fwd"), ("bwd", "dq"), ("bwd", "dkv")):
+        name = "flash_attention_" + ("fwd" if which == "fwd" else
+                                     f"bwd_{which}")
+        want[f"{kind}_{FA.route(which, dtype, d)}"] += launches[name]
+    got = {k: routes[k] for k in want}
+    if got != want:
+        fail(f"{label}: K2's launches by route {got}, expected {want}")
 
 
 def check_k3_routes(label, launches, routes, route) -> None:
@@ -777,13 +812,19 @@ def profile_epoch(torch, scfg, clients, dev="cuda"):
 # ----------------------------------------------------- card against CPU --
 
 class _Capture:
-    """An optimizer stand-in that keeps the gradients it is given."""
+    """An optimizer stand-in that keeps the gradients it is given (on the
+    host, or with ``on_device`` where they are), or with ``keep`` False
+    drops them."""
 
-    def __init__(self, params):
+    def __init__(self, params, keep: bool = True, on_device: bool = False):
         self.params = list(params)
+        self.keep = keep
+        self.on_device = on_device
 
     def step(self, grads):
-        self.grads = [g.detach().cpu() for g in grads]
+        if self.keep:
+            self.grads = [g.detach() if self.on_device else g.detach().cpu()
+                          for g in grads]
 
 
 def step_agreement(torch, devices=("cuda", "cpu")):
@@ -1323,6 +1364,17 @@ def k3_kernel(which, route):
     return lambda name: f"ssd_{which}_kernel<" in name
 
 
+def ms_by_route(per_kernel: dict) -> tuple[dict, dict]:
+    """K2's (fwd, dq, dkv) and K3's (fwd, bwd) device time by route
+    (sm90, simt) from ``device_ms``'s kernel times."""
+    def by(match, kinds):
+        return {w: {r: sum(v for k, v in per_kernel.items()
+                           if match(w, r)(k)) for r in ("sm90", "simt")}
+                for w in kinds}
+
+    return by(k2_kernel, ("fwd", "dq", "dkv")), by(k3_kernel, ("fwd", "bwd"))
+
+
 def k2_phase(torch):
     """K2f, K2q and K2kv against their plain versions, timed beside their
     bound and beside F.scaled_dot_product_attention (forward, and its
@@ -1346,8 +1398,7 @@ def k2_phase(torch):
         for dtype in dtypes:
             dname = str(dtype).split(".")[-1]
             tol = TOL_K2[dname]
-            route = FA.fwd_route(dtype, d)
-            broute = FA.bwd_route(dtype, d)
+            route = FA.route("fwd", dtype, d)
             isz = 4 if dtype == torch.float32 else 2
             peak = FP32_OPS_PER_S if dtype == torch.float32 \
                 else BF16_OPS_PER_S
@@ -1372,13 +1423,13 @@ def k2_phase(torch):
             dead = plse == FA.NEG_INF
             dead_exact = bool((lse[dead] == FA.NEG_INF).all()
                               and (o[dead] == 0).all())
-            # both backward versions from the kernel's residuals; the sm90
-            # route reads dO in the input dtype, where do is made
+            # both backward versions from the kernel's residuals; a kernel
+            # on the sm90 route reads dO in the input dtype, where do is
+            # made, one on simt in float32
             dof = do.float().reshape(B * hq, sq, d)
-            delta = (dof * o).sum(dim=-1)
-            do_k = do.reshape(B * hq, sq, d) if broute == "sm90" else dof
-            dq = FA.flash_attention_bwd_dq(q, k, v, do_k, lse, delta, **kw)
-            dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do_k, lse, delta,
+            delta, do_q, do_kv = FA.bwd_operands(q, o, do)
+            dq = FA.flash_attention_bwd_dq(q, k, v, do_q, lse, delta, **kw)
+            dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do_kv, lse, delta,
                                                 **kw)
             torch.cuda.synchronize()
             want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
@@ -1422,30 +1473,32 @@ def k2_phase(torch):
                     q, k, v, enable_gqa=True, **sdpa_kw)),
                 "bound_ms": b_ms, "bound_by": b_by}
             row.update(prof)
+            row["bound_share_of_device_ms"] = b_ms / row["device_ms"]
             if route == "sm90":
-                row["simt_ms"] = cuda_ms(torch, simt)
-                row["simt_device_ms"] = device_ms_per_call(
+                row["first_version_ms"] = cuda_ms(torch, simt)
+                row["first_version_device_ms"] = device_ms_per_call(
                     torch, simt, k2_kernel("fwd", "simt"),
                     name=f"flash_attention_fwd simt {name} {dname}")
             if name == "long" and dtype != torch.float32:
                 row["tflops_live"] = 4 * d * n_live / (row["ms"] * 1e-3) \
                     / 1e12
             rows["fwd"].append(row)
-            # the backward reads q, k, v, dO (in its route's dtype), lse
-            # and delta once and writes dq, or dk and dv
-            in_bytes = qkv_bytes + 2 * row_bytes \
-                + B * hq * sq * d * (isz if broute == "sm90" else 4)
-            for which, ok, abs_err, rel_err, out_bytes, ops, extra in (
+            # a backward kernel reads q, k, v, dO (in its route's dtype),
+            # lse and delta once and writes dq, or dk and dv
+            for which, ok, abs_err, rel_err, out_bytes, ops, do_k, extra in (
                     ("dq", errs[0] <= tol and dq_dead, abs_errs[0], errs[0],
-                     B * hq * sq * d * isz, 6 * d * n_live,
+                     B * hq * sq * d * isz, 6 * d * n_live, do_q,
                      {"dead_rows_exact": dq_dead}),
                     ("dkv", max(errs[1:]) <= tol, max(abs_errs[1:]),
                      max(errs[1:]), 2 * B * hkv * sk * d * isz,
-                     8 * d * n_live, {})):
+                     8 * d * n_live, do_kv, {})):
+                broute = FA.route(which, dtype, d)
                 launch = getattr(FA, f"flash_attention_bwd_{which}")
                 call = lambda r: lambda: launch(
                     q, k, v, do_k if r == broute else dof, lse, delta,
                     route=r, **kw)
+                in_bytes = qkv_bytes + 2 * row_bytes \
+                    + B * hq * sq * d * do_k.element_size()
                 b_ms, b_by = bound(in_bytes + out_bytes, ops, peak)
                 prof = {}
                 row = {**common, "route": broute, "ok": ok,
@@ -1458,17 +1511,18 @@ def k2_phase(torch):
                        "plain_ms": plain_bwd, "library_ms": lib_bwd,
                        "bound_ms": b_ms, "bound_by": b_by}
                 row.update(prof)
+                row["bound_share_of_device_ms"] = b_ms / row["device_ms"]
                 if broute == "sm90":
-                    row["simt_ms"] = cuda_ms(torch, call("simt"))
-                    row["simt_device_ms"] = device_ms_per_call(
+                    row["first_version_ms"] = cuda_ms(torch, call("simt"))
+                    row["first_version_device_ms"] = device_ms_per_call(
                         torch, call("simt"), k2_kernel(which, "simt"),
                         name=f"flash_attention_bwd_{which} simt {name} "
                         f"{dname}")
                 if name == "long" and dtype != torch.float32:
                     row["tflops_live"] = ops / (row["ms"] * 1e-3) / 1e12
                 rows[which].append(row)
-            del q, k, v, do, o, lse, po, plse, dof, do_k, delta, dq, dk, \
-                dv, want, qr, kr, vr, out
+            del q, k, v, do, o, lse, po, plse, dof, do_q, do_kv, delta, dq, \
+                dk, dv, want, qr, kr, vr, out
             torch.cuda.empty_cache()
     for which, rs in rows.items():
         for r in rs:
@@ -1479,10 +1533,13 @@ def k2_phase(torch):
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
     if bad:
         fail(f"{len(bad)} K2 checks disagree with the plain versions: {bad}")
-    routes = {(which, r["shape"]["name"], r["dtype"]): r["route"]
-              for which, rs in rows.items() for r in rs}
-    if any((r == "sm90") != (dt != "float32" and n in K2_FP16)
-           for (_, n, dt), r in routes.items()):
+    # sm90 exactly in 16 bits at the shapes K2_FP16 names, but for K2q at
+    # D 112
+    routes = {(which, r["shape"]["name"], r["shape"]["D"], r["dtype"]):
+              r["route"] for which, rs in rows.items() for r in rs}
+    if any((r == "sm90") != (dt != "float32" and n in K2_FP16
+                             and not (which == "dq" and d == 112))
+           for (which, n, d, dt), r in routes.items()):
         fail(f"K2 took an unexpected route: {routes}")
     return rows
 
@@ -1802,9 +1859,177 @@ def train_check(torch, dev="cuda", arch="llama3.2-3b", n_layers=2,
     if ca != want or any(c != expected() for c in plain.values()):
         fail(f"{label} launches {ca} (kernel route), {plain} (plain), "
              f"expected {want} and none")
+    check_k2_routes(label, ca, ra, getattr(torch, cfg.dtype), cfg.head_dim)
     check_k3_routes(label, ca, ra, k3f_route(torch, cfg))
     del params, out, ga, gb
     torch.cuda.empty_cache()
+
+
+HYBRID_LAYERS = 13       # two super-blocks of 6 and the shared block, 1 tail
+HYBRID_STEPS = 3
+# The first kernel-route step against the plain route's, from the same
+# weights and batch, both in bfloat16, relative: limits set from
+# scripts/hybrid_step_limits.py's readings on an H100 (PERF.md, PR 22).
+# Sound steps read at most 8.9e-5 (loss) and 1.1e-4 (grad_norm); a K2f
+# fault (o's last 16 columns or last q-tile lost) moves the loss by
+# 3.3e-4 or more, a K2f, K2kv or K3b fault grad_norm by 4.3e-4 or more.
+HYBRID_LOSS_TOL = 2e-4
+HYBRID_NORM_TOL = 2e-4
+
+
+def hybrid_inputs(torch, dev="cuda", arch="zamba2-7b",
+                  n_layers=HYBRID_LAYERS, batch=(2, 512), steps=HYBRID_STEPS,
+                  seed=5):
+    """ssm_hybrid_train's model and data: ``arch`` at full width in its
+    own dtype (bfloat16 for zamba2-7b), ``n_layers`` deep, on the kernel
+    route, random weights from ``seed``, and ``steps`` batches of
+    ``batch`` tokens: (full config, config, params, batches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches, make_lm_data
+    from repro_torch.models import transformer as T
+
+    full = get_config(arch)
+    cfg = full.replace(n_layers=n_layers, kernel_vjp_mode="fused")
+    params = T.init_model(cfg, seed=seed, device=dev)
+    toks = make_lm_data(seed, vocab=cfg.vocab_size, n_tokens=200_000)
+    data = [{"tokens": torch.from_numpy(x).to(dev),
+             "labels": torch.from_numpy(y).to(dev)}
+            for x, y in lm_batches(toks, batch[0], batch[1], seed=seed,
+                                   steps=steps)]
+    return full, cfg, params, data
+
+
+def first_step(torch, cfg, params, batch, keep=False):
+    """One train step of ``cfg``'s route from ``params`` with no update:
+    (loss, grad_norm, the clipped gradients where they were computed, or
+    None unless ``keep``)."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+
+    leaves = T.leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = _Capture(leaves, keep=keep, on_device=True)
+    _, m = ST.make_train_step(cfg)(
+        {"params": params, "opt": opt, "step": 0}, batch)
+    return float(m["loss"]), float(m["grad_norm"]), getattr(opt, "grads",
+                                                            None)
+
+
+def hybrid_train(torch, dev="cuda", arch="zamba2-7b",
+                 label="ssm_hybrid_train", **shape):
+    """zamba2-7b's train step in bfloat16 at full width, HYBRID_LAYERS
+    deep (two applications of the shared block a pass; ``shape`` passes
+    other ``hybrid_inputs`` arguments, as a CPU rehearsal cuts them),
+    through the kernel route: HYBRID_STEPS timed steps, each counted (a
+    step with remat: K2f 4, K2q 2, K2kv 2, K3f 26, K3b 13), K2f and K2kv
+    on sm90, K2q on simt, K3 on sm90; then one step under
+    ``torch.profiler``. The first step's loss and grad_norm are held to
+    the plain route's (``ref``, same weights and batch, no update) to
+    HYBRID_LOSS_TOL and HYBRID_NORM_TOL."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+
+    full, cfg, params, data = hybrid_inputs(torch, dev, arch, **shape)
+    n_params = sum(t.numel() for t in T.leaves(params))
+    zero_counts()
+    ref = first_step(torch, cfg.replace(kernel_vjp_mode="ref"), params,
+                     data[0])[:2]
+    sync(torch, dev)
+    ref_counts = read_counts()
+
+    state = ST.make_train_state(cfg, params=params, device=dev)
+    step = ST.make_train_step(cfg)
+    want = train_launches(cfg)
+    routes = {k: 0 for k in read_routes()}
+    secs, losses, norms = [], [], []
+    steps = len(data)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        zero_counts()
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = step(state, data[i])
+        sync(torch, dev)
+        secs.append(time.perf_counter() - t0)
+        got = read_counts()
+        if got != want:
+            fail(f"{label}: step {i} launched {got}, expected {want}")
+        for k, c in read_routes().items():
+            routes[k] += c
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = _peak_gib(torch)
+    activities = [ProfilerActivity.CPU]
+    if torch.device(dev).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        step(state, data[-1])
+        sync(torch, dev)
+        profiled_s = time.perf_counter() - t0
+    per_kernel = device_ms(prof)
+    busy_ms = sum(per_kernel.values())
+    k2_by_route, k3_by_route = ms_by_route(per_kernel)
+    totals = {k: c * steps for k, c in want.items()}
+    loss_err = abs(losses[0] - ref[0]) / abs(ref[0])
+    norm_err = abs(norms[0] - ref[1]) / abs(ref[1])
+    emit({label: {
+        "arch": arch,
+        "cfg": {"d_model": cfg.d_model,
+                "n_layers": [full.n_layers, cfg.n_layers],
+                "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim":
+                cfg.head_dim, "ssm": [cfg.ssm_head_dim, cfg.ssm_state],
+                "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+                "remat": cfg.remat, "batch": list(data[0]["tokens"].shape),
+                "shared_block_applications": trunk_blocks(cfg)[0]},
+        "params": n_params, "steps": steps, "seconds": secs,
+        "seconds_per_step": statistics.median(secs[1:] or secs),
+        "profiled_step_seconds": profiled_s, "peak_mem_gib": peak,
+        "loss": losses, "grad_norm": norms,
+        "loss_ref": ref[0], "grad_norm_ref": ref[1],
+        "first_loss_rel_err": loss_err, "first_grad_norm_rel_err": norm_err,
+        "tol": {"loss": HYBRID_LOSS_TOL, "grad_norm": HYBRID_NORM_TOL},
+        "launches_per_step": want, "launches_ref": ref_counts,
+        "fwd_routes": {r: routes[f"fwd_{r}"] for r in ("sm90", "simt")},
+        "bwd_routes": {r: routes[f"bwd_{r}"] for r in ("sm90", "simt")},
+        "k3f_routes": {r: routes[f"k3f_{r}"] for r in ("sm90", "simt")},
+        "k3b_routes": {r: routes[f"k3b_{r}"] for r in ("sm90", "simt")},
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / (profiled_s * 1e3),
+        "k2_ms_by_route": k2_by_route, "k2_ms": sum(
+            v for by in k2_by_route.values() for v in by.values()),
+        "k3_ms_by_route": k3_by_route,
+        "top_kernels_ms": sorted(per_kernel.items(),
+                                 key=lambda kv: -kv[1])[:15]}})
+    finite = all(v == v and abs(v) != float("inf")
+                 for v in (*losses, *norms, *ref))
+    if not finite or loss_err > HYBRID_LOSS_TOL \
+            or norm_err > HYBRID_NORM_TOL:
+        fail(f"{label}: losses {losses}, grad norms {norms}, the plain "
+             f"route's {ref}: not finite, or the first loss off by "
+             f"{loss_err} (tol {HYBRID_LOSS_TOL}) or grad_norm by "
+             f"{norm_err} (tol {HYBRID_NORM_TOL})")
+    if ref_counts != expected():
+        fail(f"{label}: the plain route launched {ref_counts}")
+    # the slice's path: K2f and K2kv on the tensor cores at D 112, K2q on
+    # the first version, both K3 kernels on sm90
+    k2_want = {"fwd_sm90": totals["flash_attention_fwd"], "fwd_simt": 0,
+               "bwd_sm90": totals["flash_attention_bwd_dkv"],
+               "bwd_simt": totals["flash_attention_bwd_dq"]}
+    if {k: routes[k] for k in k2_want} != k2_want:
+        fail(f"{label}: K2's launches by route {routes}, expected {k2_want}")
+    check_k3_routes(label, totals, routes, "sm90")
+    if torch.device(dev).type == "cuda" and not (
+            k2_by_route["fwd"]["sm90"] and k2_by_route["dkv"]["sm90"]
+            and k2_by_route["dq"]["simt"]):
+        fail(f"{label}: the profiler saw no device time of a K2 kernel the "
+             f"step runs: {k2_by_route}")
+    del state, step, params, data
+    torch.cuda.empty_cache()
+    return totals
 
 
 def dense_llm_check(torch, devices=("cuda", "cpu")):
@@ -1907,7 +2132,6 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
     from repro_torch.core.generator import tok_generator_init
     from repro_torch.data import lm_batches, make_lm_data
     from repro_torch.fl.protocol import CommLedger, param_bytes
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import dense_llm_oneshot as ONE
     from repro_torch.launch import steps as ST
     from repro_torch.models import transformer as T
@@ -2021,15 +2245,8 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
              f"{client_loss}")
     # every K2 launch took the route its dtype and head dim choose (sm90
     # for the bfloat16 llama path, both directions)
-    dtype, hd = getattr(torch, cfgs[0].dtype), cfgs[0].head_dim
-    for kind, route, n in (
-            ("fwd", FA.fwd_route(dtype, hd), totals["flash_attention_fwd"]),
-            ("bwd", FA.bwd_route(dtype, hd),
-             totals["flash_attention_bwd_dq"]
-             + totals["flash_attention_bwd_dkv"])):
-        if routes[f"{kind}_{route}"] != n:
-            fail(f"{label}: K2's launches by route {routes}, expected all "
-                 f"{n} of {kind} on {route}")
+    check_k2_routes(label, totals, routes, getattr(torch, cfgs[0].dtype),
+                    cfgs[0].head_dim)
     # and every K3f launch its route (sm90 for the bfloat16 mamba2 path)
     check_k3_routes(label, totals, routes, k3f_route(torch, cfgs[0]))
     if ledger.rounds != 1 or ledger.downlink_bytes != 0 or \
@@ -2095,14 +2312,7 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
     k2 = {w: sum(v for k, v in per_kernel.items()
                  if f"{w}_kernel<" in k and "ssd_" not in k)
           for w in ("fwd", "dq", "dkv")}
-    k2_by_route = {w: {r: sum(v for k, v in per_kernel.items()
-                              if k2_kernel(w, r)(k))
-                       for r in ("sm90", "simt")}
-                   for w in ("fwd", "dq", "dkv")}
-    k3_by_route = {w: {r: sum(v for k, v in per_kernel.items()
-                              if k3_kernel(w, r)(k))
-                       for r in ("sm90", "simt")}
-                   for w in ("fwd", "bwd")}
+    k2_by_route, k3_by_route = ms_by_route(per_kernel)
     k3 = {w: sum(by.values()) for w, by in k3_by_route.items()}
     k1_ms = sum(v for k, v in per_kernel.items() if "_kl_" in k)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
@@ -2141,10 +2351,15 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
 
 # ----------------------------------------------------------------- main --
 
-def k2_entry(name, rs, line, launches):
+def k2_entry(name, which, rs, line, launches, hybrid_launches):
     """The kernels line's entry of a K2 kernel: the server shape in
     bfloat16 (the LLM main path's gen_step and student_step), its
-    launches over the LLM main path."""
+    launches over the LLM main path, and by path: the LLM main path's (D
+    128) and ssm_hybrid_train's (D 112), each by route."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
     main = next(r for r in rs if r["shape"]["name"] == "server"
                 and r["dtype"] == "bfloat16")
     source = "flash_attention_sm90.cu" if main["route"] == "sm90" \
@@ -2158,7 +2373,18 @@ def k2_entry(name, rs, line, launches):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
             "dtype": main["dtype"], "k2_route": main["route"],
-            "device_ms": main.get("device_ms"), "by_shape": rs}
+            "device_ms": main.get("device_ms"),
+            "first_version_ms": main.get("first_version_ms"),
+            "first_version_device_ms": main.get("first_version_device_ms"),
+            "first_version_source":
+                "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "launches_by_path": {
+                path: {"D": d, "launches": n[name],
+                       "route": FA.route(which, torch.bfloat16, d)}
+                for path, d, n in (("llm_main_path", 128, launches),
+                                   ("ssm_hybrid_train", 112,
+                                    hybrid_launches))},
+            "by_shape": rs}
 
 
 def k3_entry(name, rs, line, launches):
@@ -2227,6 +2453,7 @@ def main() -> None:
     serve_main_path(torch, arch="zamba2-7b", label="ssm_serve")
     train_check(torch, arch="zamba2-7b", n_layers=7, batch=(2, 512),
                 label="ssm_train_check")
+    hybrid_launches = hybrid_train(torch)
     ssm_launches, ssm_ctx = llm_main_path(torch, oc=ONE.full_ssm(),
                                           label="ssm_llm")
     profile_llm_epoch(torch, ssm_ctx, label="profile_ssm_llm_epoch")
@@ -2271,7 +2498,8 @@ def main() -> None:
          "k4_route": k4["route"], "device_ms": k4["device_ms"],
          "first_version_ms": k4["first_version_ms"],
          "shape": k4["shape"], "dtype": k4["dtype"], "by_shape": k4_rows},
-        *(k2_entry(name, k2_rows[which], line, llm_launches)
+        *(k2_entry(name, which, k2_rows[which], line, llm_launches,
+                   hybrid_launches)
           for name, which, line in (
               ("flash_attention_fwd", "fwd", 171),
               ("flash_attention_bwd_dq", "dq", 342),

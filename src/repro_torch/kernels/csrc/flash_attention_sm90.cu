@@ -1,6 +1,7 @@
 // K2 on Hopper's tensor cores: the flash-attention forward (K2f) and its
 // two backward kernels (K2q, K2kv) for bfloat16 and float16 at head dims
-// 64 and 128, with wgmma and TMA (sm_90a).
+// 64 and 128, K2f and K2kv also at 112 (zamba2's shared block), with
+// wgmma and TMA (sm_90a).
 //
 // Replaces the Pallas kernels of src/repro/kernels/flash_attention.py:
 //   K2f  _fwd_flat via flash_attention, body _flash_kernel (pallas_call at
@@ -10,10 +11,11 @@
 // It computes exactly what flash_attention.cu's SIMT fwd_kernel, dq_kernel
 // and dkv_kernel compute, with the same contract:
 //   q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), contiguous, in bfloat16 or
-//   float16, D 64 or 128; query head h reads KV head h / (Hq / Hkv); the
-//   q tokens are the last Sq of the Sk keys (seq_off = Sk - Sq); key k is
-//   live for query q when k < Sk, q < Sq, (not causal or k <= q +
-//   seq_off) and (window == 0 or q + seq_off - k < window).
+//   float16, D 64 or 128 (K2f and K2kv also 112); query head h reads KV
+//   head h / (Hq / Hkv); the q tokens are the last Sq of the Sk keys
+//   (seq_off = Sk - Sq); key k is live for query q when k < Sk, q < Sq,
+//   (not causal or k <= q + seq_off) and (window == 0 or q + seq_off - k <
+//   window).
 //   K2f writes o_f32 (B*Hq, Sq, D) and lse (B*Hq, Sq), float32; a row with
 //   no live key gives o = 0 and lse = NEG_INF = -2^30 exactly.
 //   K2q and K2kv read dO (B*Hq, Sq, D) in the input's 16-bit type (wgmma
@@ -23,8 +25,8 @@
 //   dv = P^T dO in the input type. Nothing of size (Sq, Sk) reaches device
 //   memory; K2kv sums each GQA group inside its CTA, without atomics, so
 //   dk and dv are deterministic; a dead row adds nothing and gets dq = 0.
-// The wrapper (kernels/flash_attention.py, fwd_route and bwd_route) sends
-// every other dtype and head dim to flash_attention.cu.
+// The wrapper (kernels/flash_attention.py: route) sends every other dtype
+// and head dim, and K2q at D 112, to flash_attention.cu.
 //
 // Bound on an H100 (989 TFLOP/s bf16/fp16, 3.35 TB/s): a causal call does
 // 4 D flops a live (q, k) pair forward, 6 D in K2q and 8 D in K2kv, and
@@ -36,6 +38,23 @@
 // the balance. So the design keeps the tensor cores fed on long rows
 // (every product on wgmma, tiles arriving by TMA while the previous tile
 // computes) and reads each tile once per CTA.
+//
+// D 112 (zamba2-7b's 32 heads of 112) is stored and multiplied at the
+// padded width 128 (Padded<D>): the tensor maps stay over the real 112
+// columns (rows of 224 bytes, a multiple of 16), so the second 64-column
+// box of a row covers columns 64-127 and TMA fills 112-127 with zeros,
+// and the stage's transaction count is the whole box, those zeros
+// included. The SS products that reduce over D (Q K^T in K2f, K Q^T and
+// V dO^T in K2kv) take D/16 = 7 k16 steps and never read the padding; the
+// RS products (P V in K2f, P^T dO and dS^T Q in K2kv) run at N = 128, and
+// their last 16 accumulator columns come out zero and are never stored:
+// every epilogue store stops at column D. The padding costs 128/112 =
+// 1.14x of the RS products' work and nothing of the SS products'; the
+// bound is counted at the real D. Tiles, threads and registers are D
+// 128's (the accumulators are 128 columns wide), so its budgets hold:
+// K2f 288 threads and ~99 KB of shared memory, K2kv 384 threads and
+// ~132 KB. K2q at D 112 is not built (its dispatch refuses it); it stays
+// on the simt kernel.
 //
 // The common shape. One producer warp (one thread issues the TMA loads:
 // cp.async.bulk.tensor, 3-D maps (D, S, B*H), so a ragged tail past Sk or
@@ -137,14 +156,20 @@ constexpr float kNegInf = -1073741824.0f;   // -2^30, the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// the k-tile: 128 keys at D 64, 64 at D 128 (the accumulators of S, P and
-// O then fit the registers of 288 threads with one CTA an SM)
+// the width a tile is stored and multiplied at: D in whole 64-column
+// (128-byte) halves, so 128 at D 112
+template <int D> struct Padded {
+  static constexpr int value = (D + 63) / 64 * 64;
+};
+
+// the k-tile: 128 keys at D 64, 64 at D 112 and 128 (the accumulators of S,
+// P and O then fit the registers of 288 threads with one CTA an SM)
 template <int D> struct TileK {
   static constexpr int value = D == 64 ? 128 : 64;
 };
 
-// K2kv's q-tile: 128 rows at D 64, 64 at D 128 (the dK and dV accumulators
-// and S^T, dP^T then come to 192 floats a thread at either D)
+// K2kv's q-tile: 128 rows at D 64, 64 at D 112 and 128 (the dK and dV
+// accumulators and S^T, dP^T then come to 192 floats a thread at any D)
 template <int D> struct TileQ {
   static constexpr int value = D == 64 ? 128 : 64;
 };
@@ -204,7 +229,8 @@ sm90_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_v,
                 float* __restrict__ o, float* __restrict__ lse, Geometry g) {
   constexpr int BK = TileK<D>::value;
-  constexpr int NH = D / 64;                  // 128-byte halves of a row
+  constexpr int DP = Padded<D>::value;        // the stored width
+  constexpr int NH = DP / 64;                 // 128-byte halves of a row
   constexpr uint32_t kQHalf = kBQ * 128;      // bytes of a (kBQ, 64) half
   constexpr uint32_t kKVHalf = BK * 128;      // bytes of a (BK, 64) half
   constexpr uint32_t kQBytes = NH * kQHalf;
@@ -272,9 +298,9 @@ sm90_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const bool rows_in = qw0 < g.sq;
   const uint32_t q_wg = q_s + wg * 64 * 128;
 
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   if (n_tiles > 0) mbar_wait(q_full, 0);
 
@@ -343,7 +369,7 @@ sm90_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         p[i / 8][(i % 8) / 2] = pack2(p0, p1, Tag{});
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
 
       // O += P V
       fence_regs(acc);
@@ -360,7 +386,8 @@ sm90_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) mbar_arrive(empty + 8 * s);
   }
 
-  // o = acc / l, lse = m + log l (back from the log2 domain)
+  // o = acc / l, lse = m + log l (back from the log2 domain); columns
+  // [0, D) only: at D 112 acc's last 16 columns are the padding's
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -394,7 +421,8 @@ sm90_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                const float* __restrict__ delta, uint16_t* __restrict__ dq,
                Geometry g) {
   constexpr int BK = TileK<D>::value;
-  constexpr int NH = D / 64;
+  constexpr int DP = Padded<D>::value;
+  constexpr int NH = DP / 64;
   constexpr uint32_t kQHalf = kBQ * 128;
   constexpr uint32_t kKVHalf = BK * 128;
   constexpr uint32_t kQBytes = NH * kQHalf;
@@ -474,9 +502,9 @@ sm90_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     dlt[r] = in ? delta[(size_t)bh * g.sq + row] : 0.f;
   }
 
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   if (n_tiles > 0) mbar_wait(q_full, 0);
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -580,7 +608,8 @@ sm90_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const float* __restrict__ delta, uint16_t* __restrict__ dk,
                 uint16_t* __restrict__ dv, Geometry g) {
   constexpr int BQ = TileQ<D>::value;
-  constexpr int NH = D / 64;
+  constexpr int DP = Padded<D>::value;
+  constexpr int NH = DP / 64;
   constexpr uint32_t kKHalf = kBKV * 128;     // bytes of a (kBKV, 64) half
   constexpr uint32_t kQHalf = BQ * 128;       // bytes of a (BQ, 64) half
   constexpr uint32_t kKBytes = NH * kKHalf;
@@ -670,9 +699,9 @@ sm90_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   const bool keys_in = kw0 < g.sk;
   const uint32_t k_wg = k_s + wg * 64 * 128, v_wg = v_s + wg * 64 * 128;
 
-  float dka[D / 2], dva[D / 2];
+  float dka[DP / 2], dva[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
   if (n_tiles > 0) mbar_wait(kv_full, 0);
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -759,7 +788,8 @@ sm90_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) mbar_arrive(empty + 8 * s);
   }
 
-  // dk = acc * scale, dv = acc; keys past Sk are never written
+  // dk = acc * scale, dv = acc; keys past Sk and columns past D are
+  // never written
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
@@ -804,7 +834,8 @@ EncodeTiled encode_tiled() {
 }
 
 // a 3-D map over (D, rows, heads) of 16-bit values, boxes of (64, box_rows,
-// 1), 128-byte swizzle, zeros outside
+// 1), 128-byte swizzle, zeros outside (at D 112, columns 112-127 of a
+// row's second box)
 bool make_map(CUtensorMap* map, EncodeTiled enc, CUtensorMapDataType dt,
               const void* ptr, int d, int rows, int heads, int box_rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
@@ -819,18 +850,19 @@ bool make_map(CUtensorMap* map, EncodeTiled enc, CUtensorMapDataType dt,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// each kernel's dynamic shared memory: the alignment slack, the tiles,
-// K2kv's rows, the barriers
+// each kernel's dynamic shared memory: the alignment slack, the tiles (at
+// the padded width), K2kv's rows, the barriers
 template <int D> constexpr size_t fwd_smem() {
-  return 1024 + (size_t)kBQ * D * 2 +
-         2 * kStages * (size_t)TileK<D>::value * D * 2 + 8 * (1 + 2 * kStages);
+  return 1024 + (size_t)kBQ * Padded<D>::value * 2 +
+         2 * kStages * (size_t)TileK<D>::value * Padded<D>::value * 2 +
+         8 * (1 + 2 * kStages);
 }
 template <int D> constexpr size_t dq_smem() {
-  return fwd_smem<D>() + (size_t)kBQ * D * 2;
+  return fwd_smem<D>() + (size_t)kBQ * Padded<D>::value * 2;
 }
 template <int D> constexpr size_t dkv_smem() {
-  return 1024 + 2 * (size_t)kBKV * D * 2 +
-         2 * kStages * (size_t)TileQ<D>::value * D * 2 +
+  return 1024 + 2 * (size_t)kBKV * Padded<D>::value * 2 +
+         2 * kStages * (size_t)TileQ<D>::value * Padded<D>::value * 2 +
          kStages * 2 * (size_t)TileQ<D>::value * 4 + 8 * (1 + 2 * kStages);
 }
 
@@ -885,12 +917,17 @@ int run(Which which, const Args& a) {
         m[0], m[2], m[3], static_cast<float*>(a.o),
         static_cast<float*>(a.lse), a.g);
   } else if (which == kDq) {
-    if (!make_maps<Tag, D>(m, a, kBQ, TileK<D>::value))
+    if constexpr (D == 112) {      // not built: K2q at D 112 takes simt
       return (int)cudaErrorInvalidValue;
-    if ((err = prepare(sm90_dq_kernel<Tag, D>, dq_smem<D>()))) return err;
-    sm90_dq_kernel<Tag, D><<<q_grid, kBwdThreads, dq_smem<D>(), a.stream>>>(
-        m[0], m[1], m[2], m[3], lse, delta, static_cast<uint16_t*>(a.dq),
-        a.g);
+    } else {
+      if (!make_maps<Tag, D>(m, a, kBQ, TileK<D>::value))
+        return (int)cudaErrorInvalidValue;
+      if ((err = prepare(sm90_dq_kernel<Tag, D>, dq_smem<D>()))) return err;
+      sm90_dq_kernel<Tag, D><<<q_grid, kBwdThreads, dq_smem<D>(),
+                               a.stream>>>(
+          m[0], m[1], m[2], m[3], lse, delta, static_cast<uint16_t*>(a.dq),
+          a.g);
+    }
   } else {
     if (!make_maps<Tag, D>(m, a, TileQ<D>::value, kBKV))
       return (int)cudaErrorInvalidValue;
@@ -904,7 +941,8 @@ int run(Which which, const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// dtype: 1 bfloat16, 2 float16 (0, float32, is not taken); d: 64 or 128
+// dtype: 1 bfloat16, 2 float16 (0, float32, is not taken); d: 64 or 128,
+// or 112 for K2f and K2kv
 int dispatch(Which which, int dtype, int d, int hq, int hkv, int sq, int sk,
              int causal, int window, float scale, Args& a) {
   if (a.b <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || sk <= 0 ||
@@ -914,8 +952,10 @@ int dispatch(Which which, int dtype, int d, int hq, int hkv, int sq, int sk,
   a.g = Geometry{hq, hkv, sq, sk, causal, window, sk - sq, scale,
                  scale * kLog2e};
   if (dtype == 1 && d == 64) return run<Bf16, 64>(which, a);
+  if (dtype == 1 && d == 112) return run<Bf16, 112>(which, a);
   if (dtype == 1 && d == 128) return run<Bf16, 128>(which, a);
   if (dtype == 2 && d == 64) return run<F16, 64>(which, a);
+  if (dtype == 2 && d == 112) return run<F16, 112>(which, a);
   if (dtype == 2 && d == 128) return run<F16, 128>(which, a);
   return (int)cudaErrorInvalidValue;
 }

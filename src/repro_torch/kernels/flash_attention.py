@@ -20,13 +20,15 @@ a head per matrix product), which this first version computes on the
 CUDA cores in float32.
 
 Each kernel has two routes, chosen from the dtype and head dim alone
-(``fwd_route`` for K2f, ``bwd_route`` for K2q and K2kv, one rule):
-bfloat16 and float16 at D 64 and 128 take ``sm90``, the tensor-core
-kernels of ``csrc/flash_attention_sm90.cu`` (wgmma for every tile
-product, TMA tile loads into a two-stage ring); every other call takes
-``simt``, the kernels above. ``fwd_routes`` and ``bwd_routes`` count the
-launches of each. The backward's sm90 route reads dO in the input's
-16-bit type, as wgmma takes it; the simt route reads it in float32.
+(``route``; ``SM90_HEAD_DIMS`` holds the rule): bfloat16 and float16
+take ``sm90``, the tensor-core kernels of
+``csrc/flash_attention_sm90.cu`` (wgmma for every tile product, TMA tile
+loads into a two-stage ring), at D 64, 112 and 128 for K2f and K2kv and
+at D 64 and 128 for K2q; every other call takes ``simt``, the kernels
+above. ``fwd_routes`` and ``bwd_routes`` count the launches of each
+route. A backward kernel on the sm90 route reads dO in the input's
+16-bit type, as wgmma takes it; on the simt route in float32, so at
+bfloat16 D 112 K2q reads the float32 dO and K2kv the 16-bit one.
 
 The residual contract is the reference's (``flash_attention.py:396-440``):
 the forward keeps q, k, v, ``o_f32`` (B·Hq, Sq, D) and ``lse`` (B·Hq, Sq);
@@ -64,7 +66,9 @@ bwd_routes = {"sm90": 0, "simt": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (32, 64, 112, 128)     # the kernels' template instances
 SM90_DTYPES = (torch.bfloat16, torch.float16)
-SM90_HEAD_DIMS = (64, 128)
+# the head dims each kernel's sm90 route takes (D 112 stored padded to 128)
+SM90_HEAD_DIMS = {"fwd": (64, 112, 128), "dq": (64, 128),
+                  "dkv": (64, 112, 128)}
 _fn: dict = {}
 
 
@@ -157,10 +161,13 @@ def mask(sq: int, sk: int, *, causal: bool, window: int, device):
 
 # ---------------------------------------------------------------- K2f --
 
-def fwd_route(dtype, d: int) -> str:
-    """K2f's kernel for a CUDA call: ``"sm90"`` (tensor cores) for bfloat16
-    and float16 at D 64 and 128, ``"simt"`` otherwise."""
-    return "sm90" if dtype in SM90_DTYPES and d in SM90_HEAD_DIMS else "simt"
+def route(which: str, dtype, d: int) -> str:
+    """The kernel ``which`` (a key of ``SM90_HEAD_DIMS``: ``"fwd"``,
+    ``"dq"`` or ``"dkv"``) takes for a CUDA call: ``"sm90"`` (tensor cores)
+    for bfloat16 and float16 at its head dims there, ``"simt"``
+    otherwise."""
+    return "sm90" if dtype in SM90_DTYPES and d in SM90_HEAD_DIMS[which] \
+        else "simt"
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal=True, window=0, scale=None):
@@ -193,32 +200,33 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          window=window, scale=scale)
     return _fwd_launch(q, k, v, causal, window, scale,
-                       fwd_route(q.dtype, q.shape[-1]))
+                       route("fwd", q.dtype, q.shape[-1]))
 
 
-def _fwd_launch(q, k, v, causal, window, scale, route):
+def _fwd_launch(q, k, v, causal, window, scale, kernel):
     """K2f on CUDA tensors that ``_check`` passed, by the given route
-    (``flash_attention_fwd`` takes ``fwd_route``'s; a measurement may
-    time the simt kernel at a shape the sm90 route takes)."""
+    ``kernel`` (``flash_attention_fwd`` takes ``route("fwd", ...)``'s; a
+    measurement may time the simt kernel at a shape the sm90 route
+    takes)."""
     B, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     _check_cuda(d)
     if q.numel() == 0 or sk == 0:       # no key: every row is dead
         return (torch.zeros((B * hq, sq, d), device=q.device),
                 torch.full((B * hq, sq), NEG_INF, device=q.device))
-    if route == "sm90":
+    if kernel == "sm90":
         _check_aligned("forward", q, k, v)
     o = torch.empty((B * hq, sq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((B * hq, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _launchers()["fwd_sm90" if route == "sm90" else "fwd"](
+        err = _launchers()["fwd_sm90" if kernel == "sm90" else "fwd"](
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), B, hq, hkv, sq, sk, d, int(causal),
             int(window), scale,
             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, f"forward (K2f, {route})")
+    _raise_on(err, f"forward (K2f, {kernel})")
     launches["flash_attention_fwd"] += 1
-    fwd_routes[route] += 1
+    fwd_routes[kernel] += 1
     return o, lse
 
 
@@ -248,11 +256,18 @@ def flash_attention_bwd_plain(q, k, v, o_f32, lse, do, *, causal=True,
             dv.to(v.dtype))
 
 
-def bwd_route(dtype, d: int) -> str:
-    """K2q's and K2kv's kernels for a CUDA call, by ``fwd_route``'s rule:
-    ``"sm90"`` (tensor cores) for bfloat16 and float16 at D 64 and 128,
-    ``"simt"`` otherwise."""
-    return fwd_route(dtype, d)
+def bwd_operands(q, o_f32, do):
+    """What the backward kernels read beside q, k, v and lse: delta =
+    Σ_d dO·o_f32 (B·Hq, Sq) in float32, and dO (B·Hq, Sq, D) for K2q and
+    for K2kv, each in its route's type (float32 for simt, q's 16-bit type
+    for sm90), contiguous; one float32 copy and at most one 16-bit one."""
+    B, hq, sq, d = q.shape
+    dof = do.float().contiguous().reshape(B * hq, sq, d)
+    delta = (dof * o_f32).sum(dim=-1)
+    routes = (route("dq", q.dtype, d), route("dkv", q.dtype, d))
+    do16 = do.to(q.dtype).contiguous().reshape(B * hq, sq, d) \
+        if "sm90" in routes else None
+    return (delta, *(do16 if r == "sm90" else dof for r in routes))
 
 
 def flash_attention_bwd(q, k, v, o_f32, lse, do, *, causal=True, window=0,
@@ -260,9 +275,10 @@ def flash_attention_bwd(q, k, v, o_f32, lse, do, *, causal=True, window=0,
     """Gradients of the attention under the output cotangent ``do``
     (B, Hq, Sq, D), from the forward's residuals: (dq, dk, dv) in the
     input dtypes. ``do`` may be strided. delta = Σ_d dO·o_f32 is taken in
-    float32; the simt kernels read dO in float32, the sm90 ones in q's
-    16-bit dtype (exact on the autograd path, where the cotangent arrives
-    in q's dtype; a float32 ``do`` is rounded once)."""
+    float32; each kernel reads dO in its route's type (``bwd_operands``):
+    a simt kernel in float32, an sm90 one in q's 16-bit dtype (exact on
+    the autograd path, where the cotangent arrives in q's dtype; a float32
+    ``do`` is rounded once)."""
     _check(q, k, v, window)
     B, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -281,17 +297,14 @@ def flash_attention_bwd(q, k, v, o_f32, lse, do, *, causal=True, window=0,
                                          causal=causal, window=window,
                                          scale=scale)
     _check_cuda(d)
-    dof = do.float().contiguous().reshape(B * hq, sq, d)
-    delta = (dof * o_f32).sum(dim=-1)
-    if bwd_route(q.dtype, d) == "sm90":
-        dof = do.to(q.dtype).contiguous().reshape(B * hq, sq, d)
+    delta, do_q, do_kv = bwd_operands(q, o_f32, do)
     kw = {"causal": causal, "window": window, "scale": scale}
-    return (flash_attention_bwd_dq(q, k, v, dof, lse, delta, **kw),
-            *flash_attention_bwd_dkv(q, k, v, dof, lse, delta, **kw))
+    return (flash_attention_bwd_dq(q, k, v, do_q, lse, delta, **kw),
+            *flash_attention_bwd_dkv(q, k, v, do_kv, lse, delta, **kw))
 
 
 def _bwd_launch(which, q, k, v, do, lse, delta, outs, causal, window,
-                scale, route):
+                scale, kernel):
     B, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if q.device.type != "cuda":
@@ -299,25 +312,26 @@ def _bwd_launch(which, q, k, v, do, lse, delta, outs, causal, window,
                          "flash_attention_bwd runs the plain version on the "
                          "CPU")
     _check_cuda(d)
-    route = bwd_route(q.dtype, d) if route is None else route
+    if kernel is None:
+        kernel = route(which, q.dtype, d)
     if q.numel() == 0 or sk == 0:       # no key: no gradient
         for t in outs:
             t.zero_()
         return
-    do = do.to(torch.float32 if route == "simt" else q.dtype)
-    if route == "sm90":
+    do = do.to(torch.float32 if kernel == "simt" else q.dtype)
+    if kernel == "sm90":
         _check_aligned(which, q, k, v, do)
     with torch.cuda.device(q.device):
-        err = _launchers()[f"bwd_{which}" + ("_sm90" if route == "sm90"
+        err = _launchers()[f"bwd_{which}" + ("_sm90" if kernel == "sm90"
                                              else "")](
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             *(t.data_ptr() for t in outs), B, hq, hkv, sq, sk, d,
             int(causal), int(window), _scale(q, scale),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, f"{which} (K2{'q' if which == 'dq' else 'kv'}, {route})")
+    _raise_on(err, f"{which} (K2{'q' if which == 'dq' else 'kv'}, {kernel})")
     launches[f"flash_attention_bwd_{which}"] += 1
-    bwd_routes[route] += 1
+    bwd_routes[kernel] += 1
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
@@ -325,10 +339,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
     """K2q alone on CUDA tensors: dq in q's dtype from dO (B·Hq, Sq, D),
     lse and delta (B·Hq, Sq) float32, all contiguous (as
     ``flash_attention_bwd`` prepares them). ``route`` None takes
-    ``bwd_route``'s (a measurement may name ``"simt"`` to time the first
-    version). dO is converted to the route's dtype if it is not in it:
-    float32 for simt (exact), q's dtype for sm90 (a float32 dO rounds
-    once)."""
+    ``route("dq", ...)``'s (a measurement may name ``"simt"`` to time the
+    first version; ``"sm90"`` at D 112 raises, as no such kernel is built). dO
+    is converted to the route's dtype if it is not in it: float32 for
+    simt (exact), q's dtype for sm90 (a float32 dO rounds once)."""
     dq = torch.empty_like(q)
     _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), causal, window, scale,
                 route)
@@ -338,7 +352,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
                             window=0, scale=None, route=None):
     """K2kv alone on CUDA tensors: (dk, dv) in k's dtype, from the same
-    inputs as ``flash_attention_bwd_dq``."""
+    inputs as ``flash_attention_bwd_dq``; ``route`` None takes
+    ``route("dkv", ...)``'s."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("dkv", q, k, v, do, lse, delta, (dk, dv), causal, window,
                 scale, route)

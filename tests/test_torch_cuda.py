@@ -5,10 +5,11 @@ against both plain versions, through one paged decode step on the sm90
 route and its refusal of misaligned pools, K2 (CUDA C++: K2f,
 K2q, K2kv) with dead rows, windows and ragged tails, at D = 112 and
 through one train step, the tensor-core routes of K2f and of K2q/K2kv
-(bfloat16, float16 at D 64 and 128), their route counts and their
-refusal of misaligned tensors, K3 (CUDA C++: K3f and K3b on both
-routes, the sm90 ones also against their emulated roundings) with ragged
-tails, clamped chunks, groups and an initial state, through ``SSDScan``
+(bfloat16, float16 at D 64 and 128; K2f and K2kv also at D 112, stored
+padded to 128, in a subprocess with a timeout first), their route counts
+and their refusal of misaligned tensors, K3 (CUDA C++: K3f and K3b on
+both routes, the sm90 ones also against their emulated roundings) with
+ragged tails, clamped chunks, groups and an initial state, through ``SSDScan``
 and one mamba train step; the distillation step of DENSE and the
 one-shot baselines on K1 against the plain route. Skips without a CUDA
 card.
@@ -232,7 +233,7 @@ def _assert_fwd_close(o, lse, po, plse, v):
     from float32 scores and a float32 l on both routes: 1e-4. Rows with
     no live key are exact on both."""
     d = o.shape[-1]
-    if FA.fwd_route(v.dtype, d) == "sm90":
+    if FA.route("fwd", v.dtype, d) == "sm90":
         u = 2.0 ** -9 if v.dtype == torch.bfloat16 else 2.0 ** -12
         torch.testing.assert_close(
             o, po, rtol=0, atol=2 * u * float(v.float().abs().max()))
@@ -274,7 +275,8 @@ def test_flash_attention_kernels_match_plain_versions(
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 128, "sm90"), (torch.float16, 64, "sm90"),
-    (torch.bfloat16, 112, "simt"), (torch.float32, 128, "simt")])
+    (torch.bfloat16, 112, "sm90"), (torch.float32, 128, "simt"),
+    (torch.float16, 112, "sm90"), (torch.float32, 112, "simt")])
 def test_flash_attention_fwd_counts_its_route(cuda, dtype, d, route):
     """One K2f launch counts once in ``launches`` and once under its route
     in ``fwd_routes``."""
@@ -290,11 +292,15 @@ def test_flash_attention_fwd_counts_its_route(cuda, dtype, d, route):
 
 
 @pytest.mark.parametrize("dtype,d,route", [
-    (torch.bfloat16, 128, "sm90"), (torch.float16, 64, "sm90"),
-    (torch.bfloat16, 112, "simt"), (torch.float32, 128, "simt")])
+    (torch.bfloat16, 128, ("sm90", "sm90")),
+    (torch.float16, 64, ("sm90", "sm90")),
+    (torch.bfloat16, 112, ("simt", "sm90")),
+    (torch.float32, 128, ("simt", "simt")),
+    (torch.float16, 112, ("simt", "sm90"))])
 def test_flash_attention_bwd_counts_its_route(cuda, dtype, d, route):
     """One backward launches K2q and K2kv once each, each counting once in
-    ``launches`` and once under its route in ``bwd_routes``."""
+    ``launches`` and once under its own route (``route``: K2q's, K2kv's)
+    in ``bwd_routes``."""
     q, k, v, do = _k2_inputs(1, 4, 2, 70, 70, d, dtype, cuda)
     o, lse = FA.flash_attention_fwd(q, k, v)
     before, routes = dict(FA.launches), dict(FA.bwd_routes)
@@ -304,7 +310,101 @@ def test_flash_attention_bwd_counts_its_route(cuda, dtype, d, route):
         "flash_attention_fwd": 0, "flash_attention_bwd_dq": 1,
         "flash_attention_bwd_dkv": 1}
     assert {n: c - routes[n] for n, c in FA.bwd_routes.items()} == {
-        "sm90": 2 * (route == "sm90"), "simt": 2 * (route == "simt")}
+        r: route.count(r) for r in ("sm90", "simt")}
+
+
+# D 112 on the sm90 routes of K2f and K2kv (B, Hq, Hkv, Sq, Sk, causal,
+# window): zamba2-7b's shared block at its train batch, Sq > Sk (dead rows)
+# with a window and GQA groups of 4, not causal with Sq < Sk, ragged tails
+# past 128 and past 64, not causal with a window and Sq > Sk
+K2_D112_CASES = [(2, 32, 32, 512, 512, True, 0),
+                 (1, 8, 2, 301, 230, True, 90),
+                 (1, 4, 1, 200, 333, False, 0),
+                 (2, 4, 4, 129, 129, True, 0),
+                 (1, 4, 1, 65, 65, True, 0),
+                 (1, 8, 2, 190, 100, False, 40)]
+
+_D112_SCRIPT = """
+import torch
+from repro_torch.kernels import flash_attention as FA
+for dtype in (torch.bfloat16, torch.float16):
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(1, 8, 301, 112, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(1, 2, 230, 112, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    o, lse = FA.flash_attention_fwd(q, k, v, window=90)
+    dq, dk, dv = FA.flash_attention_bwd(q, k, v, o, lse, torch.ones_like(q),
+                                        window=90)
+    torch.cuda.synchronize()
+assert FA.fwd_routes["sm90"] == 2 and FA.bwd_routes == {"sm90": 2, "simt": 2}
+print("done")
+"""
+
+
+def test_flash_attention_d112_sm90_finishes_in_a_subprocess(cuda):
+    """The D 112 kernels' stages expect the whole TMA box, zero-filled
+    columns 112-127 included; a wrong count hangs the kernel instead of
+    failing it. So one forward and one backward at D 112, bfloat16 and
+    float16, run first in a subprocess that must finish within 600 s
+    (a first build of the kernels included)."""
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    done = subprocess.run([sys.executable, "-c", _D112_SCRIPT], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0 and "done" in done.stdout, done.stderr
+
+
+@pytest.mark.parametrize("B,hq,hkv,sq,sk,causal,window", K2_D112_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_d112_sm90_matches_plain_versions(
+        cuda, B, hq, hkv, sq, sk, causal, window, dtype):
+    """K2f and K2kv at D 112 on their sm90 routes (K2q on simt) against the
+    plain pair, as ``chip_smoke.py``'s TOL_K2 holds them: o to 2u·max|v|,
+    lse to 1e-4, dq, dk and dv to 1e-2 of each tensor's largest entry.
+    Whole tensors are compared, so a store past column 111 (into the next
+    row's first 16 columns) shows."""
+    d = 112
+    q, k, v, do = _k2_inputs(B, hq, hkv, sq, sk, d, dtype, cuda)
+    kw = {"causal": causal, "window": window}
+    before, fwd, bwd = dict(FA.launches), dict(FA.fwd_routes), \
+        dict(FA.bwd_routes)
+    o, lse = FA.flash_attention_fwd(q, k, v, **kw)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert {n: c - fwd[n] for n, c in FA.fwd_routes.items()} == {
+        "sm90": 1, "simt": 0}
+    assert {n: c - bwd[n] for n, c in FA.bwd_routes.items()} == {
+        "sm90": 1, "simt": 1}
+    assert {n: c - before[n] for n, c in FA.launches.items()} == {
+        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkv": 1}
+    po, plse = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    assert o.shape == po.shape == (B * hq, sq, d)
+    dead = _assert_fwd_close(o, lse, po, plse, v)
+    want = FA.flash_attention_bwd_plain(q, k, v, po, plse, do, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        err = (a.float() - b.float()).abs().max()
+        assert float(err) <= 1e-2 * float(b.float().abs().max())
+    assert bool((got[0].reshape(B * hq, sq, d)[dead] == 0).all())
+
+
+def test_flash_attention_d112_dq_has_no_sm90_kernel(cuda):
+    """K2q at D 112 is not built for the tensor cores: the wrapper sends it
+    to simt, and naming the sm90 route raises before anything counts."""
+    q, k, v, do = _k2_inputs(1, 4, 2, 70, 70, 112, torch.bfloat16, cuda)
+    o, lse = FA.flash_attention_fwd(q, k, v)
+    delta, do_q, do_kv = FA.bwd_operands(q, o, do)
+    assert do_q.dtype == torch.float32 and do_kv.dtype == torch.bfloat16
+    before, routes = dict(FA.launches), dict(FA.bwd_routes)
+    with pytest.raises(RuntimeError, match="sm90"):
+        FA.flash_attention_bwd_dq(q, k, v, do_kv, lse, delta, route="sm90")
+    assert FA.launches == before and FA.bwd_routes == routes
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v", "do"])

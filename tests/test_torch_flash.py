@@ -3,7 +3,11 @@ the JAX package: the materialized oracle (``repro.kernels.ref.attention``
 and ``attention_grads``) and the Pallas kernels themselves, run in
 interpret mode with 16-wide blocks so that every shape has ragged tails.
 Also ``FlashAttention`` on the CPU against torch autograd of the port's
-materialized oracle, and ``ops.flash_attention``'s routing.
+materialized oracle, ``ops.flash_attention``'s routing, the three
+kernels' routes and the dO each backward kernel reads, and the algebra of
+the sm90 kernels at D 112, which store and multiply tiles padded to 128
+with zero columns: the plain pair on the padded inputs, cut back, against
+the plain pair and the reference's interpret-mode kernels at D 112.
 
 Inputs are float32 from numpy with a seed. Tolerance rtol = atol = 1e-5:
 float32 on both sides, summed in another order. Rows with no live key
@@ -188,10 +192,12 @@ def test_wrapper_checks_its_inputs():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_fwd_route_by_dtype_and_head_dim(dtype, d):
-    """K2f's tensor-core route takes exactly the 16-bit dtypes at D 64 and
-    128; every other (dtype, D) the kernels take stays on the simt one."""
-    want = "sm90" if dtype != torch.float32 and d in (64, 128) else "simt"
-    assert FA.fwd_route(dtype, d) == want
+    """K2f's tensor-core route takes exactly the 16-bit dtypes at D 64, 112
+    and 128; every other (dtype, D) the kernels take stays on the simt
+    one."""
+    want = "sm90" if dtype != torch.float32 and d in (64, 112, 128) \
+        else "simt"
+    assert FA.route("fwd", dtype, d) == want
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
@@ -215,10 +221,106 @@ def test_cpu_forward_takes_plain_version_and_counts_no_launch(dtype, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_bwd_route_by_dtype_and_head_dim(dtype, d):
-    """K2q's and K2kv's tensor-core route takes exactly what K2f's does:
-    the 16-bit dtypes at D 64 and 128."""
-    want = "sm90" if dtype != torch.float32 and d in (64, 128) else "simt"
-    assert FA.bwd_route(dtype, d) == want == FA.fwd_route(dtype, d)
+    """K2kv's tensor-core route takes exactly what K2f's does, the 16-bit
+    dtypes at D 64, 112 and 128; K2q's the 16-bit dtypes at D 64 and 128
+    only."""
+    half = dtype != torch.float32
+    assert FA.route("dkv", dtype, d) == FA.route("fwd", dtype, d) == (
+        "sm90" if half and d in (64, 112, 128) else "simt")
+    assert FA.route("dq", dtype, d) == (
+        "sm90" if half and d in (64, 128) else "simt")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_dq_and_dkv_routes_part_only_at_d112(dtype):
+    """The two backward kernels take one route at every head dim but 112,
+    where K2kv takes the tensor cores and K2q the first version."""
+    for d in FA.HEAD_DIMS:
+        routes = (FA.route("dq", dtype, d), FA.route("dkv", dtype, d))
+        assert routes == (("simt", "sm90") if d == 112
+                          else (FA.route("fwd", dtype, d),) * 2)
+    assert FA.SM90_HEAD_DIMS == {"fwd": (64, 112, 128), "dq": (64, 128),
+                                 "dkv": (64, 112, 128)}
+
+
+@pytest.mark.parametrize("dtype,d,types", [
+    (torch.bfloat16, 112, (torch.float32, torch.bfloat16)),
+    (torch.float16, 112, (torch.float32, torch.float16)),
+    (torch.bfloat16, 128, (torch.bfloat16, torch.bfloat16)),
+    (torch.float16, 64, (torch.float16, torch.float16)),
+    (torch.bfloat16, 32, (torch.float32, torch.float32)),
+    (torch.float32, 112, (torch.float32, torch.float32))])
+def test_bwd_operands_give_each_kernel_do_in_its_route_type(dtype, d, types):
+    """``bwd_operands``: delta = Σ_d dO·o_f32 in float32 from the float32
+    dO, and dO for K2q and for K2kv in their routes' types (float32 for
+    simt, the input's 16-bit type for sm90), contiguous (B·Hq, Sq, D),
+    from a strided cotangent; at bfloat16 D 112 K2q reads float32 and
+    K2kv the 16-bit dO."""
+    rng = np.random.default_rng(d)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32))
+    q = f(2, 4, 20, d).to(dtype)
+    do = f(2, 4, d, 20).to(dtype).transpose(2, 3)      # strided
+    o = f(8, 20, d)
+    delta, do_q, do_kv = FA.bwd_operands(q, o, do)
+    assert (do_q.dtype, do_kv.dtype) == types
+    for t in (do_q, do_kv):
+        assert t.shape == (8, 20, d) and t.is_contiguous()
+        torch.testing.assert_close(t, do.reshape(8, 20, d).to(t.dtype),
+                                   rtol=0, atol=0)
+    assert delta.dtype == torch.float32
+    torch.testing.assert_close(
+        delta, (do.float().contiguous().reshape(8, 20, d) * o).sum(-1),
+        rtol=0, atol=0)
+
+
+def _pad128(t):
+    """t's last axis zero-padded to 128, as the sm90 kernels store a D 112
+    tile (TMA fills columns 112-127 with zeros)."""
+    return torch.nn.functional.pad(t, (0, 128 - t.shape[-1]))
+
+
+@pytest.mark.parametrize("name", ["window"])
+def test_d112_padded_to_128_matches_plain_and_reference(name):
+    """The sm90 kernels' arithmetic at D 112: q, k, v (and dO) zero-padded
+    to 128 columns, the products taken at 128 with D 112's softmax scale,
+    and cut back after them. The padded columns of o, dq, dk and dv come
+    out exactly 0 (so the kernels need not store them), and the rest
+    equals the plain pair at D 112 and the reference's interpret-mode
+    kernels at D 112, forward and gradients."""
+    B, hq, hkv, sq, sk, causal, window = CASES[name]
+    d = 112
+    rng = np.random.default_rng(sq + sk + d)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    arrays = f(B, hq, sq, d), f(B, hkv, sk, d), f(B, hkv, sk, d), \
+        f(B, hq, sq, d)
+    q, k, v, do = _t(*arrays)
+    kw = {"causal": causal, "window": window, "scale": d ** -0.5}
+    o, lse = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    op, lsep = FA.flash_attention_fwd_plain(_pad128(q), _pad128(k),
+                                            _pad128(v), **kw)
+    assert not op[..., d:].any()
+    _close(op[..., :d], o)
+    _close(lsep, lse)
+    grads = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    padded = FA.flash_attention_bwd_plain(
+        _pad128(q), _pad128(k), _pad128(v), _pad128(o), lsep, _pad128(do),
+        **kw)
+    for a, b in zip(padded, grads):
+        assert not a[..., d:].any()
+        _close(a[..., :d], b)
+
+    jq, jk, jv, jdo = map(jnp.asarray, arrays)
+    _, jo, jlse = R_FA.flash_attention(
+        jq, jk, jv, causal=causal, window=window, block_q=BLOCK,
+        block_k=BLOCK, interpret=True, return_stats=True)
+    _close(op[..., :d], np.asarray(jo))
+    _close(lsep, np.asarray(jlse))
+    jgrads = R_FA.flash_attention_bwd(
+        jq, jk, jv, jo, jlse, jdo, causal=causal, window=window,
+        block_q=BLOCK, block_k=BLOCK, interpret=True)
+    for a, b in zip(padded, jgrads):
+        _close(a[..., :d], np.asarray(b))
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
