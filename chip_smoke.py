@@ -40,12 +40,14 @@ result line is printed:
      shape (B 8), one 4096-token sequence, ragged shapes with a window and
      dead rows at D = 32, 64, 112 and 128, D = 64 and D = 112 (zamba2's
      shared block at B 2, S 512); timed beside its bound and
-     ``F.scaled_dot_product_attention`` (its autograd backward for K2q
-     and K2kv). Each row names its kernel's route: ``sm90`` (the
-     tensor-core kernels, bfloat16 and float16 at D 64, 112 and 128, K2q
-     not at 112), whose rows also time the ``simt`` kernel (the first
-     version) on the same inputs, or ``simt``; every row also gives its
-     kernel's device time from ``torch.profiler``;
+     ``F.scaled_dot_product_attention`` pinned to a named backend (its
+     autograd backward for K2q and K2kv), wall and device time. Each row
+     names its kernel's route: ``sm90`` (the tensor-core kernels,
+     bfloat16 and float16 at D 64, 112 and 128, and K2f's float32 kernel
+     for the CUDA cores at every D), whose rows also time the ``simt``
+     kernel (the first version) on the same inputs, or ``simt`` (16 bits
+     at D 32, float32 K2q and K2kv); every row also gives its kernel's
+     device time from ``torch.profiler``;
   5. the DENSE main path at the paper's full width (``paper_cifar.CONFIG``:
      five width-1.0 resnet18 clients on 32x32x3 images, batch 128,
      synth_batch 128, nz 100, t_g 30), depth cut to one local epoch and
@@ -83,7 +85,8 @@ result line is printed:
      ``torch.profiler``: device idle share and the top kernels, with
      K4's share;
  11. train_check: one train step of llama3.2-3b at full width, 2 layers,
-     float32: the K2 route and the plain route agree to 1e-4;
+     float32: the K2 route (K2f on its float32 ``sm90`` kernel, K2q and
+     K2kv on ``simt``) and the plain route agree to 1e-4;
  12. dense_llm_check: one generator step and one student step of the
      example's heterogeneous federation (smoke widths) on the card and on
      the CPU agree to 1e-4;
@@ -130,14 +133,15 @@ result line is printed:
  17. ssm_train_check: one zamba2-7b train step at full width, 7 layers,
      float32, batch 2 × 512 (two chunks): the K3/K2 route and the plain
      route agree to 1e-4 (K3f 2 × 7 with remat and K3b 7, all on
-     ``simt``, K2 on the one shared-block application);
+     ``simt``, K2 on the one shared-block application: K2f on its float32
+     ``sm90`` kernel, K2q and K2kv on ``simt``);
  18. ssm_hybrid_train: zamba2-7b's train step in bfloat16 at full width
      (d_model 3584, 32/32 heads of 112, P 64, N 64), depth 81 → 13 (two
      super-blocks of 6 mamba blocks, each followed by the shared block,
      and a tail block), batch 2 × 512: the plain route's first step (loss,
      grad_norm), then 3 steps of the kernel route, each counted (K2f 4,
-     K2q 2, K2kv 2, K3f 26, K3b 13), K2f and K2kv on ``sm90`` at D 112,
-     K2q on ``simt``, K3 on ``sm90``; the first loss and grad_norm within
+     K2q 2, K2kv 2, K3f 26, K3b 13), K2 on ``sm90`` at D 112, K3 on
+     ``sm90``; the first loss and grad_norm within
      2e-4 of the plain route's (limits set from sound and faulty steps:
      ``scripts/hybrid_step_limits.py``); seconds a step, peak memory,
      and one more step under ``torch.profiler`` with K2's and K3's device
@@ -214,9 +218,9 @@ TOL_K4 = {"float32": (0.0, 1e-5), "bfloat16": (0.0, 1e-2),
 # block at ssm_train_check's and ssm_hybrid_train's batch, and
 # "ragged_d112" its head dim with Sq > Sk, a window, ragged tails past 64
 # and 128 and GQA groups of 4. float16 runs beside float32 and bfloat16 at
-# the shapes the sm90 routes take (K2_FP16; at D 112 only K2f's and
-# K2kv's, K2q stays on simt). Tolerance:
-# float32 without TF32 on both sides, 1e-4; 16-bit gradients are stored
+# the shapes the 16-bit sm90 routes take (K2_FP16: every D but 32).
+# Tolerance: float32 without TF32 on both sides (K2f's float32 sm90
+# kernel included), 1e-4; 16-bit gradients are stored
 # in the input dtype, 1e-2 of each tensor's largest entry (the sm90
 # backward also rounds P and dS to the 16-bit type before their
 # products, inside that). K2f's sm90 route (bfloat16, float16 at
@@ -1344,10 +1348,11 @@ def device_ms_per_call(torch, fn, match, calls: int = 20, info=None,
 
 def k2_kernel(which, route):
     """Matches the device name of K2's ``which`` kernel (``fwd``, ``dq``,
-    ``dkv``) on ``route``: ``sm90_dq_kernel<...>`` on sm90,
-    ``dq_kernel<...>`` on simt (K3's ``ssd_fwd_kernel`` is neither)."""
+    ``dkv``) on ``route``: ``sm90_dq_kernel<...>`` on sm90 (float32 K2f:
+    ``sm90_fwd_f32_kernel<...>``), ``dq_kernel<...>`` on simt (K3's
+    ``ssd_fwd_kernel`` is neither)."""
     if route == "sm90":
-        return lambda name: f"sm90_{which}_kernel<" in name
+        return lambda name: f"sm90_{which}_" in name
     return lambda name: (f"{which}_kernel<" in name and "sm90_" not in name
                          and "ssd_" not in name)
 
@@ -1375,15 +1380,91 @@ def ms_by_route(per_kernel: dict) -> tuple[dict, dict]:
     return by(k2_kernel, ("fwd", "dq", "dkv")), by(k3_kernel, ("fwd", "bwd"))
 
 
+def device_ms_total(torch, fn, calls: int = 20) -> tuple[float, float]:
+    """Device time a call of ``fn``, every kernel it launches summed, from
+    ``torch.profiler`` over ``calls`` calls after a warm-up, and the kernel
+    records the profiler kept a call (a drop shows as fewer than the
+    call launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel = device_ms(prof)
+    records = sum(e.count for e in prof.key_averages() if e.key in per_kernel)
+    return sum(per_kernel.values()) / calls, records / calls
+
+
+# F.scaled_dot_product_attention's backends, in the order the yardstick
+# tries them: the first that takes a shape's inputs (and their backward)
+# is pinned with torch.nn.attention.sdpa_kernel and named in the row
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+
+
+def sdpa_yardstick(torch, q, k, v, do, sdpa_kw) -> dict:
+    """The library call beside K2 (never on the port's path):
+    F.scaled_dot_product_attention with enable_gqa on q, k, v, pinned to
+    one backend, forward and its autograd backward (dq, dk, dv under
+    ``do``): each one's time from CUDA events (``cuda_ms``: the host's
+    work between the kernels included) and its device time
+    (``device_ms_total``)."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name)
+
+        def fwd():
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(
+                    *leaves, enable_gqa=True, **sdpa_kw)
+
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                out = fwd()
+                torch.autograd.grad(out, leaves, do, retain_graph=True)
+                torch.cuda.synchronize()
+            break
+        except RuntimeError:
+            continue
+    else:
+        fail(f"no SDPA backend of {SDPA_BACKENDS} takes {tuple(q.shape)}")
+
+    def fwd_only():
+        with torch.no_grad():
+            return fwd()
+
+    def bwd():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    f_dev, f_rec = device_ms_total(torch, fwd_only)
+    b_dev, b_rec = device_ms_total(torch, bwd)
+    res = {"backend": name.lower(),
+           "fwd_ms": cuda_ms(torch, fwd_only), "fwd_device_ms": f_dev,
+           "fwd_records_a_call": f_rec,
+           "bwd_ms": cuda_ms(torch, bwd), "bwd_device_ms": b_dev,
+           "bwd_records_a_call": b_rec}
+    del out, leaves
+    return res
+
+
 def k2_phase(torch):
     """K2f, K2q and K2kv against their plain versions, timed beside their
-    bound and beside F.scaled_dot_product_attention (forward, and its
-    autograd backward as the yardstick of the backward pair). Every row
-    names its route and gives its kernel's device time without the
-    wrapper's host time; an sm90 row also times the simt kernel (the
-    first version) on the same inputs."""
-    import torch.nn.functional as F
-
+    bound and beside F.scaled_dot_product_attention pinned to a named
+    backend (forward, and its autograd backward as the yardstick of the
+    backward pair; wall and device time). Every row names its route and
+    gives its kernel's device time without the wrapper's host time; an
+    sm90 row also times the simt kernel (the first version) on the same
+    inputs."""
     from repro_torch.kernels import flash_attention as FA
 
     rows = {"fwd": [], "dq": [], "dkv": []}
@@ -1412,7 +1493,7 @@ def k2_phase(torch):
             o, lse = FA.flash_attention_fwd(q, k, v, **kw)
             torch.cuda.synchronize()
             po, plse = FA.flash_attention_fwd_plain(q, k, v, **kw)
-            if route == "sm90":
+            if route == "sm90" and dtype != torch.float32:
                 o_tol = (0.0, 2 * UNIT_ROUNDOFF[dname]
                          * float(v.float().abs().max()))
                 lse_tol = (1e-4, 1e-4)
@@ -1423,13 +1504,13 @@ def k2_phase(torch):
             dead = plse == FA.NEG_INF
             dead_exact = bool((lse[dead] == FA.NEG_INF).all()
                               and (o[dead] == 0).all())
-            # both backward versions from the kernel's residuals; a kernel
-            # on the sm90 route reads dO in the input dtype, where do is
-            # made, one on simt in float32
+            # both backward versions from the kernel's residuals; the
+            # kernels on the sm90 route read dO in the input dtype, where
+            # do is made, on simt in float32
             dof = do.float().reshape(B * hq, sq, d)
-            delta, do_q, do_kv = FA.bwd_operands(q, o, do)
-            dq = FA.flash_attention_bwd_dq(q, k, v, do_q, lse, delta, **kw)
-            dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do_kv, lse, delta,
+            delta, do_k = FA.bwd_operands(q, o, do)
+            dq = FA.flash_attention_bwd_dq(q, k, v, do_k, lse, delta, **kw)
+            dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do_k, lse, delta,
                                                 **kw)
             torch.cuda.synchronize()
             want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
@@ -1438,12 +1519,7 @@ def k2_phase(torch):
                         for a, b in zip((dq, dk, dv), want)]
             dq_dead = bool((dq.reshape(B * hq, sq, d)[dead] == 0).all())
 
-            qr, kr, vr = (t.detach().clone().requires_grad_(True)
-                          for t in (q, k, v))
-            out = F.scaled_dot_product_attention(qr, kr, vr,
-                                                 enable_gqa=True, **sdpa_kw)
-            lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
-                out, (qr, kr, vr), do, retain_graph=True))
+            lib = sdpa_yardstick(torch, q, k, v, do, sdpa_kw)
             plain_bwd = cuda_ms(torch, lambda: FA.flash_attention_bwd_plain(
                 q, k, v, o, lse, do, **kw))
             shape = {"name": name, "B": B, "Hq": hq, "Hkv": hkv, "Sq": sq,
@@ -1469,8 +1545,10 @@ def k2_phase(torch):
                     name=f"flash_attention_fwd {route} {name} {dname}"),
                 "plain_ms": cuda_ms(torch, lambda: FA.flash_attention_fwd_plain(
                     q, k, v, **kw)),
-                "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, enable_gqa=True, **sdpa_kw)),
+                "library_ms": lib["fwd_ms"],
+                "library_device_ms": lib["fwd_device_ms"],
+                "library_backend": lib["backend"],
+                "library_records_a_call": lib["fwd_records_a_call"],
                 "bound_ms": b_ms, "bound_by": b_by}
             row.update(prof)
             row["bound_share_of_device_ms"] = b_ms / row["device_ms"]
@@ -1479,19 +1557,19 @@ def k2_phase(torch):
                 row["first_version_device_ms"] = device_ms_per_call(
                     torch, simt, k2_kernel("fwd", "simt"),
                     name=f"flash_attention_fwd simt {name} {dname}")
-            if name == "long" and dtype != torch.float32:
-                row["tflops_live"] = 4 * d * n_live / (row["ms"] * 1e-3) \
-                    / 1e12
+            if name == "long" or name == "d112":
+                row["device_tflops_live"] = 4 * d * n_live / (
+                    row["device_ms"] * 1e-3) / 1e12
             rows["fwd"].append(row)
             # a backward kernel reads q, k, v, dO (in its route's dtype),
             # lse and delta once and writes dq, or dk and dv
-            for which, ok, abs_err, rel_err, out_bytes, ops, do_k, extra in (
+            for which, ok, abs_err, rel_err, out_bytes, ops, extra in (
                     ("dq", errs[0] <= tol and dq_dead, abs_errs[0], errs[0],
-                     B * hq * sq * d * isz, 6 * d * n_live, do_q,
+                     B * hq * sq * d * isz, 6 * d * n_live,
                      {"dead_rows_exact": dq_dead}),
                     ("dkv", max(errs[1:]) <= tol, max(abs_errs[1:]),
                      max(errs[1:]), 2 * B * hkv * sk * d * isz,
-                     8 * d * n_live, do_kv, {})):
+                     8 * d * n_live, {})):
                 broute = FA.route(which, dtype, d)
                 launch = getattr(FA, f"flash_attention_bwd_{which}")
                 call = lambda r: lambda: launch(
@@ -1508,7 +1586,10 @@ def k2_phase(torch):
                            torch, call(broute), k2_kernel(which, broute),
                            info=prof, name=f"flash_attention_bwd_{which} "
                            f"{broute} {name} {dname}"),
-                       "plain_ms": plain_bwd, "library_ms": lib_bwd,
+                       "plain_ms": plain_bwd, "library_ms": lib["bwd_ms"],
+                       "library_device_ms": lib["bwd_device_ms"],
+                       "library_backend": lib["backend"],
+                       "library_records_a_call": lib["bwd_records_a_call"],
                        "bound_ms": b_ms, "bound_by": b_by}
                 row.update(prof)
                 row["bound_share_of_device_ms"] = b_ms / row["device_ms"]
@@ -1518,11 +1599,12 @@ def k2_phase(torch):
                         torch, call("simt"), k2_kernel(which, "simt"),
                         name=f"flash_attention_bwd_{which} simt {name} "
                         f"{dname}")
-                if name == "long" and dtype != torch.float32:
-                    row["tflops_live"] = ops / (row["ms"] * 1e-3) / 1e12
+                if name == "long" or name == "d112":
+                    row["device_tflops_live"] = ops / (
+                        row["device_ms"] * 1e-3) / 1e12
                 rows[which].append(row)
-            del q, k, v, do, o, lse, po, plse, dof, do_q, do_kv, delta, dq, \
-                dk, dv, want, qr, kr, vr, out
+            del q, k, v, do, o, lse, po, plse, dof, do_k, delta, dq, dk, \
+                dv, want
             torch.cuda.empty_cache()
     for which, rs in rows.items():
         for r in rs:
@@ -1533,13 +1615,13 @@ def k2_phase(torch):
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
     if bad:
         fail(f"{len(bad)} K2 checks disagree with the plain versions: {bad}")
-    # sm90 exactly in 16 bits at the shapes K2_FP16 names, but for K2q at
-    # D 112
-    routes = {(which, r["shape"]["name"], r["shape"]["D"], r["dtype"]):
-              r["route"] for which, rs in rows.items() for r in rs}
-    if any((r == "sm90") != (dt != "float32" and n in K2_FP16
-                             and not (which == "dq" and d == 112))
-           for (which, n, d, dt), r in routes.items()):
+    # sm90 exactly in 16 bits at the shapes K2_FP16 names (every D but 32)
+    # and for float32 K2f at every shape
+    routes = {(which, r["shape"]["name"], r["dtype"]): r["route"]
+              for which, rs in rows.items() for r in rs}
+    if any((r == "sm90") != (n in K2_FP16 if dt != "float32"
+                             else which == "fwd")
+           for (which, n, dt), r in routes.items()):
         fail(f"K2 took an unexpected route: {routes}")
     return rows
 
@@ -1922,8 +2004,8 @@ def hybrid_train(torch, dev="cuda", arch="zamba2-7b",
     deep (two applications of the shared block a pass; ``shape`` passes
     other ``hybrid_inputs`` arguments, as a CPU rehearsal cuts them),
     through the kernel route: HYBRID_STEPS timed steps, each counted (a
-    step with remat: K2f 4, K2q 2, K2kv 2, K3f 26, K3b 13), K2f and K2kv
-    on sm90, K2q on simt, K3 on sm90; then one step under
+    step with remat: K2f 4, K2q 2, K2kv 2, K3f 26, K3b 13), all on sm90;
+    then one step under
     ``torch.profiler``. The first step's loss and grad_norm are held to
     the plain route's (``ref``, same weights and batch, no update) to
     HYBRID_LOSS_TOL and HYBRID_NORM_TOL."""
@@ -2014,17 +2096,17 @@ def hybrid_train(torch, dev="cuda", arch="zamba2-7b",
              f"{norm_err} (tol {HYBRID_NORM_TOL})")
     if ref_counts != expected():
         fail(f"{label}: the plain route launched {ref_counts}")
-    # the slice's path: K2f and K2kv on the tensor cores at D 112, K2q on
-    # the first version, both K3 kernels on sm90
+    # the slice's path: K2f, K2q and K2kv on the tensor cores at D 112,
+    # both K3 kernels on sm90
     k2_want = {"fwd_sm90": totals["flash_attention_fwd"], "fwd_simt": 0,
-               "bwd_sm90": totals["flash_attention_bwd_dkv"],
-               "bwd_simt": totals["flash_attention_bwd_dq"]}
+               "bwd_sm90": totals["flash_attention_bwd_dq"]
+               + totals["flash_attention_bwd_dkv"], "bwd_simt": 0}
     if {k: routes[k] for k in k2_want} != k2_want:
         fail(f"{label}: K2's launches by route {routes}, expected {k2_want}")
     check_k3_routes(label, totals, routes, "sm90")
     if torch.device(dev).type == "cuda" and not (
             k2_by_route["fwd"]["sm90"] and k2_by_route["dkv"]["sm90"]
-            and k2_by_route["dq"]["simt"]):
+            and k2_by_route["dq"]["sm90"]):
         fail(f"{label}: the profiler saw no device time of a K2 kernel the "
              f"step runs: {k2_by_route}")
     del state, step, params, data
@@ -2355,7 +2437,8 @@ def k2_entry(name, which, rs, line, launches, hybrid_launches):
     """The kernels line's entry of a K2 kernel: the server shape in
     bfloat16 (the LLM main path's gen_step and student_step), its
     launches over the LLM main path, and by path: the LLM main path's (D
-    128) and ssm_hybrid_train's (D 112), each by route."""
+    128) and ssm_hybrid_train's (D 112), each by route, and the route its
+    float32 calls take (train_check, ssm_train_check)."""
     import torch
 
     from repro_torch.kernels import flash_attention as FA
@@ -2384,6 +2467,7 @@ def k2_entry(name, which, rs, line, launches, hybrid_launches):
                 for path, d, n in (("llm_main_path", 128, launches),
                                    ("ssm_hybrid_train", 112,
                                     hybrid_launches))},
+            "float32_route": FA.route(which, torch.float32, 128),
             "by_shape": rs}
 
 

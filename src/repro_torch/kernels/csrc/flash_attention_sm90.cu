@@ -1,7 +1,8 @@
-// K2 on Hopper's tensor cores: the flash-attention forward (K2f) and its
-// two backward kernels (K2q, K2kv) for bfloat16 and float16 at head dims
-// 64 and 128, K2f and K2kv also at 112 (zamba2's shared block), with
-// wgmma and TMA (sm_90a).
+// K2 on Hopper: the flash-attention forward (K2f) and its two backward
+// kernels (K2q, K2kv) for bfloat16 and float16 at head dims 64, 112
+// (zamba2's shared block) and 128 on the tensor cores, with wgmma and TMA
+// (sm_90a); and K2f in float32 at head dims 32, 64, 112 and 128 on the
+// CUDA cores (its own section below).
 //
 // Replaces the Pallas kernels of src/repro/kernels/flash_attention.py:
 //   K2f  _fwd_flat via flash_attention, body _flash_kernel (pallas_call at
@@ -11,8 +12,9 @@
 // It computes exactly what flash_attention.cu's SIMT fwd_kernel, dq_kernel
 // and dkv_kernel compute, with the same contract:
 //   q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), contiguous, in bfloat16 or
-//   float16, D 64 or 128 (K2f and K2kv also 112); query head h reads KV
-//   head h / (Hq / Hkv); the q tokens are the last Sq of the Sk keys
+//   float16 at D 64, 112 or 128 (K2f also in float32 at D 32 to 128);
+//   query head h reads KV head h / (Hq / Hkv); the q tokens are the last
+//   Sq of the Sk keys
 //   (seq_off = Sk - Sq); key k is live for query q when k < Sk, q < Sq,
 //   (not causal or k <= q + seq_off) and (window == 0 or q + seq_off - k <
 //   window).
@@ -25,8 +27,8 @@
 //   dv = P^T dO in the input type. Nothing of size (Sq, Sk) reaches device
 //   memory; K2kv sums each GQA group inside its CTA, without atomics, so
 //   dk and dv are deterministic; a dead row adds nothing and gets dq = 0.
-// The wrapper (kernels/flash_attention.py: route) sends every other dtype
-// and head dim, and K2q at D 112, to flash_attention.cu.
+// The wrapper (kernels/flash_attention.py: route) sends every other call
+// (16 bits at D 32, float32 K2q and K2kv) to flash_attention.cu.
 //
 // Bound on an H100 (989 TFLOP/s bf16/fp16, 3.35 TB/s): a causal call does
 // 4 D flops a live (q, k) pair forward, 6 D in K2q and 8 D in K2kv, and
@@ -52,9 +54,10 @@
 // 1.14x of the RS products' work and nothing of the SS products'; the
 // bound is counted at the real D. Tiles, threads and registers are D
 // 128's (the accumulators are 128 columns wide), so its budgets hold:
-// K2f 288 threads and ~99 KB of shared memory, K2kv 384 threads and
-// ~132 KB. K2q at D 112 is not built (its dispatch refuses it); it stays
-// on the simt kernel.
+// K2f 288 threads and ~99 KB of shared memory, K2q and K2kv 384 threads
+// and ~132 KB. K2q's S = Q K^T and dP = dO V^T are SS products over D (7
+// k16 steps), its dQ += dS K an RS product at N = 128 whose last 16
+// columns come out zero and are never stored.
 //
 // The common shape. One producer warp (one thread issues the TMA loads:
 // cp.async.bulk.tensor, 3-D maps (D, S, B*H), so a ragged tail past Sk or
@@ -806,6 +809,261 @@ sm90_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ------------------------------------------------------ K2f, float32 --
+//
+// The float32 forward on the CUDA cores, exact in float32: no TF32 and no
+// split-TF32 products (the float32 checks hold it to 1e-4, as they hold
+// the simt kernel). Bound: FFMA at 67 TFLOP/s, 4 D flops a live (q, k)
+// pair; the first version (flash_attention.cu's fwd_kernel) reached 23% of
+// it at D 112, paced by scalar shared-memory loads (8 for 16 FFMAs in
+// Q K^T) and by synchronous staging. Here:
+//   * one CTA per (b*Hq + h, 128-row q-block), longest q-blocks first;
+//     256 threads, each warp owning 16 consecutive rows: the thread of
+//     lane tx (0..15) in half `half` of warp w holds rows 16 w + 2 i + half
+//     (i < 8), keys tx + 16 j of a 64-key tile (j < 4) and D / 16
+//     columns of its rows' o, all in registers: 4 tx + 64 h + e (e < 4)
+//     at D 64 and 128, so that P V reads V in 16-byte vectors, 2 tx + e
+//     at D 32, tx + 16 c at D 112;
+//   * Q, K and V are staged row-major at a row stride of D + 4 floats by
+//     16-byte cp.async, zero-filled past Sq or Sk. Four d steps of Q K^T
+//     read one 16-byte vector of each of the thread's 8 rows (two
+//     addresses a warp: broadcasts) and of its 4 keys (the odd stride in
+//     16-byte units puts 8 neighbouring rows on 8 bank groups) for 128
+//     FFMAs: 3 loads per 32 FFMAs, where the first version had 8 per 16;
+//   * K and V tiles cycle through three slots in the order K0 V0 K1 V1 ...:
+//     K_{t+1} loads while tile t's Q K^T, softmax and P V run, V_{t+1}
+//     while its P V and the next Q K^T run; two barriers a tile;
+//   * the online softmax works in the log2 domain (scale log2 e folded
+//     into the scores, exp2f), evaluates the mask only on tiles that
+//     straddle one of its edges for the warp's 16 rows, and a warp skips a
+//     tile its rows see none of; P goes through shared memory (row stride
+//     80: the two half-warps' rows on disjoint banks, 16-byte reads) to
+//     P V, which reads one P vector a row per 4 keys and the thread's V
+//     columns of each key.
+// A row with no live key keeps m = NEG_INF and l = 0: o = 0 and lse =
+// NEG_INF exactly, as in the other kernels.
+
+constexpr int kF32Threads = 256;
+constexpr int kF32BK = 64;                  // keys a tile
+constexpr int kF32PS = kF32BK + 16;         // P's row stride, floats
+
+template <int D> struct F32Tiles {
+  static constexpr int kStride = D + 4;                 // Q, K, V rows
+  static constexpr int kQ = kBQ * kStride;              // floats
+  static constexpr int kSlot = kF32BK * kStride;        // floats
+  static constexpr size_t kBytes =
+      sizeof(float) * ((size_t)kQ + 3 * kSlot + kBQ * kF32PS);
+};
+
+// rows [row0, row0 + n) of a (rows, D) float32 matrix into shared memory
+// at `dst`, row stride D + 4, by 16-byte cp.async; zeros past `rows`
+template <int D>
+__device__ __forceinline__ void f32_stage(uint32_t dst,
+                                          const float* __restrict__ src,
+                                          int row0, int n, int rows) {
+  constexpr int C = D / 4;                  // 16-byte chunks a row
+  for (int e = threadIdx.x; e < n * C; e += kF32Threads) {
+    const int r = e / C, c = e % C;
+    const bool in = row0 + r < rows;
+    cp_async16(dst + 4u * (uint32_t)(r * F32Tiles<D>::kStride + 4 * c),
+               src + (in ? (size_t)(row0 + r) * D + 4 * c : 0), in);
+  }
+}
+
+// column c (< D / 16) of the thread of lane tx in the o tile: 16-byte
+// groups at D 64 and 128, 8-byte pairs at D 32, strided at D 112
+template <int D>
+__device__ __forceinline__ int f32_col(int tx, int c) {
+  constexpr int DN = D / 16;
+  return DN % 4 == 0 ? 64 * (c / 4) + 4 * tx + c % 4
+         : DN == 2   ? 2 * tx + c
+                     : tx + 16 * c;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
+sm90_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    float* __restrict__ lse, Geometry g) {
+  constexpr int S = F32Tiles<D>::kStride;
+  constexpr int RM = 8, CN = kF32BK / 16, DN = D / 16;
+  constexpr uint32_t kSlotBytes = 4u * F32Tiles<D>::kSlot;
+  extern __shared__ float4 f32_smem[];
+  float* const q_s = reinterpret_cast<float*>(f32_smem);   // [kBQ][S]
+  float* const kv_s = q_s + F32Tiles<D>::kQ;               // [3][kF32BK][S]
+  float* const p_s = kv_s + 3 * F32Tiles<D>::kSlot;        // [kBQ][kF32PS]
+  const uint32_t kv_u = smem_u32(kv_s);
+
+  const int warp = threadIdx.x / 32, tx = threadIdx.x % 16;
+  const int rb = 16 * warp + (threadIdx.x / 16) % 2;   // rows rb + 2 i
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest rows first
+  const int b = bh / g.hq, h = bh % g.hq;
+  const size_t kvh = (size_t)b * g.hkv + h / (g.hq / g.hkv);
+  const float* k_bh = k + kvh * g.sk * D;
+  const float* v_bh = v + kvh * g.sk * D;
+  int lo, hi;
+  k_range(q0, kBQ, g, lo, hi);
+  const int kt0 = lo < hi ? lo / kF32BK * kF32BK : hi;
+  const int n_tiles = lo < hi ? (hi - kt0 + kF32BK - 1) / kF32BK : 0;
+  const int qw0 = q0 + 16 * warp;                      // the warp's rows
+  int wlo, whi;
+  k_range(qw0, 16, g, wlo, whi);
+  const bool rows_in = qw0 < g.sq;
+
+  float acc[RM][DN], m[RM], l[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DN; ++c) acc[i][c] = 0.f;
+  }
+
+  if (n_tiles > 0) {                        // groups: Q, K_0, V_0
+    f32_stage<D>(smem_u32(q_s), q + (size_t)bh * g.sq * D, q0, kBQ, g.sq);
+    cp_async_commit();
+    f32_stage<D>(kv_u, k_bh, kt0, kF32BK, g.sk);
+    cp_async_commit();
+    f32_stage<D>(kv_u + kSlotBytes, v_bh, kt0, kF32BK, g.sk);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = kt0 + t * kF32BK;
+    const bool active = rows_in && k0 < whi && k0 + kF32BK > wlo;
+    cp_async_wait<1>();           // K_t has landed (V_t may be in flight)
+    __syncthreads();              // for every thread; P V of t - 1 is done
+    if (t + 1 < n_tiles)          // K_{t+1} into V_{t-1}'s slot
+      f32_stage<D>(kv_u + ((2 * t + 2) % 3) * kSlotBytes, k_bh,
+                   k0 + kF32BK, kF32BK, g.sk);
+    cp_async_commit();
+    if (active) {
+      const float* k_t = kv_s + ((2 * t) % 3) * F32Tiles<D>::kSlot;
+      float s[RM][CN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        float4 qa[RM], kb[CN];
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+          qa[i] = *reinterpret_cast<const float4*>(q_s + (rb + 2 * i) * S
+                                                   + d);
+#pragma unroll
+        for (int j = 0; j < CN; ++j)
+          kb[j] = *reinterpret_cast<const float4*>(k_t + (tx + 16 * j) * S
+                                                   + d);
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < CN; ++j) {
+            s[i][j] = fmaf(qa[i].x, kb[j].x, s[i][j]);
+            s[i][j] = fmaf(qa[i].y, kb[j].y, s[i][j]);
+            s[i][j] = fmaf(qa[i].z, kb[j].z, s[i][j]);
+            s[i][j] = fmaf(qa[i].w, kb[j].w, s[i][j]);
+          }
+      }
+      // the online softmax in the log2 domain; a row's 64 scores lie in
+      // the 16 lanes of a half-warp, l[i] is this thread's share of its
+      // row's sum (every share is rescaled by the same alpha)
+      const bool all_live = tile_live(qw0, 16, k0, kF32BK, g);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int r = rb + 2 * i;
+        float mx = m[i];
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          s[i][j] = all_live || live(q0 + r, k0 + tx + 16 * j, g)
+                        ? s[i][j] * g.scale_log2 : masked_score();
+          mx = fmaxf(mx, s[i][j]);
+        }
+#pragma unroll
+        for (int off = 1; off < 16; off *= 2)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float alpha = exp2f(m[i] - mx);
+        m[i] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          const float p = exp2f(s[i][j] - mx);
+          p_s[r * kF32PS + tx + 16 * j] = p;
+          sum += p;
+        }
+        l[i] = l[i] * alpha + sum;
+#pragma unroll
+        for (int c = 0; c < DN; ++c) acc[i][c] *= alpha;
+      }
+    }
+    cp_async_wait<1>();           // V_t has landed (K_{t+1} may not have)
+    __syncthreads();              // for every thread; every Q K^T is done
+    if (t + 1 < n_tiles)          // V_{t+1} into K_t's slot
+      f32_stage<D>(kv_u + ((2 * t + 3) % 3) * kSlotBytes, v_bh,
+                   k0 + kF32BK, kF32BK, g.sk);
+    cp_async_commit();
+    if (active) {
+      const float* v_t = kv_s + ((2 * t + 1) % 3) * F32Tiles<D>::kSlot;
+#pragma unroll 2
+      for (int c0 = 0; c0 < kF32BK; c0 += 4) {
+        float4 pa[RM];
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+          pa[i] = *reinterpret_cast<const float4*>(
+              p_s + (rb + 2 * i) * kF32PS + c0);
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          float vb[DN];                 // V at the thread's columns
+          const float* v_row = v_t + (c0 + cc) * S;
+          if constexpr (DN % 4 == 0) {
+#pragma unroll
+            for (int hh = 0; hh < DN / 4; ++hh) {
+              const float4 x = *reinterpret_cast<const float4*>(
+                  v_row + 64 * hh + 4 * tx);
+              vb[4 * hh] = x.x; vb[4 * hh + 1] = x.y;
+              vb[4 * hh + 2] = x.z; vb[4 * hh + 3] = x.w;
+            }
+          } else if constexpr (DN == 2) {
+            const float2 x = *reinterpret_cast<const float2*>(v_row + 2 * tx);
+            vb[0] = x.x; vb[1] = x.y;
+          } else {
+#pragma unroll
+            for (int c = 0; c < DN; ++c) vb[c] = v_row[f32_col<D>(tx, c)];
+          }
+#pragma unroll
+          for (int i = 0; i < RM; ++i) {
+            const float p = cc == 0 ? pa[i].x : cc == 1 ? pa[i].y
+                            : cc == 2 ? pa[i].z : pa[i].w;
+#pragma unroll
+            for (int c = 0; c < DN; ++c) acc[i][c] = fmaf(p, vb[c],
+                                                          acc[i][c]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // o = acc / l, lse = m + log l (back from the log2 domain)
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int off = 1; off < 16; off *= 2)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = q0 + rb + 2 * i;
+    if (row >= g.sq) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    float* o_row = o + ((size_t)bh * g.sq + row) * D;
+#pragma unroll
+    for (int c = 0; c < DN; ++c) o_row[f32_col<D>(tx, c)] = acc[i][c] * inv;
+    if (tx == 0)
+      lse[(size_t)bh * g.sq + row] =
+          l[i] > 0.f ? (m[i] + log2f(l[i])) * kLn2 : kNegInf;
+  }
+}
+
 // ------------------------------------------------------------- launches --
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -917,17 +1175,12 @@ int run(Which which, const Args& a) {
         m[0], m[2], m[3], static_cast<float*>(a.o),
         static_cast<float*>(a.lse), a.g);
   } else if (which == kDq) {
-    if constexpr (D == 112) {      // not built: K2q at D 112 takes simt
+    if (!make_maps<Tag, D>(m, a, kBQ, TileK<D>::value))
       return (int)cudaErrorInvalidValue;
-    } else {
-      if (!make_maps<Tag, D>(m, a, kBQ, TileK<D>::value))
-        return (int)cudaErrorInvalidValue;
-      if ((err = prepare(sm90_dq_kernel<Tag, D>, dq_smem<D>()))) return err;
-      sm90_dq_kernel<Tag, D><<<q_grid, kBwdThreads, dq_smem<D>(),
-                               a.stream>>>(
-          m[0], m[1], m[2], m[3], lse, delta, static_cast<uint16_t*>(a.dq),
-          a.g);
-    }
+    if ((err = prepare(sm90_dq_kernel<Tag, D>, dq_smem<D>()))) return err;
+    sm90_dq_kernel<Tag, D><<<q_grid, kBwdThreads, dq_smem<D>(), a.stream>>>(
+        m[0], m[1], m[2], m[3], lse, delta, static_cast<uint16_t*>(a.dq),
+        a.g);
   } else {
     if (!make_maps<Tag, D>(m, a, TileQ<D>::value, kBKV))
       return (int)cudaErrorInvalidValue;
@@ -941,8 +1194,22 @@ int run(Which which, const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// dtype: 1 bfloat16, 2 float16 (0, float32, is not taken); d: 64 or 128,
-// or 112 for K2f and K2kv
+// the float32 forward (grid and order as the 16-bit kernels')
+template <int D>
+int run_f32(const Args& a) {
+  const int err = prepare(sm90_fwd_f32_kernel<D>, F32Tiles<D>::kBytes);
+  if (err) return err;
+  const dim3 grid(a.b * a.g.hq, (a.g.sq + kBQ - 1) / kBQ);
+  sm90_fwd_f32_kernel<D><<<grid, kF32Threads, F32Tiles<D>::kBytes,
+                           a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o),
+      static_cast<float*>(a.lse), a.g);
+  return (int)cudaGetLastError();
+}
+
+// dtype: 1 bfloat16, 2 float16 at d 64, 112 or 128; 0, float32, for the
+// forward only, at d 32, 64, 112 or 128
 int dispatch(Which which, int dtype, int d, int hq, int hkv, int sq, int sk,
              int causal, int window, float scale, Args& a) {
   if (a.b <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || sk <= 0 ||
@@ -951,6 +1218,15 @@ int dispatch(Which which, int dtype, int d, int hq, int hkv, int sq, int sk,
     return (int)cudaErrorInvalidValue;
   a.g = Geometry{hq, hkv, sq, sk, causal, window, sk - sq, scale,
                  scale * kLog2e};
+  if (dtype == 0 && which == kFwd) {
+    switch (d) {
+      case 32: return run_f32<32>(a);
+      case 64: return run_f32<64>(a);
+      case 112: return run_f32<112>(a);
+      case 128: return run_f32<128>(a);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   if (dtype == 1 && d == 64) return run<Bf16, 64>(which, a);
   if (dtype == 1 && d == 112) return run<Bf16, 112>(which, a);
   if (dtype == 1 && d == 128) return run<Bf16, 128>(which, a);

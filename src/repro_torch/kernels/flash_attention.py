@@ -20,15 +20,17 @@ a head per matrix product), which this first version computes on the
 CUDA cores in float32.
 
 Each kernel has two routes, chosen from the dtype and head dim alone
-(``route``; ``SM90_HEAD_DIMS`` holds the rule): bfloat16 and float16
-take ``sm90``, the tensor-core kernels of
+(``route``): bfloat16 and float16 at D 64, 112 and 128
+(``SM90_HEAD_DIMS``) take ``sm90``, the tensor-core kernels of
 ``csrc/flash_attention_sm90.cu`` (wgmma for every tile product, TMA tile
-loads into a two-stage ring), at D 64, 112 and 128 for K2f and K2kv and
-at D 64 and 128 for K2q; every other call takes ``simt``, the kernels
-above. ``fwd_routes`` and ``bwd_routes`` count the launches of each
-route. A backward kernel on the sm90 route reads dO in the input's
-16-bit type, as wgmma takes it; on the simt route in float32, so at
-bfloat16 D 112 K2q reads the float32 dO and K2kv the 16-bit one.
+loads into a two-stage ring); float32 K2f takes ``sm90`` at every head
+dim, the same file's float32 kernel for Hopper's CUDA cores (exact
+float32, ``cp.async`` tile ring, register micro-tiles); every other call
+(16-bit D 32, float32 K2q and K2kv) takes ``simt``, the kernels above,
+whose float32 forward is now the first version. ``fwd_routes`` and
+``bwd_routes`` count the launches of each route. K2q and K2kv always
+share a route; on sm90 they read dO in the input's 16-bit type, as wgmma
+takes it, on simt in float32.
 
 The residual contract is the reference's (``flash_attention.py:396-440``):
 the forward keeps q, k, v, ``o_f32`` (B·Hq, Sq, D) and ``lse`` (B·Hq, Sq);
@@ -65,10 +67,9 @@ bwd_routes = {"sm90": 0, "simt": 0}
 # torch dtype -> the C interface's dtype code
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (32, 64, 112, 128)     # the kernels' template instances
-SM90_DTYPES = (torch.bfloat16, torch.float16)
-# the head dims each kernel's sm90 route takes (D 112 stored padded to 128)
-SM90_HEAD_DIMS = {"fwd": (64, 112, 128), "dq": (64, 128),
-                  "dkv": (64, 112, 128)}
+# the head dims the sm90 route takes in 16 bits (D 112 stored padded to
+# 128); in float32 only K2f takes it, at every head dim
+SM90_HEAD_DIMS = (64, 112, 128)
 _fn: dict = {}
 
 
@@ -134,11 +135,12 @@ def _scale(q, scale):
 
 
 def _check_aligned(which: str, *tensors) -> None:
-    """The sm90 route reads these tensors by TMA, which needs 16-byte
-    aligned bases: anything else is refused before a launch."""
+    """The sm90 route reads these tensors by TMA (16 bits) or 16-byte
+    ``cp.async`` (float32), which need 16-byte aligned bases: anything
+    else is refused before a launch."""
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"K2's sm90 {which} loads its tiles by TMA, which "
-                         "needs 16-byte aligned tensors")
+        raise ValueError(f"K2's sm90 {which} loads its tiles by TMA or "
+                         "cp.async, which need 16-byte aligned tensors")
 
 
 def _raise_on(err: int, which: str) -> None:
@@ -162,12 +164,13 @@ def mask(sq: int, sk: int, *, causal: bool, window: int, device):
 # ---------------------------------------------------------------- K2f --
 
 def route(which: str, dtype, d: int) -> str:
-    """The kernel ``which`` (a key of ``SM90_HEAD_DIMS``: ``"fwd"``,
-    ``"dq"`` or ``"dkv"``) takes for a CUDA call: ``"sm90"`` (tensor cores)
-    for bfloat16 and float16 at its head dims there, ``"simt"``
-    otherwise."""
-    return "sm90" if dtype in SM90_DTYPES and d in SM90_HEAD_DIMS[which] \
-        else "simt"
+    """The route the kernel ``which`` (``"fwd"``, ``"dq"`` or ``"dkv"``)
+    takes for a CUDA call: ``"sm90"`` for bfloat16 and float16 at
+    ``SM90_HEAD_DIMS`` (tensor cores) and for float32 K2f (CUDA cores),
+    ``"simt"`` otherwise."""
+    if dtype == torch.float32:
+        return "sm90" if which == "fwd" else "simt"
+    return "sm90" if d in SM90_HEAD_DIMS else "simt"
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal=True, window=0, scale=None):
@@ -258,16 +261,14 @@ def flash_attention_bwd_plain(q, k, v, o_f32, lse, do, *, causal=True,
 
 def bwd_operands(q, o_f32, do):
     """What the backward kernels read beside q, k, v and lse: delta =
-    Σ_d dO·o_f32 (B·Hq, Sq) in float32, and dO (B·Hq, Sq, D) for K2q and
-    for K2kv, each in its route's type (float32 for simt, q's 16-bit type
-    for sm90), contiguous; one float32 copy and at most one 16-bit one."""
+    Σ_d dO·o_f32 (B·Hq, Sq) in float32, and dO (B·Hq, Sq, D), contiguous,
+    in their route's type (float32 for simt, q's 16-bit type for sm90)."""
     B, hq, sq, d = q.shape
     dof = do.float().contiguous().reshape(B * hq, sq, d)
     delta = (dof * o_f32).sum(dim=-1)
-    routes = (route("dq", q.dtype, d), route("dkv", q.dtype, d))
-    do16 = do.to(q.dtype).contiguous().reshape(B * hq, sq, d) \
-        if "sm90" in routes else None
-    return (delta, *(do16 if r == "sm90" else dof for r in routes))
+    if route("dq", q.dtype, d) == "simt":
+        return delta, dof
+    return delta, do.to(q.dtype).contiguous().reshape(B * hq, sq, d)
 
 
 def flash_attention_bwd(q, k, v, o_f32, lse, do, *, causal=True, window=0,
@@ -275,8 +276,8 @@ def flash_attention_bwd(q, k, v, o_f32, lse, do, *, causal=True, window=0,
     """Gradients of the attention under the output cotangent ``do``
     (B, Hq, Sq, D), from the forward's residuals: (dq, dk, dv) in the
     input dtypes. ``do`` may be strided. delta = Σ_d dO·o_f32 is taken in
-    float32; each kernel reads dO in its route's type (``bwd_operands``):
-    a simt kernel in float32, an sm90 one in q's 16-bit dtype (exact on
+    float32; both kernels read dO in their route's type (``bwd_operands``):
+    on simt in float32, on sm90 in q's 16-bit dtype (exact on
     the autograd path, where the cotangent arrives in q's dtype; a float32
     ``do`` is rounded once)."""
     _check(q, k, v, window)
@@ -297,10 +298,10 @@ def flash_attention_bwd(q, k, v, o_f32, lse, do, *, causal=True, window=0,
                                          causal=causal, window=window,
                                          scale=scale)
     _check_cuda(d)
-    delta, do_q, do_kv = bwd_operands(q, o_f32, do)
+    delta, do_k = bwd_operands(q, o_f32, do)
     kw = {"causal": causal, "window": window, "scale": scale}
-    return (flash_attention_bwd_dq(q, k, v, do_q, lse, delta, **kw),
-            *flash_attention_bwd_dkv(q, k, v, do_kv, lse, delta, **kw))
+    return (flash_attention_bwd_dq(q, k, v, do_k, lse, delta, **kw),
+            *flash_attention_bwd_dkv(q, k, v, do_k, lse, delta, **kw))
 
 
 def _bwd_launch(which, q, k, v, do, lse, delta, outs, causal, window,
@@ -340,9 +341,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
     lse and delta (B·Hq, Sq) float32, all contiguous (as
     ``flash_attention_bwd`` prepares them). ``route`` None takes
     ``route("dq", ...)``'s (a measurement may name ``"simt"`` to time the
-    first version; ``"sm90"`` at D 112 raises, as no such kernel is built). dO
-    is converted to the route's dtype if it is not in it: float32 for
-    simt (exact), q's dtype for sm90 (a float32 dO rounds once)."""
+    first version). dO is converted to the route's dtype if it is not in
+    it: float32 for simt (exact), q's dtype for sm90 (a float32 dO rounds
+    once)."""
     dq = torch.empty_like(q)
     _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), causal, window, scale,
                 route)

@@ -4,10 +4,11 @@ routes, every dtype, head dims 32 to 128, split and unsplit contexts)
 against both plain versions, through one paged decode step on the sm90
 route and its refusal of misaligned pools, K2 (CUDA C++: K2f,
 K2q, K2kv) with dead rows, windows and ragged tails, at D = 112 and
-through one train step, the tensor-core routes of K2f and of K2q/K2kv
-(bfloat16, float16 at D 64 and 128; K2f and K2kv also at D 112, stored
-padded to 128, in a subprocess with a timeout first), their route counts
-and their refusal of misaligned tensors, K3 (CUDA C++: K3f and K3b on
+through one train step, the tensor-core routes of K2f, K2q and K2kv
+(bfloat16, float16 at D 64, 112 and 128; D 112 stored padded to 128, in
+a subprocess with a timeout first), K2f's float32 sm90 kernel against the
+plain version and the first version (simt) at D 32 to 128, their route
+counts and their refusal of misaligned tensors, K3 (CUDA C++: K3f and K3b on
 both routes, the sm90 ones also against their emulated roundings) with
 ragged tails, clamped chunks, groups and an initial state, through ``SSDScan``
 and one mamba train step; the distillation step of DENSE and the
@@ -225,15 +226,15 @@ def _k2_inputs(B, hq, hkv, sq, sk, d, dtype, device):
 
 
 def _assert_fwd_close(o, lse, po, plse, v):
-    """K2f's output against the plain version's. The simt route computes
-    in float32 and holds o to 1e-4. The sm90 route rounds P to the input's
-    16-bit type before the PV product, so each o entry may move by
-    Σ p_j ε_j v_j / l with |ε_j| ≤ u (2^-9 bfloat16, 2^-12 float16), at
-    most u·max|v|: o is held to atol = 2u·max|v|, rtol = 0. lse comes
-    from float32 scores and a float32 l on both routes: 1e-4. Rows with
-    no live key are exact on both."""
+    """K2f's output against the plain version's. Float32 (either route)
+    and the simt route compute in float32 and hold o to 1e-4. The 16-bit
+    sm90 route rounds P to the input's 16-bit type before the PV product,
+    so each o entry may move by Σ p_j ε_j v_j / l with |ε_j| ≤ u (2^-9
+    bfloat16, 2^-12 float16), at most u·max|v|: o is held to atol =
+    2u·max|v|, rtol = 0. lse comes from float32 scores and a float32 l on
+    both routes: 1e-4. Rows with no live key are exact on both."""
     d = o.shape[-1]
-    if FA.route("fwd", v.dtype, d) == "sm90":
+    if v.dtype != torch.float32 and FA.route("fwd", v.dtype, d) == "sm90":
         u = 2.0 ** -9 if v.dtype == torch.bfloat16 else 2.0 ** -12
         torch.testing.assert_close(
             o, po, rtol=0, atol=2 * u * float(v.float().abs().max()))
@@ -275,8 +276,9 @@ def test_flash_attention_kernels_match_plain_versions(
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 128, "sm90"), (torch.float16, 64, "sm90"),
-    (torch.bfloat16, 112, "sm90"), (torch.float32, 128, "simt"),
-    (torch.float16, 112, "sm90"), (torch.float32, 112, "simt")])
+    (torch.bfloat16, 112, "sm90"), (torch.float32, 128, "sm90"),
+    (torch.float16, 112, "sm90"), (torch.float32, 112, "sm90"),
+    (torch.float32, 32, "sm90"), (torch.bfloat16, 32, "simt")])
 def test_flash_attention_fwd_counts_its_route(cuda, dtype, d, route):
     """One K2f launch counts once in ``launches`` and once under its route
     in ``fwd_routes``."""
@@ -294,9 +296,9 @@ def test_flash_attention_fwd_counts_its_route(cuda, dtype, d, route):
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 128, ("sm90", "sm90")),
     (torch.float16, 64, ("sm90", "sm90")),
-    (torch.bfloat16, 112, ("simt", "sm90")),
+    (torch.bfloat16, 112, ("sm90", "sm90")),
     (torch.float32, 128, ("simt", "simt")),
-    (torch.float16, 112, ("simt", "sm90"))])
+    (torch.float16, 112, ("sm90", "sm90"))])
 def test_flash_attention_bwd_counts_its_route(cuda, dtype, d, route):
     """One backward launches K2q and K2kv once each, each counting once in
     ``launches`` and once under its own route (``route``: K2q's, K2kv's)
@@ -313,7 +315,7 @@ def test_flash_attention_bwd_counts_its_route(cuda, dtype, d, route):
         r: route.count(r) for r in ("sm90", "simt")}
 
 
-# D 112 on the sm90 routes of K2f and K2kv (B, Hq, Hkv, Sq, Sk, causal,
+# D 112 on the sm90 routes of K2f, K2q and K2kv (B, Hq, Hkv, Sq, Sk, causal,
 # window): zamba2-7b's shared block at its train batch, Sq > Sk (dead rows)
 # with a window and GQA groups of 4, not causal with Sq < Sk, ragged tails
 # past 128 and past 64, not causal with a window and Sq > Sk
@@ -336,7 +338,7 @@ for dtype in (torch.bfloat16, torch.float16):
     dq, dk, dv = FA.flash_attention_bwd(q, k, v, o, lse, torch.ones_like(q),
                                         window=90)
     torch.cuda.synchronize()
-assert FA.fwd_routes["sm90"] == 2 and FA.bwd_routes == {"sm90": 2, "simt": 2}
+assert FA.fwd_routes["sm90"] == 2 and FA.bwd_routes == {"sm90": 4, "simt": 0}
 print("done")
 """
 
@@ -344,9 +346,9 @@ print("done")
 def test_flash_attention_d112_sm90_finishes_in_a_subprocess(cuda):
     """The D 112 kernels' stages expect the whole TMA box, zero-filled
     columns 112-127 included; a wrong count hangs the kernel instead of
-    failing it. So one forward and one backward at D 112, bfloat16 and
-    float16, run first in a subprocess that must finish within 600 s
-    (a first build of the kernels included)."""
+    failing it. So one forward and one backward (K2q and K2kv) at D 112,
+    bfloat16 and float16, run first in a subprocess that must finish
+    within 600 s (a first build of the kernels included)."""
     import os
     import subprocess
     import sys
@@ -363,11 +365,11 @@ def test_flash_attention_d112_sm90_finishes_in_a_subprocess(cuda):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_attention_d112_sm90_matches_plain_versions(
         cuda, B, hq, hkv, sq, sk, causal, window, dtype):
-    """K2f and K2kv at D 112 on their sm90 routes (K2q on simt) against the
-    plain pair, as ``chip_smoke.py``'s TOL_K2 holds them: o to 2u·max|v|,
-    lse to 1e-4, dq, dk and dv to 1e-2 of each tensor's largest entry.
-    Whole tensors are compared, so a store past column 111 (into the next
-    row's first 16 columns) shows."""
+    """K2f, K2q and K2kv at D 112 on their sm90 routes against the plain
+    pair, as ``chip_smoke.py``'s TOL_K2 holds them: o to 2u·max|v|, lse
+    to 1e-4, dq, dk and dv to 1e-2 of each tensor's largest entry, dq
+    exactly 0 on dead rows. Whole tensors are compared, so a store past
+    column 111 (into the next row's first 16 columns) shows."""
     d = 112
     q, k, v, do = _k2_inputs(B, hq, hkv, sq, sk, d, dtype, cuda)
     kw = {"causal": causal, "window": window}
@@ -379,7 +381,7 @@ def test_flash_attention_d112_sm90_matches_plain_versions(
     assert {n: c - fwd[n] for n, c in FA.fwd_routes.items()} == {
         "sm90": 1, "simt": 0}
     assert {n: c - bwd[n] for n, c in FA.bwd_routes.items()} == {
-        "sm90": 1, "simt": 1}
+        "sm90": 2, "simt": 0}
     assert {n: c - before[n] for n, c in FA.launches.items()} == {
         "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
         "flash_attention_bwd_dkv": 1}
@@ -395,16 +397,65 @@ def test_flash_attention_d112_sm90_matches_plain_versions(
 
 
 def test_flash_attention_d112_dq_has_no_sm90_kernel(cuda):
-    """K2q at D 112 is not built for the tensor cores: the wrapper sends it
-    to simt, and naming the sm90 route raises before anything counts."""
+    """K2q at D 112 has its tensor-core kernel: the wrapper's own route is
+    sm90, it reads the 16-bit dO, and one call counts one sm90 launch (and
+    the simt route, named, one simt launch) with the same dq to 1e-2."""
     q, k, v, do = _k2_inputs(1, 4, 2, 70, 70, 112, torch.bfloat16, cuda)
     o, lse = FA.flash_attention_fwd(q, k, v)
-    delta, do_q, do_kv = FA.bwd_operands(q, o, do)
-    assert do_q.dtype == torch.float32 and do_kv.dtype == torch.bfloat16
+    delta, do_k = FA.bwd_operands(q, o, do)
+    assert do_k.dtype == torch.bfloat16
     before, routes = dict(FA.launches), dict(FA.bwd_routes)
-    with pytest.raises(RuntimeError, match="sm90"):
-        FA.flash_attention_bwd_dq(q, k, v, do_kv, lse, delta, route="sm90")
-    assert FA.launches == before and FA.bwd_routes == routes
+    dq = FA.flash_attention_bwd_dq(q, k, v, do_k, lse, delta)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in FA.launches.items()} == {
+        "flash_attention_fwd": 0, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkv": 0}
+    assert {n: c - routes[n] for n, c in FA.bwd_routes.items()} == {
+        "sm90": 1, "simt": 0}
+    first = FA.flash_attention_bwd_dq(q, k, v, do_k, lse, delta,
+                                      route="simt")
+    torch.cuda.synchronize()
+    assert FA.bwd_routes["simt"] == routes["simt"] + 1
+    err = (dq.float() - first.float()).abs().max()
+    assert float(err) <= 1e-2 * float(first.float().abs().max())
+
+
+# K2f's float32 sm90 kernel (B, Hq, Hkv, Sq, Sk, D, causal, window): every
+# head dim, the server's heads, dead rows (causal Sq > Sk) with a window
+# and GQA, zamba2's d112 and its ragged shape, Sq and Sk off the 128-row
+# q-blocks and 64-key tiles, causal=False with and without a window
+K2_F32_CASES = [(2, 24, 8, 256, 256, 128, True, 0),
+                (1, 3, 1, 100, 37, 32, True, 0),
+                (2, 4, 2, 300, 200, 32, True, 64),
+                (1, 8, 2, 333, 250, 64, True, 100),
+                (1, 4, 4, 70, 130, 64, True, 0),
+                (2, 32, 32, 512, 512, 112, True, 0),
+                (1, 8, 2, 301, 230, 112, True, 90),
+                (1, 6, 2, 129, 75, 128, False, 0),
+                (1, 8, 2, 77, 300, 128, False, 50)]
+
+
+@pytest.mark.parametrize("B,hq,hkv,sq,sk,d,causal,window", K2_F32_CASES)
+def test_flash_attention_f32_fwd_sm90_matches_plain_and_first_version(
+        cuda, B, hq, hkv, sq, sk, d, causal, window):
+    """K2f in float32 takes its sm90 kernel (one launch, counted on sm90)
+    and agrees with the plain version and with the first version (simt)
+    to 1e-4, dead rows exactly (o = 0, lse = NEG_INF)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _ = _k2_inputs(B, hq, hkv, sq, sk, d, torch.float32, cuda)
+    kw = {"causal": causal, "window": window}
+    routes = dict(FA.fwd_routes)
+    o, lse = FA.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {n: c - routes[n] for n, c in FA.fwd_routes.items()} == {
+        "sm90": 1, "simt": 0}
+    po, plse = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    dead = _assert_fwd_close(o, lse, po, plse, v)
+    so, slse = FA._fwd_launch(q, k, v, causal, window, d ** -0.5, "simt")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, so, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, slse, rtol=1e-4, atol=1e-4)
+    assert bool((slse[dead] == FA.NEG_INF).all())
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v", "do"])
@@ -424,10 +475,12 @@ def test_flash_attention_sm90_bwd_raises_on_misaligned_tensors(cuda, which):
     assert FA.launches == before and FA.bwd_routes == routes
 
 
-def test_flash_attention_sm90_raises_on_misaligned_tensors(cuda):
-    """TMA needs 16-byte aligned bases: a contiguous view one element into
-    its storage is refused before any launch, never sent elsewhere."""
-    q, k, v, _ = _k2_inputs(1, 4, 2, 70, 70, 64, torch.bfloat16, cuda)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_sm90_raises_on_misaligned_tensors(cuda, dtype):
+    """TMA (16 bits) and 16-byte cp.async (float32) need 16-byte aligned
+    bases: a contiguous view one element into its storage is refused
+    before any launch, never sent elsewhere."""
+    q, k, v, _ = _k2_inputs(1, 4, 2, 70, 70, 64, dtype, cuda)
     buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
     q_off = buf[1:].view(q.shape).copy_(q)
     before = dict(FA.launches)

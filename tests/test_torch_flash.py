@@ -192,10 +192,10 @@ def test_wrapper_checks_its_inputs():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_fwd_route_by_dtype_and_head_dim(dtype, d):
-    """K2f's tensor-core route takes exactly the 16-bit dtypes at D 64, 112
-    and 128; every other (dtype, D) the kernels take stays on the simt
-    one."""
-    want = "sm90" if dtype != torch.float32 and d in (64, 112, 128) \
+    """K2f's sm90 route takes the 16-bit dtypes at D 64, 112 and 128 (the
+    tensor cores) and float32 at every head dim (the CUDA-core kernel);
+    only the 16-bit dtypes at D 32 stay on the simt one."""
+    want = "sm90" if dtype == torch.float32 or d in (64, 112, 128) \
         else "simt"
     assert FA.route("fwd", dtype, d) == want
 
@@ -221,53 +221,53 @@ def test_cpu_forward_takes_plain_version_and_counts_no_launch(dtype, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_bwd_route_by_dtype_and_head_dim(dtype, d):
-    """K2kv's tensor-core route takes exactly what K2f's does, the 16-bit
-    dtypes at D 64, 112 and 128; K2q's the 16-bit dtypes at D 64 and 128
-    only."""
+    """K2q's and K2kv's tensor-core route takes exactly the 16-bit dtypes
+    at D 64, 112 and 128, where K2f's takes them too; float32 backward
+    calls stay on the simt route at every head dim."""
     half = dtype != torch.float32
-    assert FA.route("dkv", dtype, d) == FA.route("fwd", dtype, d) == (
-        "sm90" if half and d in (64, 112, 128) else "simt")
-    assert FA.route("dq", dtype, d) == (
-        "sm90" if half and d in (64, 128) else "simt")
+    want = "sm90" if half and d in (64, 112, 128) else "simt"
+    assert FA.route("dq", dtype, d) == FA.route("dkv", dtype, d) == want
+    if half:
+        assert FA.route("fwd", dtype, d) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_dq_and_dkv_routes_part_only_at_d112(dtype):
-    """The two backward kernels take one route at every head dim but 112,
-    where K2kv takes the tensor cores and K2q the first version."""
+    """The two backward kernels take one route at every head dim, D 112
+    included (K2q's tensor-core kernel is built there too), and in 16 bits
+    it is K2f's."""
     for d in FA.HEAD_DIMS:
         routes = (FA.route("dq", dtype, d), FA.route("dkv", dtype, d))
-        assert routes == (("simt", "sm90") if d == 112
-                          else (FA.route("fwd", dtype, d),) * 2)
-    assert FA.SM90_HEAD_DIMS == {"fwd": (64, 112, 128), "dq": (64, 128),
-                                 "dkv": (64, 112, 128)}
+        assert routes == (FA.route("fwd", dtype, d),) * 2
+    assert FA.route("dq", dtype, 112) == "sm90"
+    assert FA.SM90_HEAD_DIMS == (64, 112, 128)
 
 
 @pytest.mark.parametrize("dtype,d,types", [
-    (torch.bfloat16, 112, (torch.float32, torch.bfloat16)),
-    (torch.float16, 112, (torch.float32, torch.float16)),
+    (torch.bfloat16, 112, (torch.bfloat16, torch.bfloat16)),
+    (torch.float16, 112, (torch.float16, torch.float16)),
     (torch.bfloat16, 128, (torch.bfloat16, torch.bfloat16)),
     (torch.float16, 64, (torch.float16, torch.float16)),
     (torch.bfloat16, 32, (torch.float32, torch.float32)),
     (torch.float32, 112, (torch.float32, torch.float32))])
 def test_bwd_operands_give_each_kernel_do_in_its_route_type(dtype, d, types):
     """``bwd_operands``: delta = Σ_d dO·o_f32 in float32 from the float32
-    dO, and dO for K2q and for K2kv in their routes' types (float32 for
-    simt, the input's 16-bit type for sm90), contiguous (B·Hq, Sq, D),
-    from a strided cotangent; at bfloat16 D 112 K2q reads float32 and
-    K2kv the 16-bit dO."""
+    dO, and the one dO that K2q and K2kv both read, in their shared
+    route's type (float32 for simt, the input's 16-bit type for sm90),
+    contiguous (B·Hq, Sq, D), from a strided cotangent; at 16-bit D 112
+    both kernels read the 16-bit dO."""
     rng = np.random.default_rng(d)
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
         np.float32))
     q = f(2, 4, 20, d).to(dtype)
     do = f(2, 4, d, 20).to(dtype).transpose(2, 3)      # strided
     o = f(8, 20, d)
-    delta, do_q, do_kv = FA.bwd_operands(q, o, do)
-    assert (do_q.dtype, do_kv.dtype) == types
-    for t in (do_q, do_kv):
-        assert t.shape == (8, 20, d) and t.is_contiguous()
-        torch.testing.assert_close(t, do.reshape(8, 20, d).to(t.dtype),
-                                   rtol=0, atol=0)
+    delta, do_k = FA.bwd_operands(q, o, do)
+    assert (do_k.dtype, do_k.dtype) == types
+    assert FA.route("dq", dtype, d) == FA.route("dkv", dtype, d)
+    assert do_k.shape == (8, 20, d) and do_k.is_contiguous()
+    torch.testing.assert_close(do_k, do.reshape(8, 20, d).to(do_k.dtype),
+                               rtol=0, atol=0)
     assert delta.dtype == torch.float32
     torch.testing.assert_close(
         delta, (do.float().contiguous().reshape(8, 20, d) * o).sum(-1),
@@ -280,7 +280,7 @@ def _pad128(t):
     return torch.nn.functional.pad(t, (0, 128 - t.shape[-1]))
 
 
-@pytest.mark.parametrize("name", ["window"])
+@pytest.mark.parametrize("name", ["window", "dead_rows"])
 def test_d112_padded_to_128_matches_plain_and_reference(name):
     """The sm90 kernels' arithmetic at D 112: q, k, v (and dO) zero-padded
     to 128 columns, the products taken at 128 with D 112's softmax scale,
