@@ -43,11 +43,11 @@ result line is printed:
      ``F.scaled_dot_product_attention`` pinned to a named backend (its
      autograd backward for K2q and K2kv), wall and device time. Each row
      names its kernel's route: ``sm90`` (the tensor-core kernels,
-     bfloat16 and float16 at D 64, 112 and 128, and K2f's float32 kernel
-     for the CUDA cores at every D), whose rows also time the ``simt``
-     kernel (the first version) on the same inputs, or ``simt`` (16 bits
-     at D 32, float32 K2q and K2kv); every row also gives its kernel's
-     device time from ``torch.profiler``;
+     bfloat16 and float16 at D 64, 112 and 128, and the float32 kernels
+     of K2f, K2q and K2kv for the CUDA cores at every D), whose rows also
+     time the ``simt`` kernel (the first version) on the same inputs, or
+     ``simt`` (16 bits at D 32); every row also gives its kernel's device
+     time from ``torch.profiler``;
   5. the DENSE main path at the paper's full width (``paper_cifar.CONFIG``:
      five width-1.0 resnet18 clients on 32x32x3 images, batch 128,
      synth_batch 128, nz 100, t_g 30), depth cut to one local epoch and
@@ -85,8 +85,9 @@ result line is printed:
      ``torch.profiler``: device idle share and the top kernels, with
      K4's share;
  11. train_check: one train step of llama3.2-3b at full width, 2 layers,
-     float32: the K2 route (K2f on its float32 ``sm90`` kernel, K2q and
-     K2kv on ``simt``) and the plain route agree to 1e-4;
+     float32: the K2 route (K2f, K2q and K2kv on their float32 ``sm90``
+     kernels, the routes printed by kernel) and the plain route agree to
+     1e-4;
  12. dense_llm_check: one generator step and one student step of the
      example's heterogeneous federation (smoke widths) on the card and on
      the CPU agree to 1e-4;
@@ -133,8 +134,8 @@ result line is printed:
  17. ssm_train_check: one zamba2-7b train step at full width, 7 layers,
      float32, batch 2 × 512 (two chunks): the K3/K2 route and the plain
      route agree to 1e-4 (K3f 2 × 7 with remat and K3b 7, all on
-     ``simt``, K2 on the one shared-block application: K2f on its float32
-     ``sm90`` kernel, K2q and K2kv on ``simt``);
+     ``simt``, K2 on the one shared-block application: K2f, K2q and K2kv
+     on their float32 ``sm90`` kernels);
  18. ssm_hybrid_train: zamba2-7b's train step in bfloat16 at full width
      (d_model 3584, 32/32 heads of 112, P 64, N 64), depth 81 → 13 (two
      super-blocks of 6 mamba blocks, each followed by the shared block,
@@ -373,7 +374,8 @@ def zero_counts() -> None:
     from repro_torch.kernels import flash_attention, paged_attention, ssd_scan
 
     for counts in (*launch_counts(), flash_attention.fwd_routes,
-                   flash_attention.bwd_routes, paged_attention.routes,
+                   flash_attention.bwd_routes, flash_attention.dq_routes,
+                   flash_attention.dkv_routes, paged_attention.routes,
                    ssd_scan.fwd_routes, ssd_scan.bwd_routes):
         for k in counts:
             counts[k] = 0
@@ -386,7 +388,8 @@ def read_counts() -> dict:
 def read_routes() -> dict:
     """K2's, K3's and K4's launches by route since the last
     ``zero_counts``: ``fwd_sm90``, ``fwd_simt`` (K2f), ``bwd_sm90``,
-    ``bwd_simt`` (K2q and K2kv, each launch once), ``k3f_sm90``,
+    ``bwd_simt`` (K2q and K2kv, each launch once), ``dq_sm90``,
+    ``dq_simt`` (K2q), ``dkv_sm90``, ``dkv_simt`` (K2kv), ``k3f_sm90``,
     ``k3f_simt``, ``k3b_sm90``, ``k3b_simt`` (a call once), ``k4_sm90``,
     ``k4_simt``."""
     from repro_torch.kernels import flash_attention as FA
@@ -395,6 +398,7 @@ def read_routes() -> dict:
 
     return {f"{kind}_{route}": c for kind, counts in (
         ("fwd", FA.fwd_routes), ("bwd", FA.bwd_routes),
+        ("dq", FA.dq_routes), ("dkv", FA.dkv_routes),
         ("k3f", K3.fwd_routes), ("k3b", K3.bwd_routes), ("k4", PK.routes))
         for route, c in counts.items()}
 
@@ -419,15 +423,19 @@ def k3f_route(torch, cfg) -> str:
 
 def check_k2_routes(label, launches, routes, dtype, d) -> None:
     """Every K2f, K2q and K2kv launch of a phase took the route its dtype
-    and head dim choose (``FA.route``)."""
+    and head dim choose (``FA.route``), counted by kernel and with K2q
+    and K2kv together."""
     from repro_torch.kernels import flash_attention as FA
 
-    want = {f"{kind}_{r}": 0 for kind in ("fwd", "bwd")
+    want = {f"{kind}_{r}": 0 for kind in ("fwd", "bwd", "dq", "dkv")
             for r in ("sm90", "simt")}
     for kind, which in (("fwd", "fwd"), ("bwd", "dq"), ("bwd", "dkv")):
         name = "flash_attention_" + ("fwd" if which == "fwd" else
                                      f"bwd_{which}")
-        want[f"{kind}_{FA.route(which, dtype, d)}"] += launches[name]
+        r = FA.route(which, dtype, d)
+        want[f"{kind}_{r}"] += launches[name]
+        if which != "fwd":
+            want[f"{which}_{r}"] += launches[name]
     got = {k: routes[k] for k in want}
     if got != want:
         fail(f"{label}: K2's launches by route {got}, expected {want}")
@@ -1616,11 +1624,10 @@ def k2_phase(torch):
     if bad:
         fail(f"{len(bad)} K2 checks disagree with the plain versions: {bad}")
     # sm90 exactly in 16 bits at the shapes K2_FP16 names (every D but 32)
-    # and for float32 K2f at every shape
+    # and for every float32 row of every kernel
     routes = {(which, r["shape"]["name"], r["dtype"]): r["route"]
               for which, rs in rows.items() for r in rs}
-    if any((r == "sm90") != (n in K2_FP16 if dt != "float32"
-                             else which == "fwd")
+    if any((r == "sm90") != (n in K2_FP16 or dt == "float32")
            for (which, n, dt), r in routes.items()):
         fail(f"K2 took an unexpected route: {routes}")
     return rows
@@ -1928,6 +1935,9 @@ def train_check(torch, dev="cuda", arch="llama3.2-3b", n_layers=2,
         else None, "worst_grads": errs[:6],
         "plain_half_chunk_vs_plain": floor,
         "launches": {k: v[3] for k, v in out.items()},
+        "k2_routes": {kind: {r: ra[f"{kind}_{r}"]
+                             for r in ("sm90", "simt")}
+                      for kind in ("fwd", "dq", "dkv")},
         "k3f_routes": {r: ra[f"k3f_{r}"] for r in ("sm90", "simt")},
         "k3b_routes": {r: ra[f"k3b_{r}"] for r in ("sm90", "simt")},
         "peak_mem_gib": {k: v[4] for k, v in out.items()}, "tol": STEP_TOL,

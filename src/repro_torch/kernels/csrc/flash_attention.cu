@@ -1,9 +1,10 @@
 // K2 on Hopper: blockwise (flash) attention, forward and the two backward
 // kernels, with GQA, causal and sliding-window masks: the first version,
 // the "simt" route. The wrapper (kernels/flash_attention.py: route) sends
-// float32 K2q and K2kv and 16-bit calls at D 32 here; every other call
-// takes flash_attention_sm90.cu (16 bits on the tensor cores, float32 K2f
-// redesigned for the CUDA cores), and these kernels are timed beside it.
+// 16-bit calls at D 32 here; every other call takes
+// flash_attention_sm90.cu (16 bits on the tensor cores, float32 K2f, K2q
+// and K2kv redesigned for the CUDA cores), and these kernels, named by an
+// explicit route="simt", are timed beside it.
 //
 // Replaces the Pallas kernels of src/repro/kernels/flash_attention.py:
 //   K2f  _fwd_flat / _flash_kernel        (pallas_call at :171)

@@ -1,8 +1,8 @@
 // K2 on Hopper: the flash-attention forward (K2f) and its two backward
 // kernels (K2q, K2kv) for bfloat16 and float16 at head dims 64, 112
 // (zamba2's shared block) and 128 on the tensor cores, with wgmma and TMA
-// (sm_90a); and K2f in float32 at head dims 32, 64, 112 and 128 on the
-// CUDA cores (its own section below).
+// (sm_90a); and all three in float32 at head dims 32, 64, 112 and 128 on
+// the CUDA cores (their own sections below).
 //
 // Replaces the Pallas kernels of src/repro/kernels/flash_attention.py:
 //   K2f  _fwd_flat via flash_attention, body _flash_kernel (pallas_call at
@@ -12,7 +12,7 @@
 // It computes exactly what flash_attention.cu's SIMT fwd_kernel, dq_kernel
 // and dkv_kernel compute, with the same contract:
 //   q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), contiguous, in bfloat16 or
-//   float16 at D 64, 112 or 128 (K2f also in float32 at D 32 to 128);
+//   float16 at D 64, 112 or 128, or float32 at D 32, 64, 112 or 128;
 //   query head h reads KV head h / (Hq / Hkv); the q tokens are the last
 //   Sq of the Sk keys
 //   (seq_off = Sk - Sq); key k is live for query q when k < Sk, q < Sq,
@@ -20,15 +20,16 @@
 //   window).
 //   K2f writes o_f32 (B*Hq, Sq, D) and lse (B*Hq, Sq), float32; a row with
 //   no live key gives o = 0 and lse = NEG_INF = -2^30 exactly.
-//   K2q and K2kv read dO (B*Hq, Sq, D) in the input's 16-bit type (wgmma
-//   takes its operands there), lse and delta = sum_d dO * o_f32 (B*Hq, Sq)
-//   in float32, recompute p = exp(s * scale - lse) under the mask and
+//   K2q and K2kv read dO (B*Hq, Sq, D) in the input's type (in 16 bits
+//   because wgmma takes its operands there), lse and delta = sum_d dO *
+//   o_f32 (B*Hq, Sq) in float32, recompute p = exp(s * scale - lse) under
+//   the mask and
 //   ds = p (dP - delta), and write dq = dS K scale, dk = dS^T Q scale and
 //   dv = P^T dO in the input type. Nothing of size (Sq, Sk) reaches device
 //   memory; K2kv sums each GQA group inside its CTA, without atomics, so
 //   dk and dv are deterministic; a dead row adds nothing and gets dq = 0.
 // The wrapper (kernels/flash_attention.py: route) sends every other call
-// (16 bits at D 32, float32 K2q and K2kv) to flash_attention.cu.
+// (16 bits at D 32) to flash_attention.cu.
 //
 // Bound on an H100 (989 TFLOP/s bf16/fp16, 3.35 TB/s): a causal call does
 // 4 D flops a live (q, k) pair forward, 6 D in K2q and 8 D in K2kv, and
@@ -1064,6 +1065,527 @@ sm90_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------ K2q and K2kv, float32 --
+//
+// The float32 backward on the CUDA cores, exact in float32 as K2f's float32
+// kernel above (no TF32, no split-TF32 products: the float32 checks hold it
+// to 1e-4). Bound: FFMA at 67 TFLOP/s, 6 D flops a live (q, k) pair in K2q
+// (S, dP, dQ) and 8 D in K2kv (S^T, dP^T, dV, dK). The first versions
+// (flash_attention.cu's dq_kernel and dkv_kernel) reached 15-22% of it,
+// paced by scalar shared-memory loads (16 a 32 FFMAs in S and dP),
+// synchronous staging and expf. Both kernels here:
+//   * 256 threads on 64 x 64 tiles. Warp w owns 8 rows of the CTA's block
+//     (K2q: q rows; K2kv: keys); the thread of lane tx (0..15) in half h
+//     holds rows 8 w + h + 2 i (i < 4) at columns tx + 16 j (j < 4) of the
+//     tile's scores, and the same rows at D / 16 columns of each
+//     accumulator (load_bcols: 16-byte groups at D 64 and 128; a 16-byte
+//     group, a pair and one column at D 112; a pair at D 32);
+//   * tiles are staged row-major at a row stride of D + 4 floats by 16-byte
+//     cp.async (f32_stage), zero-filled past Sq or Sk. Four d steps of a
+//     score product (f32_scores) read one 16-byte vector of each of the
+//     thread's 4 rows (two addresses a warp: broadcasts) and of its 4
+//     columns (16 rows on 8 bank groups) for 64 FFMAs: 4 loads per 32
+//     FFMAs, where the first versions had 16. An accumulating product
+//     (f32_accumulate: dQ += dS K, dV += P^T dO, dK += dS^T Q) reads one
+//     16-byte P or dS vector a row per 4 tile rows and the thread's
+//     columns of those 4 rows: 3 loads per 32 FFMAs at D 64 and 128, 4.6
+//     at D 112, 6 at D 32;
+//   * p = exp2(s scale log2 e - lse log2 e) where the mask is live (it is
+//     evaluated only on tiles that straddle one of its edges for the
+//     warp's 8 rows; p = 0 elsewhere by a select) and ds = p (dP - delta),
+//     in registers. P and dS pass through shared memory (row stride 80:
+//     the two halves' rows on disjoint banks, 16-byte reads); each warp
+//     reads back only its own 8 rows, so a __syncwarp orders them;
+//   * a warp skips a tile its rows see none of; a dead row adds nothing,
+//     so dq = 0 there, and no row past Sq or key past Sk is written.
+// Why 64 rows, where K2f's float32 kernel has 128: each kernel keeps five
+// tiles (the three operands of its score products, a second slot of the
+// ring, and the tile its other accumulating product reads) and P or dS.
+// At D 128 that is 186 KB with 64-row tiles; 128-row q-blocks would need
+// 277 KB, over the 227 KB a CTA may have. The thread's 4 x 4 score tile
+// then costs 4 loads per 32 FFMAs, where K2f's 8 x 4 costs 3.
+//
+// K2q, sm90_dq_f32_kernel: one CTA per (b*Hq + h, 64-row q-block), the
+//   last q-blocks (the most keys under the causal mask) first. Q and dO are
+//   staged once. K goes through two slots and V through one, in the order
+//   K0 V0 K1 V1 ...: K_{t+1} loads while all of tile t runs; V_{t+1} loads
+//   into V_t's slot once every warp is past dP = dO V_t^T (the tile's
+//   second barrier), while ds and dQ += dS K_t run. K_t must outlive dQ +=
+//   dS K_t, which is why K, not V, has the second slot (K2f's ring, which
+//   loads V_{t+1} into K_t's slot, would overwrite it). Two barriers a
+//   tile; dq = acc scale once at the end.
+// K2kv, sm90_dkv_f32_kernel: one CTA per (b*Hkv + kv, 64-key block), key
+//   block 0 first (under the causal mask it sees the most q-tiles). K and
+//   V are staged once. The CTA walks the g query heads of its KV head and,
+//   for each, the 64-row q-tiles that see its keys; Q goes through two
+//   slots with each tile's lse and delta (4-byte cp.async, zeros past Sq),
+//   dO through one. Per tile: S^T = K Q^T, P^T to shared memory, dV += P^T
+//   dO, dP^T = V dO^T; a barrier, then dO_{t+1} loads into dO_t's slot
+//   while dS^T = P^T (dP^T - delta) and dK += dS^T Q run; Q is read first
+//   and last, so it has the second slot. dK and dV stay in registers
+//   across the group's heads: the GQA sum takes place inside the CTA in a
+//   fixed order, with no atomics, and dk, dv are deterministic.
+//   A key block's tiles may be shared by a cluster of `split` CTAs (2, 4
+//   or 8; dkv_split): rank r takes its tiles r, r + split, ..., and the
+//   ranks add their dK, dV partials in rank order through distributed
+//   shared memory (one 64 KB read a rank at D 128, no pass through device
+//   memory, still deterministic). dkv_split raises `split` while the grid
+//   is under one wave: the key blocks of one KV head are few (Sk / 64)
+//   and, under the causal mask, unequal.
+// Shared memory: 5 tiles of 64 x (D + 4) floats, P/dS 64 x 80, 512 bytes
+// of rows: 190,464 bytes at D 128, 169,984 at D 112, 108,544 at D 64
+// (two CTAs an SM: __launch_bounds__(256, 2) caps the registers at 128),
+// 67,584 at D 32.
+// Waves and balance: at the server shape (4, 24/8, 256, D 128) K2q has
+// 384 CTAs (2.9 waves, longest first). K2kv has 128 key blocks for 132
+// SMs, whose tiles number 12, 9, 6 or 3 (3 heads x 4..1 q-tiles): one CTA
+// each would leave the 12 to set the time, where an even spread is 7.3;
+// clusters of 2 make 256 CTAs of at most 6. At d112 (2, 32/32, 512) both
+// have 512 CTAs (3.9 waves; K2kv's do 8..1 q-tiles, K2q's 1..8 k-tiles),
+// and K2kv takes no cluster. A ragged shape's K2kv (16 key blocks) takes
+// clusters of 4 or 8.
+// Registers and spills (ptxas -v, CUDA 12.8): K2q 168 registers at D 112
+// and 128, K2kv 214-216, no spill. At D 32 and 64 (two CTAs an SM cap
+// them at 128) both use 128 and spill 4-44 bytes (K2kv at D 64 spilled 8
+// before the cluster's sum was added); one CTA an SM, without spills, ran
+// 17-20% slower at d64.
+
+constexpr int kF32B = 64;       // rows of a backward block and of a tile
+
+template <int D> struct F32Bwd {
+  static constexpr int kTile = kF32B * F32Tiles<D>::kStride;   // floats
+  // five tiles, P/dS, and K2kv's lse and delta in two slots
+  static constexpr size_t kBytes =
+      sizeof(float) * (5 * (size_t)kTile + kF32B * kF32PS + 4 * kF32B);
+  static constexpr int kBlocks = D <= 64 ? 2 : 1;              // CTAs an SM
+};
+
+// 4 bytes from global to shared memory, asynchronously; zero-filled
+// (nothing read) when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// the cluster's barrier: every thread of every CTA of the cluster arrives,
+// and shared-memory writes before it are visible to the cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// this CTA's shared-memory pointer p mapped to the same place in the
+// cluster's CTA `rank` (a generic address into distributed shared memory)
+__device__ __forceinline__ const float* cluster_map(const float* p,
+                                                    int rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const float*>(out);
+}
+
+// x = lane tx's D / 16 columns of a D-wide row in the backward's
+// accumulating products, by the widest loads they allow: 16-byte groups
+// 64 hh + 4 tx at D 64 and 128; 4 tx, the pair 64 + 2 tx and 96 + tx at
+// D 112; the pair 2 tx at D 32
+template <int D>
+__device__ __forceinline__ void load_bcols(const float* row, int tx,
+                                           float (&x)[D / 16]) {
+  constexpr int DN = D / 16;
+  static_assert(DN == 2 || DN == 4 || DN == 7 || DN == 8, "D 32 to 128");
+  if constexpr (DN % 4 == 0) {
+#pragma unroll
+    for (int hh = 0; hh < DN / 4; ++hh) {
+      const float4 a = *reinterpret_cast<const float4*>(row + 64 * hh
+                                                        + 4 * tx);
+      x[4 * hh] = a.x; x[4 * hh + 1] = a.y;
+      x[4 * hh + 2] = a.z; x[4 * hh + 3] = a.w;
+    }
+  } else if constexpr (DN == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(row + 2 * tx);
+    x[0] = a.x; x[1] = a.y;
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(row + 4 * tx);
+    const float2 b = *reinterpret_cast<const float2*>(row + 64 + 2 * tx);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = row[96 + tx];
+  }
+}
+
+// lane tx's columns of a D-wide row (as load_bcols) = x * mul
+template <int D>
+__device__ __forceinline__ void store_bcols(float* row, int tx,
+                                            const float (&x)[D / 16],
+                                            float mul) {
+  constexpr int DN = D / 16;
+  if constexpr (DN % 4 == 0) {
+#pragma unroll
+    for (int hh = 0; hh < DN / 4; ++hh)
+      *reinterpret_cast<float4*>(row + 64 * hh + 4 * tx) =
+          make_float4(x[4 * hh] * mul, x[4 * hh + 1] * mul,
+                      x[4 * hh + 2] * mul, x[4 * hh + 3] * mul);
+  } else if constexpr (DN == 2) {
+    *reinterpret_cast<float2*>(row + 2 * tx) =
+        make_float2(x[0] * mul, x[1] * mul);
+  } else {
+    *reinterpret_cast<float4*>(row + 4 * tx) =
+        make_float4(x[0] * mul, x[1] * mul, x[2] * mul, x[3] * mul);
+    *reinterpret_cast<float2*>(row + 64 + 2 * tx) =
+        make_float2(x[4] * mul, x[5] * mul);
+    row[96 + tx] = x[6] * mul;
+  }
+}
+
+// out[i][j] = sum_d a[2 i][d] b[16 j][d]: a points at the thread's first
+// row, b at its first column's row, both at row stride D + 4
+template <int D>
+__device__ __forceinline__ void f32_scores(const float* a, const float* b,
+                                           float (&out)[4][4]) {
+  constexpr int S = F32Tiles<D>::kStride;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = *reinterpret_cast<const float4*>(a + 2 * i * S + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      y[j] = *reinterpret_cast<const float4*>(b + 16 * j * S + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        out[i][j] = fmaf(x[i].x, y[j].x, out[i][j]);
+        out[i][j] = fmaf(x[i].y, y[j].y, out[i][j]);
+        out[i][j] = fmaf(x[i].z, y[j].z, out[i][j]);
+        out[i][j] = fmaf(x[i].w, y[j].w, out[i][j]);
+      }
+  }
+}
+
+// acc[i] += sum_r p[2 i][r] (lane tx's columns of tile row r), over 64 rows:
+// p points at the thread's first row of P or dS (stride kF32PS), tile at a
+// staged tile (stride D + 4)
+template <int D>
+__device__ __forceinline__ void f32_accumulate(const float* p,
+                                               const float* tile, int tx,
+                                               float (&acc)[4][D / 16]) {
+  constexpr int S = F32Tiles<D>::kStride, DN = D / 16;
+#pragma unroll 2
+  for (int r0 = 0; r0 < kF32B; r0 += 4) {
+    float4 pa[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pa[i] = *reinterpret_cast<const float4*>(p + 2 * i * kF32PS + r0);
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      float x[DN];
+      load_bcols<D>(tile + (r0 + rr) * S, tx, x);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float w = rr == 0 ? pa[i].x : rr == 1 ? pa[i].y
+                        : rr == 2 ? pa[i].z : pa[i].w;
+#pragma unroll
+        for (int c = 0; c < DN; ++c) acc[i][c] = fmaf(w, x[c], acc[i][c]);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, F32Bwd<D>::kBlocks)
+sm90_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dq,
+                   Geometry g) {
+  constexpr int S = F32Tiles<D>::kStride, T = F32Bwd<D>::kTile;
+  constexpr int DN = D / 16;
+  constexpr uint32_t kTileBytes = 4u * T;
+  extern __shared__ float4 f32_smem[];
+  float* const q_s = reinterpret_cast<float*>(f32_smem);   // [64][S]
+  float* const do_s = q_s + T;                             // [64][S]
+  float* const k_s = do_s + T;                             // [2][64][S]
+  float* const v_s = k_s + 2 * T;                          // [64][S]
+  float* const ds_s = v_s + T;                             // [64][kF32PS]
+  const uint32_t k_u = smem_u32(k_s), v_u = smem_u32(v_s);
+
+  const int warp = threadIdx.x / 32, tx = threadIdx.x % 16;
+  const int rb = 8 * warp + (threadIdx.x / 16) % 2;    // rows rb + 2 i
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32B;  // longest rows first
+  const int b = bh / g.hq, h = bh % g.hq;
+  const size_t kvh = (size_t)b * g.hkv + h / (g.hq / g.hkv);
+  const float* k_bh = k + kvh * g.sk * D;
+  const float* v_bh = v + kvh * g.sk * D;
+  int lo, hi;
+  k_range(q0, kF32B, g, lo, hi);
+  const int kt0 = lo < hi ? lo / kF32B * kF32B : hi;
+  const int n_tiles = lo < hi ? (hi - kt0 + kF32B - 1) / kF32B : 0;
+  const int qw0 = q0 + 8 * warp;                        // the warp's rows
+  int wlo, whi;
+  k_range(qw0, 8, g, wlo, whi);
+  const bool rows_in = qw0 < g.sq;
+
+  // each row's lse log2 e and delta (zeros past Sq, where p is masked)
+  float lse2[4], dlt[4], acc[4][DN];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + rb + 2 * i;
+    const bool in = row < g.sq;
+    lse2[i] = in ? lse[(size_t)bh * g.sq + row] * kLog2e : 0.f;
+    dlt[i] = in ? delta[(size_t)bh * g.sq + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < DN; ++c) acc[i][c] = 0.f;
+  }
+
+  if (n_tiles > 0) {                        // groups: Q and dO, K_0, V_0
+    f32_stage<D>(smem_u32(q_s), q + (size_t)bh * g.sq * D, q0, kF32B, g.sq);
+    f32_stage<D>(smem_u32(do_s), dout + (size_t)bh * g.sq * D, q0, kF32B,
+                 g.sq);
+    cp_async_commit();
+    f32_stage<D>(k_u, k_bh, kt0, kF32B, g.sk);
+    cp_async_commit();
+    f32_stage<D>(v_u, v_bh, kt0, kF32B, g.sk);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = kt0 + t * kF32B;
+    const bool active = rows_in && k0 < whi && k0 + kF32B > wlo;
+    const float* k_t = k_s + (t % 2) * T;
+    cp_async_wait<0>();           // K_t and V_t have landed
+    __syncthreads();              // for every thread; tile t - 1 is done
+    if (t + 1 < n_tiles)          // K_{t+1} into K_{t-1}'s slot
+      f32_stage<D>(k_u + ((t + 1) % 2) * kTileBytes, k_bh, k0 + kF32B,
+                   kF32B, g.sk);
+    cp_async_commit();
+    float s[4][4], dp[4][4];
+    if (active) {
+      f32_scores<D>(q_s + rb * S, k_t + tx * S, s);     // S = Q K^T
+      f32_scores<D>(do_s + rb * S, v_s + tx * S, dp);   // dP = dO V^T
+    }
+    __syncthreads();              // every warp is done with V_t
+    if (t + 1 < n_tiles)          // V_{t+1} while dS K_t runs
+      f32_stage<D>(v_u, v_bh, k0 + kF32B, kF32B, g.sk);
+    cp_async_commit();
+    if (active) {
+      const bool all_live = tile_live(qw0, 8, k0, kF32B, g);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = rb + 2 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          const float p = all_live || live(q0 + r, k0 + c, g)
+                              ? exp2f(fmaf(s[i][j], g.scale_log2, -lse2[i]))
+                              : 0.f;
+          ds_s[r * kF32PS + c] = p * (dp[i][j] - dlt[i]);
+        }
+      }
+      __syncwarp();
+      f32_accumulate<D>(ds_s + rb * kF32PS, k_t, tx, acc);  // dQ += dS K_t
+    }
+  }
+  cp_async_wait<0>();
+
+  // dq = acc * scale; rows past Sq are never written
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + rb + 2 * i;
+    if (row < g.sq)
+      store_bcols<D>(dq + ((size_t)bh * g.sq + row) * D, tx, acc[i],
+                     g.scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, F32Bwd<D>::kBlocks)
+sm90_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, Geometry g, int split) {
+  constexpr int S = F32Tiles<D>::kStride, T = F32Bwd<D>::kTile;
+  constexpr int DN = D / 16;
+  constexpr uint32_t kTileBytes = 4u * T;
+  extern __shared__ float4 f32_smem[];
+  float* const k_s = reinterpret_cast<float*>(f32_smem);   // [64][S]
+  float* const v_s = k_s + T;                              // [64][S]
+  float* const q_s = v_s + T;                              // [2][64][S]
+  float* const do_s = q_s + 2 * T;                         // [64][S]
+  float* const pd_s = do_s + T;                            // [64][kF32PS]
+  float* const rows_s = pd_s + kF32B * kF32PS;  // [2][lse, delta][64]
+  const uint32_t q_u = smem_u32(q_s), do_u = smem_u32(do_s);
+  const uint32_t rows_u = smem_u32(rows_s);
+
+  const int warp = threadIdx.x / 32, tx = threadIdx.x % 16;
+  const int kb = 8 * warp + (threadIdx.x / 16) % 2;    // keys kb + 2 i
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y / split * kF32B;            // most q-tiles first
+  const int rank = blockIdx.y % split;                  // in the cluster
+  const int b = bkv / g.hkv, kv = bkv % g.hkv;
+  const int n_g = g.hq / g.hkv;
+  int lo, hi;
+  q_range(k0, kF32B, g, lo, hi);
+  const int qt0 = lo < hi ? lo / kF32B * kF32B : hi;
+  const int n_qt = lo < hi ? (hi - qt0 + kF32B - 1) / kF32B : 0;
+  // the key block's (query head, q-tile) pairs are t = 0 .. n_g n_qt - 1;
+  // this CTA takes t = rank + u split, u = 0 .. n_tiles - 1
+  const int n_tiles = (n_g * n_qt - rank + split - 1) / split;
+  const int kw0 = k0 + 8 * warp;                        // the warp's keys
+  int wlo, whi;
+  q_range(kw0, 8, g, wlo, whi);
+  const bool keys_in = kw0 < g.sk;
+
+  // the CTA's tile u: query head n_g kv + t / n_qt of the group, rows
+  // from qt(u), where t = rank + u split
+  const auto head = [&](int u) {
+    return (size_t)b * g.hq + (size_t)kv * n_g + (rank + u * split) / n_qt;
+  };
+  const auto qt = [&](int u) {
+    return qt0 + (rank + u * split) % n_qt * kF32B;
+  };
+  // Q of tile u, its lse and delta into Q slot `slot`
+  const auto stage_q = [&](int u, int slot) {
+    const size_t bh = head(u);
+    const int r0 = qt(u);
+    f32_stage<D>(q_u + slot * kTileBytes, q + bh * g.sq * D, r0, kF32B,
+                 g.sq);
+    if (threadIdx.x < 2 * kF32B) {
+      const int r = threadIdx.x % kF32B;
+      const bool in = r0 + r < g.sq;
+      cp_async4(rows_u + 4u * (2 * kF32B * slot + threadIdx.x),
+                (threadIdx.x < kF32B ? lse : delta)
+                    + (in ? bh * g.sq + r0 + r : 0),
+                in);
+    }
+  };
+  const auto stage_do = [&](int u) {
+    f32_stage<D>(do_u, dout + head(u) * g.sq * D, qt(u), kF32B, g.sq);
+  };
+
+  float dka[4][DN], dva[4][DN];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DN; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  if (n_tiles > 0) {                        // groups: K and V, Q_0, dO_0
+    f32_stage<D>(smem_u32(k_s), k + (size_t)bkv * g.sk * D, k0, kF32B,
+                 g.sk);
+    f32_stage<D>(smem_u32(v_s), v + (size_t)bkv * g.sk * D, k0, kF32B,
+                 g.sk);
+    cp_async_commit();
+    stage_q(0, 0);
+    cp_async_commit();
+    stage_do(0);
+    cp_async_commit();
+  }
+  for (int u = 0; u < n_tiles; ++u) {
+    const int r0 = qt(u);
+    const bool active = keys_in && r0 < whi && r0 + kF32B > wlo;
+    const float* q_t = q_s + (u % 2) * T;
+    const float* rows = rows_s + (u % 2) * 2 * kF32B;
+    cp_async_wait<0>();           // Q_u, its rows and dO_u have landed
+    __syncthreads();              // for every thread; tile u - 1 is done
+    if (u + 1 < n_tiles)          // Q_{u+1} into Q_{u-1}'s slot
+      stage_q(u + 1, (u + 1) % 2);
+    cp_async_commit();
+    float p[4][4], dp[4][4];
+    if (active) {
+      f32_scores<D>(k_s + kb * S, q_t + tx * S, p);     // S^T = K Q^T
+      const bool all_live = tile_live(r0, kF32B, kw0, 8, g);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = kb + 2 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          p[i][j] = all_live || live(r0 + c, k0 + key, g)
+                        ? exp2f(fmaf(p[i][j], g.scale_log2,
+                                     -rows[c] * kLog2e))
+                        : 0.f;
+          pd_s[key * kF32PS + c] = p[i][j];
+        }
+      }
+      __syncwarp();
+      f32_accumulate<D>(pd_s + kb * kF32PS, do_s, tx, dva);  // dV += P^T dO
+      f32_scores<D>(v_s + kb * S, do_s + tx * S, dp);  // dP^T = V dO^T
+    }
+    __syncthreads();              // every warp is done with dO_u
+    if (u + 1 < n_tiles)          // dO_{u+1} while dS^T Q_u runs
+      stage_do(u + 1);
+    cp_async_commit();
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          pd_s[(kb + 2 * i) * kF32PS + c] =
+              p[i][j] * (dp[i][j] - rows[kF32B + c]);
+        }
+      __syncwarp();
+      f32_accumulate<D>(pd_s + kb * kF32PS, q_t, tx, dka);  // dK += dS^T Q
+    }
+  }
+  cp_async_wait<0>();
+
+  // dk = acc * scale, dv = acc; keys past Sk are never written
+  if (split == 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = k0 + kb + 2 * i;
+      if (key >= g.sk) continue;
+      const size_t off = ((size_t)bkv * g.sk + key) * D;
+      store_bcols<D>(dk + off, tx, dka[i], g.scale);
+      store_bcols<D>(dv + off, tx, dva[i], 1.f);
+    }
+    return;
+  }
+  // a cluster of `split` CTAs shares the key block: each puts its partial
+  // sums in its own shared memory, slot (r, c) of thread x at
+  // (r DN + c) 256 + x for its rows r = 0..3 of dK and 4..7 of dV; then
+  // rank q sums rows r = q, q + split, ... over the ranks in rank order
+  // (fixed, so dk and dv stay deterministic), reading the others' through
+  // distributed shared memory, and stores them
+  float* const part = reinterpret_cast<float*>(f32_smem);
+  __syncthreads();                // every warp is done with the tiles
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DN; ++c) {
+      part[(i * DN + c) * kF32Threads + threadIdx.x] = dka[i][c];
+      part[((4 + i) * DN + c) * kF32Threads + threadIdx.x] = dva[i][c];
+    }
+  cluster_sync();                 // every rank's partials are in place
+  for (int r = rank; r < 8; r += split) {
+    float x[DN];
+#pragma unroll
+    for (int c = 0; c < DN; ++c) x[c] = 0.f;
+    for (int src = 0; src < split; ++src) {
+      const float* other = cluster_map(part, src);
+#pragma unroll
+      for (int c = 0; c < DN; ++c)
+        x[c] += other[(r * DN + c) * kF32Threads + threadIdx.x];
+    }
+    const int key = k0 + kb + 2 * (r % 4);
+    if (key < g.sk)
+      store_bcols<D>((r < 4 ? dk : dv) + ((size_t)bkv * g.sk + key) * D, tx,
+                     x, r < 4 ? g.scale : 1.f);
+  }
+  cluster_sync();                 // no rank leaves while its partials are read
+}
+
 // ------------------------------------------------------------- launches --
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -1194,22 +1716,88 @@ int run(Which which, const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// the float32 forward (grid and order as the 16-bit kernels')
+// K2kv's float32 cluster size: the CTAs that share a key block, a power of
+// two up to 8, doubled while the grid of `blocks` key blocks leaves some of
+// the card's CTA slots (`per_sm` an SM) empty and the largest key block
+// keeps two tiles for each CTA (its tiles: n_g times the q-tiles its keys'
+// rows span, which a window bounds). A measured A/B chose one wave over
+// two: clusters of 4 at the server shape (3 tiles a CTA) ran no faster than
+// none, clusters of 2 ran 27% faster, and at the train and d64 shapes
+// (already a wave or more) clusters of 2 ran 12-31% slower. Returns the
+// first CUDA error of reading the card's SM count.
+int dkv_split(int blocks, const Geometry& g, int per_sm, int& split) {
+  int dev = 0, n_sm = 0, err;
+  if ((err = (int)cudaGetDevice(&dev)) ||
+      (err = (int)cudaDeviceGetAttribute(
+           &n_sm, cudaDevAttrMultiProcessorCount, dev)))
+    return err;
+  const int span = g.window && g.window + kF32B - 1 < g.sq
+                       ? g.window + kF32B - 1 : g.sq;
+  const int tiles = g.hq / g.hkv * ((span + kF32B - 1) / kF32B + 1);
+  split = 1;
+  while (split < 8 && 4 * split <= tiles && blocks * split < n_sm * per_sm)
+    split *= 2;
+  return 0;
+}
+
+// float32: the forward on K2f's grid and order (128-row q-blocks), K2q on
+// (b*Hq + h, 64-row q-block), K2kv on (b*Hkv + kv, 64-key block) with
+// `split` CTAs (a cluster) to a key block
 template <int D>
-int run_f32(const Args& a) {
-  const int err = prepare(sm90_fwd_f32_kernel<D>, F32Tiles<D>::kBytes);
-  if (err) return err;
-  const dim3 grid(a.b * a.g.hq, (a.g.sq + kBQ - 1) / kBQ);
-  sm90_fwd_f32_kernel<D><<<grid, kF32Threads, F32Tiles<D>::kBytes,
-                           a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o),
-      static_cast<float*>(a.lse), a.g);
+int run_f32(Which which, const Args& a) {
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  const float* lse = static_cast<const float*>(a.lse_in);
+  const float* delta = static_cast<const float*>(a.delta);
+  constexpr size_t bwd = F32Bwd<D>::kBytes;
+  int err;
+  if (which == kFwd) {
+    if ((err = prepare(sm90_fwd_f32_kernel<D>, F32Tiles<D>::kBytes)))
+      return err;
+    const dim3 grid(a.b * a.g.hq, (a.g.sq + kBQ - 1) / kBQ);
+    sm90_fwd_f32_kernel<D><<<grid, kF32Threads, F32Tiles<D>::kBytes,
+                             a.stream>>>(q, k, v, static_cast<float*>(a.o),
+                                         static_cast<float*>(a.lse), a.g);
+  } else if (which == kDq) {
+    if ((a.g.sq + kF32B - 1) / kF32B > 65535)
+      return (int)cudaErrorInvalidValue;
+    if ((err = prepare(sm90_dq_f32_kernel<D>, bwd))) return err;
+    const dim3 grid(a.b * a.g.hq, (a.g.sq + kF32B - 1) / kF32B);
+    sm90_dq_f32_kernel<D><<<grid, kF32Threads, bwd, a.stream>>>(
+        q, k, v, dout, lse, delta, static_cast<float*>(a.dq), a.g);
+  } else {
+    const int n_kb = (a.g.sk + kF32B - 1) / kF32B;
+    int split;
+    if ((err = dkv_split(a.b * a.g.hkv * n_kb, a.g, F32Bwd<D>::kBlocks,
+                         split)))
+      return err;
+    if (n_kb * split > 65535) return (int)cudaErrorInvalidValue;
+    if ((err = prepare(sm90_dkv_f32_kernel<D>, bwd))) return err;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = 1;
+    cluster[0].val.clusterDim.y = split;
+    cluster[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.b * a.g.hkv, n_kb * split);
+    cfg.blockDim = dim3(kF32Threads);
+    cfg.dynamicSmemBytes = bwd;
+    cfg.stream = a.stream;
+    cfg.attrs = cluster;
+    cfg.numAttrs = split > 1 ? 1 : 0;
+    if ((err = (int)cudaLaunchKernelEx(
+             &cfg, sm90_dkv_f32_kernel<D>, q, k, v, dout, lse, delta,
+             static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.g,
+             split)))
+      return err;
+  }
   return (int)cudaGetLastError();
 }
 
-// dtype: 1 bfloat16, 2 float16 at d 64, 112 or 128; 0, float32, for the
-// forward only, at d 32, 64, 112 or 128
+// dtype: 1 bfloat16, 2 float16 at d 64, 112 or 128; 0 float32 at d 32, 64,
+// 112 or 128
 int dispatch(Which which, int dtype, int d, int hq, int hkv, int sq, int sk,
              int causal, int window, float scale, Args& a) {
   if (a.b <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || sk <= 0 ||
@@ -1218,12 +1806,12 @@ int dispatch(Which which, int dtype, int d, int hq, int hkv, int sq, int sk,
     return (int)cudaErrorInvalidValue;
   a.g = Geometry{hq, hkv, sq, sk, causal, window, sk - sq, scale,
                  scale * kLog2e};
-  if (dtype == 0 && which == kFwd) {
+  if (dtype == 0) {
     switch (d) {
-      case 32: return run_f32<32>(a);
-      case 64: return run_f32<64>(a);
-      case 112: return run_f32<112>(a);
-      case 128: return run_f32<128>(a);
+      case 32: return run_f32<32>(which, a);
+      case 64: return run_f32<64>(which, a);
+      case 112: return run_f32<112>(which, a);
+      case 128: return run_f32<128>(which, a);
       default: return (int)cudaErrorInvalidValue;
     }
   }

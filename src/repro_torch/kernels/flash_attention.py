@@ -13,24 +13,23 @@ Replaces the Pallas kernels of ``repro/kernels/flash_attention.py``:
 
 Why CUDA C++ and not Triton: each kernel is a pair of blocked matrix
 products per tile with an online softmax between them, neither an
-elementwise pass nor a plain reduction. The source,
-``csrc/flash_attention.cu``, says how the tiles and threads are laid out
-and what bounds it: the operations (a causal call does ~2·Sq·Sk·D flops
-a head per matrix product), which this first version computes on the
-CUDA cores in float32.
+elementwise pass nor a plain reduction. The sources say how the tiles and
+threads are laid out and what bounds them: the operations (a causal call
+does ~2·Sq·Sk·D flops a head per matrix product).
 
 Each kernel has two routes, chosen from the dtype and head dim alone
 (``route``): bfloat16 and float16 at D 64, 112 and 128
 (``SM90_HEAD_DIMS``) take ``sm90``, the tensor-core kernels of
 ``csrc/flash_attention_sm90.cu`` (wgmma for every tile product, TMA tile
-loads into a two-stage ring); float32 K2f takes ``sm90`` at every head
-dim, the same file's float32 kernel for Hopper's CUDA cores (exact
-float32, ``cp.async`` tile ring, register micro-tiles); every other call
-(16-bit D 32, float32 K2q and K2kv) takes ``simt``, the kernels above,
-whose float32 forward is now the first version. ``fwd_routes`` and
-``bwd_routes`` count the launches of each route. K2q and K2kv always
-share a route; on sm90 they read dO in the input's 16-bit type, as wgmma
-takes it, on simt in float32.
+loads into a two-stage ring); float32 takes ``sm90`` at every head dim
+for all three kernels, the same file's float32 kernels for Hopper's CUDA
+cores (exact float32, ``cp.async`` tile rings, register micro-tiles);
+16-bit calls at D 32 take ``simt``, ``csrc/flash_attention.cu``'s first
+version, which a measurement may also name to time it beside sm90.
+``fwd_routes`` and ``bwd_routes`` count the launches of each route,
+``dq_routes`` and ``dkv_routes`` each backward kernel's apart. K2q and
+K2kv always share a route; they read dO in float32 on simt and in the
+input's type on sm90 (16 bits, as wgmma takes it, or float32).
 
 The residual contract is the reference's (``flash_attention.py:396-440``):
 the forward keeps q, k, v, ``o_f32`` (B·Hq, Sq, D) and ``lse`` (B·Hq, Sq);
@@ -63,12 +62,15 @@ launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
 fwd_routes = {"sm90": 0, "simt": 0}
 # K2q's and K2kv's launches by route: a backward counts once per kernel
 bwd_routes = {"sm90": 0, "simt": 0}
+# and each kernel's apart (each launch also counts in bwd_routes)
+dq_routes = {"sm90": 0, "simt": 0}
+dkv_routes = {"sm90": 0, "simt": 0}
 
 # torch dtype -> the C interface's dtype code
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (32, 64, 112, 128)     # the kernels' template instances
 # the head dims the sm90 route takes in 16 bits (D 112 stored padded to
-# 128); in float32 only K2f takes it, at every head dim
+# 128); in float32 it takes every head dim
 SM90_HEAD_DIMS = (64, 112, 128)
 _fn: dict = {}
 
@@ -166,11 +168,11 @@ def mask(sq: int, sk: int, *, causal: bool, window: int, device):
 def route(which: str, dtype, d: int) -> str:
     """The route the kernel ``which`` (``"fwd"``, ``"dq"`` or ``"dkv"``)
     takes for a CUDA call: ``"sm90"`` for bfloat16 and float16 at
-    ``SM90_HEAD_DIMS`` (tensor cores) and for float32 K2f (CUDA cores),
-    ``"simt"`` otherwise."""
-    if dtype == torch.float32:
-        return "sm90" if which == "fwd" else "simt"
-    return "sm90" if d in SM90_HEAD_DIMS else "simt"
+    ``SM90_HEAD_DIMS`` (tensor cores) and for float32 at every head dim
+    (CUDA cores), ``"simt"`` otherwise (16 bits at D 32); the three
+    kernels take one route at every dtype and head dim."""
+    return "sm90" if dtype == torch.float32 or d in SM90_HEAD_DIMS \
+        else "simt"
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal=True, window=0, scale=None):
@@ -262,11 +264,12 @@ def flash_attention_bwd_plain(q, k, v, o_f32, lse, do, *, causal=True,
 def bwd_operands(q, o_f32, do):
     """What the backward kernels read beside q, k, v and lse: delta =
     Σ_d dO·o_f32 (B·Hq, Sq) in float32, and dO (B·Hq, Sq, D), contiguous,
-    in their route's type (float32 for simt, q's 16-bit type for sm90)."""
+    in their route's type: float32 for simt, q's type for sm90 (16 bits,
+    or float32 for a float32 q)."""
     B, hq, sq, d = q.shape
     dof = do.float().contiguous().reshape(B * hq, sq, d)
     delta = (dof * o_f32).sum(dim=-1)
-    if route("dq", q.dtype, d) == "simt":
+    if q.dtype == torch.float32 or route("dq", q.dtype, d) == "simt":
         return delta, dof
     return delta, do.to(q.dtype).contiguous().reshape(B * hq, sq, d)
 
@@ -277,9 +280,9 @@ def flash_attention_bwd(q, k, v, o_f32, lse, do, *, causal=True, window=0,
     (B, Hq, Sq, D), from the forward's residuals: (dq, dk, dv) in the
     input dtypes. ``do`` may be strided. delta = Σ_d dO·o_f32 is taken in
     float32; both kernels read dO in their route's type (``bwd_operands``):
-    on simt in float32, on sm90 in q's 16-bit dtype (exact on
-    the autograd path, where the cotangent arrives in q's dtype; a float32
-    ``do`` is rounded once)."""
+    on simt in float32, on sm90 in q's dtype (float32 for a float32 q;
+    exact in 16 bits on the autograd path, where the cotangent arrives in
+    q's dtype; a float32 ``do`` beside a 16-bit q is rounded once)."""
     _check(q, k, v, window)
     B, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -333,6 +336,7 @@ def _bwd_launch(which, q, k, v, do, lse, delta, outs, causal, window,
     _raise_on(err, f"{which} (K2{'q' if which == 'dq' else 'kv'}, {kernel})")
     launches[f"flash_attention_bwd_{which}"] += 1
     bwd_routes[kernel] += 1
+    (dq_routes if which == "dq" else dkv_routes)[kernel] += 1
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
@@ -342,8 +346,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
     ``flash_attention_bwd`` prepares them). ``route`` None takes
     ``route("dq", ...)``'s (a measurement may name ``"simt"`` to time the
     first version). dO is converted to the route's dtype if it is not in
-    it: float32 for simt (exact), q's dtype for sm90 (a float32 dO rounds
-    once)."""
+    it: float32 for simt (exact), q's dtype for sm90 (exact for a float32
+    q; beside a 16-bit q a float32 dO rounds once)."""
     dq = torch.empty_like(q)
     _bwd_launch("dq", q, k, v, do, lse, delta, (dq,), causal, window, scale,
                 route)

@@ -6,9 +6,10 @@ route and its refusal of misaligned pools, K2 (CUDA C++: K2f,
 K2q, K2kv) with dead rows, windows and ragged tails, at D = 112 and
 through one train step, the tensor-core routes of K2f, K2q and K2kv
 (bfloat16, float16 at D 64, 112 and 128; D 112 stored padded to 128, in
-a subprocess with a timeout first), K2f's float32 sm90 kernel against the
-plain version and the first version (simt) at D 32 to 128, their route
-counts and their refusal of misaligned tensors, K3 (CUDA C++: K3f and K3b on
+a subprocess with a timeout first), the float32 sm90 kernels of K2f, K2q
+and K2kv against the plain version and the first version (simt) at D 32
+to 128 (the backward bit for bit between two calls), their route counts
+and their refusal of misaligned tensors, K3 (CUDA C++: K3f and K3b on
 both routes, the sm90 ones also against their emulated roundings) with
 ragged tails, clamped chunks, groups and an initial state, through ``SSDScan``
 and one mamba train step; the distillation step of DENSE and the
@@ -297,15 +298,17 @@ def test_flash_attention_fwd_counts_its_route(cuda, dtype, d, route):
     (torch.bfloat16, 128, ("sm90", "sm90")),
     (torch.float16, 64, ("sm90", "sm90")),
     (torch.bfloat16, 112, ("sm90", "sm90")),
-    (torch.float32, 128, ("simt", "simt")),
-    (torch.float16, 112, ("sm90", "sm90"))])
+    (torch.float32, 128, ("sm90", "sm90")),
+    (torch.float16, 112, ("sm90", "sm90")),
+    (torch.bfloat16, 32, ("simt", "simt"))])
 def test_flash_attention_bwd_counts_its_route(cuda, dtype, d, route):
     """One backward launches K2q and K2kv once each, each counting once in
-    ``launches`` and once under its own route (``route``: K2q's, K2kv's)
-    in ``bwd_routes``."""
+    ``launches``, once under its own route (``route``: K2q's, K2kv's) in
+    ``bwd_routes`` and once in its own ``dq_routes`` or ``dkv_routes``."""
     q, k, v, do = _k2_inputs(1, 4, 2, 70, 70, d, dtype, cuda)
     o, lse = FA.flash_attention_fwd(q, k, v)
     before, routes = dict(FA.launches), dict(FA.bwd_routes)
+    dq, dkv = dict(FA.dq_routes), dict(FA.dkv_routes)
     FA.flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     assert {n: c - before[n] for n, c in FA.launches.items()} == {
@@ -313,6 +316,10 @@ def test_flash_attention_bwd_counts_its_route(cuda, dtype, d, route):
         "flash_attention_bwd_dkv": 1}
     assert {n: c - routes[n] for n, c in FA.bwd_routes.items()} == {
         r: route.count(r) for r in ("sm90", "simt")}
+    for counts, old, r in ((FA.dq_routes, dq, route[0]),
+                           (FA.dkv_routes, dkv, route[1])):
+        assert {n: c - old[n] for n, c in counts.items()} == {
+            "sm90": int(r == "sm90"), "simt": int(r == "simt")}
 
 
 # D 112 on the sm90 routes of K2f, K2q and K2kv (B, Hq, Hkv, Sq, Sk, causal,
@@ -420,10 +427,12 @@ def test_flash_attention_d112_dq_has_no_sm90_kernel(cuda):
     assert float(err) <= 1e-2 * float(first.float().abs().max())
 
 
-# K2f's float32 sm90 kernel (B, Hq, Hkv, Sq, Sk, D, causal, window): every
+# The float32 sm90 kernels (B, Hq, Hkv, Sq, Sk, D, causal, window): every
 # head dim, the server's heads, dead rows (causal Sq > Sk) with a window
 # and GQA, zamba2's d112 and its ragged shape, Sq and Sk off the 128-row
-# q-blocks and 64-key tiles, causal=False with and without a window
+# q-blocks (K2f) and the 64-row tiles (K2q, K2kv), causal=False with and
+# without a window; K2kv's grids under one wave take clusters of 2 to 8
+# CTAs a key block (8 at D 112 and, in the last case, D 128)
 K2_F32_CASES = [(2, 24, 8, 256, 256, 128, True, 0),
                 (1, 3, 1, 100, 37, 32, True, 0),
                 (2, 4, 2, 300, 200, 32, True, 64),
@@ -432,7 +441,8 @@ K2_F32_CASES = [(2, 24, 8, 256, 256, 128, True, 0),
                 (2, 32, 32, 512, 512, 112, True, 0),
                 (1, 8, 2, 301, 230, 112, True, 90),
                 (1, 6, 2, 129, 75, 128, False, 0),
-                (1, 8, 2, 77, 300, 128, False, 50)]
+                (1, 8, 2, 77, 300, 128, False, 50),
+                (1, 6, 2, 1000, 300, 128, False, 0)]
 
 
 @pytest.mark.parametrize("B,hq,hkv,sq,sk,d,causal,window", K2_F32_CASES)
@@ -458,16 +468,58 @@ def test_flash_attention_f32_fwd_sm90_matches_plain_and_first_version(
     assert bool((slse[dead] == FA.NEG_INF).all())
 
 
+@pytest.mark.parametrize("B,hq,hkv,sq,sk,d,causal,window", K2_F32_CASES)
+def test_flash_attention_f32_bwd_sm90_matches_plain_and_first_version(
+        cuda, B, hq, hkv, sq, sk, d, causal, window):
+    """K2q and K2kv in float32 take their sm90 kernels (one launch each,
+    counted on sm90) and agree with the plain version and with the first
+    version (simt, on the same dO, lse and delta) to 1e-4 of each
+    tensor's largest entry; dq is exactly 0 on dead rows, and a second
+    call gives the same bits (no atomics: K2kv sums each GQA group in a
+    fixed order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _k2_inputs(B, hq, hkv, sq, sk, d, torch.float32, cuda)
+    kw = {"causal": causal, "window": window}
+    o, lse = FA.flash_attention_fwd(q, k, v, **kw)
+    before = dict(FA.launches)
+    dq_r, dkv_r = dict(FA.dq_routes), dict(FA.dkv_routes)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in FA.launches.items()} == {
+        "flash_attention_fwd": 0, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkv": 1}
+    for counts, old in ((FA.dq_routes, dq_r), (FA.dkv_routes, dkv_r)):
+        assert {n: c - old[n] for n, c in counts.items()} == {
+            "sm90": 1, "simt": 0}
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    delta, do_k = FA.bwd_operands(q, o, do)
+    first = (FA.flash_attention_bwd_dq(q, k, v, do_k, lse, delta,
+                                       route="simt", **kw),
+             *FA.flash_attention_bwd_dkv(q, k, v, do_k, lse, delta,
+                                         route="simt", **kw))
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for a, b, c, e in zip(got, want, first, again):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        top = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * top
+        assert float((a - c).abs().max()) <= 1e-4 * top
+        assert torch.equal(a, e)
+    dead = lse == FA.NEG_INF
+    assert bool((got[0].reshape(B * hq, sq, d)[dead] == 0).all())
+
+
 @pytest.mark.parametrize("which", ["q", "k", "v", "do"])
-def test_flash_attention_sm90_bwd_raises_on_misaligned_tensors(cuda, which):
-    """The sm90 backward reads q, k, v and dO by TMA: a contiguous view one
-    element into its storage is refused before any launch, never sent to
-    the simt kernels."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_sm90_bwd_raises_on_misaligned_tensors(cuda, which,
+                                                               dtype):
+    """The sm90 backward reads q, k, v and dO by TMA (16 bits) or 16-byte
+    cp.async (float32): a contiguous view one element into its storage is
+    refused before any launch, never sent to the simt kernels."""
     t = dict(zip("q k v do".split(),
-                 _k2_inputs(1, 4, 2, 70, 70, 64, torch.bfloat16, cuda)))
+                 _k2_inputs(1, 4, 2, 70, 70, 64, dtype, cuda)))
     o, lse = FA.flash_attention_fwd(t["q"], t["k"], t["v"])
-    buf = torch.empty(t[which].numel() + 1, dtype=torch.bfloat16,
-                      device=cuda)
+    buf = torch.empty(t[which].numel() + 1, dtype=dtype, device=cuda)
     t[which] = buf[1:].view(t[which].shape).copy_(t[which])
     before, routes = dict(FA.launches), dict(FA.bwd_routes)
     with pytest.raises(ValueError, match="16-byte aligned"):

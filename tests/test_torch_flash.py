@@ -7,7 +7,9 @@ materialized oracle, ``ops.flash_attention``'s routing, the three
 kernels' routes and the dO each backward kernel reads, and the algebra of
 the sm90 kernels at D 112, which store and multiply tiles padded to 128
 with zero columns: the plain pair on the padded inputs, cut back, against
-the plain pair and the reference's interpret-mode kernels at D 112.
+the plain pair and the reference's interpret-mode kernels at D 112; and
+the plain backward (the float32 sm90 kernels' oracle on the card) against
+the interpret-mode K2q and K2kv at D 64 and 128.
 
 Inputs are float32 from numpy with a seed. Tolerance rtol = atol = 1e-5:
 float32 on both sides, summed in another order. Rows with no live key
@@ -111,6 +113,46 @@ def test_backward_plain_matches_interpret_kernel(case):
     for a, b in zip(got, case["grads"]):
         _close(a, b)
     dead = ~_live_rows(sq, sk, causal)
+    assert not got[0].numpy()[:, :, dead].any()
+
+
+# The float32 backward's oracle on the card (the plain pair, which
+# chip_smoke.py and the card tests hold the float32 sm90 K2q and K2kv to)
+# at the head dims the D 32 cases above leave out: (B, Hq, Hkv, Sq, Sk, D,
+# causal, window) with GQA, a window and dead rows (causal Sq > Sk)
+WIDE_CASES = {
+    "d64_window_dead_rows": (1, 4, 2, 40, 24, 64, True, 7),
+    "d128_g3_dead_rows": (1, 3, 1, 40, 24, 128, True, 0),
+    "d128_window": (1, 4, 2, 24, 40, 128, True, 9),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_backward_plain_matches_interpret_kernel_at_wide_head_dims(name):
+    """The plain backward from the reference's o_f32 and lse against the
+    reference's interpret-mode K2q and K2kv at D 64 and 128: dq, dk, dv to
+    TOL, dq exactly 0 on dead rows."""
+    B, hq, hkv, sq, sk, d, causal, window = WIDE_CASES[name]
+    rng = np.random.default_rng(sq + sk + d)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    arrays = f(B, hq, sq, d), f(B, hkv, sk, d), f(B, hkv, sk, d), \
+        f(B, hq, sq, d)
+    jq, jk, jv, jdo = map(jnp.asarray, arrays)
+    _, jo, jlse = R_FA.flash_attention(
+        jq, jk, jv, causal=causal, window=window, block_q=BLOCK,
+        block_k=BLOCK, interpret=True, return_stats=True)
+    jgrads = R_FA.flash_attention_bwd(
+        jq, jk, jv, jo, jlse, jdo, causal=causal, window=window,
+        block_q=BLOCK, block_k=BLOCK, interpret=True)
+    q, k, v, do = _t(*arrays)
+    o, lse = _t(np.asarray(jo), np.asarray(jlse))
+    got = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    for a, b in zip(got, jgrads):
+        assert a.dtype == torch.float32
+        _close(a, b)
+    dead = ~_live_rows(sq, sk, causal)
+    assert dead.any() == (sq > sk)
     assert not got[0].numpy()[:, :, dead].any()
 
 
@@ -221,14 +263,14 @@ def test_cpu_forward_takes_plain_version_and_counts_no_launch(dtype, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_bwd_route_by_dtype_and_head_dim(dtype, d):
-    """K2q's and K2kv's tensor-core route takes exactly the 16-bit dtypes
-    at D 64, 112 and 128, where K2f's takes them too; float32 backward
-    calls stay on the simt route at every head dim."""
-    half = dtype != torch.float32
-    want = "sm90" if half and d in (64, 112, 128) else "simt"
+    """K2q's and K2kv's sm90 route takes the 16-bit dtypes at D 64, 112
+    and 128 (the tensor cores) and float32 at every head dim (the CUDA-core
+    kernels), exactly where K2f's takes them; only the 16-bit dtypes at
+    D 32 stay on the simt one."""
+    want = "sm90" if dtype == torch.float32 or d in (64, 112, 128) \
+        else "simt"
     assert FA.route("dq", dtype, d) == FA.route("dkv", dtype, d) == want
-    if half:
-        assert FA.route("fwd", dtype, d) == want
+    assert FA.route("fwd", dtype, d) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -253,7 +295,8 @@ def test_dq_and_dkv_routes_part_only_at_d112(dtype):
 def test_bwd_operands_give_each_kernel_do_in_its_route_type(dtype, d, types):
     """``bwd_operands``: delta = Σ_d dO·o_f32 in float32 from the float32
     dO, and the one dO that K2q and K2kv both read, in their shared
-    route's type (float32 for simt, the input's 16-bit type for sm90),
+    route's type (float32 for simt, the input's type for sm90: 16 bits,
+    or float32 for a float32 input),
     contiguous (B·Hq, Sq, D), from a strided cotangent; at 16-bit D 112
     both kernels read the 16-bit dO."""
     rng = np.random.default_rng(d)
