@@ -105,28 +105,32 @@ result line is printed:
      in PyTorch and autograd through it): mamba2-130m's train shape (8, 256,
      24 heads, P 64, N 128, chunk 256) in bfloat16, float16 and float32,
      zamba2-7b's prefill (1, 448, 112 heads, P 64, N 64) in bfloat16 and
-     float32, its train shape (2, 512, two chunks: ssm_hybrid_train's) in
-     bfloat16 and float16, one 4096-token sequence (16 chunks), zamba2's
-     widths at 300 tokens (a tail of 44) and 100 (a clamped chunk) with an
-     initial state in bfloat16, and a ragged, grouped shape with an initial
+     float32, its train shape (2, 512, two chunks: ssm_hybrid_train's and
+     ssm_train_check's) in bfloat16, float16 and float32, one 4096-token
+     sequence (16 chunks), zamba2's widths at 300 tokens (a tail of 44)
+     with an initial state in bfloat16 and float32 and at 100 (a clamped
+     chunk) in bfloat16, and a ragged, grouped shape with an initial
      state in float32, also held to the sequential recurrence; timed beside
      its bound (no PyTorch call computes the scan), each row with its
      kernels' device time (``torch.profiler``). Each row names its route:
-     ``sm90`` (the chunk-parallel tensor-core kernels, 16 bits at P 64, N
-     64/128), whose rows also time the first version (``simt``) on the same
-     inputs, give each kernel's device time (``device_ms_by_phase``) and
-     compare two calls bit for bit, or ``simt``. K3b reads the states the
-     forward wrote and dy in x's dtype, as the model hands it; an sm90 K3f
-     row gives y's error over its rounding bound, an sm90 K3b row its
-     gradients' error against the float32 plain version (1e-2 of each
-     largest entry, d(initial_state) 1e-4) and against the route's roundings
-     emulated (``ssd_scan_bwd_chunked_plain``), each over its tolerance;
+     ``sm90`` (the chunk-parallel kernels at P 64, N 64/128 in every dtype:
+     tensor cores in 16 bits, CUDA cores in float32), whose rows also time
+     the first version (``simt``) on the same inputs, give each kernel's
+     device time (``device_ms_by_phase``) and compare two calls bit for
+     bit, or ``simt`` (ragged_grouped). K3b reads the states the forward
+     wrote and dy in x's dtype, as the model hands it; a 16-bit sm90 K3f
+     row gives y's error over its rounding bound, a 16-bit sm90 K3b row
+     its gradients' error against the float32 plain version (1e-2 of each
+     largest entry, d(initial_state) 1e-4) and against the route's
+     roundings emulated (``ssd_scan_bwd_chunked_plain``), each over its
+     tolerance; a float32 row holds y, the states and all six gradients to
+     1e-4 of the plain versions;
  15. ssm_serve_check: zamba2-7b (7 layers: a super-block of 6 mamba
      blocks and the shared block, and one tail block) and mamba2-130m (2
      layers) at full width, float32: paged ≡ dense engine for 6 requests
      of up to 300 tokens (two chunks, a ragged tail) in 4 slots, K3f once
-     a mamba block a prefill (on ``simt``, float32) and K4 once a
-     shared-block application a decode step, on ``sm90``;
+     a mamba block a prefill and K4 once a shared-block application a
+     decode step, both on ``sm90``;
  16. ssm_serve: zamba2-7b at full width and depth (81 mamba blocks, 13
      applications of the shared block, bfloat16), the serve phase's 16
      requests through 8 slots: K3f must read prefills × 81 and K4 decode
@@ -134,8 +138,14 @@ result line is printed:
  17. ssm_train_check: one zamba2-7b train step at full width, 7 layers,
      float32, batch 2 × 512 (two chunks): the K3/K2 route and the plain
      route agree to 1e-4 (K3f 2 × 7 with remat and K3b 7, all on
-     ``simt``, K2 on the one shared-block application: K2f, K2q and K2kv
-     on their float32 ``sm90`` kernels);
+     ``sm90``, K2 on the one shared-block application: K2f, K2q and K2kv
+     on their float32 ``sm90`` kernels); then one mamba2-130m train step
+     at full width and depth (24 layers, 129 M parameters), float32,
+     batch 8 × 256 (one chunk: K3f and K3b at the mamba2_train kernel
+     rows' shape, 48 and 24 launches, all on ``sm90``), held the same way;
+     each reports the plain route against itself at half the chunk
+     (``plain_half_chunk_vs_plain``), the floor of float32 summation
+     order;
  18. ssm_hybrid_train: zamba2-7b's train step in bfloat16 at full width
      (d_model 3584, 32/32 heads of 112, P 64, N 64), depth 81 → 13 (two
      super-blocks of 6 mamba blocks, each followed by the shared block,
@@ -248,13 +258,15 @@ UNIT_ROUNDOFF = {"bfloat16": 2.0 ** -9, "float16": 2.0 ** -12}
 # tail of 44, not a multiple of 64) and at 100 (the chunk clamped to 100),
 # both with an initial state, and a small ragged, grouped shape that is
 # also held to the sequential recurrence (``ref.ssd``/``ssd_grads``). K3f
-# takes its sm90 route in 16 bits at P 64 and N 64 or 128 (every shape but
-# the float32 ones and ragged_grouped). Tolerance, relative to each
-# tensor's largest entry: float32 1e-4; in 16 bits y is stored in 16 bits
-# (1e-2), the states and gradients are float32 from the same 16-bit
-# inputs (1e-4). An sm90 row also gives y's error over its rounding bound
-# 2u (sum|terms| + |y|) elementwise (``y_err_over_bound``, at most 1 if
-# the bound holds; u = 2^-9 bfloat16, 2^-12 float16).
+# and K3b take their sm90 route at P 64 and N 64 or 128 in every dtype
+# (every shape but ragged_grouped); the float32 rows are mamba2-130m's
+# and zamba2-7b's train shapes and zamba2's prefill and ragged tail.
+# Tolerance, relative to each tensor's largest entry: float32 1e-4; in 16
+# bits y is stored in 16 bits (1e-2), the states and gradients are
+# float32 from the same 16-bit inputs (1e-4). A 16-bit sm90 row also gives
+# y's error over its rounding bound 2u (sum|terms| + |y|) elementwise
+# (``y_err_over_bound``, at most 1 if the bound holds; u = 2^-9 bfloat16,
+# 2^-12 float16).
 K3_SHAPES = (("mamba2_train", 8, 256, 24, 64, 1, 128, 256, "bfloat16", False),
              ("mamba2_train", 8, 256, 24, 64, 1, 128, 256, "float16", False),
              ("zamba2_prefill", 1, 448, 112, 64, 1, 64, 256, "bfloat16",
@@ -268,7 +280,9 @@ K3_SHAPES = (("mamba2_train", 8, 256, 24, 64, 1, 128, 256, "bfloat16", False),
              ("ragged_grouped", 2, 300, 4, 32, 2, 16, 64, "float32", True),
              ("mamba2_train", 8, 256, 24, 64, 1, 128, 256, "float32", False),
              ("zamba2_prefill", 1, 448, 112, 64, 1, 64, 256, "float32",
-              False))
+              False),
+             ("zamba2_train", 2, 512, 112, 64, 1, 64, 256, "float32", False),
+             ("ragged_tail", 1, 300, 112, 64, 1, 64, 256, "float32", True))
 TOL_K3 = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 1e-2}
 # K3b: its gradients; on its sm90 route also against the chunked plain
 # version with the route's roundings emulated (the same arithmetic: sums in
@@ -413,8 +427,8 @@ def check_k4_routes(label, launches, routes) -> None:
 
 def k3f_route(torch, cfg) -> str:
     """The route K3f (and K3b, by one rule) takes in ``cfg``'s mamba
-    blocks: sm90 in 16 bits at mamba2-130m's and zamba2-7b's widths, simt
-    in float32."""
+    blocks: sm90 at mamba2-130m's and zamba2-7b's widths in every dtype
+    (float32 on the CUDA cores), simt at other widths."""
     from repro_torch.kernels import ssd_scan as K3
 
     return K3.fwd_route(getattr(torch, cfg.dtype), cfg.ssm_head_dim,
@@ -1368,8 +1382,10 @@ def k2_kernel(which, route):
 def k3_kernel(which, route):
     """Matches the device names of K3's ``which`` kernels (``fwd``,
     ``bwd``) on ``route``: K3f's sm90 route is three kernels named
-    ``ssd_sm90_...``, K3b's five named ``ssd_sm90_bwd_...``; the first
-    versions are ``ssd_fwd_kernel<...>`` and ``ssd_bwd_kernel<...>``."""
+    ``ssd_sm90_...``, K3b's five named ``ssd_sm90_bwd_...`` (float32's
+    with ``_f32`` after the phase's name, ``ssd_sm90_chunk_scan_kernel_f32``
+    and the like); the first versions are ``ssd_fwd_kernel<...>`` and
+    ``ssd_bwd_kernel<...>``."""
     if route == "sm90" and which == "bwd":
         return lambda name: "ssd_sm90_bwd_" in name
     if route == "sm90":
@@ -1674,7 +1690,8 @@ def k3_work(B, S, H, P, G, N, cl, isz, init, dy_isz=4):
     return fwd_bytes, fwd_ops, bwd_bytes, bwd_ops
 
 
-# each K3 route's kernels by phase: a substring of each device name
+# each K3 route's kernels by phase: a substring of each device name (a
+# float32 kernel's name adds _f32 after it)
 K3_KERNELS = {
     ("fwd", "sm90"): {ph: f"ssd_sm90_{ph}_kernel" for ph in (
         "chunk_state", "state_pass", "chunk_scan")},
@@ -1702,10 +1719,10 @@ def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
     PyTorch and autograd through it), at the small shape also against the
     sequential recurrence, timed beside their bound, each row with its
     kernels' device time. A K3f row names its route; an sm90 row also
-    times the first version (the simt route) on the same inputs, checks
-    two calls bit for bit and gives y's error over its rounding bound. K3b
-    reads the states the forward wrote. No single PyTorch call computes
-    the SSD scan: library_ms is None."""
+    times the first version (the simt route) on the same inputs and checks
+    two calls bit for bit, and in 16 bits gives y's error over its
+    rounding bound. K3b reads the states the forward wrote. No single
+    PyTorch call computes the SSD scan: library_ms is None."""
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import ssd_scan as K3
 
@@ -1729,6 +1746,7 @@ def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
             extra["bit_for_bit"] = all(torch.equal(u, v) for u, v in
                                        zip(fwd(), (y, fin, st)))
             ok_f = ok_f and extra["bit_for_bit"]
+        if route == "sm90" and dname in UNIT_ROUNDOFF:
             # 2u (sum|terms| + |y|): the plain forward on |x|, |b|, |c|
             # and |initial state| bounds sum|terms| elementwise
             terms = K3.ssd_scan_fwd_plain(
@@ -1746,26 +1764,29 @@ def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
         torch.cuda.synchronize()
         want = K3.ssd_scan_bwd_plain(x, dt, a, b, c, pst, dy, dfin, chunk=cl)
         errs_b = [_grad_err(g, w) for g, w in zip(grads, want)]
-        # the simt route is float32 throughout; the sm90 route rounds to
-        # 16 bits before its products (d(initial_state) from the float32
-        # dS pass over hi + lo deposits)
-        tol_b = [1e-4] * 6 if broute == "simt" else [1e-2] * 5 + [1e-4]
+        # float32 (either route) is float32 throughout; the 16-bit sm90
+        # route rounds to 16 bits before its products (d(initial_state)
+        # from the float32 dS pass over hi + lo deposits)
+        rounds = broute == "sm90" and dname in TOL_K3B_EMULATED
+        tol_b = [1e-2] * 5 + [1e-4] if rounds else [1e-4] * 6
         ok_b = all(e <= t for e, t in zip(errs_b, tol_b))
         bextra = {}
         if broute == "sm90":
+            bextra = {
+                "err_over_tol": {
+                    "vs_float32": max(e / t for e, t in zip(errs_b, tol_b))},
+                "bit_for_bit": all(torch.equal(u, v)
+                                   for u, v in zip(bwd(), grads))}
+            ok_b = ok_b and bextra["bit_for_bit"]
+        if rounds:          # in float32 the chunked plain is the oracle
             emul = K3.ssd_scan_bwd_chunked_plain(
                 x, dt, a, b, c, st, dy, dfin, chunk=cl, emulate=dtype)
             errs_e = [_grad_err(g, w) for g, w in zip(grads, emul)]
             tol_e = TOL_K3B_EMULATED[dname]
-            bextra = {
-                "max_rel_err_vs_emulated": dict(zip(K3B_GRADS, errs_e)),
-                "tol_vs_emulated": tol_e,
-                "err_over_tol": {
-                    "vs_float32": max(e / t for e, t in zip(errs_b, tol_b)),
-                    "vs_emulated": max(errs_e) / tol_e},
-                "bit_for_bit": all(torch.equal(u, v)
-                                   for u, v in zip(bwd(), grads))}
-            ok_b = ok_b and max(errs_e) <= tol_e and bextra["bit_for_bit"]
+            bextra["max_rel_err_vs_emulated"] = dict(zip(K3B_GRADS, errs_e))
+            bextra["tol_vs_emulated"] = tol_e
+            bextra["err_over_tol"]["vs_emulated"] = max(errs_e) / tol_e
+            ok_b = ok_b and max(errs_e) <= tol_e
             del emul
         oracle = {}
         if name == "ragged_grouped":       # the sequential recurrence too
@@ -1840,8 +1861,10 @@ def k3_phase(torch, shapes=K3_SHAPES, dev="cuda"):
         fail(f"{len(bad)} K3 checks disagree with the plain versions: {bad}")
     for which, rs in rows.items():
         routes = {(r["shape"]["name"], r["dtype"]): r["route"] for r in rs}
-        if any((r == "sm90") != (dn != "float32" and n != "ragged_grouped")
-               for (n, dn), r in routes.items()):
+        want = {(r["shape"]["name"], r["dtype"]):
+                "sm90" if r["shape"]["P"] == 64 and r["shape"]["N"] in (64, 128)
+                else "simt" for r in rs}
+        if routes != want:
             fail(f"K3{which[0]} took an unexpected route: {routes}")
     return rows
 
@@ -2503,6 +2526,9 @@ def k3_entry(name, rs, line, launches):
             "first_version_ms": main.get("first_version_ms"),
             "first_version_device_ms": main.get("first_version_device_ms"),
             "first_version_source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "float32_route": next(r["route"] for r in rs
+                                  if r["shape"]["name"] == "mamba2_train"
+                                  and r["dtype"] == "float32"),
             "by_shape": rs}
 
 
@@ -2546,6 +2572,8 @@ def main() -> None:
                 label="ssm_serve_check", prompt_range=(16, 301), max_len=336)
     serve_main_path(torch, arch="zamba2-7b", label="ssm_serve")
     train_check(torch, arch="zamba2-7b", n_layers=7, batch=(2, 512),
+                label="ssm_train_check")
+    train_check(torch, arch="mamba2-130m", n_layers=24, batch=(8, 256),
                 label="ssm_train_check")
     hybrid_launches = hybrid_train(torch)
     ssm_launches, ssm_ctx = llm_main_path(torch, oc=ONE.full_ssm(),

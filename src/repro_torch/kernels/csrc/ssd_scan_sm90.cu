@@ -1,6 +1,7 @@
-// K3 on Hopper's tensor cores: the Mamba-2 SSD chunked scan, forward (K3f)
-// and backward (K3b), chunk-parallel, for bfloat16 and float16 at head dim
-// P 64 and state width N 64 or 128 (sm_90a).
+// K3 on Hopper: the Mamba-2 SSD chunked scan, forward (K3f) and backward
+// (K3b), chunk-parallel, at head dim P 64 and state width N 64 or 128
+// (sm_90a): bfloat16 and float16 on the tensor cores, float32 on the CUDA
+// cores (the float32 section below).
 //
 // Replaces the Pallas kernels of src/repro/kernels/ssd_scan.py:
 //   K3f  ssd_scan / _ssd_kernel (pallas_call at :143, kernel at :64);
@@ -8,7 +9,7 @@
 //        :168).
 // They compute what ssd_scan.cu's ssd_fwd_kernel and ssd_bwd_kernel
 // compute, with the same contract: x (B, S, H, P) and b, c (B, S, G, N)
-// contiguous in one 16-bit type, dt (B, S, H) in float32 or that type, a
+// contiguous in one type, dt (B, S, H) in float32 or that type, a
 // (H,) float32, an optional initial state (B, H, P, N) float32 (null:
 // zeros); head h reads group h / (H / G). Within a chunk of cl positions,
 // cs the cumulative sum of dt * a:
@@ -22,9 +23,9 @@
 // tail of the last chunk, or a chunk clamped to S) read as zeros, dt = 0
 // there deposits nothing, and they are never stored; the exponential is
 // taken only under the causal mask (l >= s). The wrapper
-// (kernels/ssd_scan.py, fwd_route and bwd_route) sends float32 and every
-// other P or N to ssd_scan.cu's first versions, which a direct call may
-// also name (route "simt") to time them beside these.
+// (kernels/ssd_scan.py, fwd_route and bwd_route: one rule for every dtype)
+// sends every other P or N to ssd_scan.cu's first versions, which a direct
+// call may also name (route "simt") to time them beside these.
 //
 // Design. The TPU walks the chunks in order (K3b last-first) with the
 // state or its cotangent in VMEM; the first versions here did the same in
@@ -78,7 +79,8 @@
 //      cumsum dda (a warp scan), ddt = ddt_att + dw e^{cs_end - cs} +
 //      dda a, and the chunk's da partial sum dda dt, which the wrapper
 //      sums in a fixed order.
-// Every product is on wgmma (sm90_common.cuh), float32 accumulators:
+// In 16 bits every product is on wgmma (sm90_common.cuh), float32
+// accumulators:
 //   A, A'  m64nNk16 SS with both operands MN-major (transposed):
 //      (w . X)^T or (ecs . dY)^T from the rows as stored (P contiguous),
 //      B or C from their rows (N contiguous);
@@ -127,7 +129,7 @@
 // per-head db and dc (the reference's contract: the wrapper sums them over
 // each group) the traffic beyond the inputs and outputs. Left for later: a
 // persistent scheduler, fusing A to C (A' to C'), a group reduction of db
-// and dc inside the kernel, float32 on TF32, other P and N.
+// and dc inside the kernel, other P and N.
 //
 // The C entries check the shapes, set each kernel's dynamic shared-memory
 // limit, launch the route's kernels on the given stream and return the
@@ -294,13 +296,13 @@ __device__ __forceinline__ void state_to16(uint32_t dst, const float* src) {
 
 // a chunk's dt into dt_s (zeros at and past kv) and the inclusive cumsum of
 // dt * a into cs_s: warp 0, each lane a run of consecutive positions, a
-// shuffle scan giving each run its offset, in a fixed order
-template <typename Tag, typename TD>
+// shuffle scan giving each run its offset, in a fixed order; kT threads
+template <typename Tag, typename TD, int kT = kThreads>
 __device__ __forceinline__ void chunk_cs(const TD* dt, size_t i0, int H,
                                          float av, int cl, int kv,
                                          float* dt_s, float* cs_s) {
   const int tid = threadIdx.x, lane = tid % 32;
-  for (int l = tid; l < cl; l += kThreads)
+  for (int l = tid; l < cl; l += kT)
     dt_s[l] = l < kv ? ld_dt<Tag>(dt, i0 + (size_t)l * H) : 0.f;
   __syncthreads();
   if (tid < 32) {
@@ -1193,6 +1195,778 @@ ssd_sm90_bwd_finish_kernel(const float* __restrict__ states,
   if (lane == 0) dap[ch] = pda;
 }
 
+// ============================================================= float32 ==
+//
+// K3f and K3b in float32 on the CUDA cores, exact in float32: no TF32 and no
+// split-TF32 products (the float32 checks hold y, the states and the six
+// gradients to 1e-4 of the plain versions). The same phases and launches as
+// the 16-bit route: the state passes (B, B') and the finish only ever moved
+// float32, so they are launched unchanged; A, C, A' and the column and row
+// kernels have the float32 bodies below (named as the 16-bit ones with
+// _f32 after them). Bound: FFMA at 67 TFLOP/s (k3_work's ~2 (N + P) flops a
+// live pair forward and 2 (3N + 2P) backward are ~100 and ~60 flops a byte
+// at mamba2-130m's train shape, over the ~20 where 67 TFLOP/s and 3.35 TB/s
+// meet). The first versions (ssd_scan.cu) reached ~3% of it: one CTA per
+// (b, h), serial over the chunks, a scalar shared-memory load per FFMA or
+// two. Here, as in K2's float32 kernels (flash_attention_sm90.cu):
+//   * 256 threads on 64 x 64 tiles; warp w owns 8 rows of the CTA's block,
+//     the thread of lane tx (0..15) in half hf rows 8 w + hf + 2 i (i < 4)
+//     at columns tx + 16 j (j < 4) of a score tile, and the same rows at
+//     the W / 16 columns 64 (c / 4) + 4 tx + c % 4 of a W-wide accumulator;
+//   * operands are staged row-major at a row stride of W + 4 floats (an
+//     odd number of 16-byte units) by 16-byte cp.async, zeros past kv. A
+//     score product (mm_nt32: C B^T, B C^T, X dY^T, dY X^T, with the state
+//     C S_in^T and B dS_out^T) reads one 16-byte vector of each of the
+//     thread's 4 rows (broadcasts) and of its 4 columns (16 rows on 8 bank
+//     groups) a 4-deep step: 4 loads per 32 FFMAs. An accumulating product
+//     (mm_nn32: att X, att^T dY, dcb^T C, dcb B, X dS_out, dY S_in) reads
+//     one 16-byte vector of the 4 rows of its left operand per 4 steps and
+//     the thread's columns of each step's row: 3 loads per 32 FFMAs at
+//     N 128, 4 at 64;
+//   * a score tile passes through shared memory (row stride 80) from the
+//     registers of the thread that masked and scaled it to the product
+//     that reads it; each warp reads back only its own 8 rows, so a
+//     __syncwarp orders them. The decay e^{cs_l - cs_s} is taken only
+//     under the mask, and the mask is evaluated only on the diagonal tile;
+//   * A, A' and the column and row kernels walk their tiles through a
+//     two-slot ring, the next tile's copies in flight under this tile's
+//     products, one barrier a tile; the state a block reads once (dS_out,
+//     S_in) is staged into the second slot and used before the walk, so it
+//     takes no room of its own. The chunk scan keeps one slot each for B_s
+//     and X_s, each loading under the other's product (two barriers a
+//     tile), and S_in in B_s's slot after the walk, so that two of its
+//     CTAs share an SM;
+//   * the deposits (A, A'), outer products over the chunk's rows, give
+//     each thread 4 rows p and N / 16 columns n of the (P, N) state: one
+//     16-byte V vector and N / 64 W vectors a row.
+// Shared memory at N 128 [64], cl 256: A and A' 105,472 [72,704] bytes
+// (two CTAs an SM), the chunk scan 107,520 [74,752; two an SM], the column
+// and row kernels 176,128 [126,976]. Every sum keeps a fixed order with no
+// atomics, so two calls agree bit for bit.
+
+constexpr int kT32 = 256;                  // threads of a float32 CTA
+constexpr int kSP = kP + 4;                // row stride of a P-wide tile
+constexpr int kS32 = 80;                   // row stride of a score tile
+
+struct F32 {};                             // dt's tag: float32, as it is
+
+__host__ __device__ constexpr int pad64(int n) {
+  return (n + kRows - 1) / kRows * kRows;
+}
+
+// rows [r0, r0 + 64) of a chunk's (rows, W) float32 operand into shared
+// memory at dst, row stride W + 4 floats, by 16-byte cp.async; rows at or
+// past kv read as zeros. src points at the chunk's row 0, rows row_stride
+// floats apart.
+template <int W>
+__device__ __forceinline__ void stage32(float* dst, const float* src,
+                                        size_t row_stride, int r0, int kv) {
+  constexpr int C = W / 4;                 // 16-byte pieces a row
+  const uint32_t d0 = smem_u32(dst);
+  for (int e = threadIdx.x; e < kRows * C; e += kT32) {
+    const int r = e / C, j = e % C;
+    const int l = r0 + r;
+    const bool ok = l < kv;
+    cp_async16(d0 + 4u * (uint32_t)(r * (W + 4) + 4 * j),
+               src + (ok ? (size_t)l * row_stride + 4 * j : 0), ok);
+  }
+}
+
+// out[i][j] = sum_k a[2 i][k] b[16 j][k], k < K: a points at the thread's
+// first row, b at its first column's row, rows SA and SB floats apart
+template <int K, int SA, int SB>
+__device__ __forceinline__ void mm_nt32(const float* a, const float* b,
+                                        float (&out)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < K; k += 4) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = *reinterpret_cast<const float4*>(a + 2 * i * SA + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      y[j] = *reinterpret_cast<const float4*>(b + 16 * j * SB + k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        out[i][j] = fmaf(x[i].x, y[j].x, out[i][j]);
+        out[i][j] = fmaf(x[i].y, y[j].y, out[i][j]);
+        out[i][j] = fmaf(x[i].z, y[j].z, out[i][j]);
+        out[i][j] = fmaf(x[i].w, y[j].w, out[i][j]);
+      }
+  }
+}
+
+// the thread's W / 16 columns 64 (c / 4) + 4 tx + c % 4 of a row
+template <int W>
+__device__ __forceinline__ void load_cols32(const float* row, int tx,
+                                            float (&v)[W / 16]) {
+#pragma unroll
+  for (int h = 0; h < W / 64; ++h) {
+    const float4 q = *reinterpret_cast<const float4*>(row + 64 * h + 4 * tx);
+    v[4 * h] = q.x; v[4 * h + 1] = q.y; v[4 * h + 2] = q.z;
+    v[4 * h + 3] = q.w;
+  }
+}
+
+// acc[i][c] += sum_r p[2 i][r] t[r][64 (c / 4) + 4 tx + c % 4], r < 64: p
+// points at the thread's first row (rows SP floats apart), t at a staged
+// W-wide tile (rows W + 4 apart)
+template <int W, int SP>
+__device__ __forceinline__ void mm_nn32(const float* p, const float* t,
+                                        int tx, float (&acc)[4][W / 16]) {
+  constexpr int C = W / 16;
+#pragma unroll 2
+  for (int r0 = 0; r0 < kRows; r0 += 4) {
+    float4 pa[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pa[i] = *reinterpret_cast<const float4*>(p + 2 * i * SP + r0);
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      float v[C];
+      load_cols32<W>(t + (r0 + rr) * (W + 4), tx, v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float w = rr == 0 ? pa[i].x : rr == 1 ? pa[i].y
+                        : rr == 2 ? pa[i].z : pa[i].w;
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[i][c] = fmaf(w, v[c], acc[i][c]);
+      }
+    }
+  }
+}
+
+// acc += the score-layout tile o (rows 2 i, columns tx + 16 j of the
+// thread) times the rows' scales, in the accumulator layout (columns
+// 4 tx + c), through the warp's own rows of buf (row stride kS32); buf is
+// free again after
+__device__ __forceinline__ void to_acc32(const float (&o)[4][4],
+                                         const float (&scale)[4], float* buf,
+                                         int tx, float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      buf[2 * i * kS32 + tx + 16 * j] = o[i][j] * scale[i];
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = *reinterpret_cast<const float4*>(buf + 2 * i * kS32 +
+                                                      4 * tx);
+    acc[i][0] += v.x; acc[i][1] += v.y; acc[i][2] += v.z; acc[i][3] += v.w;
+  }
+  __syncwarp();
+}
+
+// the sum of v over the 16 lanes of a half-warp (a row's tx), in a fixed
+// order
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// a chunk's deposit V^T (scale . W), (P, N), over its rows l < kv, 64 at a
+// time through the two-slot ring (each slot V's rows, P wide, then W's, N
+// wide). The thread (pg = tid % 16, ng = tid / 16) sums rows p = 4 pg + e
+// (e < 4) at columns 64 (c / 4) + 4 ng + c % 4. scale is zero past kv and
+// padded to whole tiles.
+template <int N>
+__device__ __forceinline__ void deposit32(float (&acc)[4][N / 16],
+                                          float* ring, const float* vb,
+                                          size_t vrow, const float* wb,
+                                          size_t wrow, const float* scale,
+                                          int kv) {
+  constexpr int SN = N + 4, kSlot = kRows * (kSP + SN), C = N / 16;
+  const int pg = threadIdx.x % 16, ng = threadIdx.x / 16;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[e][c] = 0.f;
+  const int n_tiles = (kv + kRows - 1) / kRows;
+  stage32<kP>(ring, vb, vrow, 0, kv);
+  stage32<N>(ring + kRows * kSP, wb, wrow, 0, kv);
+  cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();              // tile t landed
+    __syncthreads();                 // for every thread; tile t - 1 is done
+    if (t + 1 < n_tiles) {
+      float* const nxt = ring + ((t + 1) & 1) * kSlot;
+      stage32<kP>(nxt, vb, vrow, (t + 1) * kRows, kv);
+      stage32<N>(nxt + kRows * kSP, wb, wrow, (t + 1) * kRows, kv);
+      cp_async_commit();
+    }
+    const float* const v_t = ring + (t & 1) * kSlot;
+    const float* const w_t = v_t + kRows * kSP;
+    const float* const sc = scale + t * kRows;
+#pragma unroll 2
+    for (int r0 = 0; r0 < kRows; r0 += 4) {
+      const float4 s4 = *reinterpret_cast<const float4*>(sc + r0);
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const float s = rr == 0 ? s4.x : rr == 1 ? s4.y
+                        : rr == 2 ? s4.z : s4.w;
+        const float4 v = *reinterpret_cast<const float4*>(
+            v_t + (r0 + rr) * kSP + 4 * pg);
+        const float vs[4] = {v.x * s, v.y * s, v.z * s, v.w * s};
+        float w[C];
+        load_cols32<N>(w_t + (r0 + rr) * SN, ng, w);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[e][c] = fmaf(vs[e], w[c], acc[e][c]);
+      }
+    }
+  }
+}
+
+// deposit32's accumulator into a (P, N) float32 state
+template <int N>
+__device__ __forceinline__ void store_state32(float* dst,
+                                              const float (&acc)[4][N / 16]) {
+  const int pg = threadIdx.x % 16, ng = threadIdx.x / 16;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int h = 0; h < N / 64; ++h)
+      *reinterpret_cast<float4*>(dst + (size_t)(4 * pg + e) * N + 64 * h +
+                                 4 * ng) =
+          make_float4(acc[e][4 * h], acc[e][4 * h + 1], acc[e][4 * h + 2],
+                      acc[e][4 * h + 3]);
+}
+
+// ------------------------------------------- A, float32: chunk states --
+
+template <int N>
+__global__ void __launch_bounds__(kT32, 2)
+ssd_sm90_chunk_state_kernel_f32(const float* __restrict__ x,
+                                const float* __restrict__ dt,
+                                const float* __restrict__ a,
+                                const float* __restrict__ b,
+                                float* __restrict__ states,
+                                float* __restrict__ cs_out,
+                                float* __restrict__ decay, Dims d) {
+  extern __shared__ float4 smem32[];
+  const int cl_pad = pad64(d.cl);
+  float* const ring = reinterpret_cast<float*>(smem32);     // [2] slots
+  float* const dt_s = ring + 2 * kRows * (kSP + N + 4);     // [cl_pad] each
+  float* const cs_s = dt_s + cl_pad;
+  float* const w_s = cs_s + cl_pad;
+
+  const int c = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+  const int g = h / (d.H / d.G);
+  const int t0 = c * d.cl;
+  const int kv = min(d.cl, d.S - t0);
+  const int tid = threadIdx.x;
+  const size_t bh = (size_t)bi * d.H + h;
+
+  chunk_cs<F32, float, kT32>(dt, ((size_t)bi * d.S + t0) * d.H + h, d.H,
+                             a[h], d.cl, kv, dt_s, cs_s);
+  const float cs_end = cs_s[d.cl - 1];
+  float* const cs_g = cs_out + (bh * d.nc + c) * d.cl;
+  for (int l = tid; l < cl_pad; l += kT32) {
+    if (l < d.cl) cs_g[l] = cs_s[l];
+    w_s[l] = l < kv ? dt_s[l] * expf(cs_end - cs_s[l]) : 0.f;
+  }
+  if (tid == 0) decay[bh * d.nc + c] = expf(cs_end);
+
+  // the deposit X^T (w . B); deposit32's first barrier orders w_s
+  const size_t xrow = (size_t)d.H * kP, brow = (size_t)d.G * N;
+  float acc[4][N / 16];
+  deposit32<N>(acc, ring,
+               x + ((size_t)bi * d.S + t0) * xrow + (size_t)h * kP, xrow,
+               b + ((size_t)bi * d.S + t0) * brow + (size_t)g * N, brow, w_s,
+               kv);
+  store_state32<N>(states + (bh * d.nc + c) * (size_t)(kP * N), acc);
+}
+
+// -------------------------------------------- C, float32: chunk scan --
+
+// One CTA per (b, h, chunk, 64-row block l0), longest first: over the
+// column tiles s0 <= l0 the scores C_blk B_s^T, masked and scaled to att =
+// scores e^{cs_l - cs_s} dt_s, and y_blk += att X_s; then y_blk +=
+// e^{cs_l} C_blk S_in^T, S_in loaded into B's slot under the last tile's
+// att X_s. One slot each for B_s and X_s: X_s loads under the scores,
+// the next B_s under att X_s, two barriers a tile, so that two CTAs share
+// an SM (107,520 bytes at N 128, cl 256).
+template <int N>
+__global__ void __launch_bounds__(kT32, 2)
+ssd_sm90_chunk_scan_kernel_f32(const float* __restrict__ x,
+                               const float* __restrict__ dt,
+                               const float* __restrict__ b,
+                               const float* __restrict__ cm,
+                               const float* __restrict__ states,
+                               const float* __restrict__ cs_in,
+                               float* __restrict__ y, int has_init, Dims d) {
+  constexpr int SN = N + 4;
+  extern __shared__ float4 smem32[];
+  float* const c_s = reinterpret_cast<float*>(smem32);   // [64][SN] C_blk
+  float* const b_s = c_s + kRows * SN;      // [64][SN] B_s, then S_in
+  float* const x_s = b_s + kRows * SN;      // [64][kSP] X_s
+  float* const buf = x_s + kRows * kSP;     // [64][kS32] att
+  float* const cs_s = buf + kRows * kS32;   // [cl_pad] each
+  float* const dt_s = cs_s + pad64(d.cl);
+
+  const int bh = blockIdx.x, c = blockIdx.y;
+  const int rblk = gridDim.z - 1 - blockIdx.z;  // longest row blocks first
+  const int l0 = rblk * kRows, t0 = c * d.cl;
+  const int kv = min(d.cl, d.S - t0);
+  if (l0 >= kv) return;                         // rows past S
+  const int bi = bh / d.H, h = bh % d.H, g = h / (d.H / d.G);
+  const int tid = threadIdx.x, tx = tid % 16;
+  const int rb = 8 * (tid / 32) + (tid / 16) % 2;   // rows rb + 2 i
+  const size_t xrow = (size_t)d.H * kP, brow = (size_t)d.G * N;
+  const size_t tok = (size_t)bi * d.S + t0;
+  const float* const xb = x + tok * xrow + (size_t)h * kP;
+  const float* const bb = b + tok * brow + (size_t)g * N;
+  const float* const cb = cm + tok * brow + (size_t)g * N;
+  const size_t ch = (size_t)bh * d.nc + c;
+  const int n_tiles = rblk + 1;                 // column tiles s0 <= l0
+  const bool with_state = has_init || c > 0;
+
+  stage32<N>(c_s, cb, brow, l0, kv);
+  stage32<N>(b_s, bb, brow, 0, kv);
+  cp_async_commit();
+  // cs past the chunk's rows as at its last row (dt = 0 there); dt zero
+  for (int l = tid; l < l0 + kRows; l += kT32) {
+    cs_s[l] = cs_in[ch * d.cl + min(l, d.cl - 1)];
+    dt_s[l] = l < kv ? dt[(tok + l) * d.H + h] : 0.f;
+  }
+
+  float yacc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) yacc[i][j] = 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();           // B_t (and C_blk) landed
+    __syncthreads();              // for every thread; att X_{t-1} is done
+    const int s0 = t * kRows;
+    stage32<kP>(x_s, xb, xrow, s0, kv);
+    cp_async_commit();
+    float sc[4][4];
+    mm_nt32<N, SN, SN>(c_s + rb * SN, b_s + tx * SN, sc);
+    const bool diag = t == rblk;
+    float cj[4], dj[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      cj[j] = cs_s[s0 + tx + 16 * j];
+      dj[j] = dt_s[s0 + tx + 16 * j];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int l = l0 + rb + 2 * i;
+      const float csl = cs_s[l];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        buf[(rb + 2 * i) * kS32 + tx + 16 * j] =
+            !diag || s0 + tx + 16 * j <= l
+                ? sc[i][j] * exp2f((csl - cj[j]) * kLog2e) * dj[j]
+                : 0.f;
+    }
+    cp_async_wait<0>();           // X_t landed
+    __syncthreads();              // for every thread; the scores are done
+    if (t + 1 < n_tiles) {
+      stage32<N>(b_s, bb, brow, s0 + kRows, kv);
+      cp_async_commit();
+    } else if (with_state) {      // S_in, rows p
+      stage32<N>(b_s, states + ch * (kP * N), N, 0, kP);
+      cp_async_commit();
+    }
+    mm_nn32<kP, kS32>(buf + rb * kS32, x_s, tx, yacc);
+  }
+  if (with_state) {
+    cp_async_wait<0>();           // S_in landed
+    __syncthreads();
+    float o[4][4], e[4];
+    mm_nt32<N, SN, SN>(c_s + rb * SN, b_s + tx * SN, o);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = expf(cs_s[l0 + rb + 2 * i]);
+    to_acc32(o, e, buf + rb * kS32, tx, yacc);
+  }
+
+  // rows at or past kv are never stored
+  float* const yb = y + tok * xrow + (size_t)h * kP;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int l = l0 + rb + 2 * i;
+    if (l < kv)
+      *reinterpret_cast<float4*>(yb + (size_t)l * xrow + 4 * tx) =
+          make_float4(yacc[i][0], yacc[i][1], yacc[i][2], yacc[i][3]);
+  }
+}
+
+// ---------------------------------------- A', float32: the dS deposits --
+
+template <int N>
+__global__ void __launch_bounds__(kT32, 2)
+ssd_sm90_bwd_deposit_kernel_f32(const float* __restrict__ dy,
+                                const float* __restrict__ dt,
+                                const float* __restrict__ a,
+                                const float* __restrict__ cm,
+                                float* __restrict__ ds,
+                                float* __restrict__ cs_out,
+                                float* __restrict__ dt_out,
+                                float* __restrict__ decay, Dims d) {
+  extern __shared__ float4 smem32[];
+  const int cl_pad = pad64(d.cl);
+  float* const ring = reinterpret_cast<float*>(smem32);     // [2] slots
+  float* const dt_s = ring + 2 * kRows * (kSP + N + 4);     // [cl_pad] each
+  float* const cs_s = dt_s + cl_pad;
+  float* const ecs_s = cs_s + cl_pad;
+
+  const int c = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+  const int g = h / (d.H / d.G);
+  const int t0 = c * d.cl;
+  const int kv = min(d.cl, d.S - t0);
+  const int tid = threadIdx.x;
+  const size_t bh = (size_t)bi * d.H + h;
+
+  chunk_cs<F32, float, kT32>(dt, ((size_t)bi * d.S + t0) * d.H + h, d.H,
+                             a[h], d.cl, kv, dt_s, cs_s);
+  const size_t v0 = (bh * d.nc + c) * d.cl;
+  for (int l = tid; l < cl_pad; l += kT32) {
+    if (l < d.cl) {
+      cs_out[v0 + l] = cs_s[l];
+      dt_out[v0 + l] = dt_s[l];
+    }
+    ecs_s[l] = l < kv ? expf(cs_s[l]) : 0.f;
+  }
+  if (tid == 0) decay[bh * d.nc + c] = expf(cs_s[d.cl - 1]);
+
+  // D_c = (ecs . dY)^T C
+  const size_t yrow = (size_t)d.H * kP, crow = (size_t)d.G * N;
+  float acc[4][N / 16];
+  deposit32<N>(acc, ring,
+               dy + ((size_t)bi * d.S + t0) * yrow + (size_t)h * kP, yrow,
+               cm + ((size_t)bi * d.S + t0) * crow + (size_t)g * N, crow,
+               ecs_s, kv);
+  store_state32<N>(ds + (bh * d.nc + c) * (size_t)(kP * N), acc);
+}
+
+// ------------------------------------ C', float32: the column kernel --
+
+// One CTA per (b, h, chunk, 64-position column block s0), longest first:
+// before the walk, dx_s = w . (B_s dS_out^T), X_s dS_out into db_s (times
+// w) and dw_s = sum_n (X_s dS_out) . b_s; then over the row tiles l0 >= s0
+// the transposed scores B_s C_l^T and X_s dY_l^T give att^T, dcb^T and q^T
+// = (datt CB decay)^T, dx_s += att^T dY_l, db_s += dcb^T C_l and the
+// column sums of q (ddt_att).
+template <int N>
+__global__ void __launch_bounds__(kT32, 1)
+ssd_sm90_bwd_column_kernel_f32(const float* __restrict__ x,
+                               const float* __restrict__ b,
+                               const float* __restrict__ cm,
+                               const float* __restrict__ dy,
+                               const float* __restrict__ ds,
+                               const float* __restrict__ cs_in,
+                               const float* __restrict__ dt_in,
+                               float* __restrict__ dx, float* __restrict__ dbh,
+                               float* __restrict__ ddt_att,
+                               float* __restrict__ dw_out, Dims d) {
+  constexpr int SN = N + 4, kSlot = kRows * (SN + kSP), C = N / 16;
+  extern __shared__ float4 smem32[];
+  float* const b_s = reinterpret_cast<float*>(smem32);   // [64][SN] B_s
+  float* const x_s = b_s + kRows * SN;      // [64][kSP] X_s
+  float* const ring = x_s + kRows * kSP;    // [2] slots: C_l rows, dY_l rows
+  float* const buf = ring + 2 * kSlot;      // [64][kS32] att^T, dcb^T
+  float* const cs_s = buf + kRows * kS32;   // [cl_pad] each
+  float* const dt_s = cs_s + pad64(d.cl);
+
+  const int bh = blockIdx.x, c = blockIdx.y, sb = blockIdx.z;
+  const int s0 = sb * kRows, t0 = c * d.cl;
+  const int kv = min(d.cl, d.S - t0);
+  if (s0 >= kv) return;                         // columns past S
+  const int bi = bh / d.H, h = bh % d.H, g = h / (d.H / d.G);
+  const int tid = threadIdx.x, tx = tid % 16;
+  const int rb = 8 * (tid / 32) + (tid / 16) % 2;   // rows rb + 2 i
+  const size_t xrow = (size_t)d.H * kP, brow = (size_t)d.G * N;
+  const size_t tok = (size_t)bi * d.S + t0;
+  const float* const xb = x + tok * xrow + (size_t)h * kP;
+  const float* const yb = dy + tok * xrow + (size_t)h * kP;
+  const float* const bb = b + tok * brow + (size_t)g * N;
+  const float* const cb = cm + tok * brow + (size_t)g * N;
+  const size_t ch = (size_t)bh * d.nc + c;
+  const int n_tiles = (kv + kRows - 1) / kRows - sb;   // row tiles l0 >= s0
+
+  stage32<N>(b_s, bb, brow, s0, kv);
+  stage32<kP>(x_s, xb, xrow, s0, kv);
+  stage32<N>(ring, cb, brow, s0, kv);
+  stage32<kP>(ring + kRows * SN, yb, xrow, s0, kv);
+  stage32<N>(ring + kSlot, ds + ch * (kP * N), N, 0, kP);  // dS_out, slot 1
+  cp_async_commit();
+  for (int l = s0 + tid; l < s0 + n_tiles * kRows; l += kT32) {
+    cs_s[l] = cs_in[ch * d.cl + min(l, d.cl - 1)];
+    dt_s[l] = l < d.cl ? dt_in[ch * d.cl + l] : 0.f;
+  }
+  const float cs_end = cs_in[ch * d.cl + d.cl - 1];
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // dt_s and w_s of the thread's rows (0 past kv, where dt is)
+  float dtr[4], wr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = s0 + rb + 2 * i;
+    dtr[i] = dt_s[s];
+    wr[i] = dtr[i] * expf(cs_end - cs_s[s]);
+  }
+  // the state terms
+  const float* const ds_t = ring + kSlot;
+  float dxa[4][4], dba[4][C], dwr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dxa[i][j] = 0.f;
+  {
+    float o[4][4];
+    mm_nt32<N, SN, SN>(b_s + rb * SN, ds_t + tx * SN, o);   // B_s dS_out^T
+    to_acc32(o, wr, buf + rb * kS32, tx, dxa);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < C; ++k) dba[i][k] = 0.f;
+  mm_nn32<N, kSP>(x_s + rb * kSP, ds_t, tx, dba);           // X_s dS_out
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float bv[C];
+    load_cols32<N>(b_s + (rb + 2 * i) * SN, tx, bv);
+    dwr[i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      dwr[i] = fmaf(dba[i][k], bv[k], dwr[i]);
+      dba[i][k] *= wr[i];
+    }
+  }
+  __syncthreads();                // every warp is past dS_out: slot 1 free
+
+  float qr[4] = {0.f, 0.f, 0.f, 0.f};         // the column sums of q
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t) {
+      cp_async_wait<0>();         // tile t landed
+      __syncthreads();            // for every thread; tile t - 1 is done
+    }
+    if (t + 1 < n_tiles) {
+      float* const nxt = ring + ((t + 1) & 1) * kSlot;
+      const int l1 = s0 + (t + 1) * kRows;
+      stage32<N>(nxt, cb, brow, l1, kv);
+      stage32<kP>(nxt + kRows * SN, yb, xrow, l1, kv);
+      cp_async_commit();
+    }
+    const int l0 = s0 + t * kRows;
+    const float* const ct = ring + (t & 1) * kSlot;
+    const float* const yt = ct + kRows * SN;
+    float sc[4][4], da[4][4];
+    mm_nt32<N, SN, SN>(b_s + rb * SN, ct + tx * SN, sc);        // B_s C_l^T
+    mm_nt32<kP, kSP, kSP>(x_s + rb * kSP, yt + tx * kSP, da);   // X_s dY_l^T
+    const bool diag = t == 0;
+    float cj[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cj[j] = cs_s[l0 + tx + 16 * j];
+    // rows s, columns l: live where s <= l (only the diagonal tile has
+    // s > l); rows and columns past kv are zeros
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = s0 + rb + 2 * i;
+      const float css = cs_s[s];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float e = !diag || s <= l0 + tx + 16 * j
+                            ? exp2f((cj[j] - css) * kLog2e) : 0.f;
+        qr[i] = fmaf(da[i][j] * sc[i][j], e, qr[i]);
+        const float ed = e * dtr[i];
+        buf[(rb + 2 * i) * kS32 + tx + 16 * j] = sc[i][j] * ed;  // att^T
+        da[i][j] *= ed;                                          // dcb^T
+      }
+    }
+    __syncwarp();
+    mm_nn32<kP, kS32>(buf + rb * kS32, yt, tx, dxa);   // dx_s += att^T dY_l
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        buf[(rb + 2 * i) * kS32 + tx + 16 * j] = da[i][j];
+    __syncwarp();
+    mm_nn32<N, kS32>(buf + rb * kS32, ct, tx, dba);    // db_s += dcb^T C_l
+  }
+
+  // per-row sums, then the rows below kv
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    qr[i] = half_sum(qr[i]);
+    dwr[i] = half_sum(dwr[i]);
+  }
+  const size_t hrow = (size_t)d.H;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = s0 + rb + 2 * i;
+    if (s >= kv) continue;
+    if (tx == 0) {
+      ddt_att[ch * d.cl + s] = qr[i];
+      dw_out[ch * d.cl + s] = dwr[i];
+    }
+    *reinterpret_cast<float4*>(dx + ((tok + s) * hrow + h) * kP + 4 * tx) =
+        make_float4(dxa[i][0], dxa[i][1], dxa[i][2], dxa[i][3]);
+    float* const dbr = dbh + ((tok + s) * hrow + h) * N;
+#pragma unroll
+    for (int k = 0; k < N / 64; ++k)
+      *reinterpret_cast<float4*>(dbr + 64 * k + 4 * tx) =
+          make_float4(dba[i][4 * k], dba[i][4 * k + 1], dba[i][4 * k + 2],
+                      dba[i][4 * k + 3]);
+  }
+}
+
+// --------------------------------------- C', float32: the row kernel --
+
+// One CTA per (b, h, chunk, 64-row block l0), longest first: before the
+// walk, y_off = e^{cs_l} C_l S_in^T into the row term sum_p dy . y_off, and
+// dc_l = e^{cs_l} dY_l S_in; then over the column tiles s0 <= l0, C_l B_s^T
+// and dY_l X_s^T give dcb, dc_l += dcb B_s and the row sums of dseg = q
+// dt_s. It leaves each row's dseg row sum plus sum_p dy . y_off in rowv.
+template <int N>
+__global__ void __launch_bounds__(kT32, 1)
+ssd_sm90_bwd_row_kernel_f32(const float* __restrict__ x,
+                            const float* __restrict__ b,
+                            const float* __restrict__ cm,
+                            const float* __restrict__ dy,
+                            const float* __restrict__ states,
+                            const float* __restrict__ cs_in,
+                            const float* __restrict__ dt_in,
+                            float* __restrict__ dch, float* __restrict__ rowv,
+                            Dims d) {
+  constexpr int SN = N + 4, kSlot = kRows * (SN + kSP), C = N / 16;
+  extern __shared__ float4 smem32[];
+  float* const c_s = reinterpret_cast<float*>(smem32);   // [64][SN] C_l
+  float* const y_s = c_s + kRows * SN;      // [64][kSP] dY_l
+  float* const ring = y_s + kRows * kSP;    // [2] slots: B_s rows, X_s rows
+  float* const buf = ring + 2 * kSlot;      // [64][kS32] dcb
+  float* const cs_s = buf + kRows * kS32;   // [cl_pad] each
+  float* const dt_s = cs_s + pad64(d.cl);
+
+  const int bh = blockIdx.x, c = blockIdx.y;
+  const int rblk = gridDim.z - 1 - blockIdx.z;  // longest row blocks first
+  const int l0 = rblk * kRows, t0 = c * d.cl;
+  const int kv = min(d.cl, d.S - t0);
+  if (l0 >= kv) return;                         // rows past S
+  const int bi = bh / d.H, h = bh % d.H, g = h / (d.H / d.G);
+  const int tid = threadIdx.x, tx = tid % 16;
+  const int rb = 8 * (tid / 32) + (tid / 16) % 2;   // rows rb + 2 i
+  const size_t xrow = (size_t)d.H * kP, brow = (size_t)d.G * N;
+  const size_t tok = (size_t)bi * d.S + t0;
+  const float* const xb = x + tok * xrow + (size_t)h * kP;
+  const float* const yb = dy + tok * xrow + (size_t)h * kP;
+  const float* const bb = b + tok * brow + (size_t)g * N;
+  const float* const cb = cm + tok * brow + (size_t)g * N;
+  const size_t ch = (size_t)bh * d.nc + c;
+  const int n_tiles = rblk + 1;                 // column tiles s0 <= l0
+
+  stage32<N>(c_s, cb, brow, l0, kv);
+  stage32<kP>(y_s, yb, xrow, l0, kv);
+  stage32<N>(ring, bb, brow, 0, kv);
+  stage32<kP>(ring + kRows * SN, xb, xrow, 0, kv);
+  stage32<N>(ring + kSlot, states + ch * (kP * N), N, 0, kP);  // S_in
+  cp_async_commit();
+  for (int l = tid; l < l0 + kRows; l += kT32) {
+    cs_s[l] = cs_in[ch * d.cl + min(l, d.cl - 1)];
+    dt_s[l] = l < d.cl ? dt_in[ch * d.cl + l] : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the y_off terms
+  const float* const si = ring + kSlot;
+  float er[4], rr[4], dca[4][C];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) er[i] = expf(cs_s[l0 + rb + 2 * i]);
+  {
+    float o[4][4];
+    mm_nt32<N, SN, SN>(c_s + rb * SN, si + tx * SN, o);     // C_l S_in^T
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      rr[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        rr[i] = fmaf(o[i][j], y_s[(rb + 2 * i) * kSP + tx + 16 * j], rr[i]);
+      rr[i] *= er[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < C; ++k) dca[i][k] = 0.f;
+  mm_nn32<N, kSP>(y_s + rb * kSP, si, tx, dca);            // dY_l S_in
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < C; ++k) dca[i][k] *= er[i];
+  __syncthreads();                // every warp is past S_in: slot 1 free
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (t + 1 < n_tiles) {
+      float* const nxt = ring + ((t + 1) & 1) * kSlot;
+      stage32<N>(nxt, bb, brow, (t + 1) * kRows, kv);
+      stage32<kP>(nxt + kRows * SN, xb, xrow, (t + 1) * kRows, kv);
+      cp_async_commit();
+    }
+    const int s0 = t * kRows;
+    const float* const bt = ring + (t & 1) * kSlot;
+    float sc[4][4], da[4][4];
+    mm_nt32<N, SN, SN>(c_s + rb * SN, bt + tx * SN, sc);              // C_l B_s^T
+    mm_nt32<kP, kSP, kSP>(y_s + rb * kSP, bt + kRows * SN + tx * kSP, da);
+    const bool diag = t == rblk;
+    float cj[4], dj[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      cj[j] = cs_s[s0 + tx + 16 * j];
+      dj[j] = dt_s[s0 + tx + 16 * j];
+    }
+    // rows l, columns s: live where s <= l
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int l = l0 + rb + 2 * i;
+      const float csl = cs_s[l];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float dcb = !diag || s0 + tx + 16 * j <= l
+                              ? da[i][j] * exp2f((csl - cj[j]) * kLog2e) *
+                                    dj[j]
+                              : 0.f;
+        rr[i] = fmaf(dcb, sc[i][j], rr[i]);
+        buf[(rb + 2 * i) * kS32 + tx + 16 * j] = dcb;
+      }
+    }
+    __syncwarp();
+    mm_nn32<N, kS32>(buf + rb * kS32, bt, tx, dca);   // dc_l += dcb B_s
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rr[i] = half_sum(rr[i]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int l = l0 + rb + 2 * i;
+    if (l >= kv) continue;
+    if (tx == 0) rowv[ch * d.cl + l] = rr[i];
+    float* const dcr = dch + ((tok + l) * d.H + h) * N;
+#pragma unroll
+    for (int k = 0; k < N / 64; ++k)
+      *reinterpret_cast<float4*>(dcr + 64 * k + 4 * tx) =
+          make_float4(dca[i][4 * k], dca[i][4 * k + 1], dca[i][4 * k + 2],
+                      dca[i][4 * k + 3]);
+  }
+}
+
 // ------------------------------------------------------------- launches --
 
 // each kernel's dynamic shared memory: the alignment slack, the tiles, the
@@ -1204,6 +1978,16 @@ size_t scan_smem(int n, int cl) {
   const int nh = n / 64;
   return 1024 + (size_t)(2 * nh + 2 * (nh + 1)) * kTile +
          2 * sizeof(float) * ((cl + kRows - 1) / kRows * kRows);
+}
+// float32: A and A' (two ring slots of P- and N-wide rows, three vectors),
+// the chunk scan (C_blk, B_s's and X_s's slots, the score tile, two
+// vectors)
+size_t state_smem32(int n, int cl) {
+  return sizeof(float) * ((size_t)2 * kRows * (kSP + n + 4) + 3 * pad64(cl));
+}
+size_t scan_smem32(int n, int cl) {
+  return sizeof(float) * ((size_t)kRows * (2 * (n + 4) + kSP) + kRows * kS32 +
+                          2 * pad64(cl));
 }
 
 struct Args {
@@ -1217,6 +2001,18 @@ template <typename Kernel>
 int prepare(Kernel kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// B, the state pass, which every dtype shares
+int state_pass(const Args& a) {
+  const int pn4 = kP * a.d.N / 4;
+  ssd_sm90_state_pass_kernel<<<dim3(a.d.B * a.d.H,
+                                    (pn4 + kThreads - 1) / kThreads),
+                               kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.init), static_cast<const float*>(a.decay),
+      static_cast<float*>(a.states), static_cast<float*>(a.final_state),
+      a.d.nc, pn4);
+  return (int)cudaGetLastError();
 }
 
 template <typename Tag, int N, typename TD>
@@ -1236,18 +2032,36 @@ int run(const Args& a) {
   ssd_sm90_chunk_state_kernel<Tag, N, TD>
       <<<dim3(d.nc, d.H, d.B), kThreads, sa, a.stream>>>(
           x, dt, static_cast<const float*>(a.a), b, states, cs, decay, d);
-  if ((err = (int)cudaGetLastError())) return err;
-  const int pn4 = kP * N / 4;
-  ssd_sm90_state_pass_kernel<<<dim3(d.B * d.H, (pn4 + kThreads - 1) /
-                                                   kThreads),
-                               kThreads, 0, a.stream>>>(
-      static_cast<const float*>(a.init), decay, states,
-      static_cast<float*>(a.final_state), d.nc, pn4);
-  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = (int)cudaGetLastError()) || (err = state_pass(a))) return err;
   ssd_sm90_chunk_scan_kernel<Tag, N, TD>
       <<<dim3(d.B * d.H, d.nc, (d.cl + kRows - 1) / kRows), kThreads, sc,
          a.stream>>>(x, dt, b, static_cast<const uint16_t*>(a.c), states, cs,
                      static_cast<uint16_t*>(a.y), a.init != nullptr, d);
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+int run32(const Args& a) {
+  const Dims& d = a.d;
+  const size_t sa = state_smem32(N, d.cl), sc = scan_smem32(N, d.cl);
+  int err;
+  if ((err = prepare(ssd_sm90_chunk_state_kernel_f32<N>, sa)) ||
+      (err = prepare(ssd_sm90_chunk_scan_kernel_f32<N>, sc)))
+    return err;
+  const float* x = static_cast<const float*>(a.x);
+  const float* dt = static_cast<const float*>(a.dt);
+  const float* b = static_cast<const float*>(a.b);
+  float* states = static_cast<float*>(a.states);
+  float* cs = static_cast<float*>(a.cs);
+  ssd_sm90_chunk_state_kernel_f32<N>
+      <<<dim3(d.nc, d.H, d.B), kT32, sa, a.stream>>>(
+          x, dt, static_cast<const float*>(a.a), b, states, cs,
+          static_cast<float*>(a.decay), d);
+  if ((err = (int)cudaGetLastError()) || (err = state_pass(a))) return err;
+  ssd_sm90_chunk_scan_kernel_f32<N>
+      <<<dim3(d.B * d.H, d.nc, pad64(d.cl) / kRows), kT32, sc, a.stream>>>(
+          x, dt, b, static_cast<const float*>(a.c), states, cs,
+          static_cast<float*>(a.y), a.init != nullptr, d);
   return (int)cudaGetLastError();
 }
 
@@ -1258,14 +2072,18 @@ int run_n(const Args& a) {
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 1 bfloat16, 2 float16 (float32, 0, is not taken); dt_dtype 0
-// (float32) or dtype
+// dtype: 0 float32, 1 bfloat16, 2 float16; dt_dtype 0 (float32) or dtype
 int dispatch(int dtype, int dt_dtype, int P, const Args& a) {
   const Dims& d = a.d;
   if (d.B <= 0 || d.S <= 0 || d.H <= 0 || d.G <= 0 || d.H % d.G != 0 ||
       P != kP || d.cl <= 0 || d.nc != (d.S + d.cl - 1) / d.cl ||
       d.nc > 65535 || (dt_dtype != 0 && dt_dtype != dtype))
     return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (d.N == 64) return run32<64>(a);
+    if (d.N == 128) return run32<128>(a);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 1)
     return dt_dtype ? run_n<Bf16, uint16_t>(a) : run_n<Bf16, float>(a);
   if (dtype == 2)
@@ -1282,6 +2100,11 @@ size_t bwd_block_smem(int n, int cl) {
   return 1024 + (size_t)(4 * (n / 64) + 3) * kTile +
          2 * sizeof(float) * ((cl + kRows - 1) / kRows * kRows);
 }
+// float32: the block's two operands, the ring, the score tile, two vectors
+size_t bwd_block_smem32(int n, int cl) {
+  return sizeof(float) * ((size_t)3 * kRows * (n + 4 + kSP) + kRows * kS32 +
+                          2 * pad64(cl));
+}
 
 struct BwdArgs {
   const void *x, *dt, *a, *b, *c, *states, *dy, *dfinal;
@@ -1290,61 +2113,117 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
+// the scratch: the dS buffer (B, H, nc, P, N), then cs, dt, ddt_att, dw and
+// the row terms (B, H, nc, cl) each, the decays and the da partials (B, H,
+// nc) each
+struct Scratch {
+  float *ds, *cs, *dtv, *ddt_att, *dw, *rowv, *decay, *dap;
+  explicit Scratch(const BwdArgs& a) {
+    const Dims& d = a.d;
+    const size_t n_c = (size_t)d.B * d.H * d.nc, n_v = n_c * d.cl;
+    ds = static_cast<float*>(a.scratch);
+    cs = ds + n_c * kP * d.N;
+    dtv = cs + n_v;
+    ddt_att = dtv + n_v;
+    dw = ddt_att + n_v;
+    rowv = dw + n_v;
+    decay = rowv + n_v;
+    dap = decay + n_c;
+  }
+};
+
+// B', the reverse dS pass, which every dtype shares
+int dstate_pass(const BwdArgs& a, const Scratch& s) {
+  const int pn4 = kP * a.d.N / 4;
+  ssd_sm90_bwd_dstate_pass_kernel<<<dim3(a.d.B * a.d.H,
+                                         (pn4 + kThreads - 1) / kThreads),
+                                    kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.dfinal), s.decay, s.ds,
+      static_cast<float*>(a.dinit), a.d.nc, pn4);
+  return (int)cudaGetLastError();
+}
+
+// the finish, which every dtype shares
+int finish(const BwdArgs& a, const Scratch& s) {
+  const Dims& d = a.d;
+  const size_t sf = 2 * sizeof(float) * d.cl;
+  int err;
+  if ((err = prepare(ssd_sm90_bwd_finish_kernel, sf))) return err;
+  ssd_sm90_bwd_finish_kernel<<<dim3(d.B * d.H, d.nc), kThreads, sf,
+                               a.stream>>>(
+      static_cast<const float*>(a.states), s.ds, s.cs, s.dtv, s.ddt_att,
+      s.dw, s.rowv, s.decay, static_cast<const float*>(a.a),
+      static_cast<float*>(a.ddt), s.dap, d, kP * d.N / 4);
+  return (int)cudaGetLastError();
+}
+
 template <typename Tag, int N, typename TD, typename TY>
 int run_bwd(const BwdArgs& a) {
   const Dims& d = a.d;
   const size_t sa = state_smem(N, d.cl), sc = bwd_block_smem(N, d.cl);
-  const size_t sf = 2 * sizeof(float) * d.cl;
   int err;
   if ((err = prepare(ssd_sm90_bwd_deposit_kernel<Tag, N, TD, TY>, sa)) ||
       (err = prepare(ssd_sm90_bwd_column_kernel<Tag, N, TY>, sc)) ||
-      (err = prepare(ssd_sm90_bwd_row_kernel<Tag, N, TY>, sc)) ||
-      (err = prepare(ssd_sm90_bwd_finish_kernel, sf)))
+      (err = prepare(ssd_sm90_bwd_row_kernel<Tag, N, TY>, sc)))
     return err;
   const uint16_t* x = static_cast<const uint16_t*>(a.x);
   const uint16_t* b = static_cast<const uint16_t*>(a.b);
   const uint16_t* c = static_cast<const uint16_t*>(a.c);
   const TY* dy = static_cast<const TY*>(a.dy);
   const float* states = static_cast<const float*>(a.states);
-  // the scratch: the dS buffer (B, H, nc, P, N), then cs, dt, ddt_att, dw
-  // and the row terms (B, H, nc, cl) each, the decays and the da partials
-  // (B, H, nc) each
-  const size_t n_c = (size_t)d.B * d.H * d.nc, n_v = n_c * d.cl;
-  float* const ds = static_cast<float*>(a.scratch);
-  float* const cs = ds + n_c * kP * N;
-  float* const dtv = cs + n_v;
-  float* const ddt_att = dtv + n_v;
-  float* const dw = ddt_att + n_v;
-  float* const rowv = dw + n_v;
-  float* const decay = rowv + n_v;
-  float* const dap = decay + n_c;
-  const int nrb = (d.cl + kRows - 1) / kRows, pn4 = kP * N / 4;
+  const Scratch s(a);
+  const int nrb = (d.cl + kRows - 1) / kRows;
   ssd_sm90_bwd_deposit_kernel<Tag, N, TD, TY>
       <<<dim3(d.nc, d.H, d.B), kThreads, sa, a.stream>>>(
           dy, static_cast<const TD*>(a.dt), static_cast<const float*>(a.a),
-          c, ds, cs, dtv, decay, d);
-  if ((err = (int)cudaGetLastError())) return err;
-  ssd_sm90_bwd_dstate_pass_kernel<<<dim3(d.B * d.H,
-                                         (pn4 + kThreads - 1) / kThreads),
-                                    kThreads, 0, a.stream>>>(
-      static_cast<const float*>(a.dfinal), decay, ds,
-      static_cast<float*>(a.dinit), d.nc, pn4);
-  if ((err = (int)cudaGetLastError())) return err;
+          c, s.ds, s.cs, s.dtv, s.decay, d);
+  if ((err = (int)cudaGetLastError()) || (err = dstate_pass(a, s)))
+    return err;
   ssd_sm90_bwd_column_kernel<Tag, N, TY>
       <<<dim3(d.B * d.H, d.nc, nrb), kThreads, sc, a.stream>>>(
-          x, b, c, dy, ds, cs, dtv, static_cast<float*>(a.dx),
-          static_cast<float*>(a.dbh), ddt_att, dw, d);
+          x, b, c, dy, s.ds, s.cs, s.dtv, static_cast<float*>(a.dx),
+          static_cast<float*>(a.dbh), s.ddt_att, s.dw, d);
   if ((err = (int)cudaGetLastError())) return err;
   ssd_sm90_bwd_row_kernel<Tag, N, TY>
       <<<dim3(d.B * d.H, d.nc, nrb), kThreads, sc, a.stream>>>(
-          x, b, c, dy, states, cs, dtv, static_cast<float*>(a.dch), rowv, d);
+          x, b, c, dy, states, s.cs, s.dtv, static_cast<float*>(a.dch),
+          s.rowv, d);
   if ((err = (int)cudaGetLastError())) return err;
-  ssd_sm90_bwd_finish_kernel<<<dim3(d.B * d.H, d.nc), kThreads, sf,
-                               a.stream>>>(
-      states, ds, cs, dtv, ddt_att, dw, rowv, decay,
-      static_cast<const float*>(a.a), static_cast<float*>(a.ddt), dap, d,
-      pn4);
-  return (int)cudaGetLastError();
+  return finish(a, s);
+}
+
+template <int N>
+int run_bwd32(const BwdArgs& a) {
+  const Dims& d = a.d;
+  const size_t sa = state_smem32(N, d.cl), sc = bwd_block_smem32(N, d.cl);
+  int err;
+  if ((err = prepare(ssd_sm90_bwd_deposit_kernel_f32<N>, sa)) ||
+      (err = prepare(ssd_sm90_bwd_column_kernel_f32<N>, sc)) ||
+      (err = prepare(ssd_sm90_bwd_row_kernel_f32<N>, sc)))
+    return err;
+  const float* x = static_cast<const float*>(a.x);
+  const float* b = static_cast<const float*>(a.b);
+  const float* c = static_cast<const float*>(a.c);
+  const float* dy = static_cast<const float*>(a.dy);
+  const Scratch s(a);
+  const int nrb = pad64(d.cl) / kRows;
+  ssd_sm90_bwd_deposit_kernel_f32<N>
+      <<<dim3(d.nc, d.H, d.B), kT32, sa, a.stream>>>(
+          dy, static_cast<const float*>(a.dt),
+          static_cast<const float*>(a.a), c, s.ds, s.cs, s.dtv, s.decay, d);
+  if ((err = (int)cudaGetLastError()) || (err = dstate_pass(a, s)))
+    return err;
+  ssd_sm90_bwd_column_kernel_f32<N>
+      <<<dim3(d.B * d.H, d.nc, nrb), kT32, sc, a.stream>>>(
+          x, b, c, dy, s.ds, s.cs, s.dtv, static_cast<float*>(a.dx),
+          static_cast<float*>(a.dbh), s.ddt_att, s.dw, d);
+  if ((err = (int)cudaGetLastError())) return err;
+  ssd_sm90_bwd_row_kernel_f32<N>
+      <<<dim3(d.B * d.H, d.nc, nrb), kT32, sc, a.stream>>>(
+          x, b, c, dy, static_cast<const float*>(a.states), s.cs, s.dtv,
+          static_cast<float*>(a.dch), s.rowv, d);
+  if ((err = (int)cudaGetLastError())) return err;
+  return finish(a, s);
 }
 
 template <typename Tag, typename TD, typename TY>
@@ -1363,7 +2242,8 @@ int run_bwd_types(int dt_dtype, int dy_dtype, const BwdArgs& a) {
                   : run_bwd_n<Tag, float, float>(a);
 }
 
-// dtype: 1 bfloat16, 2 float16; dt_dtype and dy_dtype 0 (float32) or dtype
+// dtype: 0 float32, 1 bfloat16, 2 float16; dt_dtype and dy_dtype 0
+// (float32) or dtype
 int dispatch_bwd(int dtype, int dt_dtype, int dy_dtype, int P,
                  const BwdArgs& a) {
   const Dims& d = a.d;
@@ -1372,6 +2252,11 @@ int dispatch_bwd(int dtype, int dt_dtype, int dy_dtype, int P,
       d.nc > 65535 || (dt_dtype != 0 && dt_dtype != dtype) ||
       (dy_dtype != 0 && dy_dtype != dtype))
     return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (d.N == 64) return run_bwd32<64>(a);
+    if (d.N == 128) return run_bwd32<128>(a);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 1) return run_bwd_types<Bf16>(dt_dtype, dy_dtype, a);
   if (dtype == 2) return run_bwd_types<F16>(dt_dtype, dy_dtype, a);
   return (int)cudaErrorInvalidValue;

@@ -17,18 +17,18 @@ Replaces the Pallas kernels of ``repro/kernels/ssd_scan.py``:
 
 Why CUDA C++ and not Triton: the work is a chunked recurrence with matrix
 products in it, neither an elementwise pass nor a reduction. K3f and K3b
-each have two routes, chosen from the dtype and the widths alone
-(``fwd_route``, ``bwd_route``: one rule): ``sm90``, for bfloat16 and
-float16 at P 64 and N 64 or 128 (mamba2-130m's and zamba2-7b's widths),
-the chunk-parallel tensor-core kernels of ``csrc/ssd_scan_sm90.cu`` (K3f:
-chunk states, a pass over them, the chunk scan, three launches; K3b: the
-dS deposits, a reverse pass over them, the column and row kernels of the
-chunk gradients and their finish, five launches; every product on
-wgmma); ``simt``, every other call (float32, other P or N), the first
-versions in ``csrc/ssd_scan.cu`` (one CTA per (b, h) looping over the
-chunks on the CUDA cores), which a direct call may also name to time
-them. ``fwd_routes`` and ``bwd_routes`` count the calls of each. Each
-source says what bounds it.
+each have two routes, chosen from the widths alone, one rule for every
+dtype (``fwd_route``, ``bwd_route``): ``sm90``, at P 64 and N 64 or 128
+(mamba2-130m's and zamba2-7b's widths), the chunk-parallel kernels of
+``csrc/ssd_scan_sm90.cu`` (K3f: chunk states, a pass over them, the chunk
+scan, three launches; K3b: the dS deposits, a reverse pass over them, the
+column and row kernels of the chunk gradients and their finish, five
+launches; in bfloat16 and float16 every product on wgmma, in float32 on
+the CUDA cores, exact); ``simt``, every other P or N, the first versions
+in ``csrc/ssd_scan.cu`` (one CTA per (b, h) looping over the chunks on
+the CUDA cores), which a direct call may also name to time them.
+``fwd_routes`` and ``bwd_routes`` count the calls of each. Each source
+says what bounds it.
 
 Layout, as the reference's: x (B, S, H, P), dt (B, S, H), a (H,), b and c
 (B, S, G, N), initial_state (B, H, P, N); head h reads group h·G // H.
@@ -69,7 +69,6 @@ bwd_routes = {"sm90": 0, "simt": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _THREADS, _FT, _BT = 256, 64, 32        # csrc/ssd_scan.cu's constants
 _TILE = 64 * 128                        # csrc/ssd_scan_sm90.cu's tile bytes
-SM90_DTYPES = (torch.bfloat16, torch.float16)
 SM90_P, SM90_N = 64, (64, 128)
 SMEM_LIMIT = 232_448                    # bytes a block may opt in to
 _fn: dict = {}
@@ -99,15 +98,23 @@ def _launchers() -> dict:
     return _fn
 
 
-def smem_bytes(which: str, P: int, N: int, cl: int,
-               route: str = "simt") -> int:
+def smem_bytes(which: str, P: int, N: int, cl: int, route: str = "simt",
+               dtype=torch.bfloat16) -> int:
     """Dynamic shared memory of one K3f (``"fwd"``) or K3b (``"bwd"``)
     CTA, as ``csrc/ssd_scan.cu`` sizes it, or on the ``"sm90"`` route
-    the largest of the route's CTAs (``csrc/ssd_scan_sm90.cu``): K3f's
-    chunk-state and chunk-scan kernels, K3b's deposit kernel (the
-    chunk-state kernel's size) and its column and row kernels."""
+    the largest of the route's CTAs (``csrc/ssd_scan_sm90.cu``) in
+    ``dtype`` (16 bits, or float32's kernels): K3f's chunk-state and
+    chunk-scan kernels, K3b's deposit kernel (the chunk-state kernel's
+    size) and its column and row kernels."""
+    cl_pad = -(-cl // 64) * 64
+    if route == "sm90" and dtype == torch.float32:
+        # floats: a 64-row slot of N- and P-wide rows at stride width + 4,
+        # a 64 x 80 score tile, the chunk's vectors
+        slot, score = 64 * (N + 4 + P + 4), 64 * 80
+        rest = (64 * (N + 4) + slot if which == "fwd" else 3 * slot)
+        return 4 * max(2 * slot + 3 * cl_pad, rest + score + 2 * cl_pad)
     if route == "sm90":
-        nh, cl_pad = N // 64, -(-cl // 64) * 64
+        nh = N // 64
         tiles = 4 * nh + (2 if which == "fwd" else 3)
         return max(1024 + (2 + nh) * _TILE + 3 * 4 * cl,
                    1024 + tiles * _TILE + 2 * 4 * cl_pad)
@@ -152,9 +159,9 @@ def _check_state(t, shape, name, device) -> None:
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _check_cuda(which: str, P: int, N: int, cl: int,
-                route: str = "simt") -> None:
-    need = smem_bytes(which, P, N, cl, route)
+def _check_cuda(which: str, P: int, N: int, cl: int, route: str = "simt",
+                dtype=torch.bfloat16) -> None:
+    need = smem_bytes(which, P, N, cl, route, dtype)
     if need > SMEM_LIMIT:
         raise ValueError(f"K3{which[0]} ({route}) at P={P}, N={N}, chunk "
                          f"{cl} needs {need} bytes of shared memory, more "
@@ -253,10 +260,10 @@ def ssd_scan_fwd_plain(x, dt, a, b, c, initial_state=None, *, chunk: int,
 
 
 def fwd_route(dtype, P: int, N: int) -> str:
-    """K3f's kernel for a CUDA call: ``"sm90"`` (the chunk-parallel
-    tensor-core kernels) for bfloat16 and float16 at P 64 and N 64 or 128,
-    ``"simt"`` (the first version) otherwise."""
-    return "sm90" if dtype in SM90_DTYPES and P == SM90_P and N in SM90_N \
+    """K3f's kernels for a CUDA call, by one rule for float32, bfloat16
+    and float16: ``"sm90"`` (the chunk-parallel kernels) at P 64 and N 64
+    or 128, ``"simt"`` (the first version) at every other width."""
+    return "sm90" if dtype in _DTYPES and P == SM90_P and N in SM90_N \
         else "simt"
 
 
@@ -284,11 +291,11 @@ def ssd_scan_fwd(x, dt, a, b, c, initial_state=None, *, chunk: int,
     route = own if route is None else route
     if route not in ("sm90", "simt") or (route == "sm90" and own != "sm90"):
         raise ValueError(f"K3f has no route {route!r} for {x.dtype} at "
-                         f"P={P}, N={N} (sm90 takes bfloat16 and float16 at "
-                         f"P {SM90_P}, N {SM90_N})")
+                         f"P={P}, N={N} (sm90 takes P {SM90_P}, N "
+                         f"{SM90_N})")
     cl = _chunk(chunk, S)
     nc = -(-S // cl)
-    _check_cuda("fwd", P, N, cl, route)
+    _check_cuda("fwd", P, N, cl, route, x.dtype)
     x, dt, b, c = (t.contiguous() for t in (x, dt, b, c))
     a = a.float().contiguous()
     dev = x.device
@@ -432,8 +439,8 @@ def ssd_scan_bwd_chunked_plain(x, dt, a, b, c, chunk_states, dy, dfinal, *,
 
 def bwd_route(dtype, P: int, N: int) -> str:
     """K3b's kernels for a CUDA call, by ``fwd_route``'s rule: ``"sm90"``
-    (the chunk-parallel tensor-core kernels) for bfloat16 and float16 at P
-    64 and N 64 or 128, ``"simt"`` (the first version) otherwise."""
+    (the chunk-parallel kernels) at P 64 and N 64 or 128 in every dtype,
+    ``"simt"`` (the first version) at every other width."""
     return fwd_route(dtype, P, N)
 
 
@@ -465,9 +472,9 @@ def ssd_scan_bwd(x, dt, a, b, c, chunk_states, dy, dfinal, *, chunk: int,
     route = own if route is None else route
     if route not in ("sm90", "simt") or (route == "sm90" and own != "sm90"):
         raise ValueError(f"K3b has no route {route!r} for {x.dtype} at "
-                         f"P={P}, N={N} (sm90 takes bfloat16 and float16 at "
-                         f"P {SM90_P}, N {SM90_N})")
-    _check_cuda("bwd", P, N, cl, route)
+                         f"P={P}, N={N} (sm90 takes P {SM90_P}, N "
+                         f"{SM90_N})")
+    _check_cuda("bwd", P, N, cl, route, x.dtype)
     x, dt, b, c, dy = (t.contiguous() for t in (x, dt, b, c, dy))
     a = a.float().contiguous()
     states = chunk_states.float().contiguous()

@@ -603,7 +603,8 @@ def test_distill_step_on_k1_matches_the_plain_route(cuda, kind):
 # (B, S, H, P, G, N, chunk): mamba2-130m's heads at a train shape, zamba2's
 # at a ragged prefill (tail 44) and at a full one, groups with a ragged
 # tail, a chunk clamped into S (37, and 100 at zamba2's widths), a chunk of
-# 48 with groups. K3f takes its sm90 route in 16 bits at P 64, N 64/128.
+# 48 with groups. K3f and K3b take their sm90 route at P 64, N 64/128, in
+# every dtype.
 K3_CASES = [(2, 256, 24, 64, 1, 128, 256),
             (1, 300, 16, 64, 1, 64, 256),
             (1, 448, 112, 64, 1, 64, 256),
@@ -641,8 +642,9 @@ def test_ssd_scan_kernels_match_plain_versions(cuda, B, S, H, P, G, N, cl,
     (y stored in 16 bits) to 1e-2 of each tensor's largest entry; the
     states and the simt route's gradients are float32 on both sides
     (1e-4), K3b reading the forward's states. Where K3f takes its sm90
-    route: one count on it, two calls bit for bit, no initial state and
-    dt in x's type held the same way. K3b's sm90 route: the next test."""
+    route (P 64, N 64/128, float32 included): one count on it, two calls
+    bit for bit, no initial state and dt in x's type held the same way.
+    K3b's sm90 route: the next test."""
     from repro_torch.kernels import ssd_scan as K3
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -654,8 +656,7 @@ def test_ssd_scan_kernels_match_plain_versions(cuda, B, S, H, P, G, N, cl,
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in K3.fwd_routes.items()} == {
         r: int(r == route) for r in ("sm90", "simt")}
-    assert route == ("simt" if dtype == torch.float32 or P != 64
-                     or N not in (64, 128) else "sm90")
+    assert route == ("simt" if P != 64 or N not in (64, 128) else "sm90")
     assert K3.bwd_route(dtype, P, N) == route
     py, pfin, pst = K3.ssd_scan_fwd_plain(x, dt, a, b, c, s0, chunk=cl)
     tol = 1e-4 if dtype == torch.float32 else 1e-2
@@ -692,16 +693,20 @@ TOL_K3B_EMULATED = {torch.bfloat16: 2e-3, torch.float16: 5e-4}
 @pytest.mark.parametrize("B,S,H,P,G,N,cl", [k for k in K3_CASES
                                             if k[3] == 64
                                             and k[5] in (64, 128)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_ssd_scan_bwd_sm90_matches_plain_versions(cuda, B, S, H, P, G, N,
                                                   cl, dtype):
-    """K3b's sm90 route (16 bits at P 64, N 64/128) from the forward's
-    states: one count on it; dx, ddt, da, db and dc within 1e-2 of each
+    """K3b's sm90 route (P 64, N 64/128) from the forward's states: one
+    count on it. In 16 bits dx, ddt, da, db and dc within 1e-2 of each
     largest entry of the float32 plain (autograd), d(initial_state) within
     1e-4, all within TOL_K3B_EMULATED of ``ssd_scan_bwd_chunked_plain``
-    with the route's roundings; two calls bit for bit; a float32 dy (read
-    rounded to x's type) gives what dy in x's type gives, bit for bit; dt
-    in x's type held the same way."""
+    with the route's roundings; in float32 (CUDA cores, exact) all six
+    within 1e-4 of the plain, with no emulated comparison (the chunked
+    plain version is then the float32 oracle's arithmetic itself). Two
+    calls bit for bit; a float32 dy (read rounded to x's type) gives what
+    dy in x's type gives, bit for bit; dt in x's type held the same
+    way."""
     from repro_torch.kernels import ssd_scan as K3
 
     x, dt, a, b, c, s0, dy32, dfin = _ssd_inputs(B, S, H, P, G, N, dtype,
@@ -715,13 +720,16 @@ def test_ssd_scan_bwd_sm90_matches_plain_versions(cuda, B, S, H, P, G, N,
     assert {k: v - before[k] for k, v in K3.bwd_routes.items()} == {
         "sm90": 1, "simt": 0}
     want = K3.ssd_scan_bwd_plain(x, dt, a, b, c, st, dy, dfin, chunk=cl)
-    emul = K3.ssd_scan_bwd_chunked_plain(x, dt, a, b, c, st, dy, dfin,
-                                         chunk=cl, emulate=dtype)
-    for i, (g, w, e) in enumerate(zip(got, want, emul)):
+    f32 = dtype == torch.float32
+    tol = [1e-4] * 6 if f32 else [1e-2] * 5 + [1e-4]
+    emul = None if f32 else K3.ssd_scan_bwd_chunked_plain(
+        x, dt, a, b, c, st, dy, dfin, chunk=cl, emulate=dtype)
+    for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == torch.float32 and g.shape == w.shape
         assert bool(torch.isfinite(g).all())
-        assert _rel(g, w) <= (1e-4 if i == 5 else 1e-2), i
-        assert _rel(g, e) <= TOL_K3B_EMULATED[dtype], i
+        assert _rel(g, w) <= tol[i], i
+        if emul is not None:
+            assert _rel(g, emul[i]) <= TOL_K3B_EMULATED[dtype], i
     for again in (K3.ssd_scan_bwd(x, dt, a, b, c, st, dy, dfin, chunk=cl),
                   K3.ssd_scan_bwd(x, dt, a, b, c, st, dy32, dfin,
                                   chunk=cl)):
@@ -730,7 +738,7 @@ def test_ssd_scan_bwd_sm90_matches_plain_versions(cuda, B, S, H, P, G, N,
     got16 = K3.ssd_scan_bwd(x, d16, a, b, c, st, dy, dfin, chunk=cl)
     want16 = K3.ssd_scan_bwd_plain(x, d16, a, b, c, st, dy, dfin, chunk=cl)
     for i, (g, w) in enumerate(zip(got16, want16)):
-        assert _rel(g, w) <= (1e-4 if i == 5 else 1e-2), i
+        assert _rel(g, w) <= tol[i], i
 
 
 def test_ssd_scan_sm90_raises_on_misaligned_tensors(cuda):
@@ -761,20 +769,21 @@ def test_ssd_scan_sm90_raises_on_misaligned_tensors(cuda):
     assert (K3.bwd_routes, K3.launches) == before
 
 
-@pytest.mark.parametrize("B,S,H,P,G,N,route", [(1, 70, 4, 16, 2, 8, "simt"),
-                                               (1, 130, 4, 64, 2, 64,
-                                                "sm90")])
-def test_ssd_scan_autograd_and_launches(cuda, B, S, H, P, G, N, route):
-    """SSDScan with dt in bfloat16 beside bfloat16 x: one K3f and one K3b
-    launch, each on its route (the bfloat16 dy the autograd hands K3b
-    read as it is), the gradients in the inputs' dtypes, against
-    ``ref.ssd_grads`` (the sequential recurrence) in float32 to 2e-2 of
-    the largest entry."""
+@pytest.mark.parametrize("B,S,H,P,G,N,route,dtype",
+                         [(1, 70, 4, 16, 2, 8, "simt", torch.bfloat16),
+                          (1, 130, 4, 64, 2, 64, "sm90", torch.bfloat16),
+                          (1, 130, 4, 64, 2, 128, "sm90", torch.float32)])
+def test_ssd_scan_autograd_and_launches(cuda, B, S, H, P, G, N, route,
+                                        dtype):
+    """SSDScan with dt in x's dtype: one K3f and one K3b launch, each on
+    its route (the dy the autograd hands K3b read as it is), the
+    gradients in the inputs' dtypes, against ``ref.ssd_grads`` (the
+    sequential recurrence) in float32 to 2e-2 of the largest entry in
+    bfloat16, 1e-4 in float32."""
     from repro_torch.kernels import ssd_scan as K3
 
-    x, dt, a, b, c, s0, dy, dfin = _ssd_inputs(B, S, H, P, G, N,
-                                               torch.bfloat16, cuda,
-                                               dt_dtype=torch.bfloat16)
+    x, dt, a, b, c, s0, dy, dfin = _ssd_inputs(B, S, H, P, G, N, dtype,
+                                               cuda, dt_dtype=dtype)
     leaves = [t.detach().requires_grad_(True) for t in (x, dt, a, b, c, s0)]
     before = (dict(K3.launches), dict(K3.fwd_routes), dict(K3.bwd_routes))
     y, fin = K3.SSDScan.apply(*leaves, 32)
@@ -786,17 +795,17 @@ def test_ssd_scan_autograd_and_launches(cuda, B, S, H, P, G, N, route):
         assert {k: v - old[k] for k, v in counts.items()} == {
             r: int(r == route) for r in ("sm90", "simt")}
     want = ref.ssd_grads(*(t.float() for t in (x, dt, a, b, c, s0)),
-                         dy.to(torch.bfloat16).float(), dfin)
+                         dy.to(dtype).float(), dfin)
     for g, w, t in zip(grads, want, leaves):
         assert g.dtype == t.dtype
-        assert _rel(g, w) <= 2e-2
+        assert _rel(g, w) <= (1e-4 if dtype == torch.float32 else 2e-2)
 
 
 def test_ssm_train_step_launches_k3_per_block(cuda):
     """One mamba2 train step with remat: K3f twice a block (the forward and
-    its recomputation), K3b once, all on the route the dtype and widths
-    choose (simt at the float32 smoke widths; sm90 with bfloat16 at P 64,
-    N 64); a zamba2 step adds K2 for each application of its shared
+    its recomputation), K3b once, all on the route the widths choose (simt
+    at the float32 smoke widths; sm90 at P 64, N 64, in bfloat16 and in
+    float32); a zamba2 step adds K2 for each application of its shared
     block."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ssd_scan as K3
@@ -805,6 +814,8 @@ def test_ssm_train_step_launches_k3_per_block(cuda):
     for arch, n_attn, widths in (
             ("mamba2-130m", 0, {}), ("zamba2-7b", 2, {}),
             ("mamba2-130m", 0, dict(dtype="bfloat16", ssm_head_dim=64,
+                                    ssm_state=64)),
+            ("mamba2-130m", 0, dict(dtype="float32", ssm_head_dim=64,
                                     ssm_state=64))):
         cfg = get_smoke_config(arch).replace(remat=True, **widths)
         route = K3.fwd_route(getattr(torch, cfg.dtype), cfg.ssm_head_dim,

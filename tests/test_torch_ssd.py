@@ -306,17 +306,18 @@ def test_emulation_within_its_bound(name, dtype):
 
 
 def test_fwd_route_and_its_shared_memory():
-    """sm90 for 16 bits at P 64 and N 64 or 128 alone; its CTAs fit in
-    shared memory at every chunk up to 256."""
-    for dtype in (torch.bfloat16, torch.float16):
+    """One rule for float32, bfloat16 and float16: sm90 at P 64 and N 64
+    or 128 alone; its CTAs (float32's and 16 bits') fit in shared memory
+    at every chunk up to 256."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         assert K3.fwd_route(dtype, 64, 64) == "sm90"
         assert K3.fwd_route(dtype, 64, 128) == "sm90"
         for P, N in ((32, 64), (64, 32), (64, 256), (128, 128), (64, 16)):
             assert K3.fwd_route(dtype, P, N) == "simt"
-    for N in (64, 128):
-        assert K3.fwd_route(torch.float32, 64, N) == "simt"
-        for cl in (1, 48, 100, 256):
-            assert K3.smem_bytes("fwd", 64, N, cl, "sm90") <= K3.SMEM_LIMIT
+        for N in (64, 128):
+            for cl in (1, 48, 100, 256):
+                assert K3.smem_bytes("fwd", 64, N, cl, "sm90", dtype) \
+                    <= K3.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("route", ["sm90", "simt"])

@@ -169,20 +169,20 @@ def test_emulation_reads_a_float32_dy_rounded_once(dtype):
 
 
 def test_bwd_route_and_its_shared_memory():
-    """sm90 for 16 bits at P 64 and N 64 or 128 alone, as K3f's rule; its
-    CTAs (the deposit, column and row kernels) fit in shared memory at
-    every chunk up to 256."""
-    for dtype in (torch.bfloat16, torch.float16):
+    """K3f's rule, one for float32, bfloat16 and float16: sm90 at P 64 and
+    N 64 or 128 alone; its CTAs (the deposit, column and row kernels,
+    float32's and 16 bits') fit in shared memory at every chunk up to
+    256."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for N in (64, 128):
             assert K3.bwd_route(dtype, 64, N) == "sm90"
         for P, N in ((32, 64), (64, 32), (64, 256), (128, 128), (64, 16)):
             assert K3.bwd_route(dtype, P, N) == "simt"
-    for N in (64, 128):
-        assert K3.bwd_route(torch.float32, 64, N) == "simt"
-        for cl in (1, 48, 100, 256):
-            assert K3.smem_bytes("bwd", 64, N, cl, "sm90") <= K3.SMEM_LIMIT
-            assert K3.smem_bytes("bwd", 64, N, cl, "sm90") \
-                > K3.smem_bytes("fwd", 64, N, cl, "sm90")
+        for N in (64, 128):
+            for cl in (1, 48, 100, 256):
+                need = K3.smem_bytes("bwd", 64, N, cl, "sm90", dtype)
+                assert need <= K3.SMEM_LIMIT
+                assert need > K3.smem_bytes("fwd", 64, N, cl, "sm90", dtype)
 
 
 @pytest.mark.parametrize("route", ["sm90", "simt"])
