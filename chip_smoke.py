@@ -52,12 +52,26 @@ result line is printed:
      five width-1.0 resnet18 clients on 32x32x3 images, batch 128,
      synth_batch 128, nz 100, t_g 30), depth cut to one local epoch and
      two server epochs: ``build_federation`` → ``fedavg`` →
-     ``train_dense_server`` → ``evaluate``. Every launch count is zeroed
-     just before it; K1's must each read epochs·(t_g + s_steps) just
-     after, every other kernel's 0;
-  6. one server epoch of the main path under ``torch.profiler``: device
+     ``train_dense_server`` → ``evaluate``, on the default engines: the
+     grouped LocalUpdate engine (``client_loop="grouped"``: the five
+     clients as one stacked network) and the grouped teacher. Every
+     launch count is zeroed just before it; K1's must each read
+     epochs·(t_g + s_steps) just after, every other kernel's 0;
+  6. grouped_check, on the main path's five resnet18 clients at batch
+     128, cut to one local epoch on shards of at most 400 images: from the
+     same inits, the grouped engine against the per-client loop (params
+     and BN running statistics, 1e-3 of 1 + each entry, a limit that the
+     phase shows to lie above the loop's one-ulp floor and below five
+     planted faults), and the grouped teacher against the looped
+     ensemble on one generator batch (logits with and without folded BN,
+     L_BN and the image gradient, 1e-4 of each largest entry), in full
+     float32; then, in turns in the same process, the local phase each
+     way, one server epoch each way, the teacher's device time (summed
+     and busy) in a generator step and in a student step each way, and
+     each one's peak device memory;
+  7. one server epoch of the main path under ``torch.profiler``: device
      busy share and kernel time by name;
-  7. paper_tables, the paper's comparison on the main path's five trained
+  8. paper_tables, the paper's comparison on the main path's five trained
      clients at its cuts: FedDF, Fed-DAFL and Fed-ADI (Table 1), DENSE on
      a federation trained with LDAM (Table 4) and two rounds of
      multi-round DENSE (Table 5), each with its seconds, seconds an epoch
@@ -66,17 +80,17 @@ result line is printed:
      DENSE+LDAM, two rounds of that for multi-round), the multi-round
      ledger (2 rounds, one broadcast of n_clients models) and the phase's
      peak device memory;
-  8. one server step of a small federation on the card (K1 kernels) and
+  9. one server step of a small federation on the card (K1 kernels) and
      on the CPU (the plain ``ref`` KL) from the same weights and images:
      the losses, their gradient with respect to the images and the
      student's update must agree to 1e-4 (the CPU path is held to the JAX
      package by the tests);
-  9. serve_check: llama3.2-3b at full width (d_model 3072, vocab 128256)
+ 10. serve_check: llama3.2-3b at full width (d_model 3072, vocab 128256)
      with depth cut to 2 layers, float32 without TF32: the paged engine
      (K4) and the dense engine give the same tokens for 6 ragged
      requests in 4 slots, and K4 launches decode steps × layers times,
      every launch on the ``sm90`` route;
- 10. serve, the serving main path: llama3.2-3b at full width and depth,
+ 11. serve, the serving main path: llama3.2-3b at full width and depth,
      bfloat16, random weights from a seeded ``torch.Generator``; 16
      requests (prompts of 64–448 tokens, 32–64 new, max_len 512) through
      8 slots of the paged engine, page 16. Every launch count is zeroed
@@ -84,14 +98,14 @@ result line is printed:
      ``sm90``, the others 0. Then one decode step of 8 running requests under
      ``torch.profiler``: device idle share and the top kernels, with
      K4's share;
- 11. train_check: one train step of llama3.2-3b at full width, 2 layers,
+ 12. train_check: one train step of llama3.2-3b at full width, 2 layers,
      float32: the K2 route (K2f, K2q and K2kv on their float32 ``sm90``
      kernels, the routes printed by kernel) and the plain route agree to
      1e-4;
- 12. dense_llm_check: one generator step and one student step of the
+ 13. dense_llm_check: one generator step and one student step of the
      example's heterogeneous federation (smoke widths) on the card and on
      the CPU agree to 1e-4;
- 13. llm_main_path, the LLM DENSE main path at full width and depth
+ 14. llm_main_path, the LLM DENSE main path at full width and depth
      (``dense_llm_oneshot.full()``: two llama3.2-3b clients, a llama3.2-3b
      student, bfloat16): 3 local train steps a client, the one-shot
      upload, 2 epochs of 3 generator steps and a student step. Every
@@ -101,7 +115,7 @@ result line is printed:
      K1f, K1b), every K2f, K2q and K2kv launch on the ``sm90`` route;
      then one epoch under ``torch.profiler`` with K2's share, each K2
      kernel's time by route;
- 14. K3 (K3f, K3b, CUDA C++) against its plain versions (the chunked formula
+ 15. K3 (K3f, K3b, CUDA C++) against its plain versions (the chunked formula
      in PyTorch and autograd through it): mamba2-130m's train shape (8, 256,
      24 heads, P 64, N 128, chunk 256) in bfloat16, float16 and float32,
      zamba2-7b's prefill (1, 448, 112 heads, P 64, N 64) in bfloat16 and
@@ -125,17 +139,17 @@ result line is printed:
      roundings emulated (``ssd_scan_bwd_chunked_plain``), each over its
      tolerance; a float32 row holds y, the states and all six gradients to
      1e-4 of the plain versions;
- 15. ssm_serve_check: zamba2-7b (7 layers: a super-block of 6 mamba
+ 16. ssm_serve_check: zamba2-7b (7 layers: a super-block of 6 mamba
      blocks and the shared block, and one tail block) and mamba2-130m (2
      layers) at full width, float32: paged ≡ dense engine for 6 requests
      of up to 300 tokens (two chunks, a ragged tail) in 4 slots, K3f once
      a mamba block a prefill and K4 once a shared-block application a
      decode step, both on ``sm90``;
- 16. ssm_serve: zamba2-7b at full width and depth (81 mamba blocks, 13
+ 17. ssm_serve: zamba2-7b at full width and depth (81 mamba blocks, 13
      applications of the shared block, bfloat16), the serve phase's 16
      requests through 8 slots: K3f must read prefills × 81 and K4 decode
      steps × 13, both on ``sm90``; then one profiled decode step;
- 17. ssm_train_check: one zamba2-7b train step at full width, 7 layers,
+ 18. ssm_train_check: one zamba2-7b train step at full width, 7 layers,
      float32, batch 2 × 512 (two chunks): the K3/K2 route and the plain
      route agree to 1e-4 (K3f 2 × 7 with remat and K3b 7, all on
      ``sm90``, K2 on the one shared-block application: K2f, K2q and K2kv
@@ -146,7 +160,7 @@ result line is printed:
      each reports the plain route against itself at half the chunk
      (``plain_half_chunk_vs_plain``), the floor of float32 summation
      order;
- 18. ssm_hybrid_train: zamba2-7b's train step in bfloat16 at full width
+ 19. ssm_hybrid_train: zamba2-7b's train step in bfloat16 at full width
      (d_model 3584, 32/32 heads of 112, P 64, N 64), depth 81 → 13 (two
      super-blocks of 6 mamba blocks, each followed by the shared block,
      and a tail block), batch 2 × 512: the plain route's first step (loss,
@@ -157,10 +171,10 @@ result line is printed:
      ``scripts/hybrid_step_limits.py``); seconds a step, peak memory,
      and one more step under ``torch.profiler`` with K2's and K3's device
      time by route;
- 19. ssm_llm_main_path, the LLM DENSE main path with the ssm family
+ 20. ssm_llm_main_path, the LLM DENSE main path with the ssm family
      (``dense_llm_oneshot.full_ssm()``: two mamba2-130m clients and a
      mamba2-130m student, full width and depth, bfloat16), counted step by
-     step as in 13 with K3f and K3b in place of K2, every K3f and K3b
+     step as in 14 with K3f and K3b in place of K2, every K3f and K3b
      launch on ``sm90``; then one epoch under ``torch.profiler`` with
      K3's share, K3f's and K3b's device time by route.
 
@@ -594,17 +608,22 @@ def timed(torch, dev, fn):
 
 
 def main_path(torch, scfg, dev="cuda"):
+    from repro_torch.configs import resolve_exec_policy
     from repro_torch.core import evaluate, train_dense_server
-    from repro_torch.fl import CommLedger, build_federation, fedavg
+    from repro_torch.fl import ClientList, CommLedger, build_federation, fedavg
 
     data = cifar_data(scfg)
     xt, yt = data["test"]
+    client_loop = resolve_exec_policy(scfg, device=dev).client_loop
 
     clocked = functools.partial(timed, torch, dev)
     ledger = CommLedger()
     zero_counts()
     (clients, _), t_fed = clocked(lambda: build_federation(
         scfg, data, device=dev, ledger=ledger, seed=scfg.seed))
+    if client_loop != "grouped" or not isinstance(clients, ClientList):
+        fail(f"the main path trained on client_loop={client_loop!r}, not "
+             "the grouped engine")
     avg, t_avg = clocked(lambda: fedavg(clients))
     (student, _, hist), t_dense = clocked(lambda: train_dense_server(
         clients, scfg, device=dev))
@@ -630,6 +649,8 @@ def main_path(torch, scfg, dev="cuda"):
     if not all(0.0 <= a <= 1.0 for a in acc_clients + [acc_avg, acc_dense]):
         fail("accuracy out of [0, 1]")
     emit({"main_path": {
+        "client_loop": client_loop,
+        "groups": [[spec.kind, n] for spec, n in clients.grouped[0]],
         "seconds": {"build_federation": t_fed, "fedavg": t_avg,
                     "train_dense_server": t_dense,
                     "dense_per_epoch": t_dense / scfg.epochs,
@@ -643,6 +664,250 @@ def main_path(torch, scfg, dev="cuda"):
         "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
                          if torch.device(dev).type == "cuda" else None)}})
     return clients, launches
+
+
+# -------------------------------------------------------- grouped check --
+
+# grouped_check's cut: one local epoch on each client's first images
+GROUPED_SHARD = 400
+# float32 (no TF32) on both sides, summed in another order. The teacher's
+# logits and image gradient relative to each one's largest entry, L_BN
+# relative to itself: 1e-4. The trained params and running statistics,
+# max |a - b| / (1 + |b|): 1e-3, since four SGD steps amplify float32
+# roundoff. Every run reads both sides of that limit and fails unless it
+# lies between them: below, the per-client loop against itself from
+# inits moved by one ulp (``floor_one_ulp``); above, five engines that
+# are wrong on purpose (``planted_faults``: the stack left at its inits,
+# the first or the last step dropped, momentum lost, padded rows
+# counted), each caught if either of its two readings is over the limit.
+# Readings on an H100: PERF.md, section 6, PR 26.
+GROUPED_TOL = 1e-4
+GROUPED_TRAIN_TOL = 1e-3
+
+
+def _rel_max(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def grouped_check(torch, scfg, dev="cuda"):
+    """The grouped engine and the grouped teacher against the per-client
+    loop and the looped ensemble on the main path's clients, then each
+    way timed in turns (see the module docstring, phase 6)."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch import optim
+    from repro_torch.core import (Client, bn_loss, ce_loss, ensemble_logits,
+                                  grouped_teacher, img_generator_init,
+                                  make_dense_steps)
+    from repro_torch.data import (build_batch_plan, dirichlet_partition,
+                                  pad_shards)
+    from repro_torch.fl import (ClientList, client_specs, local_update,
+                                local_update_grouped)
+    from repro_torch.models import (CNNSpec, client_views, cnn_init,
+                                    stack_models)
+
+    on_card = torch.device(dev).type == "cuda"
+    clocked = functools.partial(timed, torch, dev)
+    specs = client_specs(scfg)
+    if len(set(specs)) != 1:
+        fail("grouped_check wants a homogeneous federation")
+    spec = specs[0]
+    x, y = cifar_data(scfg)["train"]
+    parts = dirichlet_partition(y, scfg.n_clients, scfg.alpha, seed=scfg.seed)
+    shards = [(x[p[:GROUPED_SHARD]], y[p[:GROUPED_SHARD]]) for p in parts]
+    seeds = [scfg.seed + i for i in range(scfg.n_clients)]
+    init = torch.Generator().manual_seed(scfg.seed)
+    inits = [cnn_init(spec, generator=init, device=dev) for _ in shards]
+    local = dict(lr=scfg.local_lr, momentum=scfg.local_momentum,
+                 num_classes=scfg.num_classes)
+    xs, ys = pad_shards(shards)
+    plan = build_batch_plan([len(s[1]) for s in shards], scfg.batch_size,
+                            epochs=1, seeds=seeds)
+
+    def per_client(start=inits):
+        models = [copy.deepcopy(m) for m in start]
+        for m, (xi, yi), seed in zip(models, shards, seeds):
+            local_update(m, xi, yi, epochs=1, batch_size=scfg.batch_size,
+                         seed=seed, **local)
+        return models
+
+    def grouped():
+        stacked = stack_models(inits)
+        local_update_grouped(stacked, spec, xs, ys, plan, **local)
+        return stacked
+
+    def peak(fn):
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        out, secs = clocked(fn)
+        return out, secs, (_peak_gib(torch) if on_card else None)
+
+    def distance(got, want):
+        """max |a - b| / (1 + |b|) over the params and over the running
+        statistics of every client, and the tensor where each peaks."""
+        worst = {"params": (0.0, None), "bn_stats": (0.0, None)}
+        for j, model in enumerate(want):
+            for name, b in model.net.state_dict().items():
+                e = float(((got[j][name].detach() - b).abs()
+                           / (1 + b.abs())).max())
+                key = "bn_stats" if name.endswith((".bn.mean", ".bn.var")) \
+                    else "params"
+                if e > worst[key][0]:
+                    worst[key] = (e, f"client{j}.{name}")
+        return worst
+
+    # the check runs (the first of each way, warm-ups for the timing)
+    models, _, _ = peak(per_client)
+    stacked, _, _ = peak(grouped)
+    # the floor: the loop from inits moved by one float32 ulp
+    sign = torch.Generator().manual_seed(scfg.seed + 4)
+    nudged = [copy.deepcopy(m) for m in inits]
+    with torch.no_grad():
+        for m in nudged:
+            for p in m.parameters():
+                s = torch.randint(0, 2, p.shape, generator=sign) * 2 - 1
+                p.mul_(1 + 2.0 ** -23 * s.to(p.device))
+    floor = distance([m.net.state_dict() for m in per_client(nudged)],
+                     models)
+    rows = lambda st: [{k: v[j] for k, v in st.items()}   # noqa: E731
+                       for j in range(len(models))]
+    got = distance(rows(stacked), models)
+
+    def planted(p=plan, **kw):
+        """The grouped engine run wrong on purpose: a changed plan or
+        optimizer."""
+        st = stack_models(inits)
+        local_update_grouped(st, spec, xs, ys, p, **{**local, **kw})
+        return rows(st)
+
+    # engines a limit must catch: what each reads against the loop
+    faults = {name: {k: e for k, (e, _) in distance(run, models).items()}
+              for name, run in (
+        ("left_at_inits", [m.net.state_dict() for m in inits]),
+        ("first_step_dropped", planted(dataclasses.replace(
+            plan, idx=plan.idx[:, 1:], mask=plan.mask[:, 1:]))),
+        ("last_step_dropped", planted(dataclasses.replace(
+            plan, idx=plan.idx[:, :-1], mask=plan.mask[:, :-1]))),
+        ("momentum_lost", planted(momentum=0.0)),
+        ("padding_rows_counted", planted(dataclasses.replace(
+            plan, mask=np.ones_like(plan.mask)))))}
+    floor_max = max(e for e, _ in floor.values())
+    caught = min(max(f.values()) for f in faults.values())
+    if not floor_max < GROUPED_TRAIN_TOL < caught:
+        fail(f"grouped_check: the limit {GROUPED_TRAIN_TOL} does not lie "
+             f"between the one-ulp floor {floor} and the planted faults "
+             f"{faults}")
+    params_err, params_at = got["params"]
+    stats_err, stats_at = got["bn_stats"]
+    views = client_views(spec, stacked)
+    clients = ClientList([Client(spec=spec, model=v, n_data=len(s[1]))
+                          for v, s in zip(views, shards)],
+                         [(spec, len(views))], [stacked])
+    looped = functools.partial(ensemble_logits, views)
+    teacher = grouped_teacher(clients)
+
+    g_init = torch.Generator().manual_seed(scfg.seed + 1)
+    gen = img_generator_init(nz=scfg.nz, img_size=scfg.image_size,
+                             out_ch=scfg.in_ch, generator=g_init, device=dev)
+    noise = torch.Generator(device=dev).manual_seed(scfg.seed + 2)
+    z = torch.randn((scfg.synth_batch, scfg.nz), device=dev, generator=noise)
+    labels = torch.randint(0, scfg.num_classes, (scfg.synth_batch,),
+                           device=dev, generator=noise)
+    with torch.no_grad():
+        images = gen(z)
+
+    def teacher_step(fn):
+        """The teacher's part of a generator step: the ensemble with
+        stats, L_CE + L_BN, their gradient with respect to the images."""
+        xg = images.clone().requires_grad_(True)
+        avg, st = fn(xg, with_bn_stats=True)
+        l_bn = bn_loss(st)
+        (grad,) = torch.autograd.grad(ce_loss(avg, labels) + l_bn, [xg])
+        return avg.detach(), l_bn.detach(), grad
+
+    (ga, gb, gg), (la, lb, lg) = teacher_step(teacher), teacher_step(looped)
+    with torch.no_grad():
+        folded_err = _rel_max(teacher(images), looped(images))
+    errs = {"params": params_err, "bn_stats": stats_err,
+            "logits_rel_to_max": _rel_max(ga, la),
+            "folded_logits_rel_to_max": folded_err,
+            "l_bn_rel": float((gb - lb).abs() / lb.abs()),
+            "image_grad_rel_to_max": _rel_max(gg, lg)}
+    worst = {"params": params_at, "bn_stats": stats_at}
+    limits = {k: GROUPED_TRAIN_TOL if k in ("params", "bn_stats")
+              else GROUPED_TOL for k in errs}
+    bad = {k: v for k, v in errs.items() if v > limits[k]}
+    if bad:
+        fail(f"grouped_check: the grouped engine or teacher disagrees with "
+             f"the per-client one: {bad} (all: {errs}, at {worst}, "
+             f"limits: {limits}, one-ulp floor: {floor})")
+
+    # each way in turns: grouped, per-client, per-client, grouped
+    local_s = {"grouped": [], "per_client": []}
+    local_peak = {}
+    for way in ("grouped", "per_client", "per_client", "grouped"):
+        _, secs, gib = peak(grouped if way == "grouped" else per_client)
+        local_s[way].append(secs)
+        local_peak[way] = gib
+
+    def server(fn):
+        stu_init = torch.Generator().manual_seed(scfg.seed + 3)
+        student = cnn_init(CNNSpec(kind=scfg.global_kind,
+                                   num_classes=scfg.num_classes,
+                                   in_ch=scfg.in_ch, width=scfg.width,
+                                   image_size=scfg.image_size),
+                           generator=stu_init, device=dev)
+        g = copy.deepcopy(gen)
+        gen_step, student_step = make_dense_steps(clients, scfg, device=dev,
+                                                  teacher=fn)
+        g_opt = optim.adam(list(g.parameters()), scfg.g_lr)
+        s_opt = optim.sgd(list(student.parameters()), scfg.s_lr,
+                          momentum=scfg.s_momentum)
+
+        def epoch():
+            for _ in range(scfg.t_g):
+                gen_step(g, g_opt, student, z, labels)
+            return student_step(student, s_opt, g, z)
+
+        return epoch
+
+    epochs = {"grouped": server(teacher), "per_client": server(looped)}
+    for way in ("grouped", "per_client"):      # warm-up
+        clocked(epochs[way])
+    server_s = {"grouped": [], "per_client": []}
+    server_peak = {}
+    for way in ("grouped", "per_client", "per_client", "grouped"):
+        _, secs, gib = peak(epochs[way])
+        server_s[way].append(secs)
+        server_peak[way] = gib
+    teacher_ms, student_teacher_ms = {}, {}
+    if on_card:
+        for way, fn in (("grouped", teacher), ("per_client", looped),
+                        ("per_client", looped), ("grouped", teacher)):
+            ms, records = device_ms_total(torch, lambda: teacher_step(fn),
+                                          calls=5)
+            teacher_ms.setdefault(way, []).append(
+                {"device_ms": ms, "kernel_records": records,
+                 **device_busy_ms(torch, lambda: teacher_step(fn)),
+                 "ms": cuda_ms(torch, lambda: teacher_step(fn), samples=5)})
+            with torch.no_grad():
+                student_teacher_ms.setdefault(way, []).append(
+                    {**device_busy_ms(torch, lambda: fn(images)),
+                     "ms": cuda_ms(torch, lambda: fn(images), samples=5)})
+    emit({"grouped_check": {
+        "clients": scfg.n_clients, "kind": spec.kind, "width": spec.width,
+        "batch": scfg.batch_size, "shard_images": [len(s[1]) for s in shards],
+        "local_epochs": 1, "steps": plan.steps, "errors": errs,
+        "worst": worst, "limits": limits, "floor_one_ulp": floor,
+        "planted_faults": faults,
+        "local_seconds": local_s, "local_peak_gib": local_peak,
+        "server_epoch_seconds": server_s, "server_peak_gib": server_peak,
+        "t_g": scfg.t_g, "synth_batch": scfg.synth_batch,
+        "teacher_in_gen_step": teacher_ms,
+        "teacher_in_student_step": student_teacher_ms}})
 
 
 # --------------------------------------------------------- paper tables --
@@ -822,14 +1087,14 @@ def profile_epoch(torch, scfg, clients, dev="cuda"):
         epoch()
     profiled_ms = (time.perf_counter() - t0) * 1e3
     per_kernel = device_ms(prof)
-    busy_ms = sum(per_kernel.values())
+    busy_ms, summed_ms, _ = profiled_device_ms(torch, prof)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     k1_ms = sum(v for k, v in per_kernel.items() if "_kl_" in k)
     # the profiler slows the host several times over: the idle share is
     # taken against the same epoch's time without it
     emit({"profile_epoch": {
         "epoch_ms": epoch_ms, "profiled_epoch_ms": profiled_ms,
-        "device_busy_ms": busy_ms,
+        "device_busy_ms": busy_ms, "device_summed_ms": summed_ms,
         "device_idle_share": 1 - busy_ms / epoch_ms,
         "k1_ms": k1_ms, "n_kernel_names": len(per_kernel),
         "top_kernels_ms": top}})
@@ -1252,7 +1517,7 @@ def profile_decode(torch, cfg, params, reqs, dev="cuda",
                              ProfilerActivity.CUDA]) as prof:
         eng.step()
     per_kernel = device_ms(prof)
-    busy_ms = sum(per_kernel.values())
+    busy_ms, summed_ms, _ = profiled_device_ms(torch, prof)
     k4_ms = sum(v for k, v in per_kernel.items() if "paged_attention" in k)
     k4_merge_ms = sum(v for k, v in per_kernel.items()
                       if "paged_attention_merge" in k)
@@ -1274,6 +1539,7 @@ def profile_decode(torch, cfg, params, reqs, dev="cuda",
     emit({label: {
         "running": sum(s is not None for s in eng._slots),
         "step_ms": step_ms, "device_busy_ms": busy_ms,
+        "device_summed_ms": summed_ms,
         "device_idle_share": 1 - busy_ms / step_ms,
         "k4_ms": k4_ms, "k4_merge_ms": k4_merge_ms,
         "k4_share_of_busy": k4_ms / busy_ms if busy_ms
@@ -1421,6 +1687,47 @@ def device_ms_total(torch, fn, calls: int = 20) -> tuple[float, float]:
     per_kernel = device_ms(prof)
     records = sum(e.count for e in prof.key_averages() if e.key in per_kernel)
     return sum(per_kernel.values()) / calls, records / calls
+
+
+def span_union(spans) -> float:
+    """The length of the union of (start, end) spans: the time at least
+    one span covers."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def profiled_device_ms(torch, prof) -> tuple[float, float, int]:
+    """(busy, summed, records) of a ``torch.profiler`` run's device
+    records (kernels, copies, sets): busy is the time at least one of them
+    ran, the union of their spans, where records that overlap count once;
+    summed adds their durations, which overcounts by the overlap. Both in
+    ms."""
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (span_union(spans) / 1e3, sum(e - s for s, e in spans) / 1e3,
+            len(spans))
+
+
+def device_busy_ms(torch, fn, calls: int = 5) -> dict:
+    """Device time a call of ``fn`` (``profiled_device_ms``: busy and
+    summed) and its device records, from ``torch.profiler`` over
+    ``calls`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy, summed, records = profiled_device_ms(torch, prof)
+    return {"busy_ms": busy / calls, "summed_ms": summed / calls,
+            "records": records / calls}
 
 
 # F.scaled_dot_product_attention's backends, in the order the yardstick
@@ -2086,7 +2393,7 @@ def hybrid_train(torch, dev="cuda", arch="zamba2-7b",
         sync(torch, dev)
         profiled_s = time.perf_counter() - t0
     per_kernel = device_ms(prof)
-    busy_ms = sum(per_kernel.values())
+    busy_ms, summed_ms, _ = profiled_device_ms(torch, prof)
     k2_by_route, k3_by_route = ms_by_route(per_kernel)
     totals = {k: c * steps for k, c in want.items()}
     loss_err = abs(losses[0] - ref[0]) / abs(ref[0])
@@ -2112,7 +2419,7 @@ def hybrid_train(torch, dev="cuda", arch="zamba2-7b",
         "bwd_routes": {r: routes[f"bwd_{r}"] for r in ("sm90", "simt")},
         "k3f_routes": {r: routes[f"k3f_{r}"] for r in ("sm90", "simt")},
         "k3b_routes": {r: routes[f"k3b_{r}"] for r in ("sm90", "simt")},
-        "device_busy_ms": busy_ms,
+        "device_busy_ms": busy_ms, "device_summed_ms": summed_ms,
         "device_idle_share": 1 - busy_ms / (profiled_s * 1e3),
         "k2_ms_by_route": k2_by_route, "k2_ms": sum(
             v for by in k2_by_route.values() for v in by.values()),
@@ -2423,7 +2730,7 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
     with profile(activities=activities) as prof:
         epoch()
     per_kernel = device_ms(prof)
-    busy_ms = sum(per_kernel.values())
+    busy_ms, summed_ms, _ = profiled_device_ms(torch, prof)
     k2 = {w: sum(v for k, v in per_kernel.items()
                  if f"{w}_kernel<" in k and "ssd_" not in k)
           for w in ("fwd", "dq", "dkv")}
@@ -2441,6 +2748,7 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
                     if e.key in per_kernel)
     emit({label: {
         "epoch_ms": epoch_ms, "device_busy_ms": busy_ms,
+        "device_summed_ms": summed_ms,
         "device_idle_share": 1 - busy_ms / epoch_ms,
         "k2_ms": k2, "k2_ms_by_route": k2_by_route,
         "k2_share_of_busy": sum(k2.values()) / busy_ms
@@ -2544,6 +2852,7 @@ def main() -> None:
     scfg = dataclasses.replace(CONFIG, local_epochs=1, epochs=2)
     emit({"cuts": {"local_epochs": [CONFIG.local_epochs, scfg.local_epochs],
                    "epochs": [CONFIG.epochs, scfg.epochs],
+                   "grouped_check_shard_images": GROUPED_SHARD,
                    "kept": {"n_clients": scfg.n_clients,
                             "client_kinds": list(scfg.client_kinds),
                             "width": scfg.width,
@@ -2553,6 +2862,7 @@ def main() -> None:
                             "nz": scfg.nz, "t_g": scfg.t_g,
                             "alpha": scfg.alpha}}})
     clients, launches = main_path(torch, scfg)
+    grouped_check(torch, scfg)
     profile_epoch(torch, scfg, clients)
     paper_launches = paper_tables(torch, scfg, clients)
     del clients

@@ -17,10 +17,14 @@ device the tensors live on:
     cache's state; K4 (kernels/paged_attention.py) serves every paged
     decode step.
 
+Both profiles train clients on the grouped engine, ``client_loop =
+"grouped"`` (``fl/federation.py``), as every profile of the reference's
+registry does; ``client_loop_mode="python"`` pins the per-client loop.
+
 A knob set on the config (``scfg.distill_kl_mode``,
-``cfg.kernel_vjp_mode`` and friends) wins over the profile. Modes the
-port does not have yet raise ``NotImplementedError`` here, so no caller
-silently runs another path. ``page`` is the block-pool page size of the
+``scfg.client_loop_mode``, ``cfg.kernel_vjp_mode`` and friends) wins
+over the profile. Modes the port does not have yet raise
+``NotImplementedError`` here, so no caller silently runs another path. ``page`` is the block-pool page size of the
 serving engine, 16 tokens on both profiles as in the reference's
 ``_BLOCKS["gpu"]["paged_attention"]``; the other block tables and the
 autotuner are not ported.
@@ -33,15 +37,19 @@ import torch
 
 KL_MODES = ("ref", "fused")
 KERNEL_VJP_MODES = ("ref", "autodiff", "fused")
+CLIENT_LOOP_MODES = ("python", "grouped")
 
-_PROFILES = {"cpu": {"distill_kl": "ref", "kernel_vjp": "ref", "page": 16},
+_PROFILES = {"cpu": {"distill_kl": "ref", "kernel_vjp": "ref",
+                     "client_loop": "grouped", "page": 16},
              "cuda": {"distill_kl": "fused", "kernel_vjp": "fused",
-                      "page": 16}}
+                      "client_loop": "grouped", "page": 16}}
 
 # config knobs whose non-default values select a path the reference has
 # and the port does not have yet: knob -> the values the port runs
-_PORTED = {"loop_mode": (None, "python"), "client_loop_mode": (None, "python"),
-           "ensemble_shard_mode": (None, "none"), "teacher_chunk": (None, 0)}
+_PORTED = {"loop_mode": (None, "python"),
+           "ensemble_shard_mode": (None, "none"), "teacher_chunk": (None, 0),
+           "plan_bucketing": (None, "off"), "stack_chunk": (None, 0),
+           "fedavg_mode": (None, "flat")}
 
 
 def resolve_device(device) -> torch.device:
@@ -67,6 +75,12 @@ def check_kl_mode(mode: str) -> None:
                          f"(expected one of {KL_MODES})")
 
 
+def check_client_loop_mode(mode: str) -> None:
+    if mode not in CLIENT_LOOP_MODES:
+        raise ValueError(f"unknown client_loop_mode {mode!r} "
+                         f"(expected one of {CLIENT_LOOP_MODES})")
+
+
 def check_kernel_vjp_mode(mode: str) -> None:
     if mode not in KERNEL_VJP_MODES:
         raise ValueError(f"unknown kernel_vjp mode {mode!r} "
@@ -78,6 +92,7 @@ class ExecPolicy:
     backend: str = "cpu"
     distill_kl: str = "ref"
     kernel_vjp: str = "ref"
+    client_loop: str = "grouped"
     page: int = 16
 
 
@@ -98,12 +113,17 @@ def resolve_exec_policy(scfg=None, *, device="cuda") -> ExecPolicy:
                 f"port runs {knob}={ported[-1]!r}")
     backend = resolve_device(device).type
     prof = _PROFILES[backend]
-    kl = getattr(scfg, "distill_kl_mode", None)
-    vjp = getattr(scfg, "kernel_vjp_mode", None)
+    def knob(name, default):
+        v = getattr(scfg, name, None)
+        return default if v is None else v
+
     pol = ExecPolicy(backend=backend,
-                     distill_kl=kl if kl is not None else prof["distill_kl"],
-                     kernel_vjp=vjp if vjp is not None
-                     else prof["kernel_vjp"], page=prof["page"])
+                     distill_kl=knob("distill_kl_mode", prof["distill_kl"]),
+                     kernel_vjp=knob("kernel_vjp_mode", prof["kernel_vjp"]),
+                     client_loop=knob("client_loop_mode",
+                                      prof["client_loop"]),
+                     page=prof["page"])
     check_kl_mode(pol.distill_kl)
     check_kernel_vjp_mode(pol.kernel_vjp)
+    check_client_loop_mode(pol.client_loop)
     return pol

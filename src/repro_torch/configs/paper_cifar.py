@@ -52,7 +52,8 @@ class DenseExperimentConfig:
     backend: str | None = None
     loop_mode: str | None = None    # epoch driver: "python" here
     loop_chunk: int = 8
-    client_loop_mode: str | None = None  # LocalUpdate driver: "python"
+    client_loop_mode: str | None = None  # LocalUpdate driver: "grouped"
+                                    # (the default) or "python"
     ensemble_shard_mode: str | None = None
     distill_kl_mode: str | None = None  # "ref" (materialized softmax +
                                     # autograd) or "fused" (the K1 kernel

@@ -8,10 +8,13 @@ Stage 2 (model distillation): a student step on the same latent batch
 minimizing KL(D(x̂) ‖ f_S(x̂)).
 
 This is the reference's python epoch driver: one host sync per epoch,
-where the losses are read. Both KL sites go through the mode the
-execution policy resolves (``configs/backend.py``): on a CUDA device the
-K1 kernel pair, with the teacher gradient on in the generator step
-(L_div) and off in the student step (L_dis).
+where the losses are read. The frozen ensemble is held in the grouped
+representation, stacked once at setup (``core/ensemble.grouped_teacher``)
+and evaluated with ``grouped_ensemble_logits``: one network a client
+architecture, as the reference's server holds it. Both KL sites go
+through the mode the execution policy resolves (``configs/backend.py``):
+on a CUDA device the K1 kernel pair, with the teacher gradient on in the
+generator step (L_div) and off in the student step (L_dis).
 
 Not ported yet, and refused with ``NotImplementedError``: the fused
 (device-resident) epoch driver, checkpoints, ``nan_policy`` skip and
@@ -28,7 +31,7 @@ import torch
 from repro_torch import optim
 from repro_torch.configs.backend import resolve_device, resolve_exec_policy
 from repro_torch.core import losses as LS
-from repro_torch.core.ensemble import Client, ensemble_logits
+from repro_torch.core.ensemble import Client, grouped_teacher
 from repro_torch.core.generator import img_generator_init
 from repro_torch.models.cnn import CNN, CNNSpec, cnn_apply, cnn_init, cnn_logits
 
@@ -54,8 +57,11 @@ def _check_ported(scfg) -> None:
 
 
 def make_dense_steps(clients: Sequence[Client], scfg, *, use_bn: bool = True,
-                     use_div: bool = True, device="cuda"):
-    """The two steps of an epoch, closed over the frozen ensemble.
+                     use_div: bool = True, device="cuda",
+                     teacher: Callable | None = None):
+    """The two steps of an epoch, closed over the frozen ensemble:
+    ``teacher(x, with_bn_stats=False)``, by default the grouped teacher
+    (``grouped_teacher(clients)``, stacked here once).
 
     Returns (gen_step, student_step):
 
@@ -71,15 +77,16 @@ def make_dense_steps(clients: Sequence[Client], scfg, *, use_bn: bool = True,
     (Table 6).
     """
     kl_mode = resolve_exec_policy(scfg, device=device).distill_kl
-    teachers = [c.model for c in clients]
+    if teacher is None:
+        teacher = grouped_teacher(clients)
 
     def gen_step(gen, g_opt, student, z, y):
         x = gen(z)
         if use_bn:
-            avg, stats = ensemble_logits(teachers, x, with_bn_stats=True)
+            avg, stats = teacher(x, with_bn_stats=True)
             l_bn = LS.bn_loss(stats)
         else:
-            avg = ensemble_logits(teachers, x)
+            avg = teacher(x)
             l_bn = torch.zeros((), device=x.device)
         if use_div:
             l_div = LS.div_loss(avg, cnn_logits(student, x), mode=kl_mode)
@@ -91,7 +98,8 @@ def make_dense_steps(clients: Sequence[Client], scfg, *, use_bn: bool = True,
         return total.detach(), {"ce": l_ce.detach(), "bn": l_bn.detach(),
                                 "div": l_div.detach()}
 
-    distill_step = make_distill_step(clients, scfg, device=device)
+    distill_step = make_distill_step(clients, scfg, device=device,
+                                     teacher=teacher)
 
     def student_step(student, s_opt, gen, z):
         with torch.no_grad():
@@ -101,22 +109,26 @@ def make_dense_steps(clients: Sequence[Client], scfg, *, use_bn: bool = True,
     return gen_step, student_step
 
 
-def make_distill_step(clients: Sequence[Client], scfg, *, device="cuda"):
+def make_distill_step(clients: Sequence[Client], scfg, *, device="cuda",
+                      teacher: Callable | None = None):
     """The distillation step of Eq. (6), shared by DENSE's stage 2 and
     the one-shot baselines (``fl/baselines.py``).
 
     Returns ``step(student, s_opt, x) -> loss``: one SGD step of the
     student on KL(D(x) ‖ f_S(x)) over the images x, with its BN running
-    statistics updated in place. The ensemble runs without autograd, and
-    the KL goes through the mode the execution policy resolves, without
-    the teacher-side gradient (the kernel's dL/dt stream is skipped).
+    statistics updated in place. The ensemble is ``teacher`` (by default
+    ``grouped_teacher(clients)``, stacked here) and runs without
+    autograd, its eval BN folded into its convs; the KL goes through the
+    mode the execution policy resolves, without the teacher-side
+    gradient (the kernel's dL/dt stream is skipped).
     """
     kl_mode = resolve_exec_policy(scfg, device=device).distill_kl
-    teachers = [c.model for c in clients]
+    if teacher is None:
+        teacher = grouped_teacher(clients)
 
     def step(student, s_opt, x):
         with torch.no_grad():
-            avg = ensemble_logits(teachers, x)
+            avg = teacher(x)
         logits, _ = cnn_apply(student, x, train=True, with_stats=False)
         loss = LS.distill_loss(avg, logits, mode=kl_mode,
                                with_teacher_grad=False)

@@ -17,8 +17,9 @@ runs the K1 pair with the teacher gradient off. (The reference's
 baselines call ``distill_loss`` in its ``ref`` mode whatever the policy;
 the two modes compute the same function.)
 
-Clients are the per-client engine's (``fl.protocol.build_federation``);
-the ensemble is the looped ``core.ensemble.ensemble_logits``. Each
+Every baseline holds the frozen ensemble as the grouped teacher,
+stacked once at setup (``core.ensemble.grouped_teacher``), as the
+reference's do (``repro/fl/baselines.py:39-46``). Each
 baseline takes an optional ``noise(epoch)`` source in place of its random
 draws and optional initial models, as ``train_dense_server`` does, so
 that the tests can inject the reference's ``jax.random`` draws. A
@@ -35,7 +36,7 @@ from repro_torch import optim
 from repro_torch.configs.backend import resolve_device
 from repro_torch.core import losses as LS
 from repro_torch.core.dense import check_clients_on, make_distill_step
-from repro_torch.core.ensemble import Client, ensemble_logits
+from repro_torch.core.ensemble import Client, grouped_teacher
 from repro_torch.core.generator import ImgGenerator, img_generator_init
 from repro_torch.models.cnn import CNN, CNNSpec, cnn_init
 
@@ -47,9 +48,10 @@ def _student_spec(scfg) -> CNNSpec:
 
 
 class _Run:
-    """What every baseline sets up: the device, the student and its SGD,
-    the shared distillation step, the random sources, and a device flag
-    that every loss is ANDed into (read once an epoch)."""
+    """What every baseline sets up: the device, the grouped teacher, the
+    student and its SGD, the shared distillation step, the random
+    sources, and a device flag that every loss is ANDed into (read once
+    an epoch)."""
 
     def __init__(self, name, clients, scfg, student_spec, *, device,
                  generator, init_generator):
@@ -61,7 +63,9 @@ class _Run:
             else torch.Generator().manual_seed(scfg.seed)
         self.draws = generator if generator is not None \
             else torch.Generator(device=self.dev).manual_seed(scfg.seed)
-        self.distill = make_distill_step(clients, scfg, device=self.dev)
+        self.teacher = grouped_teacher(clients)
+        self.distill = make_distill_step(clients, scfg, device=self.dev,
+                                         teacher=self.teacher)
         self.ok = torch.ones((), dtype=torch.bool, device=self.dev)
 
     def new_student(self, student: CNN | None) -> tuple:
@@ -117,15 +121,17 @@ def fed_df(clients: Sequence[Client], scfg,
 # --------------------------------------------------------------- Fed-DAFL --
 
 def make_dafl_gen_step(clients: Sequence[Client], *, alpha: float = 0.1,
-                       beta: float = 5.0):
+                       beta: float = 5.0, teacher: Callable | None = None):
     """Fed-DAFL's generator step: ``gen_step(gen, g_opt, z) -> loss``, one
-    optimizer step on L_oh + α·L_a + β·L_ie against the ensemble:
-    CE on the ensemble's own argmax, −mean|D(x)|, and Σ p̄ log(p̄ + 1e-8)
-    of the batch-mean softmax p̄ (the negative entropy)."""
-    teachers = [c.model for c in clients]
+    optimizer step on L_oh + α·L_a + β·L_ie against the ensemble
+    (``teacher``, by default ``grouped_teacher(clients)``): CE on the
+    ensemble's own argmax, −mean|D(x)|, and Σ p̄ log(p̄ + 1e-8) of the
+    batch-mean softmax p̄ (the negative entropy)."""
+    if teacher is None:
+        teacher = grouped_teacher(clients)
 
     def gen_step(gen, g_opt, z):
-        avg = ensemble_logits(teachers, gen(z))
+        avg = teacher(gen(z))
         l_oh = LS.ce_loss(avg, avg.argmax(-1))
         l_a = -torch.mean(torch.abs(avg))
         mean_p = torch.mean(torch.softmax(avg, dim=-1), dim=0)
@@ -159,7 +165,8 @@ def fed_dafl(clients: Sequence[Client], scfg,
                                  out_ch=scfg.in_ch, generator=run.init,
                                  device=run.dev)
     student, s_opt = run.new_student(student)
-    gen_step = make_dafl_gen_step(clients, alpha=alpha, beta=beta)
+    gen_step = make_dafl_gen_step(clients, alpha=alpha, beta=beta,
+                                  teacher=run.teacher)
     g_opt = optim.adam(list(gen.parameters()), scfg.g_lr)
     if noise is None:
         shape = (max(scfg.s_steps, 1), scfg.synth_batch, scfg.nz)
@@ -182,17 +189,21 @@ def fed_dafl(clients: Sequence[Client], scfg,
 # ---------------------------------------------------------------- Fed-ADI --
 
 def make_adi_step(clients: Sequence[Client], *, tv_coef: float = 1e-4,
-                  l2_coef: float = 1e-5, bn_coef: float = 1.0):
+                  l2_coef: float = 1e-5, bn_coef: float = 1.0,
+                  teacher: Callable | None = None):
     """Fed-ADI's input step: ``adi_step(x_opt, y) -> loss``. ``x_opt`` is
     an optimizer over the one input batch x (B, H, W, C), leaf of
     autograd; one step on L_CE(D(x), y) + bn_coef·L_BN + tv_coef·L_TV +
-    l2_coef·mean(x²), L_TV the mean squared difference of neighbours
-    along H plus along W; then x is clipped to [-1, 1] in place."""
-    teachers = [c.model for c in clients]
+    l2_coef·mean(x²) against the ensemble (``teacher``, by default
+    ``grouped_teacher(clients)``), L_TV the mean squared difference of
+    neighbours along H plus along W; then x is clipped to [-1, 1] in
+    place."""
+    if teacher is None:
+        teacher = grouped_teacher(clients)
 
     def adi_step(x_opt, y):
         (x,) = x_opt.params
-        avg, stats = ensemble_logits(teachers, x, with_bn_stats=True)
+        avg, stats = teacher(x, with_bn_stats=True)
         dh = x[:, 1:] - x[:, :-1]
         dw = x[:, :, 1:] - x[:, :, :-1]
         l_tv = torch.mean(dh * dh) + torch.mean(dw * dw)
@@ -226,7 +237,7 @@ def fed_adi(clients: Sequence[Client], scfg,
                generator=generator, init_generator=init_generator)
     student, s_opt = run.new_student(student)
     adi_step = make_adi_step(clients, tv_coef=tv_coef, l2_coef=l2_coef,
-                             bn_coef=bn_coef)
+                             bn_coef=bn_coef, teacher=run.teacher)
     if noise is None:
         shape = (scfg.synth_batch, scfg.image_size, scfg.image_size,
                  scfg.in_ch)

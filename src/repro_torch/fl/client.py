@@ -1,10 +1,18 @@
 """Client-side LocalUpdate (paper §3.1.4: SGD, lr=0.01, momentum=0.9,
-b=128, E epochs; ``repro/fl/client.py:39-83``).
+b=128, E epochs; ``repro/fl/client.py``), with the CE loss or, for
+locally imbalanced shards, the LDAM loss (paper Table 4) at margins from
+the shard's class counts. Two engines:
 
-The per-client python loop over the seeded minibatch stream of
-``data.pipeline.batches``, one step per minibatch, with the CE loss or,
-for locally imbalanced shards, the LDAM loss (paper Table 4) at margins
-from the shard's class counts. The grouped engine is not ported yet.
+  * ``local_update`` — one client: the python loop over the seeded
+    minibatch stream of ``data.pipeline.batches``, one step a minibatch.
+  * ``local_update_grouped`` — m same-spec clients as one network
+    (``models/cnn.cnn_stack_train_grouped``), stepping through a
+    ``data.pipeline.BatchPlan`` whose minibatches are gathered on the
+    device. Ragged shards are masked: the CE/LDAM means and the BN batch
+    statistics count valid rows only, and on a step where a client has
+    no valid row its parameters, momentum and running statistics pass
+    through unchanged. It consumes the same per-client streams as the
+    loop, so the two agree to float tolerance.
 """
 from __future__ import annotations
 
@@ -13,8 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import optim
-from repro_torch.data.pipeline import batches
-from repro_torch.models.cnn import CNN, cnn_apply
+from repro_torch.data.pipeline import BatchPlan, batches
+from repro_torch.models.cnn import (CNN, CNNSpec, cnn_apply,
+                                    cnn_stack_train_grouped, is_running_stat)
 
 
 def make_local_step(model: CNN, *, lr: float, momentum: float,
@@ -57,3 +66,109 @@ def local_update(model: CNN, x: np.ndarray, y: np.ndarray, *, epochs: int,
                                     epochs=epochs)]
     loss_list = torch.stack(losses).tolist() if losses else []
     return model, {"loss": loss_list, "class_counts": counts}
+
+
+# ------------------------------------------------- grouped local update ---
+
+def make_grouped_local_update(spec: CNNSpec, stacked: dict, *, lr: float,
+                              momentum: float, use_ldam: bool = False,
+                              margins: torch.Tensor | None = None):
+    """One masked SGD (or LDAM) step for a stacked group of m clients
+    (``repro/fl/client.py:86-181``), training ``stacked`` in place.
+
+    Returns (step, opt). ``step(bx, by, bmask=None, keep=None)`` takes
+    the m minibatches bx (m, B, H, W, C), by (m, B); ``bmask`` (m, B) the
+    valid rows (None: all), ``keep`` a host bool array (m,) of the
+    clients with a valid row (None: all). It returns the per-client
+    losses (m,), 0 where a client has no valid row. The running
+    statistics come back from the forward and are written after the
+    optimizer step, which never sees them. ``margins`` (m, num_classes)
+    are the per-client LDAM margins."""
+    if use_ldam and margins is None:
+        raise ValueError("use_ldam needs the per-client margins")
+    names = [k for k in stacked if not is_running_stat(k)]
+    stat_names = [k for k in stacked if is_running_stat(k)]
+    params = [stacked[k].requires_grad_(True) for k in names]
+    opt = optim.sgd(params, lr, momentum=momentum)
+
+    def per_client_losses(logits, by, bmask):
+        if use_ldam:
+            nll = optim.ldam_nll(logits, by, margins)
+        else:
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            nll = -torch.gather(logp, -1, by.long()[..., None])[..., 0]
+        if bmask is None:
+            return nll.mean(dim=-1)
+        w = bmask.float()
+        return (nll * w).sum(dim=-1) / torch.clamp(w.sum(dim=-1), min=1.0)
+
+    def step(bx, by, bmask=None, keep=None):
+        logits, new_stats, _ = cnn_stack_train_grouped(stacked, spec, bx,
+                                                       bmask)
+        per = per_client_losses(logits, by, bmask)
+        grads = torch.autograd.grad(per.sum(), params)
+        with torch.no_grad():
+            if keep is not None:
+                # no valid row: params, momentum and statistics stay put
+                rows = torch.as_tensor(np.nonzero(~keep)[0],
+                                       device=bx.device)
+                held = [*params, *(opt.bufs or ()),
+                        *(stacked[k] for k in stat_names)]
+                saved = [t[rows].clone() for t in held]
+            opt.step(grads)
+            for k in stat_names:
+                stacked[k].copy_(new_stats[k])
+            if keep is not None:
+                for t, v in zip(held, saved):
+                    t[rows] = v
+                # a client with no valid row may have overflowed: its
+                # loss and gradients are dropped, not multiplied by 0
+                per = torch.where(torch.as_tensor(keep, device=per.device),
+                                  per, torch.zeros_like(per))
+        return per.detach()
+
+    return step, opt
+
+
+def local_update_grouped(stacked: dict, spec: CNNSpec, xs, ys,
+                         plan: BatchPlan, *, lr: float = 0.01,
+                         momentum: float = 0.9, use_ldam: bool = False,
+                         num_classes: int = 10,
+                         class_counts: np.ndarray | None = None):
+    """Train a stacked group of m same-spec clients in place, on the
+    stack's device (``repro/fl/client.py:184-242``).
+
+    xs (m, n, H, W, C), ys (m, n): the padded shards
+    (``data.pipeline.pad_shards``); plan: their ``BatchPlan``.
+    class_counts (m, num_classes): the real shards' label counts (read
+    off the plan's first epoch when None); LDAM takes its margins from
+    them. Returns (stacked, info) with info["loss"] a (steps, m) tensor
+    on the device, 0 on a client's padding steps."""
+    dev = next(iter(stacked.values())).device
+    m = plan.idx.shape[0]
+    if class_counts is None:
+        sizes = plan.mask[:, :plan.steps_per_epoch].reshape(m, -1).sum(1)
+        class_counts = np.stack(
+            [np.bincount(np.asarray(ys[k][:int(sizes[k])]),
+                         minlength=num_classes) for k in range(m)])
+    margins = torch.stack([optim.class_margins(c) for c in class_counts]
+                          ).to(dev) if use_ldam else None
+    step, _ = make_grouped_local_update(spec, stacked, lr=lr,
+                                        momentum=momentum,
+                                        use_ldam=use_ldam, margins=margins)
+    xs = torch.as_tensor(np.asarray(xs)).to(dev)
+    ys = torch.as_tensor(np.asarray(ys)).to(dev)
+    idx = torch.as_tensor(plan.idx, dtype=torch.long).to(dev)
+    mask = torch.as_tensor(plan.mask).to(dev)
+    rows = torch.arange(m, device=dev)[:, None]
+    losses = []
+    for s in range(plan.steps):
+        full = bool(plan.mask[:, s].all())
+        keep = plan.mask[:, s].any(-1)
+        bi = idx[:, s]
+        losses.append(step(xs[rows, bi], ys[rows, bi],
+                           None if full else mask[:, s],
+                           None if keep.all() else keep))
+    loss = torch.stack(losses) if losses else torch.zeros((0, m),
+                                                          device=dev)
+    return stacked, {"loss": loss, "class_counts": class_counts}

@@ -1,16 +1,22 @@
 """FedAvg aggregation, the paper's primary baseline: θ_S = Σ_k (n_k/n) θ^k
-over every parameter and BN statistic (the flat ``fedavg`` of
-``repro/fl/fedavg.py:171``). Homogeneous clients only."""
+over every parameter and BN statistic (``repro/fl/fedavg.py``).
+Homogeneous clients only.
+
+``fedavg_stacked`` is one weighted sum over a stacked group's client
+axis (the flat mode; the tree mode is not ported, ROADMAP.md, Queue 1
+item 11). ``fedavg`` reduces a grouped federation's stack
+(``fl/federation.ClientList``) directly and stacks the clients' models
+once otherwise.
+"""
 from __future__ import annotations
 
-import copy
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.ensemble import Client
-from repro_torch.models.cnn import CNN
+from repro_torch.models.cnn import CNN, cnn_view, stack_models
 
 
 def _check_n_data(n_data) -> np.ndarray:
@@ -27,6 +33,43 @@ def _check_n_data(n_data) -> np.ndarray:
 
 
 @torch.no_grad()
+def fedavg_stacked(stacked: dict, n_data, survivor_mask=None, *,
+                   mode: str = "flat") -> dict:
+    """FedAvg over a stacked group (``repro/fl/fedavg.py:126-168``): new
+    tensors, Σ_k w_k θ^k in float32 with w_k = n_k / n, no client axis.
+
+    ``survivor_mask`` (a host bool array over the clients) leaves the
+    masked-out clients out of the sum and of the weights' normalization
+    (their n_data need not be positive)."""
+    if mode == "tree":
+        raise NotImplementedError("fedavg mode='tree' is not ported yet "
+                                  "(ROADMAP.md, Queue 1 item 11)")
+    if mode != "flat":
+        raise ValueError(f"unknown fedavg mode {mode!r} "
+                         "(expected 'flat' or 'tree')")
+    rows = None
+    if survivor_mask is not None:
+        mask = np.asarray(survivor_mask, bool)
+        n_all = np.asarray(n_data)
+        if mask.shape != (n_all.shape[0],):
+            raise ValueError(f"survivor_mask shape {mask.shape} != "
+                             f"({n_all.shape[0]},)")
+        if not mask.any():
+            raise ValueError("FedAvg over zero surviving clients")
+        rows = np.nonzero(mask)[0]
+        n_data = n_all[rows]
+    n = _check_n_data(n_data)
+    out = {}
+    for name, leaf in stacked.items():
+        if rows is not None:
+            leaf = leaf[torch.as_tensor(rows, device=leaf.device)]
+        w = torch.tensor(n / n.sum(), dtype=torch.float32,
+                         device=leaf.device).view((-1,) + (1,) * (
+                             leaf.dim() - 1))
+        out[name] = (w * leaf.float()).sum(0).to(leaf.dtype)
+    return out
+
+
 def fedavg(clients: Sequence[Client]) -> CNN:
     """A new model holding the n_data-weighted average of the clients'
     parameters and BN running statistics, on the clients' device."""
@@ -34,13 +77,13 @@ def fedavg(clients: Sequence[Client]) -> CNN:
     if len(kinds) != 1:
         raise ValueError("FedAvg requires homogeneous client models; got "
                          f"{[c.spec.kind for c in clients]}")
-    n = _check_n_data([c.n_data for c in clients])
-    out = copy.deepcopy(clients[0].model)
-    states = [c.model.state_dict() for c in clients]
-    w = torch.tensor(n / n.sum(), dtype=torch.float32,
-                     device=next(out.parameters()).device)
-    for name, leaf in out.state_dict().items():
-        stacked = torch.stack([s[name].float() for s in states])
-        wf = w.view((-1,) + (1,) * leaf.dim())
-        leaf.copy_((wf * stacked).sum(0))
-    return out
+    n_data = [c.n_data for c in clients]
+    grouped = getattr(clients, "grouped", None)
+    if grouped is not None and len(grouped[0]) == 1 \
+            and grouped[0][0][1] == len(clients) and len(clients) > 1:
+        stacked = grouped[1][0]         # the engine's own stack
+    else:
+        _check_n_data(n_data)
+        stacked = stack_models([c.model for c in clients])
+    avg = fedavg_stacked(stacked, n_data)
+    return cnn_view(clients[0].spec, avg)

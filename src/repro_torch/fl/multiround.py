@@ -6,9 +6,13 @@ r: every client starts from a copy of the round-(r−1) global model (round
 0: its own init), trains ``local_epochs`` on the minibatch stream seeded
 ``seed·1000 + r·100 + i`` and uploads once; the server runs DENSE with
 the student warm-started from the previous global model and broadcasts
-the result, except after the last round. The per-client engine and the
-python epoch driver run both phases, so on a CUDA device every DENSE step
-of every round runs the K1 pair.
+the result, except after the last round. Each round's local phase runs
+on the engine the execution policy picks: the grouped engine
+(``fl/federation.train_clients_grouped``, the default: the n clients as
+one stacked network, the stack handed on to the server's teacher as it
+is) or the per-client loop (``client_loop_mode="python"``). The python
+epoch driver runs the server, so on a CUDA device every DENSE step of
+every round runs the K1 pair.
 
 Upload faults and delayed uploads (``scfg.fault_plan``,
 ``scfg.dropout_frac``) are not ported yet.
@@ -25,6 +29,7 @@ from repro_torch.core.dense import train_dense_server
 from repro_torch.core.ensemble import Client
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.fl.client import local_update
+from repro_torch.fl.federation import train_clients_grouped
 from repro_torch.fl.protocol import CommLedger, init_model, param_bytes
 from repro_torch.models.cnn import CNN, CNNSpec, cnn_init
 
@@ -40,7 +45,8 @@ def dense_multi_round(scfg, data, *, rounds: int,
 
     The data is split as ``build_federation`` splits it (Dirichlet,
     ``seed``). Client i's round-0 model is ``init_models[i]`` (trained in
-    place) when given, else drawn from a CPU ``torch.Generator`` seeded
+    place by the per-client engine, copied by the grouped one) when
+    given, else drawn from a CPU ``torch.Generator`` seeded
     ``seed``, which then draws each round's generator (and round 0's
     student); the latents come from one device generator seeded ``seed``
     across rounds. ``server_inputs(r) -> dict`` replaces those for round
@@ -49,7 +55,7 @@ def dense_multi_round(scfg, data, *, rounds: int,
     model): the tests inject the reference's round-r draws there.
     """
     dev = resolve_device(device)
-    resolve_exec_policy(scfg, device=dev)      # refuses unported engines
+    pol = resolve_exec_policy(scfg, device=dev)  # refuses unported engines
     if scfg.fault_plan or scfg.dropout_frac:
         raise NotImplementedError(
             "upload faults and delayed uploads in multi-round DENSE are "
@@ -64,22 +70,37 @@ def dense_multi_round(scfg, data, *, rounds: int,
     if init_models is None:
         init_models = [cnn_init(spec, generator=init_gen, device=dev)
                        for _ in parts]
+    shards = [(x[idx], y[idx]) for idx in parts]
     global_model, accs = None, []
     for r in range(rounds):
-        clients = []
-        for i, idx in enumerate(parts):
-            model = init_model(init_models, i, spec, dev) \
-                if global_model is None else copy.deepcopy(global_model)
-            model, info = local_update(
-                model, x[idx], y[idx], epochs=scfg.local_epochs,
+        seeds = [seed * 1000 + r * 100 + i for i in range(len(parts))]
+        tag = f"round{r}-model-upload"
+        if pol.client_loop == "grouped":
+            inits = [init_model(init_models, i, spec, dev)
+                     for i in range(len(parts))] if global_model is None \
+                else [global_model] * len(parts)
+            clients = train_clients_grouped(
+                [spec] * len(parts), shards, epochs=scfg.local_epochs,
                 lr=scfg.local_lr, momentum=scfg.local_momentum,
-                batch_size=scfg.batch_size, num_classes=scfg.num_classes,
-                seed=seed * 1000 + r * 100 + i)
-            if ledger is not None:
-                ledger.record("up", f"client{i}", param_bytes(model),
-                              f"round{r}-model-upload")
-            clients.append(Client(spec=spec, model=model, n_data=len(idx),
-                                  class_counts=info["class_counts"]))
+                batch_size=scfg.batch_size, use_ldam=False,
+                num_classes=scfg.num_classes, seeds=seeds,
+                init_models=inits, ledger=ledger, upload_tag=tag)
+        else:
+            clients = []
+            for i, (xi, yi) in enumerate(shards):
+                model = init_model(init_models, i, spec, dev) \
+                    if global_model is None else copy.deepcopy(global_model)
+                model, info = local_update(
+                    model, xi, yi, epochs=scfg.local_epochs,
+                    lr=scfg.local_lr, momentum=scfg.local_momentum,
+                    batch_size=scfg.batch_size,
+                    num_classes=scfg.num_classes, seed=seeds[i])
+                if ledger is not None:
+                    ledger.record("up", f"client{i}", param_bytes(model),
+                                  tag)
+                clients.append(Client(spec=spec, model=model,
+                                      n_data=len(yi),
+                                      class_counts=info["class_counts"]))
         inputs = dict(server_inputs(r)) if server_inputs is not None \
             else {"generator": draws, "init_generator": init_gen}
         if global_model is not None:

@@ -4,10 +4,13 @@
 The whole point of one-shot FL is the communication profile: exactly one
 client→server model upload per client and nothing broadcast.
 ``CommLedger`` records every transfer so that a run can show it.
-``build_federation`` is the reference's per-client engine
-(``_build_python_federation``): Dirichlet split, local training, one
-upload. Fault injection, upload admission and the grouped engine are not
-ported yet.
+``build_federation`` does the Dirichlet split, the local training and
+one upload a client, on the LocalUpdate engine the execution policy
+picks (``client_loop``): the grouped engine (``fl/federation.py``, the
+default on both profiles, as in the reference's registry) or the
+per-client loop (``client_loop_mode="python"``, the reference's
+``_build_python_federation``). Fault injection and upload admission are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -92,13 +95,22 @@ def build_federation(scfg, data, *, device="cuda",
 
     Returns (clients, shards) where shards[i] = (x_i, y_i). Client i
     trains on the minibatch stream seeded ``seed + i``. Its initial model
-    is ``init_models[i]`` (trained in place) when given, else drawn from
-    ``generator`` (a CPU ``torch.Generator``, seeded ``seed`` when None).
+    is ``init_models[i]`` when given, else drawn from ``generator`` (a
+    CPU ``torch.Generator``, seeded ``seed`` when None), in client order
+    on both engines. The per-client engine trains a given initial model
+    in place; the grouped engine copies it into its group's stack and
+    returns a ``fl.federation.ClientList`` of views of the stacks.
     """
     dev = resolve_device(device)
-    resolve_exec_policy(scfg, device=dev)      # refuses unported engines
+    pol = resolve_exec_policy(scfg, device=dev)  # refuses unported engines
     if scfg.fault_plan or scfg.dropout_frac:
-        raise NotImplementedError("upload fault injection is not ported yet")
+        raise NotImplementedError("upload fault injection is not ported yet"
+                                  " (ROADMAP.md, Queue 1 item 6)")
+    if pol.client_loop == "grouped":
+        from repro_torch.fl.federation import build_grouped_federation
+        return build_grouped_federation(
+            scfg, data, device=dev, generator=generator, ledger=ledger,
+            seed=seed, init_models=init_models)
     if generator is None:
         generator = torch.Generator().manual_seed(seed)
     x, y = data["train"]

@@ -10,6 +10,12 @@ Only the layouts differ:
   * linear weights: (d_in, d_out) in the reference, (d_out, d_in) here;
   * BatchNorm scale, bias, mean and var, and biases: copied as they are.
 
+A grouped representation (``core/ensemble.stack_grouped``) carries the
+same way with its leading client axis: ``grouped_from_reference`` takes
+the reference's (gspecs, gparams), stacked groups (conv weights
+(m, k, k, I, O) -> (m, O, I, k, k), linear (m, in, out) -> (m, out, in))
+and flat singletons, into the port's, and ``grouped_to_reference`` back.
+
 The token generator (``core/generator.TokGenerator``) names its
 parameters as the reference's tree, whose blocks are a list
 ("blocks.0.mix.w"), and maps onto its ``state_dict`` the same way.
@@ -43,7 +49,8 @@ from repro_torch.configs.backend import resolve_device
 from repro_torch.core.generator import (ImgGenerator, TokGenerator,
                                        img_generator_init,
                                        tok_generator_init)
-from repro_torch.models.cnn import CNN, CNNSpec, cnn_init
+from repro_torch.models.cnn import (CNN, CNNSpec, cnn_init, group_size,
+                                    stack_tensors)
 from repro_torch.models.transformer import hybrid_shape
 
 
@@ -271,3 +278,63 @@ def tok_generator_from_reference(tree, *, seq: int, d_model: int,
 
 def tok_generator_to_reference(gen: TokGenerator):
     return state_to_ref(gen.state_dict())
+
+
+def _spec(spec) -> CNNSpec:
+    """A reference ``CNNSpec`` (or the port's) as the port's."""
+    return CNNSpec(kind=spec.kind, num_classes=spec.num_classes,
+                   in_ch=spec.in_ch, width=spec.width,
+                   image_size=spec.image_size)
+
+
+def _stacked_to_port(key: str, a: np.ndarray) -> np.ndarray:
+    if key.rsplit(".", 1)[-1] == "w":
+        if a.ndim == 5:
+            return a.transpose(0, 4, 3, 1, 2)   # (m,)HWIO -> (m,)OIHW
+        if a.ndim == 3:
+            return a.transpose(0, 2, 1)
+    return a
+
+
+def grouped_from_reference(gspecs, gparams, *, device="cuda"):
+    """The reference's grouped representation (``stack_grouped``: specs
+    with group sizes, stacked trees with a leading client axis, flat
+    singletons) as the port's: stacked groups as dicts of tensors named
+    as ``net.state_dict()``, singletons as ``CNN`` models."""
+    dev = resolve_device(device)
+    specs, params = [], []
+    for (spec, size), tree in zip(gspecs, gparams):
+        spec = _spec(spec)
+        specs.append((spec, int(size)))
+        if size == 1:
+            params.append(cnn_from_ref(tree, spec, device=dev))
+            continue
+        params.append({k: stack_tensors([
+            torch.tensor(np.ascontiguousarray(r), device=dev)
+            for r in _stacked_to_port(k, a)]) for k, a in _flatten(tree)})
+    return tuple(specs), params
+
+
+def grouped_to_reference(gspecs, gparams):
+    """The port's grouped representation as the reference's: (specs with
+    group sizes, numpy trees, stacked with a leading client axis or flat
+    for a singleton)."""
+    params = []
+    for (spec, size), p in zip(gspecs, gparams):
+        if size == 1:
+            params.append(cnn_to_ref(p))
+            continue
+        assert group_size(p) == size
+        rows = [state_to_ref({k: v[j] for k, v in p.items()})
+                for j in range(size)]
+        params.append(_stack_trees(rows))
+    return tuple(gspecs), params
+
+
+def _stack_trees(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_stack_trees([t[i] for t in trees])
+                for i in range(len(trees[0]))]
+    return np.stack(trees)

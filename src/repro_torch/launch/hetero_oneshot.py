@@ -1,7 +1,9 @@
 """Heterogeneous one-shot FL (``examples/hetero_oneshot.py``; paper
 Table 2): every client has a different architecture, so FedAvg is
 impossible, and DENSE distills the mixed ensemble into a server-chosen
-global model.
+global model. The clients train on the default engine, the grouped one;
+with three architectures every group is a singleton, as in the
+reference's example.
 
     PYTHONPATH=src python -m repro_torch.launch.hetero_oneshot [--device cpu]
 

@@ -4,7 +4,10 @@ DENSE.
 Builds a 3-client non-IID federation on procedural image data, trains
 the clients locally, uploads their models once (the single communication
 round), and runs DENSE's two server stages. Compares against one-shot
-FedAvg.
+FedAvg. The three cnn1 clients train on the default engine, the grouped
+one, as one stacked network, which the server's teacher and FedAvg then
+read as it is (pin ``client_loop_mode="python"`` in ``config()`` for the
+per-client loop).
 
     PYTHONPATH=src python -m repro_torch.launch.quickstart [--device cpu]
 

@@ -36,10 +36,10 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
     on the host after every step."""
     if model_parallel != 1:
         raise NotImplementedError("model parallelism is not ported yet "
-                                  "(ROADMAP.md item 15)")
+                                  "(ROADMAP.md, Queue 1 item 12)")
     if ckpt:
         raise NotImplementedError("checkpoints are not ported yet "
-                                  "(ROADMAP.md item 8)")
+                                  "(ROADMAP.md, Queue 1 item 6)")
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     state = ST.make_train_state(cfg, lr=lr, seed=seed, device=dev)

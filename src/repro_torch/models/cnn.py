@@ -18,8 +18,11 @@ Inside, the model works on the NCHW view of the images
 (``x.permute(0, 3, 1, 2)``, channels_last in memory). The fc after the
 flatten of the conv-stack kinds reads features in H, W, C order, as the
 reference's reshape of an NHWC tensor does, so its weights carry over
-unchanged. The grouped and stacked fast paths of the reference are not
-ported; every client runs its own forward.
+unchanged.
+
+The grouped forwards (``cnn_stack_apply_grouped`` in eval mode,
+``cnn_stack_train_grouped`` in train mode) run m same-spec clients as one
+network over a stacked group of weights: see the section below.
 """
 from __future__ import annotations
 
@@ -66,8 +69,9 @@ class ConvBN(nn.Module):
         self.conv = L.Conv(c_in, c_out, ksize, generator=generator)
         self.bn = L.BatchNorm(c_out)
 
-    def forward(self, x, stats, train, stride=1, relu=True):
-        y = self.bn(self.conv(x, stride), train=train, stats=stats)
+    def forward(self, x, stats, train, stride=1, relu=True, mask=None):
+        y = self.bn(self.conv(x, stride), train=train, stats=stats,
+                    sample_mask=mask)
         return F.relu(y) if relu else y
 
 
@@ -86,9 +90,9 @@ class ConvStack(nn.Module):
         self.fc = L.Linear(c_prev * feat * feat, spec.num_classes,
                            generator=generator)
 
-    def forward(self, x, stats, train):
+    def forward(self, x, stats, train, mask=None):
         for layer in self.layers:
-            x = layer(x, stats, train)
+            x = layer(x, stats, train, mask=mask)
             if x.shape[-2] > 1:      # stop pooling at 1x1 (tiny images)
                 # drops an odd last row/column, as the reference's crop
                 x = F.max_pool2d(x, 2)
@@ -105,11 +109,11 @@ class BasicBlock(nn.Module):
         self.proj = ConvBN(c_in, c_out, 1, generator=generator) \
             if stride != 1 or c_in != c_out else None
 
-    def forward(self, x, stats, train):
-        y = self.c1(x, stats, train, stride=self.stride)
-        y = self.c2(y, stats, train, relu=False)
-        sc = x if self.proj is None else \
-            self.proj(x, stats, train, stride=self.stride, relu=False)
+    def forward(self, x, stats, train, mask=None):
+        y = self.c1(x, stats, train, stride=self.stride, mask=mask)
+        y = self.c2(y, stats, train, relu=False, mask=mask)
+        sc = x if self.proj is None else self.proj(
+            x, stats, train, stride=self.stride, relu=False, mask=mask)
         return F.relu(y + sc)
 
 
@@ -135,11 +139,11 @@ class ResNet(nn.Module):
         self.stages = nn.ModuleList(stages)
         self.fc = L.Linear(c_prev, spec.num_classes, generator=generator)
 
-    def forward(self, x, stats, train):
-        x = self.stem(x, stats, train)
+    def forward(self, x, stats, train, mask=None):
+        x = self.stem(x, stats, train, mask=mask)
         for blocks in self.stages:
             for block in blocks:
-                x = block(x, stats, train)
+                x = block(x, stats, train, mask=mask)
         return self.fc(x.mean(dim=(2, 3)))
 
 
@@ -157,9 +161,11 @@ class CNN(nn.Module):
         self.spec = spec
         self.net = net(spec, generator=generator)
 
-    def forward(self, x_nhwc, *, train: bool, with_stats: bool = False):
+    def forward(self, x_nhwc, *, train: bool, with_stats: bool = False,
+                sample_mask: torch.Tensor | None = None):
         stats = [] if with_stats else None
-        logits = self.net(x_nhwc.permute(0, 3, 1, 2), stats, train)
+        logits = self.net(x_nhwc.permute(0, 3, 1, 2), stats, train,
+                          mask=sample_mask)
         return logits, stats
 
 
@@ -175,13 +181,224 @@ def cnn_init(spec: CNNSpec, *, generator: torch.Generator | None = None,
 
 
 def cnn_apply(model: CNN, x: torch.Tensor, *, train: bool,
-              with_stats: bool = True):
+              with_stats: bool = True,
+              sample_mask: torch.Tensor | None = None):
     """x: (B, H, W, C). Returns (logits, bn_stats); bn_stats is None with
     ``with_stats=False``. Train mode uses batch statistics and updates
-    the running statistics in place."""
-    return model(x, train=train, with_stats=with_stats)
+    the running statistics in place. ``sample_mask`` ((B,) bool) marks
+    the valid rows of a padded batch: the batch statistics (the
+    normalization, the running-statistic update and bn_stats) count
+    those rows only; padded rows still get logits, which the loss must
+    mask out."""
+    return model(x, train=train, with_stats=with_stats,
+                 sample_mask=sample_mask)
 
 
 def cnn_logits(model: CNN, x: torch.Tensor) -> torch.Tensor:
     """Eval-mode logits only."""
     return model(x, train=False)[0]
+
+
+# ------------------------------------------- grouped (m-client) forwards --
+#
+# m clients of one spec run as ONE network whose every activation holds
+# the m clients' channels side by side, client-major: (B, m·C, H, W),
+# channels_last in memory. A stacked group is a dict of tensors named as
+# a client's ``net.state_dict()``, each with a leading client axis of m
+# (``stack_models``); a conv weight (m, O, I, k, k) is laid out as
+# (m, O, k, k, I), so its (m·O, I, k, k) view is channels_last too.
+#
+#   * The conv reading a shared input (the eval forward's images) is one
+#     conv with m·O output channels; every other conv is one cuDNN
+#     grouped conv (groups = m), SAME-padded as ``layers.conv2d`` pads.
+#   * BatchNorm is per channel, so it is already per client; its batch
+#     moments are reduced over (B, H, W) and read as (m, C), masked per
+#     client in train mode.
+#   * The fc is one ``torch.baddbmm`` over the client axis, on features
+#     flattened in each client's own H, W, C order.
+#
+# The reference builds its grouped forwards from im2col einsums, because
+# XLA on the CPU lowers grouped-conv gradients badly
+# (``repro/models/cnn.py:404-411``); cuDNN has grouped convs of its own.
+# Of the batched designs timed on an H100 (``scripts/grouped_layouts.py``)
+# channels_last grouped convs were the fastest: NCHW took 1.4x their
+# time, ``torch.func.vmap`` lowers to the same grouped convs.
+
+def stack_tensors(ts) -> torch.Tensor:
+    """Per-client tensors as a new (m, ...) tensor; conv weights (4-D)
+    keep their input channels innermost."""
+    if ts[0].dim() == 4:
+        return torch.stack([t.permute(0, 2, 3, 1) for t in ts]).permute(
+            0, 1, 4, 2, 3)
+    return torch.stack(list(ts))
+
+
+@torch.no_grad()
+def stack_models(models) -> dict:
+    """Same-spec client models as one stacked group: a new tensor a
+    ``net.state_dict()`` entry, with a leading client axis."""
+    states = [m.net.state_dict() for m in models]
+    return {k: stack_tensors([s[k].detach() for s in states])
+            for k in states[0]}
+
+
+def cnn_view(spec: CNNSpec, tensors: dict) -> CNN:
+    """A ``CNN`` whose parameters and buffers are ``tensors`` themselves
+    (named as its ``net.state_dict()``; no copy): ``cnn_view(spec,
+    {k: v[j] ...})`` is client j of a stacked group, and sees every
+    in-place update of the stack."""
+    with torch.device("meta"):
+        model = CNN(spec, generator=None)
+    model.net.load_state_dict(tensors, strict=True, assign=True)
+    return model
+
+
+def client_views(spec: CNNSpec, stacked: dict) -> list:
+    """One ``cnn_view`` per client of a stacked group."""
+    m = group_size(stacked)
+    return [cnn_view(spec, {k: v[j] for k, v in stacked.items()})
+            for j in range(m)]
+
+
+def group_size(stacked: dict) -> int:
+    return next(iter(stacked.values())).shape[0]
+
+
+def is_running_stat(name: str) -> bool:
+    """A BatchNorm running statistic: trained by no optimizer."""
+    return name.endswith((".bn.mean", ".bn.var"))
+
+
+def is_conv_stack(kind: str) -> bool:
+    """The plain conv-stack kinds (cnn1, cnn2, lenet)."""
+    return kind in _CNN_LAYOUT
+
+
+def is_groupable(kind: str) -> bool:
+    """Kinds the grouped forwards take: every kind of the zoo."""
+    return kind in _CNN_LAYOUT or kind in _RESNET_LAYOUT
+
+
+class _Grouped:
+    """One grouped forward's settings and what it records."""
+
+    def __init__(self, stacked, m, mode, sample_mask=None, momentum=0.9,
+                 eps=1e-5, with_stats=True):
+        self.p, self.m, self.mode = stacked, m, mode
+        self.mask, self.momentum, self.eps = sample_mask, momentum, eps
+        self.stats = [] if with_stats else None
+        self.new_stats = {}
+
+    def moments(self, pre):
+        """Per-client per-channel (mean, biased var), each (m, C), of a
+        (B, m·C, H, W) activation; in train mode over the rows that
+        ``sample_mask`` ((m, B)) keeps."""
+        if self.mode != "train" or self.mask is None:
+            mu, var = L.batch_moments(pre)
+            return mu.view(self.m, -1), var.view(self.m, -1)
+        return L.masked_batch_moments(pre, self.mask)
+
+    def cbr(self, name, h, *, groups, stride=1, relu=True):
+        """conv → BN (→ relu) of client layer ``name`` for all m."""
+        p, m, eps = self.p, self.m, self.eps
+        w = p[f"{name}.conv.w"]
+        o = w.shape[1]
+        scale, bias = p[f"{name}.bn.scale"], p[f"{name}.bn.bias"]
+        r_mean, r_var = p[f"{name}.bn.mean"], p[f"{name}.bn.var"]
+        if self.mode == "fold":
+            # eval BN folded into the conv: conv(x, w·s) + t
+            s = scale * torch.rsqrt(r_var + eps)
+            t = bias - r_mean * s
+            wf = (w * s[:, :, None, None, None]).reshape(m * o, *w.shape[2:])
+            y = L.conv2d(h, wf, stride=stride, groups=groups,
+                         bias=t.reshape(-1))
+            return F.relu(y) if relu else y
+        pre = L.conv2d(h, w.reshape(m * o, *w.shape[2:]), stride=stride,
+                       groups=groups)
+        if self.mode == "train" or self.stats is not None:
+            mu, var = self.moments(pre)
+        if self.stats is not None:
+            self.stats.append({"mean": mu, "var": var, "running_mean": r_mean,
+                               "running_var": r_var})
+        if self.mode == "train":
+            mo = self.momentum
+            self.new_stats[f"{name}.bn.mean"] = \
+                (mo * r_mean + (1 - mo) * mu).detach()
+            self.new_stats[f"{name}.bn.var"] = \
+                (mo * r_var + (1 - mo) * var).detach()
+        else:
+            mu, var = r_mean, r_var
+        y = L.normalize(pre, mu.reshape(-1), var.reshape(-1),
+                        scale.reshape(-1), bias.reshape(-1), eps)
+        return F.relu(y) if relu else y
+
+    def fc(self, feat):
+        """feat (m, B, F) -> logits (m, B, K)."""
+        w, b = self.p["fc.w"], self.p["fc.b"]
+        return torch.baddbmm(b[:, None, :].to(feat.dtype), feat,
+                             w.transpose(1, 2).to(feat.dtype))
+
+    def net(self, spec: CNNSpec, h, first_groups: int):
+        m = self.m
+        if spec.kind in _CNN_LAYOUT:
+            for i in range(len(_CNN_LAYOUT[spec.kind])):
+                h = self.cbr(f"layers.{i}", h,
+                             groups=first_groups if i == 0 else m)
+                if h.shape[-2] > 1:          # stop pooling at 1x1
+                    h = F.max_pool2d(h, 2)
+            b, mc, hh, ww = h.shape
+            # each client's features in H, W, C order, as its fc reads them
+            feat = h.view(b, m, mc // m, hh, ww).permute(1, 0, 3, 4, 2)
+            return self.fc(feat.reshape(m, b, -1))
+        bps, _ = _RESNET_LAYOUT[spec.kind]
+        h = self.cbr("stem", h, groups=first_groups)
+        for s, n_blocks in enumerate(bps):
+            for b in range(n_blocks):
+                name = f"stages.{s}.{b}"
+                stride = 2 if (b == 0 and s > 0) else 1
+                y = self.cbr(f"{name}.c1", h, groups=m, stride=stride)
+                y = self.cbr(f"{name}.c2", y, groups=m, relu=False)
+                sc = self.cbr(f"{name}.proj", h, groups=m, stride=stride,
+                              relu=False) \
+                    if f"{name}.proj.conv.w" in self.p else h
+                h = F.relu(y + sc)
+        feat = h.mean(dim=(2, 3))
+        return self.fc(feat.view(feat.shape[0], m, -1).transpose(0, 1))
+
+
+def cnn_stack_apply_grouped(stacked: dict, spec: CNNSpec, x: torch.Tensor,
+                            m: int, *, with_stats: bool = False):
+    """Eval-mode forward of a stacked group of m same-spec clients on
+    shared images x (B, H, W, C) (``repro/models/cnn.py:347-366``).
+
+    Returns (logits (m, B, K), bn_stats): one dict a BatchNorm, in the
+    per-client forward's order, of {"mean", "var", "running_mean",
+    "running_var"} each (m, C). Without stats the list is empty, and the
+    forward folds eval BN into the conv kernels (the reference's
+    ``_fold_bn``), which sums in another order than BN after the conv."""
+    g = _Grouped(stacked, m, "eval" if with_stats else "fold",
+                 with_stats=with_stats)
+    logits = g.net(spec, x.permute(0, 3, 1, 2), first_groups=1)
+    return logits, (g.stats if with_stats else [])
+
+
+def cnn_stack_train_grouped(stacked: dict, spec: CNNSpec, x: torch.Tensor,
+                            sample_mask: torch.Tensor | None = None,
+                            momentum: float = 0.9, eps: float = 1e-5):
+    """Train-mode forward of a stacked group of m same-spec clients, each
+    on its own batch: x (m, B, H, W, C), ``sample_mask`` (m, B) the valid
+    rows of a padded batch (None: all) (``repro/models/cnn.py:394-443``,
+    for every kind, resnet18 included).
+
+    BN normalizes with each client's (masked) batch moments. Returns
+    (logits (m, B, K), new_stats, bn_stats): new_stats maps each
+    ``*.bn.mean`` / ``*.bn.var`` name to the updated running statistics
+    (m, C), as ``layers.BatchNorm`` computes them, detached, for the
+    caller to write back after its optimizer step; the stack itself is
+    not changed."""
+    m, b, hh, ww, c = x.shape
+    g = _Grouped(stacked, m, "train", sample_mask=sample_mask,
+                 momentum=momentum, eps=eps)
+    h = x.permute(1, 2, 3, 0, 4).reshape(b, hh, ww, m * c).permute(0, 3, 1, 2)
+    logits = g.net(spec, h, first_groups=m)
+    return logits, g.new_stats, g.stats

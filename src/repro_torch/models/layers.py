@@ -42,20 +42,46 @@ def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
-    """x: (B, C, H, W); w: (O, C, k, k). XLA ``SAME`` padding."""
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+           groups: int = 1, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (B, C, H, W); w: (O, C / groups, k, k). XLA ``SAME`` padding."""
     k = w.shape[-1]
     ph, pw = _same_pads(x.shape[-2], k, stride), _same_pads(x.shape[-1], k,
                                                            stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
-        return F.conv2d(x, w, stride=stride, padding=(ph[0], pw[0]))
+        return F.conv2d(x, w, bias, stride=stride, padding=(ph[0], pw[0]),
+                        groups=groups)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    return F.conv2d(x, w, stride=stride)
+    return F.conv2d(x, w, bias, stride=stride, groups=groups)
 
 
 def batch_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (mean, biased variance) of a (B, C, H, W) tensor."""
     var, mu = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+    return mu, var
+
+
+def masked_batch_moments(x: torch.Tensor, sample_mask: torch.Tensor):
+    """Per-channel (mean, biased variance) of a (B, C, H, W) tensor over
+    the rows where ``sample_mask`` is True: the moments of the valid
+    sub-batch of a padded ragged minibatch
+    (``repro/models/layers.py:158-171``).
+
+    ``sample_mask`` (B,) bool gives (C,) moments. (m, B) takes x as m
+    clients' activations side by side, client-major over the C channels
+    (the grouped forwards' layout), each client's channels over its own
+    rows, and gives (m, C / m) moments."""
+    b, c, h, w = x.shape
+    mask = sample_mask.reshape(-1, b)
+    m = mask.shape[0]
+    x5 = x.float().view(b, m, c // m, h, w)
+    wt = mask.float().t().reshape(b, m, 1, 1, 1)
+    count = torch.clamp(wt.sum(dim=(0, 2, 3, 4)) * (h * w), min=1.0)[:, None]
+    mu = (x5 * wt).sum(dim=(0, 3, 4)) / count
+    var = ((x5 - mu[None, :, :, None, None]).square() * wt).sum(
+        dim=(0, 3, 4)) / count
+    if sample_mask.dim() == 1:
+        return mu[0], var[0]
     return mu, var
 
 
@@ -110,13 +136,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(c))
         self.momentum, self.eps = momentum, eps
 
-    def forward(self, x, *, train: bool, stats: list | None = None):
+    def forward(self, x, *, train: bool, stats: list | None = None,
+                sample_mask: torch.Tensor | None = None):
         """Train mode normalizes with the batch moments and updates the
         running buffers in place; eval mode uses the running ones.
         ``stats``, when given, gets this layer's batch moments and the
-        running statistics they are held against (L_BN)."""
+        running statistics they are held against (L_BN). ``sample_mask``
+        ((B,) bool) takes the moments over the valid rows only, so that
+        padded rows neither shift the normalization nor reach the
+        running statistics."""
         if train or stats is not None:
-            mu, var = batch_moments(x)
+            mu, var = batch_moments(x) if sample_mask is None \
+                else masked_batch_moments(x, sample_mask)
         if stats is not None:
             # train mode updates the buffers below: record them as they
             # were before this batch, as the reference does

@@ -18,17 +18,24 @@ def class_margins(class_counts, max_margin: float = 0.5) -> torch.Tensor:
     return m * (max_margin / torch.max(m))
 
 
+def ldam_nll(logits: torch.Tensor, labels: torch.Tensor,
+             margins: torch.Tensor, s: float = 30.0) -> torch.Tensor:
+    """Per-row margin-adjusted CE: subtract m_y from the true-class
+    logit, scale by s. logits (..., B, K), labels (..., B), margins
+    (..., K): a leading client axis takes each client's own margins."""
+    onehot = torch.nn.functional.one_hot(
+        labels.long(), logits.shape[-1]).to(logits.dtype)
+    adj = logits - onehot * margins.unsqueeze(-2).to(logits.dtype)
+    logp = torch.log_softmax(s * adj, dim=-1)
+    return -torch.sum(onehot * logp, dim=-1)
+
+
 def ldam_loss(logits: torch.Tensor, labels: torch.Tensor,
               margins: torch.Tensor, s: float = 30.0,
               sample_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Margin-adjusted CE: subtract m_y from the true-class logit, scale
-    by s. ``sample_mask`` ((B,) bool): the mean over valid rows only;
-    None is the plain batch mean."""
-    onehot = torch.nn.functional.one_hot(
-        labels.long(), logits.shape[-1]).to(logits.dtype)
-    adj = logits - onehot * margins[None, :].to(logits.dtype)
-    logp = torch.log_softmax(s * adj, dim=-1)
-    nll = -torch.sum(onehot * logp, dim=-1)
+    """The batch mean of ``ldam_nll``. ``sample_mask`` ((B,) bool): the
+    mean over valid rows only; None is the plain batch mean."""
+    nll = ldam_nll(logits, labels, margins, s)
     if sample_mask is None:
         return torch.mean(nll)
     w = sample_mask.to(nll.dtype)

@@ -13,8 +13,10 @@ and their refusal of misaligned tensors, K3 (CUDA C++: K3f and K3b on
 both routes, the sm90 ones also against their emulated roundings) with
 ragged tails, clamped chunks, groups and an initial state, through ``SSDScan``
 and one mamba train step; the distillation step of DENSE and the
-one-shot baselines on K1 against the plain route. Skips without a CUDA
-card.
+one-shot baselines on K1 against the plain route; the grouped LocalUpdate
+engine and the grouped teacher at resnet18's full width against the
+per-client loop and the looped ensemble, in full float32. Skips without
+a CUDA card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -598,6 +600,107 @@ def test_distill_step_on_k1_matches_the_plain_route(cuda, kind):
     assert out["fused"][0] == pytest.approx(out["ref"][0], rel=1e-4)
     for a, b in zip(out["fused"][1], out["ref"][1], strict=True):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture
+def ieee_fp32(cuda):
+    """Convolutions and matrix products in full float32 (no TF32) for the
+    test, as ``chip_smoke.py``'s ``full_float32`` sets them; restored
+    after."""
+    conv = getattr(torch.backends.cudnn, "conv", None)
+    if conv is None:
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        yield cuda
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+        return
+    saved = (torch.backends.fp32_precision,
+             torch.backends.cuda.matmul.fp32_precision,
+             torch.backends.cudnn.fp32_precision, conv.fp32_precision)
+    torch.backends.fp32_precision = "ieee"
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.fp32_precision = "ieee"
+    conv.fp32_precision = "ieee"
+    yield cuda
+    (torch.backends.fp32_precision, torch.backends.cuda.matmul.fp32_precision,
+     torch.backends.cudnn.fp32_precision, conv.fp32_precision) = saved
+
+
+RESNET18 = dict(kind="resnet18", num_classes=10, width=1.0, image_size=32)
+
+
+def test_grouped_engine_matches_per_client_at_resnet18_width(ieee_fp32):
+    """Two resnet18 clients at full width, ragged shards (300 and 200 at
+    batch 128, one epoch: a partial batch and a padding step): the
+    grouped engine's params and running statistics against the
+    per-client loop's from the same inits, to 1e-3: a few SGD steps
+    amplify float32 roundoff. ``chip_smoke.py``'s grouped_check holds
+    the same limit and reads both sides of it on every run: on an H100
+    the loop itself moves by up to 2.7e-4 when its inits move by one
+    ulp, and a dropped step, lost momentum or counted padding rows read
+    3.0e-3 or more."""
+    import numpy as np
+
+    from repro_torch.data import build_batch_plan, pad_shards
+    from repro_torch.fl import local_update, local_update_grouped
+    from repro_torch.models import CNNSpec, cnn_init, stack_models
+
+    dev = ieee_fp32
+    spec = CNNSpec(**RESNET18)
+    rng = np.random.default_rng(0)
+    shards = [(rng.uniform(-1, 1, (n, 32, 32, 3)).astype(np.float32),
+               rng.integers(0, 10, n)) for n in (300, 200)]
+    init = torch.Generator().manual_seed(0)
+    models = [cnn_init(spec, generator=init, device=dev) for _ in range(2)]
+    stacked = stack_models(models)
+    for model, (x, y), seed in zip(models, shards, (5, 6)):
+        local_update(model, x, y, epochs=1, batch_size=128, seed=seed)
+    xs, ys = pad_shards(shards)
+    plan = build_batch_plan([300, 200], 128, epochs=1, seeds=[5, 6])
+    _, info = local_update_grouped(stacked, spec, xs, ys, plan)
+    torch.cuda.synchronize()
+    assert info["loss"].shape == (3, 2) and float(info["loss"][2, 1]) == 0
+    for j, model in enumerate(models):
+        for name, want in model.net.state_dict().items():
+            torch.testing.assert_close(stacked[name][j].detach(), want,
+                                       rtol=1e-3, atol=1e-3)
+
+
+def test_grouped_teacher_matches_looped_at_resnet18_width(ieee_fp32):
+    """Three resnet18 clients at full width on a generator-sized batch
+    (128, 32, 32, 3): the grouped teacher's logits, L_BN and image
+    gradient with stats, and its folded-BN logits without, against the
+    looped ensemble, to 1e-4 (relative to the largest entry)."""
+    from repro_torch.core import (Client, bn_loss, ensemble_logits,
+                                  grouped_teacher)
+    from repro_torch.models import CNNSpec, cnn_apply, cnn_init
+
+    dev = ieee_fp32
+    spec = CNNSpec(**RESNET18)
+    init = torch.Generator().manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    warm = torch.rand((128, 32, 32, 3), generator=gen, device=dev) * 2 - 1
+    models = [cnn_init(spec, generator=init, device=dev) for _ in range(3)]
+    with torch.no_grad():
+        for model in models:
+            cnn_apply(model, warm, train=True)
+    teacher = grouped_teacher([Client(spec=spec, model=m) for m in models])
+    x0 = torch.rand((128, 32, 32, 3), generator=gen, device=dev) * 2 - 1
+    out = []
+    for fn in (teacher, lambda x, **kw: ensemble_logits(models, x, **kw)):
+        x = x0.clone().requires_grad_(True)
+        avg, stats = fn(x, with_bn_stats=True)
+        l_bn = bn_loss(stats)
+        (grad,) = torch.autograd.grad(avg.square().mean() + l_bn, [x])
+        with torch.no_grad():
+            folded = fn(x0)
+        out.append((avg.detach(), l_bn.detach(), grad, folded))
+    for a, b in zip(out[0], out[1]):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
 
 
 # (B, S, H, P, G, N, chunk): mamba2-130m's heads at a train shape, zamba2's

@@ -39,6 +39,7 @@ assert not bad, bad
 for m in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
           "repro_torch.configs.mamba2_130m", "repro_torch.configs.zamba2_7b",
           "repro_torch.fl.baselines", "repro_torch.fl.multiround",
+          "repro_torch.fl.federation",
           "repro_torch.optim.ldam", "repro_torch.optim.schedules",
           "repro_torch.launch.quickstart",
           "repro_torch.launch.hetero_oneshot"):
@@ -184,8 +185,8 @@ def test_unported_paths_are_refused():
     from repro_torch.core import train_dense_server
     from repro_torch.fl import build_federation, dense_multi_round
 
-    for knob in ({"loop_mode": "fused"}, {"client_loop_mode": "grouped"},
-                 {"teacher_chunk": 4}, {"ensemble_shard_mode": "clients"}):
+    for knob in ({"loop_mode": "fused"}, {"teacher_chunk": 4},
+                 {"ensemble_shard_mode": "clients"}):
         with pytest.raises(NotImplementedError):
             backend.resolve_exec_policy(dataclasses.replace(smoke(), **knob),
                                         device="cpu")

@@ -196,13 +196,35 @@ def test_round_one_warm_starts_from_the_global_model(port_run):
 
 
 @pytest.mark.parametrize("fault", [{"fault_plan": (("drop", 0),)},
-                                   {"dropout_frac": 0.5},
-                                   {"client_loop_mode": "grouped"}])
+                                   {"dropout_frac": 0.5}])
 def test_unported_paths_raise(fault):
     scfg = dataclasses.replace(T_cfg.DenseExperimentConfig(**FIELDS),
                                **fault)
     with pytest.raises(NotImplementedError):
         dense_multi_round(scfg, _data(), rounds=1, device="cpu")
+
+
+def test_grouped_matches_per_client_two_rounds(ref_run):
+    """The grouped local phase (the default engine) against the
+    per-client one, from the same round-0 inits and server draws: the
+    global model after two rounds to 5e-3, as tests/test_federation.py
+    holds the reference's two engines; the same uploads and broadcasts."""
+    out = {}
+    for mode in ("python", "grouped"):
+        scfg = dataclasses.replace(T_cfg.DenseExperimentConfig(**FIELDS),
+                                   client_loop_mode=mode)
+        ledger = CommLedger()
+        model, _, _ = dense_multi_round(
+            scfg, _data(), rounds=ROUNDS, ledger=ledger, seed=SEED,
+            device="cpu",
+            init_models=[interop.cnn_from_ref(p, T_SPEC, device="cpu")
+                         for p in ref_run["client_inits"]],
+            server_inputs=_server_inputs(ref_run))
+        out[mode] = (interop.cnn_to_ref(model), ledger.events)
+    for a, b in zip(jax.tree.leaves(out["grouped"][0]),
+                    jax.tree.leaves(out["python"][0]), strict=True):
+        np.testing.assert_allclose(a, b, rtol=5e-3, atol=5e-3)
+    assert out["grouped"][1] == out["python"][1]
 
 
 def test_default_draws_run_and_repeat():
