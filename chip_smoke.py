@@ -21,7 +21,12 @@ result line is printed:
      plain PyTorch versions, timed with CUDA events beside their bound,
      at the DENSE main path's shape (128, 10), a ragged (1000, 32003), a
      vocabulary-scale (4096, 32768) and the LLM path's (1024, 128256)
-     (B·gen_seq rows of llama's vocabulary), in float32 and bfloat16;
+     (B·gen_seq rows of llama's vocabulary), in float32 and bfloat16, the
+     float32 rows at (128, 10) and (1024, 128256) with their kernels'
+     device time (``torch.profiler``); then both again in float32 at those
+     two shapes on rows holding NaN and ±inf entries and a whole NaN row
+     (what a poisoned epoch hands K1): NaN exactly where the plain version
+     gives NaN, ±inf equal, the finite entries within the tolerance;
   3. K4 (its ``sm90`` route, the split-context kernel and its merge) at
      the serve shape (R 8, Hq 24, Hkv 8, D 128, page 16, M 32, ragged
      seq_lens with 0 and a full table), a D = 32 shape, zamba2-7b's
@@ -80,17 +85,38 @@ result line is printed:
      DENSE+LDAM, two rounds of that for multi-round), the multi-round
      ledger (2 rounds, one broadcast of n_clients models) and the phase's
      peak device memory;
-  9. one server step of a small federation on the card (K1 kernels) and
+  9. fault_round, the fault-tolerant one-shot round on the main path's
+     five trained clients (no second local phase): (a) a NaN upload
+     (client 1) and a dropped one (client 3) through
+     ``apply_upload_faults`` and ``admit_uploads`` leave clients 0, 2
+     and 4, and the ledger 4 delivered, 1 dropped and 1 rejected event
+     and 4 uploads' bytes; (b) a sign flip of client 2 is caught by the
+     leave-one-out cosine screen (``cos_screen=0.0``), and raises under
+     the strict policy and under a quorum of 0.9; (c) the masked teacher
+     equals one stacked from the survivors alone to 1e-6 of its largest
+     logit, and ``fedavg`` over the survivors runs; (d) three server
+     epochs on the admitted clients with epoch 1's latents NaN:
+     ``nan_policy="skip"`` with a checkpoint every epoch (epochs 0 and 2
+     finite), ``"rollback"``, a run killed after epoch 2 and resumed
+     from its checkpoint, and a second uninterrupted skip run: the
+     resumed run and rollback may differ from the skip run by no more
+     than the two uninterrupted runs differ (cuDNN's and PyTorch's
+     deterministic algorithms on, so that is 0), and each run launches
+     K1f and K1b epochs·(t_g + s_steps) times; then the skip guard's
+     cost a step, the steps with and without it in alternating turns,
+     resolved only where it exceeds the spread between turns of one
+     kind, and the phase's peak device memory;
+ 10. one server step of a small federation on the card (K1 kernels) and
      on the CPU (the plain ``ref`` KL) from the same weights and images:
      the losses, their gradient with respect to the images and the
      student's update must agree to 1e-4 (the CPU path is held to the JAX
      package by the tests);
- 10. serve_check: llama3.2-3b at full width (d_model 3072, vocab 128256)
+ 11. serve_check: llama3.2-3b at full width (d_model 3072, vocab 128256)
      with depth cut to 2 layers, float32 without TF32: the paged engine
      (K4) and the dense engine give the same tokens for 6 ragged
      requests in 4 slots, and K4 launches decode steps × layers times,
      every launch on the ``sm90`` route;
- 11. serve, the serving main path: llama3.2-3b at full width and depth,
+ 12. serve, the serving main path: llama3.2-3b at full width and depth,
      bfloat16, random weights from a seeded ``torch.Generator``; 16
      requests (prompts of 64–448 tokens, 32–64 new, max_len 512) through
      8 slots of the paged engine, page 16. Every launch count is zeroed
@@ -98,14 +124,14 @@ result line is printed:
      ``sm90``, the others 0. Then one decode step of 8 running requests under
      ``torch.profiler``: device idle share and the top kernels, with
      K4's share;
- 12. train_check: one train step of llama3.2-3b at full width, 2 layers,
+ 13. train_check: one train step of llama3.2-3b at full width, 2 layers,
      float32: the K2 route (K2f, K2q and K2kv on their float32 ``sm90``
      kernels, the routes printed by kernel) and the plain route agree to
      1e-4;
- 13. dense_llm_check: one generator step and one student step of the
+ 14. dense_llm_check: one generator step and one student step of the
      example's heterogeneous federation (smoke widths) on the card and on
      the CPU agree to 1e-4;
- 14. llm_main_path, the LLM DENSE main path at full width and depth
+ 15. llm_main_path, the LLM DENSE main path at full width and depth
      (``dense_llm_oneshot.full()``: two llama3.2-3b clients, a llama3.2-3b
      student, bfloat16): 3 local train steps a client, the one-shot
      upload, 2 epochs of 3 generator steps and a student step. Every
@@ -115,7 +141,7 @@ result line is printed:
      K1f, K1b), every K2f, K2q and K2kv launch on the ``sm90`` route;
      then one epoch under ``torch.profiler`` with K2's share, each K2
      kernel's time by route;
- 15. K3 (K3f, K3b, CUDA C++) against its plain versions (the chunked formula
+ 16. K3 (K3f, K3b, CUDA C++) against its plain versions (the chunked formula
      in PyTorch and autograd through it): mamba2-130m's train shape (8, 256,
      24 heads, P 64, N 128, chunk 256) in bfloat16, float16 and float32,
      zamba2-7b's prefill (1, 448, 112 heads, P 64, N 64) in bfloat16 and
@@ -139,17 +165,17 @@ result line is printed:
      roundings emulated (``ssd_scan_bwd_chunked_plain``), each over its
      tolerance; a float32 row holds y, the states and all six gradients to
      1e-4 of the plain versions;
- 16. ssm_serve_check: zamba2-7b (7 layers: a super-block of 6 mamba
+ 17. ssm_serve_check: zamba2-7b (7 layers: a super-block of 6 mamba
      blocks and the shared block, and one tail block) and mamba2-130m (2
      layers) at full width, float32: paged ≡ dense engine for 6 requests
      of up to 300 tokens (two chunks, a ragged tail) in 4 slots, K3f once
      a mamba block a prefill and K4 once a shared-block application a
      decode step, both on ``sm90``;
- 17. ssm_serve: zamba2-7b at full width and depth (81 mamba blocks, 13
+ 18. ssm_serve: zamba2-7b at full width and depth (81 mamba blocks, 13
      applications of the shared block, bfloat16), the serve phase's 16
      requests through 8 slots: K3f must read prefills × 81 and K4 decode
      steps × 13, both on ``sm90``; then one profiled decode step;
- 18. ssm_train_check: one zamba2-7b train step at full width, 7 layers,
+ 19. ssm_train_check: one zamba2-7b train step at full width, 7 layers,
      float32, batch 2 × 512 (two chunks): the K3/K2 route and the plain
      route agree to 1e-4 (K3f 2 × 7 with remat and K3b 7, all on
      ``sm90``, K2 on the one shared-block application: K2f, K2q and K2kv
@@ -160,7 +186,7 @@ result line is printed:
      each reports the plain route against itself at half the chunk
      (``plain_half_chunk_vs_plain``), the floor of float32 summation
      order;
- 19. ssm_hybrid_train: zamba2-7b's train step in bfloat16 at full width
+ 20. ssm_hybrid_train: zamba2-7b's train step in bfloat16 at full width
      (d_model 3584, 32/32 heads of 112, P 64, N 64), depth 81 → 13 (two
      super-blocks of 6 mamba blocks, each followed by the shared block,
      and a tail block), batch 2 × 512: the plain route's first step (loss,
@@ -171,7 +197,7 @@ result line is printed:
      ``scripts/hybrid_step_limits.py``); seconds a step, peak memory,
      and one more step under ``torch.profiler`` with K2's and K3's device
      time by route;
- 20. ssm_llm_main_path, the LLM DENSE main path with the ssm family
+ 21. ssm_llm_main_path, the LLM DENSE main path with the ssm family
      (``dense_llm_oneshot.full_ssm()``: two mamba2-130m clients and a
      mamba2-130m student, full width and depth, bfloat16), counted step by
      step as in 14 with K3f and K3b in place of K2, every K3f and K3b
@@ -184,6 +210,7 @@ phase, the ``{"kernels": [...]}`` line, and last the result line
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -204,6 +231,8 @@ BF16_OPS_PER_S = 989e12
 # (R, V); (1024, 128256) is the LLM path's: B·gen_seq rows of llama's vocab
 SHAPES = ((128, 10), (1000, 32003), (4096, 32768), (1024, 128256))
 MAIN_SHAPE = (128, 10)
+# K1's float32 rows whose kernels' device time is read too
+K1_DEVICE_SHAPES = ((128, 10), (1024, 128256))
 # f32: the kernel and its plain version differ only in summation order.
 # bf16 inputs: both upcast the same values and compute in float32, so the
 # float32 outputs (kl, lse) keep 1e-5; the gradients are stored in
@@ -540,6 +569,7 @@ def kernel_phase(torch):
             checks = [compare(torch, a, b, TOL[dname])
                       for a, b in zip((kl, lse_t, lse_s), plain)]
             b_ms, b_by = bound(2 * R * V * isz + 3 * R * 4, 11 * R * V)
+            profiled = dname == "float32" and (R, V) in K1_DEVICE_SHAPES
             rows["fwd"].append({
                 "shape": [R, V], "dtype": dname,
                 "ok": all(c[0] for c in checks),
@@ -548,7 +578,11 @@ def kernel_phase(torch):
                 "ms": cuda_ms(torch, lambda: K.distill_kl_fwd(t, s)),
                 "plain_ms": cuda_ms(torch,
                                     lambda: K.distill_kl_fwd_plain(t, s)),
-                "bound_ms": b_ms, "bound_by": b_by})
+                "bound_ms": b_ms, "bound_by": b_by,
+                **(device_profile(
+                    torch, lambda: K.distill_kl_fwd(t, s),
+                    {"K1f": lambda n: "_kl_fwd_kernel" in n},
+                    label=f"K1f {R}x{V}") if profiled else {})})
 
             for wtg in (True, False):
                 out = K.distill_kl_bwd(t, s, lse_t, lse_s, kl, g,
@@ -572,7 +606,12 @@ def kernel_phase(torch):
                         t, s, lse_t, lse_s, kl, g, with_teacher_grad=wtg)),
                     "plain_ms": cuda_ms(torch, lambda: K.distill_kl_bwd_plain(
                         t, s, lse_t, lse_s, kl, g, with_teacher_grad=wtg)),
-                    "bound_ms": b_ms, "bound_by": b_by})
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    **(device_profile(
+                        torch, lambda: K.distill_kl_bwd(
+                            t, s, lse_t, lse_s, kl, g, with_teacher_grad=wtg),
+                        {"K1b": lambda n: "_kl_bwd_kernel" in n},
+                        label=f"K1b {R}x{V}") if profiled else {})})
             del t, s, g, kl, lse_t, lse_s, plain
             torch.cuda.empty_cache()
     for name, rs in rows.items():
@@ -582,6 +621,90 @@ def kernel_phase(torch):
     if bad:
         fail(f"{len(bad)} kernel checks disagree with the plain versions: "
              f"{bad}")
+    return rows
+
+
+# K1 on rows holding NaN and ±inf (what a poisoned epoch under
+# nan_policy="skip" hands it): at the main path's and the LLM path's
+# shapes, float32
+NONFINITE_SHAPES = ((128, 10), (1024, 128256))
+
+
+def plant_nonfinite(torch, t, s) -> dict:
+    """Put NaN and ±inf into some rows of t and s (in place); returns
+    which, by row."""
+    V = t.shape[1]
+    plan = {1: ("t", 3, float("nan")), 2: ("s", 5, float("nan")),
+            3: ("t", 0, float("inf")), 4: ("t", V - 1, -float("inf")),
+            5: ("s", 7, float("inf")), 6: ("s", V // 2, -float("inf")),
+            7: ("t", None, float("nan"))}
+    for row, (which, col, val) in plan.items():
+        target = t if which == "t" else s
+        if col is None:
+            target[row] = val
+        else:
+            target[row, col] = val
+    return {str(r): f"{w}[{'all' if c is None else c}] = {v}"
+            for r, (w, c, v) in plan.items()}
+
+
+def compare_nonfinite(torch, got, want, tol):
+    """NaN exactly where ``want`` has NaN, ±inf equal, the finite entries
+    within ``tol``: (ok, max abs error over the finite entries)."""
+    got, want = got.float(), want.float()
+    nan_same = bool((torch.isnan(got) == torch.isnan(want)).all())
+    inf = torch.isinf(want) | torch.isinf(got)
+    inf_same = bool((got[inf] == want[inf]).all())
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    ok, err = compare(torch, got[fin], want[fin], tol) if bool(fin.any()) \
+        else (True, 0.0)
+    return nan_same and inf_same and ok, err
+
+
+def k1_nonfinite_phase(torch):
+    """K1f and K1b (both teacher-gradient settings) against their plain
+    versions on rows with NaN and ±inf entries and a whole NaN row."""
+    from repro_torch.kernels import distill_kl as K
+
+    rows = []
+    for R, V in NONFINITE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(R + V + 1)
+        t = torch.randn(R, V, device="cuda", generator=gen) * 3
+        s = torch.randn(R, V, device="cuda", generator=gen) * 3
+        g = torch.rand(R, device="cuda", generator=gen)
+        planted = plant_nonfinite(torch, t, s)
+        fwd = K.distill_kl_fwd(t, s)
+        torch.cuda.synchronize()
+        plain = K.distill_kl_fwd_plain(t, s)
+        checks = [compare_nonfinite(torch, a, b, TOL["float32"])
+                  for a, b in zip(fwd, plain)]
+        rows.append({"name": "distill_kl_fwd", "shape": [R, V],
+                     "dtype": "float32", "planted": planted,
+                     "ok": all(c[0] for c in checks),
+                     "max_abs_err_finite": max(c[1] for c in checks),
+                     "nan_rows": int(torch.isnan(plain[0]).sum()),
+                     "tol": TOL["float32"]})
+        kl, lse_t, lse_s = plain
+        for wtg in (True, False):
+            out = K.distill_kl_bwd(t, s, lse_t, lse_s, kl, g,
+                                   with_teacher_grad=wtg)
+            torch.cuda.synchronize()
+            want = K.distill_kl_bwd_plain(t, s, lse_t, lse_s, kl, g,
+                                          with_teacher_grad=wtg)
+            checks = [compare_nonfinite(torch, a, b, TOL_GRAD["float32"])
+                      for a, b in zip(out, want) if b is not None]
+            rows.append({"name": "distill_kl_bwd", "shape": [R, V],
+                         "dtype": "float32", "with_teacher_grad": wtg,
+                         "ok": all(c[0] for c in checks),
+                         "max_abs_err_finite": max(c[1] for c in checks),
+                         "tol": TOL_GRAD["float32"]})
+        del t, s, g, fwd, plain, kl, lse_t, lse_s
+        torch.cuda.empty_cache()
+    for r in rows:
+        emit({"kernel_check": {**r, "nonfinite": True}})
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"K1 on non-finite rows disagrees with its plain version: {bad}")
     return rows
 
 
@@ -605,6 +728,10 @@ def timed(torch, dev, fn):
     out = fn()
     sync(torch, dev)
     return out, time.perf_counter() - t0
+
+
+# main_path's seconds, which fault_round sets its own beside
+MAIN_PATH_SECONDS: dict = {}
 
 
 def main_path(torch, scfg, dev="cuda"):
@@ -648,6 +775,8 @@ def main_path(torch, scfg, dev="cuda"):
     acc_avg = evaluate(avg, xt, yt)
     if not all(0.0 <= a <= 1.0 for a in acc_clients + [acc_avg, acc_dense]):
         fail("accuracy out of [0, 1]")
+    MAIN_PATH_SECONDS.update(build_federation=t_fed,
+                             dense_per_epoch=t_dense / scfg.epochs)
     emit({"main_path": {
         "client_loop": client_loop,
         "groups": [[spec.kind, n] for spec, n in clients.grouped[0]],
@@ -1026,6 +1155,277 @@ def paper_tables(torch, scfg, clients, dev="cuda"):
                          "nz and t_g"}}})
     return {name: {k: r[k] for k in ("distill_kl_fwd", "distill_kl_bwd")}
             for name, r in launches.items()}
+
+
+# ---------------------------------------------------------- fault round --
+
+FAULT_EPOCHS = 3
+FAULT_POISON = (1,)
+# the masked teacher against one stacked from the survivors alone: the
+# same rows in the same layout, so the same convolutions (1e-6 of the
+# largest logit)
+FAULT_TEACHER_TOL = 1e-6
+# the skip guard's cost: this many steps a turn, in this many turns with
+# the guard and as many without, alternating
+FAULT_GUARD_STEPS = 20
+FAULT_GUARD_TURNS = 4
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """cuDNN's deterministic algorithms and PyTorch's, warning (not
+    raising) where an operation has none, for the runs that are held to
+    each other; the flags as they were afterwards. Yields the list the
+    warnings' messages go to."""
+    import warnings
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    seen: list = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield seen
+        seen.extend(sorted({str(w.message)[:200] for w in caught}))
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.use_deterministic_algorithms(flags[1], warn_only=flags[2])
+
+
+def _max_diff(torch, a: list, b: list) -> float:
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b, strict=True))
+
+
+def _server_tensors(student, gen) -> list:
+    return [v.detach().clone() for m in (student, gen)
+            for v in m.state_dict().values()]
+
+
+def fault_round(torch, scfg, clients, dev="cuda"):
+    """The fault-tolerant one-shot round on the main path's five trained
+    clients (no second local phase), through the entry points: upload
+    faults (``fl.faults.apply_upload_faults``), admission
+    (``fl.protocol.admit_uploads``), the masked teacher and FedAvg, and
+    ``train_dense_server`` under ``nan_policy`` skip and rollback with a
+    poisoned epoch and server checkpoints (module docstring, phase 9).
+    Fails unless (a)-(d) hold. Returns each DENSE run's K1 launches."""
+    import tempfile
+
+    from repro_torch.core import (grouped_teacher, img_generator_init,
+                                  make_dense_steps, train_dense_server)
+    from repro_torch.fl import (CommLedger, QuorumError, UploadError,
+                                admit_uploads, apply_upload_faults,
+                                build_fault_plan, fedavg, param_bytes)
+    from repro_torch.fl.faults import fault_seed
+    from repro_torch.models import CNNSpec, cnn_init
+    from repro_torch import optim
+
+    on_card = torch.device(dev).type == "cuda"
+    tag = "round0-model-upload"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    out = {}
+
+    def boundary(fscfg, ledger=None):
+        plan = build_fault_plan(fscfg)
+        return apply_upload_faults(clients, plan,
+                                   seed=fault_seed(fscfg, 0), ledger=ledger,
+                                   upload_tag=tag)
+
+    # (a) a NaN upload and a dropped one, quarantined
+    qscfg = dataclasses.replace(scfg, fault_plan=((1, "nan"), (3, "drop")))
+    ledger = CommLedger()
+    (faulted, arrived, _), t_faults = timed(
+        torch, dev, lambda: boundary(qscfg, ledger))
+    admitted, t_admit = timed(torch, dev, lambda: admit_uploads(
+        faulted, arrived=arrived, scfg=qscfg, ledger=ledger,
+        upload_tag=tag))
+    kinds = {k: len(ledger.kinds(k)) for k in ("delivered", "dropped",
+                                               "delayed", "rejected")}
+    one = param_bytes(clients[0].model)
+    if admitted.survivor_mask.tolist() != [True, False, True, False, True] \
+            or set(admitted.quarantined) != {1, 3}:
+        fail(f"fault_round (a): quarantined {admitted.quarantined}, "
+             "expected clients 1 (nan) and 3 (drop)")
+    if kinds != {"delivered": 4, "dropped": 1, "delayed": 0,
+                 "rejected": 1} or ledger.uplink_bytes != 4 * one:
+        fail(f"fault_round (a): ledger {kinds}, {ledger.uplink_bytes} B up, "
+             f"expected 4 delivered, 1 dropped, 1 rejected and {4 * one} B")
+    out["quarantine"] = {
+        "quarantined": {str(k): v for k, v in admitted.quarantined.items()},
+        "ledger_kinds": kinds, "uplink_bytes": ledger.uplink_bytes,
+        "client_bytes": one, "seconds": {"faults": t_faults,
+                                         "admission": t_admit}}
+
+    # (b) a sign flip: the direction screen, strict and the quorum
+    bscfg = dataclasses.replace(scfg, fault_plan=((2, "signflip"),),
+                                cos_screen=0.0)
+    flipped, arrived_b, _ = boundary(bscfg)
+    screened, t_screen = timed(torch, dev, lambda: admit_uploads(
+        flipped, arrived=arrived_b, scfg=bscfg))
+    if set(screened.quarantined) != {2} or \
+            "direction outlier" not in screened.quarantined[2]:
+        fail(f"fault_round (b): the cosine screen quarantined "
+             f"{screened.quarantined}, expected client 2's sign flip")
+    raised = {}
+    for name, kw, err in (("strict", {"upload_policy": "strict"},
+                           UploadError),
+                          ("quorum_0.9", {"quorum": 0.9}, QuorumError)):
+        try:
+            admit_uploads(flipped, arrived=arrived_b, scfg=bscfg, **kw)
+        except err as e:
+            raised[name] = f"{type(e).__name__}: {e}"[:160]
+        else:
+            fail(f"fault_round (b): {name} admitted the sign flip")
+    out["direction_screen"] = {"quarantined": screened.quarantined[2],
+                               "raised": raised, "seconds": t_screen}
+    del flipped, screened
+
+    # (c) the masked teacher and FedAvg over the survivors
+    init = torch.Generator().manual_seed(11)
+    gen = img_generator_init(nz=scfg.nz, img_size=scfg.image_size,
+                             out_ch=scfg.in_ch, generator=init, device=dev)
+    z = torch.randn((scfg.synth_batch, scfg.nz), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(12))
+    with torch.no_grad():
+        x = gen(z)
+        masked = grouped_teacher(admitted)(x)
+        alone = grouped_teacher([clients[i] for i in (0, 2, 4)])(x)
+    err = float((masked - alone).abs().max() / alone.abs().max())
+    if not err <= FAULT_TEACHER_TOL:
+        fail(f"fault_round (c): the masked teacher is {err} of its largest "
+             f"logit off the survivors' own, limit {FAULT_TEACHER_TOL}")
+    avg, t_avg = timed(torch, dev, lambda: fedavg(admitted))
+    if not all(bool(torch.isfinite(v).all())
+               for v in avg.state_dict().values()):
+        fail("fault_round (c): fedavg over the survivors is not finite")
+    out["masked_consumers"] = {"teacher_rel_err": err,
+                               "teacher_tol": FAULT_TEACHER_TOL,
+                               "fedavg_seconds": t_avg}
+    del avg, masked, alone, x, gen
+
+    # (d) skip, rollback, checkpoints and resume, on the admitted clients
+    each = scfg.t_g + scfg.s_steps
+    base = dataclasses.replace(scfg, epochs=FAULT_EPOCHS)
+    runs, launches, losses = {}, {}, {}
+    work = os.path.join(ROOT, "build")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        def run(name, policy, ckpt=None, stop=0):
+            fscfg = dataclasses.replace(
+                base, nan_policy=policy, checkpoint_every=1 if ckpt else 0,
+                checkpoint_path=os.path.join(tmp, ckpt) if ckpt else "")
+            zero_counts()
+            (student, gen, hist), secs = timed(
+                torch, dev, lambda: train_dense_server(
+                    admitted, fscfg, device=dev,
+                    _poison_epochs=FAULT_POISON, _stop_after_epoch=stop))
+            got = read_counts()
+            n = len(hist.gen_loss)
+            launches[name] = {k: got[k] for k in ("distill_kl_fwd",
+                                                  "distill_kl_bwd")}
+            if on_card and got != expected(distill_kl_fwd=n * each,
+                                           distill_kl_bwd=n * each):
+                fail(f"fault_round (d): {name} launched {got} over {n} "
+                     f"epochs, expected {n * each} of each K1 kernel")
+            losses[name] = {"gen_loss": hist.gen_loss,
+                            "dis_loss": hist.dis_loss,
+                            "seconds": secs, "seconds_per_epoch": secs / n}
+            runs[name] = _server_tensors(student, gen)
+
+        with deterministic(torch) as nondeterministic:
+            run("skip", "skip", ckpt="uninterrupted")
+            run("rollback", "rollback")
+            run("stopped", "skip", ckpt="killed", stop=2)
+            run("resumed", "skip", ckpt="killed")
+            run("skip_again", "skip")
+    # epochs 0 and 2 finite and the poisoned epoch 1 not; the resumed run
+    # goes on from epoch 1
+    for name, first in (("skip", 0), ("rollback", 0), ("skip_again", 0),
+                        ("resumed", 1)):
+        gl, dl = losses[name]["gen_loss"], losses[name]["dis_loss"]
+        good = [e - first for e in (0, 2) if e >= first]
+        if len(gl) != FAULT_EPOCHS - first \
+                or not finite([gl[i] for i in good] + [dl[i] for i in good]) \
+                or finite([gl[1 - first]]) or finite([dl[1 - first]]):
+            fail(f"fault_round (d): {name}'s losses {gl}, {dl} over epochs "
+                 f"{first}-{FAULT_EPOCHS - 1}: epochs 0 and 2 must be "
+                 "finite, the poisoned epoch 1 not")
+    for name, tensors in runs.items():
+        if not all(bool(torch.isfinite(t).all()) for t in tensors):
+            fail(f"fault_round (d): {name}'s student or generator is not "
+                 "finite")
+    spread = _max_diff(torch, runs["skip"], runs["skip_again"])
+    resume = _max_diff(torch, runs["skip"], runs["resumed"])
+    rollback = _max_diff(torch, runs["skip"], runs["rollback"])
+    if not (resume <= spread and rollback <= spread):
+        fail(f"fault_round (d): resumed run {resume} and rollback {rollback}"
+             f" from the uninterrupted skip run, beyond the spread of two "
+             f"uninterrupted runs, {spread}")
+    out["server"] = {"epochs": FAULT_EPOCHS, "poisoned": list(FAULT_POISON),
+                     "runs": losses, "spread_two_uninterrupted": spread,
+                     "resumed_vs_uninterrupted": resume,
+                     "rollback_vs_skip": rollback,
+                     "deterministic": {"cudnn": True, "algorithms": True,
+                                       "warned": nondeterministic},
+                     "main_path_seconds_per_epoch":
+                         MAIN_PATH_SECONDS.get("dense_per_epoch")}
+    del runs
+
+    # the guard's cost: the same steps with the guard on and off, in turns
+    spec = CNNSpec(kind=scfg.global_kind, num_classes=scfg.num_classes,
+                   in_ch=scfg.in_ch, width=scfg.width,
+                   image_size=scfg.image_size)
+    teacher = grouped_teacher(admitted)
+    y = torch.randint(0, scfg.num_classes, (scfg.synth_batch,), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(13))
+    per_step = {}
+    for guard in (False, True) * FAULT_GUARD_TURNS:
+        gen = img_generator_init(nz=scfg.nz, img_size=scfg.image_size,
+                                 out_ch=scfg.in_ch,
+                                 generator=torch.Generator().manual_seed(14),
+                                 device=dev)
+        student = cnn_init(spec, generator=torch.Generator().manual_seed(15),
+                           device=dev)
+        gen_step, student_step = make_dense_steps(
+            admitted, scfg, device=dev, teacher=teacher, nan_guard=guard)
+        g_opt = optim.adam(list(gen.parameters()), scfg.g_lr)
+        s_opt = optim.sgd(list(student.parameters()), scfg.s_lr,
+                          momentum=scfg.s_momentum)
+        gen_step(gen, g_opt, student, z, y)            # warm-up
+        student_step(student, s_opt, gen, z)
+        _, t_g = timed(torch, dev, lambda: [
+            gen_step(gen, g_opt, student, z, y)
+            for _ in range(FAULT_GUARD_STEPS)])
+        _, t_s = timed(torch, dev, lambda: [
+            student_step(student, s_opt, gen, z)
+            for _ in range(FAULT_GUARD_STEPS)])
+        key = "guarded" if guard else "unguarded"
+        per_step.setdefault(key, []).append(
+            {"gen_step_ms": t_g / FAULT_GUARD_STEPS * 1e3,
+             "student_step_ms": t_s / FAULT_GUARD_STEPS * 1e3})
+    cost = {"per_step": per_step, "steps_each": FAULT_GUARD_STEPS,
+            "turns_each": FAULT_GUARD_TURNS}
+    for step in ("gen_step_ms", "student_step_ms"):
+        turns = {k: [t[step] for t in v] for k, v in per_step.items()}
+        diff = statistics.median(turns["guarded"]) \
+            - statistics.median(turns["unguarded"])
+        # the cost is resolved only where it exceeds how far the turns of
+        # one kind spread
+        spread = max(max(v) - min(v) for v in turns.values())
+        cost[step] = {"guarded_minus_unguarded": diff,
+                      "spread_between_turns": spread,
+                      "resolved": abs(diff) > spread}
+    out["guard_cost"] = cost
+    out["seconds_total"] = time.perf_counter() - t_phase
+    out["peak_mem_gib"] = _peak_gib(torch) if on_card else None
+    emit({"fault_round": out})
+    return launches
 
 
 # -------------------------------------------------------------- profile --
@@ -2847,6 +3247,7 @@ def main() -> None:
     from repro_torch.launch import dense_llm_oneshot as ONE
 
     rows = kernel_phase(torch)
+    nonfinite_rows = k1_nonfinite_phase(torch)
     k4_rows = k4_phase(torch)
     k2_rows = k2_phase(torch)
     scfg = dataclasses.replace(CONFIG, local_epochs=1, epochs=2)
@@ -2865,6 +3266,7 @@ def main() -> None:
     grouped_check(torch, scfg)
     profile_epoch(torch, scfg, clients)
     paper_launches = paper_tables(torch, scfg, clients)
+    fault_launches = fault_round(torch, scfg, clients)
     del clients
     step_agreement(torch)
     serve_check(torch)
@@ -2901,12 +3303,17 @@ def main() -> None:
                 "launches_by_path": {
                     "main_path": launches[name],
                     "paper_tables": {run: c[name] for run, c in
-                                     paper_launches.items()}},
+                                     paper_launches.items()},
+                    "fault_round": {run: c[name] for run, c in
+                                    fault_launches.items()}},
                 "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+                "device_ms": main.get("device_ms"),
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": None,
                 "shape": list(MAIN_SHAPE), "dtype": "float32",
-                "by_shape": rs}
+                "by_shape": rs,
+                "nonfinite_rows": [r for r in nonfinite_rows
+                                   if r["name"] == name]}
 
     R, hq, hkv, d, page, m = K4_SERVE_SHAPE
     k4 = next(r for r in k4_rows if r["dtype"] == "bfloat16"

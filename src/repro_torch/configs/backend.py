@@ -50,6 +50,10 @@ _PORTED = {"loop_mode": (None, "python"),
            "ensemble_shard_mode": (None, "none"), "teacher_chunk": (None, 0),
            "plan_bucketing": (None, "off"), "stack_chunk": (None, 0),
            "fedavg_mode": (None, "flat")}
+# ... and the item of ROADMAP.md's Queue 1 that ports each
+_QUEUE_ITEM = {"loop_mode": 7, "ensemble_shard_mode": 12,
+               "teacher_chunk": 11, "plan_bucketing": 11, "stack_chunk": 11,
+               "fedavg_mode": 11}
 
 
 def resolve_device(device) -> torch.device:
@@ -109,7 +113,8 @@ def resolve_exec_policy(scfg=None, *, device="cuda") -> ExecPolicy:
     for knob, ported in _PORTED.items():
         if getattr(scfg, knob, None) not in ported:
             raise NotImplementedError(
-                f"{knob}={getattr(scfg, knob)!r} is not ported yet; the "
+                f"{knob}={getattr(scfg, knob)!r} is not ported yet "
+                f"(ROADMAP.md, Queue 1 item {_QUEUE_ITEM[knob]}); the "
                 f"port runs {knob}={ported[-1]!r}")
     backend = resolve_device(device).type
     prof = _PROFILES[backend]

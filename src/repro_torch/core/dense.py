@@ -16,9 +16,18 @@ through the mode the execution policy resolves (``configs/backend.py``):
 on a CUDA device the K1 kernel pair, with the teacher gradient on in the
 generator step (L_div) and off in the student step (L_dis).
 
+Self-healing and resume (DESIGN.md §10), as the reference's python
+driver has them: ``scfg.nan_policy`` ``"raise"`` (a non-finite loss
+stops the run at the end of its epoch), ``"skip"`` (each step guards its
+own update on the device: a step whose loss or gradient norm is not
+finite changes no parameter, optimizer state or BN running statistic)
+and ``"rollback"`` (a bad epoch is undone from a snapshot of the last
+good one); ``scfg.checkpoint_every`` / ``checkpoint_path`` save the full
+server state every N epochs and restore it on entry.
+
 Not ported yet, and refused with ``NotImplementedError``: the fused
-(device-resident) epoch driver, checkpoints, ``nan_policy`` skip and
-rollback, and the chunked teacher.
+(device-resident) epoch driver (ROADMAP.md, Queue 1 item 7) and the
+chunked teacher (item 11).
 """
 from __future__ import annotations
 
@@ -29,6 +38,8 @@ import numpy as np
 import torch
 
 from repro_torch import optim
+from repro_torch.checkpoint import (checkpoint_exists, restore_checkpoint,
+                                    save_checkpoint)
 from repro_torch.configs.backend import resolve_device, resolve_exec_policy
 from repro_torch.core import losses as LS
 from repro_torch.core.ensemble import Client, grouped_teacher
@@ -44,21 +55,27 @@ class DenseHistory:
     acc: list = field(default_factory=list)
 
 
-def _check_ported(scfg) -> None:
+NAN_POLICIES = ("raise", "skip", "rollback")
+
+
+def _check_nan_policy(scfg) -> str:
     nan_policy = getattr(scfg, "nan_policy", "raise")
-    if nan_policy in ("skip", "rollback"):
-        raise NotImplementedError(f"nan_policy={nan_policy!r} is not "
-                                  "ported yet; the port runs 'raise'")
-    if nan_policy != "raise":
+    if nan_policy not in NAN_POLICIES:
         raise ValueError(f"unknown nan_policy {nan_policy!r} "
                          "(expected 'raise', 'skip' or 'rollback')")
-    if getattr(scfg, "checkpoint_every", 0):
-        raise NotImplementedError("server checkpoints are not ported yet")
+    return nan_policy
+
+
+def _finite(loss: torch.Tensor, grads) -> torch.Tensor:
+    """The skip guard, a 0-d bool on the device: the loss and the
+    gradients' global norm are finite."""
+    return torch.isfinite(loss) & torch.isfinite(optim.global_norm(grads))
 
 
 def make_dense_steps(clients: Sequence[Client], scfg, *, use_bn: bool = True,
                      use_div: bool = True, device="cuda",
-                     teacher: Callable | None = None):
+                     teacher: Callable | None = None,
+                     nan_guard: bool = False):
     """The two steps of an epoch, closed over the frozen ensemble:
     ``teacher(x, with_bn_stats=False)``, by default the grouped teacher
     (``grouped_teacher(clients)``, stacked here once).
@@ -74,7 +91,9 @@ def make_dense_steps(clients: Sequence[Client], scfg, *, use_bn: bool = True,
     the optimizer's own tensors get gradients (``torch.autograd.grad``),
     so the clients and, in the generator step, the student are left as
     they are. ``use_bn`` / ``use_div=False`` are the paper's ablations
-    (Table 6).
+    (Table 6). ``nan_guard`` (``nan_policy="skip"``) guards each update
+    on the device (``_finite``, ``optim``'s ``step_if``); without it the
+    steps launch what they launched before the guard existed.
     """
     kl_mode = resolve_exec_policy(scfg, device=device).distill_kl
     if teacher is None:
@@ -94,12 +113,16 @@ def make_dense_steps(clients: Sequence[Client], scfg, *, use_bn: bool = True,
             l_div = torch.zeros((), device=x.device)
         l_ce = LS.ce_loss(avg, y)
         total = l_ce + scfg.lambda_bn * l_bn + scfg.lambda_div * l_div
-        g_opt.step(torch.autograd.grad(total, g_opt.params))
+        grads = torch.autograd.grad(total, g_opt.params)
+        if nan_guard:
+            g_opt.step_if(grads, _finite(total, grads))
+        else:
+            g_opt.step(grads)
         return total.detach(), {"ce": l_ce.detach(), "bn": l_bn.detach(),
                                 "div": l_div.detach()}
 
     distill_step = make_distill_step(clients, scfg, device=device,
-                                     teacher=teacher)
+                                     teacher=teacher, nan_guard=nan_guard)
 
     def student_step(student, s_opt, gen, z):
         with torch.no_grad():
@@ -110,7 +133,8 @@ def make_dense_steps(clients: Sequence[Client], scfg, *, use_bn: bool = True,
 
 
 def make_distill_step(clients: Sequence[Client], scfg, *, device="cuda",
-                      teacher: Callable | None = None):
+                      teacher: Callable | None = None,
+                      nan_guard: bool = False):
     """The distillation step of Eq. (6), shared by DENSE's stage 2 and
     the one-shot baselines (``fl/baselines.py``).
 
@@ -120,7 +144,10 @@ def make_distill_step(clients: Sequence[Client], scfg, *, device="cuda",
     ``grouped_teacher(clients)``, stacked here) and runs without
     autograd, its eval BN folded into its convs; the KL goes through the
     mode the execution policy resolves, without the teacher-side
-    gradient (the kernel's dL/dt stream is skipped).
+    gradient (the kernel's dL/dt stream is skipped). With ``nan_guard``
+    a step whose loss or gradient norm is not finite leaves the student,
+    its BN running statistics and the optimizer as they were, decided on
+    the device.
     """
     kl_mode = resolve_exec_policy(scfg, device=device).distill_kl
     if teacher is None:
@@ -129,10 +156,21 @@ def make_distill_step(clients: Sequence[Client], scfg, *, device="cuda",
     def step(student, s_opt, x):
         with torch.no_grad():
             avg = teacher(x)
+        if nan_guard:
+            stats = list(student.buffers())
+            before = [b.clone() for b in stats]
         logits, _ = cnn_apply(student, x, train=True, with_stats=False)
         loss = LS.distill_loss(avg, logits, mode=kl_mode,
                                with_teacher_grad=False)
-        s_opt.step(torch.autograd.grad(loss, s_opt.params))
+        grads = torch.autograd.grad(loss, s_opt.params)
+        if nan_guard:
+            ok = _finite(loss, grads)
+            s_opt.step_if(grads, ok)
+            with torch.no_grad():
+                for b, old in zip(stats, before):
+                    b.copy_(torch.where(ok, b, old))
+        else:
+            s_opt.step(grads)
         return loss.detach()
 
     return step
@@ -150,6 +188,113 @@ def check_clients_on(clients: Sequence[Client], dev: torch.device) -> None:
                              f" the server runs on {dev}")
 
 
+# ------------------------------------------------- server state, on disk --
+
+RNG_KEY = "rng"
+
+
+def server_state(gen, g_opt, student, s_opt, epoch: int,
+                 generator: torch.Generator | None = None) -> dict:
+    """The server's full state as the reference's checkpoint names it:
+    ``gen_p`` and ``stu_p`` (BN statistics included) in the reference's
+    layouts (``interop``), ``g_state`` (Adam's m, v by parameter name,
+    and t), ``s_state`` (the momentum, zero for the BN statistics, as
+    the reference's SGD state holds them) and ``epoch``. The latent
+    source's state, when the run draws its own, goes under ``rng``: the
+    reference keeps a key there instead."""
+    from repro_torch import interop
+    names = [n for n, _ in gen.named_parameters()]
+    state = {"gen_p": interop.generator_to_ref(gen),
+             "g_state": {"m": interop.state_to_ref(dict(zip(names, g_opt.m))),
+                         "v": interop.state_to_ref(dict(zip(names, g_opt.v))),
+                         "t": np.asarray(g_opt.count(), np.int32)},
+             "stu_p": interop.cnn_to_ref(student),
+             "s_state": {},
+             "epoch": np.asarray(epoch, np.int64)}
+    if s_opt.bufs is not None:
+        momentum = {n: torch.zeros_like(b)
+                    for n, b in student.net.named_buffers()}
+        momentum.update(zip((n for n, _ in student.net.named_parameters()),
+                            s_opt.bufs))
+        state["s_state"] = interop.state_to_ref(momentum)
+    if generator is not None:
+        state[RNG_KEY] = generator.get_state().numpy()
+    return state
+
+
+@torch.no_grad()
+def load_server_state(state: dict, gen, g_opt, student, s_opt,
+                      generator: torch.Generator | None = None) -> int:
+    """Copy a ``server_state`` tree (as ``restore_checkpoint`` gives it
+    back) into the live models, optimizers and latent source; returns
+    the epochs it had done."""
+    from repro_torch import interop
+    interop.load_ref(gen, state["gen_p"])
+    interop.load_ref(student, state["stu_p"])
+    names = [n for n, _ in gen.named_parameters()]
+    for key, dst in (("m", g_opt.m), ("v", g_opt.v)):
+        got = interop.ref_to_state(state["g_state"][key])
+        for n, t in zip(names, dst, strict=True):
+            t.copy_(got[n])
+    g_opt.set_count(int(state["g_state"]["t"]))
+    if s_opt.bufs is not None:
+        got = interop.ref_to_state(state["s_state"])
+        for (n, _), t in zip(student.net.named_parameters(), s_opt.bufs,
+                             strict=True):
+            t.copy_(got[n])
+    if generator is not None:
+        generator.set_state(torch.from_numpy(state[RNG_KEY]))
+    return int(state["epoch"])
+
+
+def load_server_models(path: str, gen, student) -> None:
+    """Load a server checkpoint's generator and student (``gen_p``,
+    ``stu_p``) into ``gen`` and ``student``: the port's files and the
+    reference's alike."""
+    from repro_torch import interop
+    from repro_torch.checkpoint import load_tree
+    interop.load_ref(gen, load_tree(path, "gen_p"))
+    interop.load_ref(student, load_tree(path, "stu_p"))
+
+
+def _check_resumable(path: str, own_rng: bool) -> None:
+    with np.load(path if path.endswith(".npz") else path + ".npz") as f:
+        files = set(f.files)
+    if "key" in files and RNG_KEY not in files:
+        raise ValueError(
+            f"{path} is a server checkpoint of the JAX reference: its "
+            "epochs draw from a jax.random key, which this port cannot "
+            "replay, so it cannot resume that run (load_server_models "
+            "reads its generator and student)")
+    if own_rng != (RNG_KEY in files):
+        raise ValueError(
+            f"{path} was saved by a run that "
+            f"{'drew' if RNG_KEY in files else 'was given'} its latents, "
+            f"and this run {'draws' if own_rng else 'is given'} them: "
+            "resume it as it was started")
+
+
+@torch.no_grad()
+def _snapshot(gen, g_opt, student, s_opt) -> dict:
+    """A copy of everything an epoch changes (``nan_policy="rollback"``)."""
+    return {"gen": {k: v.clone() for k, v in gen.state_dict().items()},
+            "stu": {k: v.clone() for k, v in student.state_dict().items()},
+            "m": [t.clone() for t in g_opt.m],
+            "v": [t.clone() for t in g_opt.v], "t": g_opt.t,
+            "bufs": [t.clone() for t in s_opt.bufs or ()]}
+
+
+@torch.no_grad()
+def _restore(snap: dict, gen, g_opt, student, s_opt) -> None:
+    gen.load_state_dict(snap["gen"])
+    student.load_state_dict(snap["stu"])
+    for dst, src in ((g_opt.m, snap["m"]), (g_opt.v, snap["v"]),
+                     (s_opt.bufs or [], snap["bufs"])):
+        for d, t in zip(dst, src, strict=True):
+            d.copy_(t)
+    g_opt.t = snap["t"]
+
+
 def train_dense_server(clients: Sequence[Client], scfg,
                        student_spec: CNNSpec | None = None, *,
                        device="cuda",
@@ -160,7 +305,8 @@ def train_dense_server(clients: Sequence[Client], scfg,
                        student: CNN | None = None,
                        eval_fn: Callable | None = None,
                        use_bn: bool = True, use_div: bool = True,
-                       eval_every: int = 0):
+                       eval_every: int = 0,
+                       _poison_epochs=(), _stop_after_epoch: int = 0):
     """Run Algorithm 1. Returns (student, gen, history).
 
     ``noise(epoch) -> (z, y, extra)`` gives each epoch's latent batch
@@ -168,15 +314,30 @@ def train_dense_server(clients: Sequence[Client], scfg,
     the extra student steps, extra (s_steps − 1, synth_batch, nz); the
     tests inject the reference's draws through it. By default they are
     drawn from ``generator``, a ``torch.Generator`` on ``device`` seeded
-    with ``scfg.seed``. ``gen`` / ``student`` are the initial generator
-    and student; when None they are drawn from ``init_generator`` (a CPU
-    generator, seeded ``scfg.seed``). The student is trained in place.
+    with ``scfg.seed``, in epoch order. ``gen`` / ``student`` are the
+    initial generator and student; when None they are drawn from
+    ``init_generator`` (a CPU generator, seeded ``scfg.seed``). The
+    student is trained in place.
 
-    A non-finite generator or student loss raises ``FloatingPointError``
-    at the end of its epoch (``nan_policy="raise"``).
+    ``scfg.nan_policy`` says what a non-finite generator or student loss
+    means: ``"raise"`` (``FloatingPointError`` at the end of its epoch),
+    ``"skip"`` (the bad step changes nothing, decided on the device;
+    the epoch's losses are recorded as they were) or ``"rollback"`` (the
+    epoch is undone from a snapshot of the last good one).
+
+    With ``scfg.checkpoint_every`` > 0 and ``scfg.checkpoint_path`` set,
+    the full server state (``server_state``) is saved every N epochs and
+    a checkpoint at that path is restored on entry: the run goes on from
+    the epoch after it, with the latent source's state restored, so it
+    replays the remaining epochs exactly; the history covers only those.
+    A reference server checkpoint cannot be resumed (``ValueError``).
+
+    ``_poison_epochs`` / ``_stop_after_epoch`` are test hooks: NaN-fill
+    the listed epochs' latent batch, and return after that many epochs,
+    before the checkpoint is saved (a killed run).
     """
     dev = resolve_device(device)
-    _check_ported(scfg)
+    nan_policy = _check_nan_policy(scfg)
     student_spec = student_spec or CNNSpec(
         kind=scfg.global_kind, num_classes=scfg.num_classes,
         in_ch=scfg.in_ch, width=scfg.width, image_size=scfg.image_size)
@@ -201,16 +362,35 @@ def train_dense_server(clients: Sequence[Client], scfg,
                               generator=generator, device=dev)
             return z, y, torch.randn((n_extra, b, nz), generator=generator,
                                      device=dev)
+    else:
+        generator = None                # the caller's source: not saved
 
     gen_step, student_step = make_dense_steps(
-        clients, scfg, use_bn=use_bn, use_div=use_div, device=dev)
+        clients, scfg, use_bn=use_bn, use_div=use_div, device=dev,
+        nan_guard=nan_policy == "skip")
     g_opt = optim.adam(list(gen.parameters()), scfg.g_lr)
     s_opt = optim.sgd(list(student.parameters()), scfg.s_lr,
                       momentum=scfg.s_momentum)
 
+    ck_every = int(getattr(scfg, "checkpoint_every", 0) or 0)
+    ck_path = getattr(scfg, "checkpoint_path", "") or ""
+    ckpt_on = bool(ck_every and ck_path)
+    start_epoch = 0
+    if ckpt_on and checkpoint_exists(ck_path):
+        _check_resumable(ck_path, generator is not None)
+        like = server_state(gen, g_opt, student, s_opt, 0, generator)
+        start_epoch = load_server_state(restore_checkpoint(ck_path, like),
+                                        gen, g_opt, student, s_opt,
+                                        generator)
+
     hist = DenseHistory()
-    for epoch in range(scfg.epochs):
+    poison = frozenset(_poison_epochs or ())
+    snap = _snapshot(gen, g_opt, student, s_opt) \
+        if nan_policy == "rollback" else None
+    for epoch in range(start_epoch, scfg.epochs):
         z, y, extra = noise(epoch)
+        if epoch in poison:
+            z = torch.full_like(z, float("nan"))
         for _ in range(scfg.t_g):
             gl, parts = gen_step(gen, g_opt, student, z, y)
         dl = student_step(student, s_opt, gen, z)
@@ -219,13 +399,27 @@ def train_dense_server(clients: Sequence[Client], scfg,
         hist.gen_loss.append(float(gl))
         hist.gen_parts.append({k: float(v) for k, v in parts.items()})
         hist.dis_loss.append(float(dl))
-        if not (np.isfinite(hist.gen_loss[-1])
-                and np.isfinite(hist.dis_loss[-1])):
+        bad = not (np.isfinite(hist.gen_loss[-1])
+                   and np.isfinite(hist.dis_loss[-1]))
+        if bad and nan_policy == "raise":
             raise FloatingPointError(
                 f"non-finite loss at epoch {epoch} (gen={hist.gen_loss[-1]},"
-                f" dis={hist.dis_loss[-1]})")
+                f" dis={hist.dis_loss[-1]}); set scfg.nan_policy='skip' or "
+                "'rollback' to self-heal")
+        if nan_policy == "rollback":
+            if bad:
+                _restore(snap, gen, g_opt, student, s_opt)
+            else:
+                snap = _snapshot(gen, g_opt, student, s_opt)
         if eval_fn is not None and eval_every and (epoch + 1) % eval_every == 0:
             hist.acc.append((epoch + 1, eval_fn(student, student_spec)))
+        if _stop_after_epoch and epoch + 1 >= _stop_after_epoch:
+            return student, gen, hist       # a killed run: no save
+        if ckpt_on and (epoch + 1) % ck_every == 0:
+            save_checkpoint(ck_path, server_state(gen, g_opt, student, s_opt,
+                                                  epoch + 1, generator),
+                            meta={"epoch": epoch + 1,
+                                  "epochs": int(scfg.epochs)})
     return student, gen, hist
 
 

@@ -82,20 +82,31 @@ def stack_grouped(clients: Sequence[Client], *, chunk: int | None = None):
     already is one: its own (gspecs, gparams) come back as they are, the
     tensors it trained. Otherwise each group of more than one client is
     stacked into new tensors, once (call it at setup), and a singleton
-    keeps its model."""
+    keeps its model.
+
+    A federation that went through upload admission
+    (``fl.protocol.admit_uploads``) carries ``group_masks``: its
+    quarantined clients are sliced out here (``apply_group_masks``), so
+    every consumer (the DENSE teacher, the baselines, multi-round DENSE)
+    sees what a federation built without them gives. The full stack,
+    quarantined slots zero-filled, stays in the federation's
+    ``grouped``."""
     if chunk:
         raise NotImplementedError(
             "stack_grouped(chunk=) is not ported yet (ROADMAP.md, Queue 1 "
             "item 11)")
     pre = getattr(clients, "grouped", None)
     if pre is not None:
-        return tuple(pre[0]), list(pre[1])
-    gspecs, gparams = [], []
-    for spec, idx in group_clients(clients):
-        gspecs.append((spec, len(idx)))
-        gparams.append(clients[idx[0]].model if len(idx) == 1 else
-                       stack_models([clients[i].model for i in idx]))
-    return tuple(gspecs), gparams
+        gspecs, gparams = tuple(pre[0]), list(pre[1])
+    else:
+        gspecs, gparams = [], []
+        for spec, idx in group_clients(clients):
+            gspecs.append((spec, len(idx)))
+            gparams.append(clients[idx[0]].model if len(idx) == 1 else
+                           stack_models([clients[i].model for i in idx]))
+        gspecs = tuple(gspecs)
+    return apply_group_masks(gspecs, gparams,
+                             getattr(clients, "group_masks", None))
 
 
 def apply_group_masks(gspecs, gparams, group_masks):

@@ -6,7 +6,8 @@ Homogeneous clients only.
 axis (the flat mode; the tree mode is not ported, ROADMAP.md, Queue 1
 item 11). ``fedavg`` reduces a grouped federation's stack
 (``fl/federation.ClientList``) directly and stacks the clients' models
-once otherwise.
+once otherwise; either way it averages the survivors of upload
+admission only (``survivor_mask``).
 """
 from __future__ import annotations
 
@@ -72,18 +73,30 @@ def fedavg_stacked(stacked: dict, n_data, survivor_mask=None, *,
 
 def fedavg(clients: Sequence[Client]) -> CNN:
     """A new model holding the n_data-weighted average of the clients'
-    parameters and BN running statistics, on the clients' device."""
+    parameters and BN running statistics, on the clients' device.
+
+    A federation that went through upload admission carries
+    ``survivor_mask``: its quarantined clients are left out, and the
+    result is the average of a federation built without them. Zero
+    survivors raise ``ValueError``."""
     kinds = {c.spec for c in clients}
     if len(kinds) != 1:
         raise ValueError("FedAvg requires homogeneous client models; got "
                          f"{[c.spec.kind for c in clients]}")
+    mask = getattr(clients, "survivor_mask", None)
     n_data = [c.n_data for c in clients]
     grouped = getattr(clients, "grouped", None)
     if grouped is not None and len(grouped[0]) == 1 \
             and grouped[0][0][1] == len(clients) and len(clients) > 1:
-        stacked = grouped[1][0]         # the engine's own stack
-    else:
-        _check_n_data(n_data)
-        stacked = stack_models([c.model for c in clients])
-    avg = fedavg_stacked(stacked, n_data)
+        # the engine's own stack
+        avg = fedavg_stacked(grouped[1][0], n_data, survivor_mask=mask)
+        return cnn_view(clients[0].spec, avg)
+    if mask is not None:
+        mask = np.asarray(mask, bool)
+        if not mask.any():
+            raise ValueError("FedAvg over zero surviving clients")
+        clients = [c for c, ok in zip(clients, mask) if ok]
+        n_data = [c.n_data for c in clients]
+    _check_n_data(n_data)
+    avg = fedavg_stacked(stack_models([c.model for c in clients]), n_data)
     return cnn_view(clients[0].spec, avg)

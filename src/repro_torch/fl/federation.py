@@ -39,11 +39,21 @@ class ClientList(list):
     ``grouped`` is (gspecs, gparams) in ``stack_grouped``'s contract: a
     tuple of (CNNSpec, group size) and one entry a group, the trained
     stack for a group of more than one, the client's ``CNN`` (a view of a
-    stack of one) for a singleton."""
+    stack of one) for a singleton.
+
+    Upload admission (``fl.protocol.admit_uploads``) sets the other
+    three: ``survivor_mask``, an (m,) numpy bool array (True: admitted);
+    ``group_masks``, one entry a group, None where the whole group
+    survives, else a numpy bool array over the group's clients; and
+    ``quarantined``, {client: reason}. A federation that went through no
+    admission has None, None and {}."""
 
     def __init__(self, clients: Sequence[Client], gspecs, gparams):
         super().__init__(clients)
         self.grouped = (tuple(gspecs), list(gparams))
+        self.survivor_mask = None
+        self.group_masks = None
+        self.quarantined: dict[int, str] = {}
 
 
 def client_specs(scfg) -> list[CNNSpec]:

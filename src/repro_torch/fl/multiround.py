@@ -14,8 +14,15 @@ is) or the per-client loop (``client_loop_mode="python"``). The python
 epoch driver runs the server, so on a CUDA device every DENSE step of
 every round runs the K1 pair.
 
-Upload faults and delayed uploads (``scfg.fault_plan``,
-``scfg.dropout_frac``) are not ported yet.
+With a fault plan (``scfg.fault_plan``, ``scfg.dropout_frac``) each
+round's uploads pass the fault and admission boundary
+(``fl.faults.apply_upload_faults``, ``fl.protocol.admit_uploads``), as
+the reference's do: a ``delay`` fault holds a client's round-r model
+back and lands it as its round-(r+1) upload, quarantined clients are
+masked out of that round's ensemble, and the broadcast still reaches
+every client. The boundary is ``fl.protocol.upload_boundary``, the one
+``build_federation`` crosses; round r's corruption is seeded
+``fl.faults.fault_seed`` (the reference's ``fault_seed · 7919 + r``).
 """
 from __future__ import annotations
 
@@ -29,8 +36,10 @@ from repro_torch.core.dense import train_dense_server
 from repro_torch.core.ensemble import Client
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.fl.client import local_update
+from repro_torch.fl.faults import build_fault_plan
 from repro_torch.fl.federation import train_clients_grouped
-from repro_torch.fl.protocol import CommLedger, init_model, param_bytes
+from repro_torch.fl.protocol import (CommLedger, init_model, param_bytes,
+                                     upload_boundary)
 from repro_torch.models.cnn import CNN, CNNSpec, cnn_init
 
 
@@ -39,7 +48,8 @@ def dense_multi_round(scfg, data, *, rounds: int,
                       eval_fn: Callable | None = None, seed: int = 0,
                       device="cuda",
                       init_models: Sequence[CNN] | None = None,
-                      server_inputs: Callable | None = None):
+                      server_inputs: Callable | None = None,
+                      corrupt: Callable | None = None):
     """Run ``rounds`` rounds of DENSE. Returns (global model, spec,
     [eval_fn(global model, spec) after each round]).
 
@@ -53,13 +63,10 @@ def dense_multi_round(scfg, data, *, rounds: int,
     r with ``train_dense_server`` keywords (``gen``, ``noise`` and, in
     round 0 only, ``student``; later rounds warm-start from the global
     model): the tests inject the reference's round-r draws there.
+    ``corrupt`` is passed on to ``fl.protocol.upload_boundary``.
     """
     dev = resolve_device(device)
     pol = resolve_exec_policy(scfg, device=dev)  # refuses unported engines
-    if scfg.fault_plan or scfg.dropout_frac:
-        raise NotImplementedError(
-            "upload faults and delayed uploads in multi-round DENSE are "
-            "not ported yet (ROADMAP.md, Queue 1 item 6)")
     x, y = data["train"]
     parts = dirichlet_partition(y, scfg.n_clients, scfg.alpha, seed=seed)
     spec = CNNSpec(kind=scfg.global_kind, num_classes=scfg.num_classes,
@@ -72,9 +79,13 @@ def dense_multi_round(scfg, data, *, rounds: int,
                        for _ in parts]
     shards = [(x[idx], y[idx]) for idx in parts]
     global_model, accs = None, []
+    pending: dict = {}                  # delayed uploads, one round stale
     for r in range(rounds):
         seeds = [seed * 1000 + r * 100 + i for i in range(len(parts))]
         tag = f"round{r}-model-upload"
+        plan = build_fault_plan(scfg, round=r)
+        faulty = bool(plan) or bool(pending)
+        train_ledger = None if faulty else ledger
         if pol.client_loop == "grouped":
             inits = [init_model(init_models, i, spec, dev)
                      for i in range(len(parts))] if global_model is None \
@@ -84,7 +95,7 @@ def dense_multi_round(scfg, data, *, rounds: int,
                 lr=scfg.local_lr, momentum=scfg.local_momentum,
                 batch_size=scfg.batch_size, use_ldam=False,
                 num_classes=scfg.num_classes, seeds=seeds,
-                init_models=inits, ledger=ledger, upload_tag=tag)
+                init_models=inits, ledger=train_ledger, upload_tag=tag)
         else:
             clients = []
             for i, (xi, yi) in enumerate(shards):
@@ -95,12 +106,16 @@ def dense_multi_round(scfg, data, *, rounds: int,
                     lr=scfg.local_lr, momentum=scfg.local_momentum,
                     batch_size=scfg.batch_size,
                     num_classes=scfg.num_classes, seed=seeds[i])
-                if ledger is not None:
-                    ledger.record("up", f"client{i}", param_bytes(model),
-                                  tag)
+                if train_ledger is not None:
+                    train_ledger.record("up", f"client{i}",
+                                        param_bytes(model), tag)
                 clients.append(Client(spec=spec, model=model,
                                       n_data=len(yi),
                                       class_counts=info["class_counts"]))
+        if faulty:
+            clients, _, pending = upload_boundary(
+                clients, scfg, plan, round=r, ledger=ledger,
+                pending=pending, corrupt=corrupt)
         inputs = dict(server_inputs(r)) if server_inputs is not None \
             else {"generator": draws, "init_generator": init_gen}
         if global_model is not None:

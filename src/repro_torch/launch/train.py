@@ -12,8 +12,14 @@ Usage (full width unless ``--smoke``; the card unless ``--device cpu``):
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
         [--smoke] --steps 50 --batch 8 --seq 256 [--lr 3e-4] [--device cuda]
 
-Model parallelism (``--model-parallel`` > 1) and checkpoints (``--ckpt``)
-are not ported and raise ``NotImplementedError``.
+``--ckpt PATH`` saves the trained parameters there at the end
+(``checkpoint/io.py``: ``PATH.npz`` and ``PATH.json`` with ``arch``,
+``steps`` and ``final_loss``), under the reference's keys and layouts
+(``interop.lm_params_to_reference``, bfloat16 widened exactly to
+float32), so ``repro.checkpoint.restore_checkpoint`` reads it, and
+``restore_checkpoint(PATH, state["params"])`` reads the reference's.
+Model parallelism (``--model-parallel`` > 1) is not ported and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ import time
 
 import torch
 
+from repro_torch import interop
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs.backend import resolve_device
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.data import lm_batches, make_lm_data
@@ -33,13 +41,11 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
           ckpt: str | None = None, log_every: int = 10, device="cuda"):
     """Train ``arch`` for ``steps`` steps of (batch, seq) windows from
     random weights (``seed``). Returns (state, losses), the losses read
-    on the host after every step."""
+    on the host after every step; with ``ckpt`` the parameters are saved
+    there (module doc)."""
     if model_parallel != 1:
         raise NotImplementedError("model parallelism is not ported yet "
                                   "(ROADMAP.md, Queue 1 item 12)")
-    if ckpt:
-        raise NotImplementedError("checkpoints are not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 6)")
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     state = ST.make_train_state(cfg, lr=lr, seed=seed, device=dev)
@@ -59,6 +65,10 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
             print(f"step {i + 1:5d} loss {losses[-1]:.4f} "
                   f"ce {float(m['ce']):.4f} ({dt / (i + 1):.2f}s/step)",
                   flush=True)
+    if ckpt:
+        save_checkpoint(ckpt, interop.lm_params_to_reference(state["params"]),
+                        meta={"arch": arch, "steps": steps,
+                              "final_loss": losses[-1]})
     return state, losses
 
 

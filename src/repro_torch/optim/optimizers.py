@@ -11,6 +11,17 @@ train. State is float32, as in the reference.
 caller passes (0 by default), ``adam`` at its own count t, from 1 on, as
 the reference does. ``weight_decay`` adds wd·p to the gradient before
 momentum (L2 regularization, not decoupled decay).
+
+``step_if(grads, ok)`` is the guarded step of DENSE's
+``nan_policy="skip"`` (the reference's ``where(ok, new, old)`` over
+params and optimizer state, ``repro/core/dense.py:149-155``): ``ok`` is
+a 0-d bool on the device, every tensor takes its new value where it is
+True and keeps its old one where it is False, with no host read. Adam's
+step count then lives on the device too, and does not advance on a
+skipped step. Where ``ok`` is True the new values are the ones ``step``
+computes, bit for bit: SGD runs ``step`` itself and puts the old values
+back where ``ok`` is False; Adam keeps a copy of ``step``'s formula,
+since its bias corrections need the count on the device.
 """
 from __future__ import annotations
 
@@ -33,6 +44,31 @@ def clip_by_global_norm(tensors: Sequence[torch.Tensor], max_norm: float):
 
 def _lr(lr, step) -> float:
     return lr(step) if callable(lr) else lr
+
+
+def _const_lr(lr) -> float:
+    if callable(lr):
+        raise ValueError("step_if takes a constant learning rate: a "
+                         "schedule needs the step count on the host")
+    return lr
+
+
+def _div_by(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """x / d for a 0-d float64 ``d`` on x's device, rounded as ``x / d``
+    rounds for a Python float d: on a CUDA tensor PyTorch multiplies by
+    the reciprocal of the host scalar, taken in float64 and rounded to
+    x's type; on the CPU it divides by d rounded to x's type. This must
+    track how PyTorch rounds division by a scalar, or ``adam.step_if``
+    drifts from ``step``: ``tests/test_torch_cuda.py``'s guarded-step
+    test holds the two bit for bit on the card."""
+    if x.is_cuda:
+        return x * (1.0 / d).to(x.dtype)
+    return x / d.to(x.dtype)
+
+
+@torch.no_grad()
+def _select(ok: torch.Tensor, dst: torch.Tensor, new: torch.Tensor) -> None:
+    dst.copy_(torch.where(ok, new.to(dst.dtype), dst))
 
 
 def _decayed(grads, params, wd: float):
@@ -65,6 +101,17 @@ class sgd:
             m.mul_(self.momentum).add_(g.float())
             p.copy_(p.float() - lr * m)
 
+    @torch.no_grad()
+    def step_if(self, grads: Sequence[torch.Tensor], ok: torch.Tensor,
+                step: int = 0) -> None:
+        """``step(grads, step)`` where ``ok``, nothing where not (module
+        doc): the step runs, then the old values go back where not."""
+        state = self.params + (self.bufs or [])
+        old = [t.clone() for t in state]
+        self.step(grads, step)
+        for t, o in zip(state, old, strict=True):
+            t.copy_(torch.where(ok, t, o))
+
 
 class adam:
     """Adam with bias correction counted from t = 1 (the paper's generator
@@ -81,6 +128,16 @@ class adam:
         self.v = [torch.zeros_like(p, dtype=torch.float32)
                   for p in self.params]
         self.t = 0
+        self.t_dev = None           # the count, on the device, for step_if
+
+    def count(self) -> int:
+        """The steps taken (one host read after ``step_if``)."""
+        return self.t if self.t_dev is None else int(self.t_dev)
+
+    def set_count(self, t: int) -> None:
+        self.t = int(t)
+        if self.t_dev is not None:
+            self.t_dev.fill_(float(t))
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
@@ -96,3 +153,28 @@ class adam:
             v.mul_(self.b2).add_((1 - self.b2) * (g * g))
             p.copy_(p.float() - lr * (m / bc1)
                     / (torch.sqrt(v / bc2) + self.eps))
+
+    @torch.no_grad()
+    def step_if(self, grads: Sequence[torch.Tensor], ok: torch.Tensor) -> None:
+        """``step(grads)`` where ``ok``, nothing where not, the count
+        included (module doc). The bias corrections are taken in float64
+        on the device, as ``step`` takes them on the host, and divide as
+        a host float divides (``_div_by``)."""
+        lr = _const_lr(self.lr)
+        if self.t_dev is None:
+            self.t_dev = torch.tensor(float(self.t), dtype=torch.float64,
+                                      device=ok.device)
+        t = self.t_dev + 1
+        bc1 = 1 - self.b1 ** t
+        bc2 = 1 - self.b2 ** t
+        for p, m, v, g in zip(self.params, self.m, self.v,
+                              _decayed(grads, self.params, self.wd),
+                              strict=True):
+            g = g.float()
+            m_new = (m * self.b1).add_((1 - self.b1) * g)
+            v_new = (v * self.b2).add_((1 - self.b2) * (g * g))
+            _select(ok, p, p.float() - lr * _div_by(m_new, bc1)
+                    / (torch.sqrt(_div_by(v_new, bc2)) + self.eps))
+            _select(ok, m, m_new)
+            _select(ok, v, v_new)
+        _select(ok, self.t_dev, t)

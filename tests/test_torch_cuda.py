@@ -943,3 +943,38 @@ def test_ssm_train_step_launches_k3_per_block(cuda):
             assert {k: v - old[k] for k, v in counts.items()} == {
                 r: n * (r == route) for r in ("sm90", "simt")}
         assert bool(torch.isfinite(m["loss"])) and float(m["grad_norm"]) > 0
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+def test_guarded_steps_equal_unguarded_on_the_card(cuda, name):
+    """``step_if`` (nan_policy="skip"'s guarded update) gives ``step``'s
+    values bit for bit where the guard passes, on the card too, where a
+    tensor divided by a host float is multiplied by its reciprocal; where
+    the guard fails nothing moves, Adam's count included."""
+    from repro_torch import optim
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = [torch.randn(1000, 37, device=cuda, generator=gen)
+              for _ in range(3)]
+
+    def make(ps):
+        return optim.adam(ps, 1e-3) if name == "adam" else \
+            optim.sgd(ps, 0.1, momentum=0.9)
+
+    p1, p2 = [p.clone() for p in params], [p.clone() for p in params]
+    o1, o2 = make(p1), make(p2)
+    yes = torch.tensor(True, device=cuda)
+    for _ in range(200):
+        grads = [torch.randn(p.shape, device=cuda, generator=gen)
+                 for p in params]
+        o1.step(grads)
+        o2.step_if(grads, yes)
+    for a, b in zip(p1, p2):
+        assert torch.equal(a, b)
+    before = [p.clone() for p in p2]
+    o2.step_if([torch.full_like(p, float("nan")) for p in p2],
+               torch.tensor(False, device=cuda))
+    for a, b in zip(p2, before):
+        assert torch.equal(a, b)
+    if name == "adam":
+        assert o2.count() == 200

@@ -195,12 +195,15 @@ def test_round_one_warm_starts_from_the_global_model(port_run):
     assert port_run["spec"] == T_SPEC
 
 
-@pytest.mark.parametrize("fault", [{"fault_plan": (("drop", 0),)},
-                                   {"dropout_frac": 0.5}])
-def test_unported_paths_raise(fault):
+@pytest.mark.parametrize("knob,item", [({"loop_mode": "fused"}, 7),
+                                       ({"teacher_chunk": 2}, 11)])
+def test_unported_paths_raise(knob, item):
+    """The fused epoch driver and the chunked teacher are not ported and
+    raise, naming their ROADMAP.md Queue 1 item; upload faults are
+    (tests/test_torch_faults.py)."""
     scfg = dataclasses.replace(T_cfg.DenseExperimentConfig(**FIELDS),
-                               **fault)
-    with pytest.raises(NotImplementedError):
+                               **knob)
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
         dense_multi_round(scfg, _data(), rounds=1, device="cpu")
 
 
