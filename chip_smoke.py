@@ -30,7 +30,9 @@ result line is printed:
   3. K4 (its ``sm90`` route, the split-context kernel and its merge) at
      the serve shape (R 8, Hq 24, Hkv 8, D 128, page 16, M 32, ragged
      seq_lens with 0 and a full table), a D = 32 shape, zamba2-7b's
-     shared block (Hq = Hkv = 32, D = 112) and a long shape (M 256,
+     shared block (Hq = Hkv = 32, D = 112), musicgen-large's heads (Hq =
+     Hkv = 32, D = 64, the audio family's paged decode) and a long shape
+     (M 256,
      up to 4096 tokens), in float32 and bfloat16 (and float16 at the
      serve and long shapes), against its plain version, beside its
      device time (``torch.profiler``), the first version (the ``simt``
@@ -202,7 +204,31 @@ result line is printed:
      mamba2-130m student, full width and depth, bfloat16), counted step by
      step as in 14 with K3f and K3b in place of K2, every K3f and K3b
      launch on ``sm90``; then one epoch under ``torch.profiler`` with
-     K3's share, K3f's and K3b's device time by route.
+     K3's share, K3f's and K3b's device time by route;
+ 22. the dense-mode families and the audio family's paged cache
+     (``family_phases``): serve_check (as 11) for musicgen-large (K4 at
+     D 64), qwen1.5-4b and phi3-medium-14b; audio_serve, musicgen-large
+     at full width and depth (48 layers, bfloat16) through the serve
+     phase's traffic, K4 decode steps × 48 on ``sm90``, and its profiled
+     decode step; family_serve, the dense-mode engine in bfloat16 at full
+     width on gemma3-4b (a 1536-token prompt, past its 1024 window),
+     llama3.2-vision-11b, deepseek-v2-lite-16b (full depth) and
+     deepseek-v2-236b (depth 60 → 4), four requests of 16 new tokens
+     each: every sampled logit row finite, no K2, K3 or K4 launch,
+     prefill seconds, ms a decode step and peak memory; family_check,
+     float32 without TF32 at full width (gemma3-4b depth 6 over 1040
+     tokens, deepseek-v2-lite-16b depth 2, llama3.2-vision-11b one
+     super-block with random patch embeddings and both gates non-zero):
+     prefill and 4 teacher-forced decode steps on the card against the
+     CPU within 1e-4 of the largest logit, a tolerance the float32 floor
+     (against a float64 run on the card) must lie below; long_prefill, a
+     4096-token prefill through the blockwise path against the
+     materialized one (gemma3-4b depth 6, deepseek-v2-lite-16b depth 2;
+     without and with a cache), float32, 1e-4; vlm_kernel_check,
+     llama3.2-vision-11b at full width, one super-block, bfloat16, B 2 ×
+     S 256, no cache: K2f launches once a self layer, on ``sm90`` at
+     D 128, and its logits lie no further from a float32 run's than
+     twice the plain route's.
 
 Output: a line with the card's name and power limit, one JSON line per
 phase, the ``{"kernels": [...]}`` line, and last the result line
@@ -253,12 +279,14 @@ SCALARS = ("a_log", "dt_bias", "d_skip")
 # K4 shapes: (R, Hq, Hkv, D, page, M). The serve shape is llama3.2-3b's
 # heads at the serve phase's 8 slots and max_len 512; the D = 32 one has
 # smoke()'s heads; the D = 112 one zamba2-7b's shared block at the same
-# slots; the long one llama3.2-3b's heads at 8 requests of up to 4096
+# slots, the D = 64 one musicgen-large's heads (the audio family's paged
+# decode, G = 1); the long one llama3.2-3b's heads at 8 requests of up to 4096
 # tokens (ragged, ~67 MB of live K/V in bfloat16). float16 runs beside
 # float32 and bfloat16 at the serve and long shapes (K4_FP16). atol
 # only: the outputs are convex combinations of V.
 K4_SHAPES = ((8, 24, 8, 128, 16, 32), (6, 4, 2, 32, 16, 8),
-             (8, 32, 32, 112, 16, 32), (8, 24, 8, 128, 16, 256))
+             (8, 32, 32, 112, 16, 32), (8, 24, 8, 128, 16, 256),
+             (8, 32, 32, 64, 16, 32))
 K4_SERVE_SHAPE = K4_SHAPES[0]
 K4_FP16 = (K4_SHAPES[0], K4_SHAPES[3])
 TOL_K4 = {"float32": (0.0, 1e-5), "bfloat16": (0.0, 1e-2),
@@ -3172,9 +3200,364 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
              f"expected all of it on {want}")
 
 
+# ---------------------------- the dense-mode families, the audio family --
+
+# the paged attention families at full width, depth 2 (serve_check): the
+# audio family's K4 at D 64 beside qwen1.5-4b's and phi3-medium-14b's D 128
+PAGED_CHECK_ARCHS = ("musicgen-large", "qwen1.5-4b", "phi3-medium-14b")
+# (arch, depth or None for the full one): the dense-mode engine in
+# bfloat16; deepseek-v2-236b's 60 layers (471 GB in bfloat16) cut to 4:
+# its dense-MLP layer 0 and three MoE layers, 12.8 B parameters
+FAMILY_SERVE = (("gemma3-4b", None), ("llama3.2-vision-11b", None),
+                ("deepseek-v2-lite-16b", None), ("deepseek-v2-236b", 4))
+FAMILY_SERVE_NEW = 16
+GEMMA3_LONG_PROMPT = 1536     # past gemma3's 1024-token window
+# (arch, depth, prefill tokens): card against CPU in float32, each with 4
+# teacher-forced decode steps after the prefill. gemma3 at depth 6 has
+# five local layers and one global, and 1040 tokens pass its window; a
+# vlm super-block is four self layers and a cross layer
+FAMILY_CHECKS = (("gemma3-4b", 6, 1040), ("deepseek-v2-lite-16b", 2, 96),
+                 ("llama3.2-vision-11b", 5, 96))
+FAMILY_DECODE_STEPS = 4
+# float32 logits, of the largest |logit|: the card against the CPU, and
+# the blockwise prefill against the materialized one (summation order
+# only); family_check also shows the float32 floor (float32 against a
+# float64 run on the card) to lie below it
+FAMILY_TOL = 1e-4
+BLOCKWISE_TOL = 1e-4
+LONG_PREFILL = (("gemma3-4b", 6), ("deepseek-v2-lite-16b", 2))
+LONG_PREFILL_TOKENS = 4096
+# llama-3.2-vision-11b at full width, one super-block, bfloat16, no cache
+VLM_KERNEL_BATCH = (2, 256)
+
+
+def family_cfg(arch, n_layers=None, dtype=None):
+    """``arch``'s full-width config, its depth cut to ``n_layers`` and
+    its compute and parameter dtype set where given."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype, param_dtype=dtype)
+    return cfg
+
+
+def _tree_to(tree, **kw):
+    return {k: _tree_to(v, **kw) if isinstance(v, dict) else v.to(**kw)
+            for k, v in tree.items()}
+
+
+def vlm_inputs(torch, cfg, params, batch: int, dev, seed: int = 0):
+    """Random patch embeddings (batch, n_patches, vision_dim) in
+    ``cfg.dtype``, and the vlm's two gates (zero at init, so the cross
+    blocks would add nothing) set non-zero, in place."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_super = params["cross"]["mlp_gate"].shape[0]
+    for name, tree, lo in (("mlp_gate", params["cross"], 0.6),
+                           ("gate", params["cross"]["xattn"], -0.7)):
+        tree[name].copy_(torch.linspace(lo, -lo, n_super, device=dev))
+    return torch.randn(batch, cfg.n_patches, cfg.vision_dim, generator=gen,
+                       device=dev).to(getattr(torch, cfg.dtype))
+
+
+def _logits_of(torch, params, cfg, toks, vision, steps, dev):
+    """Prefill ``toks[:, :-steps]`` into a cache, then ``steps``
+    teacher-forced decode steps: the logits of every position, float32
+    on the CPU."""
+    from repro_torch.models import transformer as T
+
+    S = toks.shape[1] - steps
+    t = toks.to(dev)
+    v = None if vision is None else vision.to(dev)
+    with torch.inference_mode():
+        cache = T.init_cache(cfg, 1, S + steps, device=dev)
+        lg, cache = T.forward(params, cfg, tokens=t[:, :S], cache=cache,
+                              cache_pos=0, vision=v)
+        out = [lg.float().cpu()]
+        for i in range(S, S + steps):
+            lg, cache = T.forward(
+                params, cfg, tokens=t[:, i:i + 1],
+                positions=torch.tensor([i], dtype=torch.int32, device=dev),
+                cache=cache, cache_pos=i, vision=v, decode=True)
+            out.append(lg.float().cpu())
+    return torch.cat(out, dim=1)
+
+
+def family_check(torch, dev="cuda", checks=FAMILY_CHECKS,
+                 steps=FAMILY_DECODE_STEPS):
+    """The dense-mode families at full width, their depth cut, float32
+    without TF32: the card's logits (a prefill past gemma3's window, then
+    teacher-forced decode steps) against the CPU's on the same weights
+    and inputs, within ``FAMILY_TOL`` of the largest |logit|; the float32
+    floor (the card's float32 against its float64 run) must lie below
+    that tolerance. The CPU path is held to the JAX package by
+    tests/test_torch_families.py."""
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+
+    rows = []
+    for arch, n_layers, S in checks:
+        t0 = time.perf_counter()
+        cfg = family_cfg(arch, n_layers, "float32")
+        params = T.init_model(cfg, seed=2, device=dev)
+        vision = vlm_inputs(torch, cfg, params, 1, dev, seed=2) \
+            if cfg.family == "vlm" else None
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (1, S + steps)))
+        zero_counts()
+        card = _logits_of(torch, params, cfg, toks, vision, steps, dev)
+        launches = read_counts()
+        cfg64 = cfg.replace(dtype="float64", param_dtype="float64")
+        exact = _logits_of(torch, _tree_to(params, dtype=torch.float64),
+                           cfg64, toks, vision, steps, dev)
+        cpu_params = _tree_to(params, device="cpu")
+        del params
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        cpu = _logits_of(torch, cpu_params, cfg, toks,
+                         None if vision is None else vision.cpu(), steps,
+                         "cpu")
+        cpu_s = time.perf_counter() - t1
+        err, floor = _rel_max(card, cpu), _rel_max(card, exact.float())
+        row = {"arch": arch, "family": cfg.family, "d_model": cfg.d_model,
+               "vocab": cfg.vocab_size,
+               "n_layers": [get_full_layers(arch), n_layers],
+               "windows": T.layer_windows(cfg) if cfg.sliding_window
+               else None, "prefill_tokens": S, "decode_steps": steps,
+               "max_err_rel_to_max": err,
+               "float32_floor_rel_to_max": floor,
+               "cpu_float32_vs_float64": _rel_max(cpu, exact.float()),
+               "tol": FAMILY_TOL, "launches": launches,
+               "finite": bool(torch.isfinite(card).all()),
+               "seconds": time.perf_counter() - t0, "cpu_seconds": cpu_s}
+        row["ok"] = bool(row["finite"] and err <= FAMILY_TOL
+                         and floor < FAMILY_TOL
+                         and launches == expected())
+        rows.append(row)
+        emit({"family_check": row})
+        del cpu_params, card, cpu, exact
+    bad = [r["arch"] for r in rows if not r["ok"]]
+    if bad:
+        fail(f"family_check: the card disagrees with the CPU (or the "
+             f"float32 floor reaches {FAMILY_TOL}, or a kernel launched) "
+             f"for {bad}")
+
+
+def get_full_layers(arch) -> int:
+    return family_cfg(arch).n_layers
+
+
+def long_prefill(torch, dev="cuda", checks=LONG_PREFILL,
+                 S=LONG_PREFILL_TOKENS):
+    """A 4096-token prefill through the blockwise path (1024 x 1024
+    blocks: gemma3's window inside them, MLA's concatenated keys) against
+    the materialized one (``use_blockwise_attn=False``), float32, without
+    a cache and into one of 4096 tokens; each timed."""
+    import numpy as np
+
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+
+    rows = []
+    for arch, n_layers in checks:
+        cfg = family_cfg(arch, n_layers, "float32")
+        if not A._blockwise(cfg, S, S):
+            fail(f"long_prefill: {arch} would not take the blockwise path "
+                 f"at S = {S}")
+        params = T.init_model(cfg, seed=3, device=dev)
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (1, S))).to(dev)
+        row = {"arch": arch, "n_layers": [get_full_layers(arch), n_layers],
+               "tokens": S, "blocks": [cfg.attn_block_q, cfg.attn_block_kv],
+               "tol": BLOCKWISE_TOL}
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        for cache in (False, True):
+            out = {}
+            for name, c in (("blockwise", cfg), ("materialized", cfg.replace(
+                    use_blockwise_attn=False))):
+                with torch.inference_mode():
+                    kw = {"cache": T.init_cache(c, 1, S, device=dev),
+                          "cache_pos": 0} if cache else {}
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out[name], _ = T.forward(params, c, tokens=toks, **kw)
+                    torch.cuda.synchronize()
+                    row[f"{name}{'_cache' if cache else ''}_s"] = \
+                        time.perf_counter() - t0
+            key = "max_err_rel_to_max" + ("_cache" if cache else "")
+            row[key] = _rel_max(out["blockwise"].float(),
+                                out["materialized"].float())
+            del out
+        row["launches"] = read_counts()
+        row["peak_mem_gib"] = _peak_gib(torch)
+        row["ok"] = bool(row["max_err_rel_to_max"] <= BLOCKWISE_TOL
+                         and row["max_err_rel_to_max_cache"] <= BLOCKWISE_TOL
+                         and row["launches"] == expected())
+        rows.append(row)
+        emit({"long_prefill": row})
+        del params
+        torch.cuda.empty_cache()
+    bad = [r["arch"] for r in rows if not r["ok"]]
+    if bad:
+        fail(f"long_prefill: the blockwise prefill disagrees with the "
+             f"materialized one for {bad}")
+
+
+def family_serve(torch, dev="cuda", models=FAMILY_SERVE,
+                 new=FAMILY_SERVE_NEW, long_prompt=GEMMA3_LONG_PROMPT):
+    """The dense-mode engine (the default for these families) at full
+    width, bfloat16, random weights: four requests each (prompts of
+    64–448 tokens, gemma3's first one ``long_prompt``), ``new`` tokens
+    each. Every logit row sampled must be finite and no K2, K3 or K4
+    launch (prefill with a cache and decode attend on the plain path, as
+    in the reference)."""
+    import numpy as np
+
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.models import transformer as T
+
+    class Checked(ServeEngine):
+        finite = True
+
+        def _sample(self, req, logits_row):
+            self.finite &= bool(torch.isfinite(logits_row).all())
+            return super()._sample(req, logits_row)
+
+    out = {}
+    for arch, n_layers in models:
+        cfg = family_cfg(arch, n_layers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = T.init_model(cfg, seed=0, device=dev)
+        sync(torch, dev)
+        t_init = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in _leaves(params))
+        reqs = serve_requests(np.random.default_rng(4), 4, cfg.vocab_size,
+                              (64, 449), (new, new + 1))
+        if cfg.sliding_window:
+            reqs[0] = (np.random.default_rng(5).integers(
+                0, cfg.vocab_size, long_prompt, dtype="int32"), new)
+        eng = Checked(cfg, params, max_reqs=4,
+                      max_len=max(len(p) for p, _ in reqs) + new, device=dev)
+        zero_counts()
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        streams = run_engine(eng, reqs)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        st = eng.stats
+        row = {"arch": arch, "family": cfg.family, "mode": eng.mode,
+               "n_layers": [get_full_layers(arch), cfg.n_layers],
+               "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+               "attention": cfg.attention_kind, "params": n_params,
+               "param_count": cfg.param_count(),
+               "prompt_lens": [len(p) for p, _ in reqs], "max_new": new,
+               "init_s": t_init, "wall_s": wall,
+               "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+               "decode_steps": st["decode_steps"],
+               "ms_per_decode_step": st["decode_s"]
+               / max(st["decode_steps"], 1) * 1e3,
+               "decode_tok_per_s": st["decode_steps"] / st["decode_s"],
+               "logits_finite": eng.finite, "launches": read_counts(),
+               "peak_mem_gib": _peak_gib(torch),
+               "tokens_first_request": streams[0].tolist()}
+        row["ok"] = bool(eng.mode == "dense" and eng.finite
+                         and row["launches"] == expected()
+                         and all(len(s) == new for s in streams))
+        emit({"family_serve": row})
+        out[arch] = row
+        del eng, params
+        torch.cuda.empty_cache()
+    bad = [a for a, r in out.items() if not r["ok"]]
+    if bad:
+        fail(f"family_serve: non-finite logits, a kernel launch or short "
+             f"streams for {bad}")
+    return out
+
+
+def vlm_kernel_check(torch, dev="cuda", batch=VLM_KERNEL_BATCH):
+    """llama-3.2-vision-11b at full width, one super-block (four self
+    layers, one cross layer), bfloat16, no cache, random patch embeddings
+    and both gates non-zero: the kernel profile runs K2f on ``sm90`` at
+    D 128 once a self layer; its logits are no further from a float32
+    run's than twice the plain bfloat16 route's are."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+
+    cfg = family_cfg("llama3.2-vision-11b", 5)
+    n_self = T.vlm_shape(cfg)[0] * cfg.cross_every
+    params = T.init_model(cfg, seed=5, device=dev)
+    B, S = batch
+    vision = vlm_inputs(torch, cfg, params, B, dev, seed=5)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (B, S))).to(dev)
+    out, ms = {}, {}
+    for route in ("fused", "ref"):
+        c = cfg.replace(kernel_vjp_mode=route)
+        with torch.inference_mode():
+            zero_counts()
+            out[route], _ = T.forward(params, c, tokens=toks, vision=vision)
+            if route == "fused":
+                launches, routes = read_counts(), read_routes()
+            ms[route] = cuda_ms(torch, lambda: T.forward(
+                params, c, tokens=toks, vision=vision), samples=5)
+    c32 = cfg.replace(dtype="float32", param_dtype="float32",
+                      kernel_vjp_mode="ref")
+    with torch.inference_mode():
+        exact, _ = T.forward(_tree_to(params, dtype=torch.float32), c32,
+                             tokens=toks, vision=vision.float())
+    err_kernel = _rel_max(out["fused"].float(), exact)
+    err_plain = _rel_max(out["ref"].float(), exact)
+    want = expected(flash_attention_fwd=n_self)
+    ok_routes = routes["fwd_sm90"] == n_self and routes["fwd_simt"] == 0
+    row = {"arch": cfg.name, "n_layers": [get_full_layers(cfg.name), 5],
+           "batch": [B, S], "dtype": cfg.dtype, "head_dim": cfg.head_dim,
+           "k2f_route": FA.route("fwd", torch.bfloat16, cfg.head_dim),
+           "launches": launches, "expected_launches": want,
+           "fwd_routes": {r: routes[f"fwd_{r}"] for r in ("sm90", "simt")},
+           "kernel_vs_float32_rel_to_max": err_kernel,
+           "plain_vs_float32_rel_to_max": err_plain,
+           "kernel_vs_plain_rel_to_max": _rel_max(out["fused"].float(),
+                                                  out["ref"].float()),
+           "limit": "kernel <= 2 x plain", "forward_ms": ms,
+           "finite": bool(torch.isfinite(out["fused"]).all())}
+    emit({"vlm_kernel_check": row})
+    if launches != want or not ok_routes:
+        fail(f"vlm_kernel_check: K2f launches {launches} by route "
+             f"{row['fwd_routes']}, expected {n_self} on sm90")
+    if not row["finite"] or err_kernel > 2 * err_plain:
+        fail(f"vlm_kernel_check: the K2 route is {err_kernel} from float32, "
+             f"the plain route {err_plain}")
+    del params, exact, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_phases(torch, dev="cuda"):
+    """serve_check on the paged attention families, audio_serve (and its
+    profiled decode step), family_serve, family_check, long_prefill and
+    vlm_kernel_check. Returns (audio_serve's launches,
+    vlm_kernel_check's)."""
+    for arch in PAGED_CHECK_ARCHS:
+        serve_check(torch, dev, arch=arch)
+    audio = serve_main_path(torch, dev, arch="musicgen-large",
+                            label="audio_serve")
+    family_serve(torch, dev)
+    family_check(torch, dev)
+    long_prefill(torch, dev)
+    return audio, vlm_kernel_check(torch, dev)
+
+
 # ----------------------------------------------------------------- main --
 
-def k2_entry(name, which, rs, line, launches, hybrid_launches):
+def k2_entry(name, which, rs, line, launches, hybrid_launches,
+             vlm_launches):
     """The kernels line's entry of a K2 kernel: the server shape in
     bfloat16 (the LLM main path's gen_step and student_step), its
     launches over the LLM main path, and by path: the LLM main path's (D
@@ -3207,7 +3590,8 @@ def k2_entry(name, which, rs, line, launches, hybrid_launches):
                        "route": FA.route(which, torch.bfloat16, d)}
                 for path, d, n in (("llm_main_path", 128, launches),
                                    ("ssm_hybrid_train", 112,
-                                    hybrid_launches))},
+                                    hybrid_launches),
+                                   ("vlm_kernel_check", 128, vlm_launches))},
             "float32_route": FA.route(which, torch.float32, 128),
             "by_shape": rs}
 
@@ -3292,6 +3676,8 @@ def main() -> None:
                                           label="ssm_llm")
     profile_llm_epoch(torch, ssm_ctx, label="profile_ssm_llm_epoch")
     del ssm_ctx
+    torch.cuda.empty_cache()
+    audio_launches, vlm_launches = family_phases(torch)
 
     def entry(name, rs, replaces):
         main = next(r for r in rs if r["shape"] == list(MAIN_SHAPE)
@@ -3331,6 +3717,9 @@ def main() -> None:
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:119",
          "launches": serve_launches["paged_attention"],
+         "launches_by_path": {
+             "serve": serve_launches["paged_attention"],
+             "audio_serve": audio_launches["paged_attention"]},
          "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
@@ -3338,7 +3727,7 @@ def main() -> None:
          "first_version_ms": k4["first_version_ms"],
          "shape": k4["shape"], "dtype": k4["dtype"], "by_shape": k4_rows},
         *(k2_entry(name, which, k2_rows[which], line, llm_launches,
-                   hybrid_launches)
+                   hybrid_launches, vlm_launches)
           for name, which, line in (
               ("flash_attention_fwd", "fwd", 171),
               ("flash_attention_bwd_dq", "dq", 342),

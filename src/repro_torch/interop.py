@@ -32,10 +32,17 @@ stacked ``blocks`` (``attn.{wq,wk,wv,wo}.w``, ``mlp.{gate,up,down}.w``,
 where ``cfg.qkv_bias``; a mamba block's ``norm.scale`` and
 ``mamba.{in_z,in_x,in_bc,in_dt,out_proj}.w``, ``conv_x/conv_bc.{w,b}``
 with w (K, C), ``a_log``, ``dt_bias``, ``d_skip`` and ``norm.scale``;
-a hybrid's ``tail`` and ``shared`` too), with linear weights
-(d_in, d_out) and the leading layer axes. ``lm_params_from_reference``
+a hybrid's ``tail`` and ``shared`` too; a moe's ``block0`` and MLA
+leaves ``attn.{wq | wq_a, q_norm, wq_b, wkv_a, kv_norm, wkv_b, wo}``, its
+experts ``moe.{gate, up, down}`` (E, d, f) / (E, f, d), raw arrays, the
+float32 ``moe.router.w`` and ``moe.shared``; a vlm's ``blocks`` (n_super,
+cross_every, ...) and ``cross`` (``xattn`` with its ``gate``,
+``mlp_gate``)), with linear weights (d_in, d_out) and the leading layer
+axes. ``lm_params_from_reference``
 and ``paged_cache_from_reference`` carry such trees (and a block pool,
-SSM slots included, with its block table) across as they are: no leaf is
+SSM slots included, with its block table; ``tree_from_reference`` a dense
+cache, MLA's ``c_kv`` and ``k_rope`` and a vlm's (n_super, cross_every,
+...) ``layers`` among them) across as they are: no leaf is
 transposed, and every leaf keeps its dtype (bfloat16 arrays their bits,
 the float32 SSM scalars and states their float32). The reverse direction returns
 numpy, bfloat16 widened exactly to float32.
@@ -51,7 +58,8 @@ from repro_torch.core.generator import (ImgGenerator, TokGenerator,
                                        tok_generator_init)
 from repro_torch.models.cnn import (CNN, CNNSpec, cnn_init, group_size,
                                     stack_tensors)
-from repro_torch.models.transformer import hybrid_shape
+from repro_torch.models.transformer import (hybrid_shape, n_moe_layers,
+                                            vlm_shape)
 
 
 def _flatten(tree, prefix=""):
@@ -111,21 +119,73 @@ def tree_to_reference(tree):
     return _numpy(tree)
 
 
-def _dense_shapes(cfg, lead: tuple) -> dict:
-    d, hd = cfg.d_model, cfg.head_dim
-    want = {("attn", "wq", "w"): (*lead, d, cfg.n_heads * hd),
-            ("attn", "wk", "w"): (*lead, d, cfg.n_kv_heads * hd),
-            ("attn", "wv", "w"): (*lead, d, cfg.n_kv_heads * hd),
-            ("attn", "wo", "w"): (*lead, cfg.n_heads * hd, d),
-            ("mlp", "gate", "w"): (*lead, d, cfg.d_ff),
-            ("mlp", "up", "w"): (*lead, d, cfg.d_ff),
-            ("mlp", "down", "w"): (*lead, cfg.d_ff, d),
-            ("norm1", "scale"): (*lead, d),
-            ("norm2", "scale"): (*lead, d)}
+def _attn_shapes(cfg, lead: tuple) -> dict:
+    """An attention layer's leaves: GQA's q, k, v, o (and the q, k and v
+    biases where ``cfg.qkv_bias``), or MLA's."""
+    d, hd, h = cfg.d_model, cfg.head_dim, cfg.n_heads
+    if cfg.kv_lora_rank:
+        nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, \
+            cfg.v_head_dim
+        r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+        want = {("wq_a", "w"): (d, qr), ("q_norm", "scale"): (qr,),
+                ("wq_b", "w"): (qr, h * (nd + rd))} if qr \
+            else {("wq", "w"): (d, h * (nd + rd))}
+        want.update({("wkv_a", "w"): (d, r + rd), ("kv_norm", "scale"): (r,),
+                     ("wkv_b", "w"): (r, h * (nd + vd)),
+                     ("wo", "w"): (h * vd, d)})
+        return {k: (*lead, *v) for k, v in want.items()}
+    want = {("wq", "w"): (*lead, d, h * hd),
+            ("wk", "w"): (*lead, d, cfg.n_kv_heads * hd),
+            ("wv", "w"): (*lead, d, cfg.n_kv_heads * hd),
+            ("wo", "w"): (*lead, h * hd, d)}
     if cfg.qkv_bias:
-        for name, width in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+        for name, width in (("wq", h), ("wk", cfg.n_kv_heads),
                             ("wv", cfg.n_kv_heads)):
-            want[("attn", name, "b")] = (*lead, width * hd)
+            want[(name, "b")] = (*lead, width * hd)
+    return want
+
+
+def _mlp_shapes(d: int, d_ff: int, lead: tuple) -> dict:
+    return {("gate", "w"): (*lead, d, d_ff), ("up", "w"): (*lead, d, d_ff),
+            ("down", "w"): (*lead, d_ff, d)}
+
+
+def _block_shapes(cfg, lead: tuple, **parts) -> dict:
+    """A block's leaves: its two norms and ``parts`` (name -> shapes)."""
+    want = {("norm1", "scale"): (*lead, cfg.d_model),
+            ("norm2", "scale"): (*lead, cfg.d_model)}
+    for name, shapes in parts.items():
+        want.update({(name, *k): v for k, v in shapes.items()})
+    return want
+
+
+def _dense_shapes(cfg, lead: tuple, d_ff: int | None = None) -> dict:
+    return _block_shapes(cfg, lead, attn=_attn_shapes(cfg, lead),
+                         mlp=_mlp_shapes(cfg.d_model, d_ff or cfg.d_ff,
+                                         lead))
+
+
+def _moe_shapes(cfg, lead: tuple) -> dict:
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    want = {("router", "w"): (*lead, d, e), ("gate",): (*lead, e, d, f),
+            ("up",): (*lead, e, d, f), ("down",): (*lead, e, f, d)}
+    if cfg.n_shared_experts:
+        want.update({("shared", *k): v for k, v in _mlp_shapes(
+            d, cfg.n_shared_experts * f, lead).items()})
+    return _block_shapes(cfg, lead, attn=_attn_shapes(cfg, lead), moe=want)
+
+
+def _cross_shapes(cfg, lead: tuple) -> dict:
+    d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = cfg.vision_dim or d
+    xattn = {("wq", "w"): (*lead, d, h * hd), ("wk", "w"): (*lead, src,
+                                                             kh * hd),
+             ("wv", "w"): (*lead, src, kh * hd), ("wo", "w"): (*lead, h * hd,
+                                                               d),
+             ("gate",): lead}
+    want = _block_shapes(cfg, lead, xattn=xattn,
+                         mlp=_mlp_shapes(d, cfg.d_ff, lead))
+    want[("mlp_gate",)] = lead
     return want
 
 
@@ -155,6 +215,15 @@ def lm_param_shapes(cfg) -> dict:
 
     if cfg.family in ("dense", "audio"):
         put("blocks", _dense_shapes(cfg, (cfg.n_layers,)))
+    elif cfg.family == "moe":
+        put("blocks", _moe_shapes(cfg, (n_moe_layers(cfg),)))
+        if cfg.first_dense:
+            put("block0", _dense_shapes(cfg, (), cfg.d_ff_expert * (
+                cfg.top_k + cfg.n_shared_experts)))
+    elif cfg.family == "vlm":
+        n_super, per = vlm_shape(cfg)
+        put("blocks", _dense_shapes(cfg, (n_super, per)))
+        put("cross", _cross_shapes(cfg, (n_super,)))
     elif cfg.family == "ssm":
         put("blocks", _ssm_shapes(cfg, (cfg.n_layers,)))
     elif cfg.family == "hybrid":
@@ -164,16 +233,17 @@ def lm_param_shapes(cfg) -> dict:
             put("tail", _ssm_shapes(cfg, (tail,)))
         put("shared", _dense_shapes(cfg, ()))
     else:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        raise ValueError(f"unknown family {cfg.family!r}")
     return want
 
 
 def lm_params_from_reference(tree, cfg, *, device="cuda") -> dict:
-    """The reference's LM parameter tree (``transformer.init_model``, a
-    dense, audio, ssm or hybrid family) as the port's, checked against
-    ``cfg``'s shapes (``lm_param_shapes``: the q, k and v biases where
-    ``cfg.qkv_bias``; conv weights (K, C) as they are). Every leaf keeps
-    its dtype: ``a_log``, ``dt_bias`` and ``d_skip`` stay float32."""
+    """The reference's LM parameter tree (``transformer.init_model``, any
+    family) as the port's, checked against ``cfg``'s shapes
+    (``lm_param_shapes``: the q, k and v biases where ``cfg.qkv_bias``;
+    conv weights (K, C) as they are). Every leaf keeps its dtype:
+    ``a_log``, ``dt_bias``, ``d_skip`` and the MoE router stay
+    float32."""
     params = tree_from_reference(tree, device=device)
     got, want = dict(_shapes(params)), lm_param_shapes(cfg)
     if got != want:

@@ -73,7 +73,11 @@ class LLMOneShotConfig:
     s_lr: float = 3e-4
 
     def arch_config(self, arch: str):
+        """``arch``'s config at this run's size and vocabulary; the
+        families the port does not train yet (moe, vlm, sliding window)
+        raise."""
         cfg = get_smoke_config(arch) if self.smoke else get_config(arch)
+        T.check_trainable(cfg)
         return cfg if self.vocab is None else cfg.replace(
             vocab_size=self.vocab)
 

@@ -17,7 +17,11 @@ Two modes:
     and slot, so a new request joins the running batch without touching
     the others.
   * ``"dense"`` — the sequential reference: one request at a time with a
-    batch-1 dense cache, the oracle paged mode is held to.
+    batch-1 dense cache, the oracle paged mode is held to, and the mode
+    of the families without a paged layout (``paging.supports_paged``):
+    moe (MLA's latent cache), vlm and sliding-window patterns. A vlm
+    attends over stubbed patch embeddings, zeros (1, n_patches,
+    vision_dim), as the reference's engine passes them.
 
 Scheduling, as the reference's: FIFO admission; a request is admitted
 once a slot and its whole block budget ``ceil((prompt + max_new) /
@@ -99,7 +103,6 @@ class ServeEngine:
             raise NotImplementedError(
                 "model parallelism (a mesh) is not ported yet; the engine "
                 "runs on one device")
-        T.check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.policy = resolve_exec_policy(policy, device=self.device)
@@ -114,7 +117,8 @@ class ServeEngine:
         if mode == "paged" and not supports_paged(cfg):
             raise ValueError(
                 f"paged mode unsupported here (family={cfg.family!r}, "
-                f"sliding_window={cfg.sliding_window}); use mode='dense'")
+                f"sliding_window={cfg.sliding_window}, "
+                f"kv_lora_rank={cfg.kv_lora_rank}); use mode='dense'")
         self.mode = mode
 
         self._queue: list[_Request] = []
@@ -143,6 +147,9 @@ class ServeEngine:
         else:
             self._prefill = ST.make_prefill_step(cfg)
             self._dec = ST.make_serve_step(cfg)
+            self._vision = torch.zeros(
+                (1, cfg.n_patches, cfg.vision_dim), device=self.device) \
+                if cfg.family == "vlm" else None
 
     # ------------------------------------------------------------- API --
 
@@ -317,14 +324,16 @@ class ServeEngine:
         cache = T.init_cache(self.cfg, 1, p + req.max_new,
                              device=self.device)
         logits, cache = self._prefill(self.params, cache,
-                                      self._tensor(req.prompt)[None])
+                                      self._tensor(req.prompt)[None],
+                                      vision=self._vision)
         req.tokens.append(self._sample(req, logits[0, -1].float()))
         self.stats["prefill_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         for i in range(req.max_new - 1):
             logits, cache = self._dec(
                 self.params, cache,
-                self._tensor([[req.tokens[-1]]]), p + i)
+                self._tensor([[req.tokens[-1]]]), p + i,
+                vision=self._vision)
             req.tokens.append(self._sample(req, logits[0, -1].float()))
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += max(0, req.max_new - 1)

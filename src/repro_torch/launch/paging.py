@@ -1,5 +1,6 @@
 """The block-pool cache of the serving engine
-(``repro/launch/paging.py:38-193``: the dense, ssm and hybrid families).
+(``repro/launch/paging.py:38-193``: the dense, audio, ssm and hybrid
+families).
 
   * **KV pool** — per attention layer stack, ``(L, P, page, Kh, Dh)``:
     ``P`` blocks of ``page`` tokens. Position ``t`` of the request in
@@ -21,8 +22,10 @@ Prefill stays dense: a request runs an exact-length ``forward`` prefill
 (padding would advance the SSM recurrence), then ``scatter_prefill``
 copies the filled cache into its blocks and its slot. Every leaf of the
 slot is overwritten: a free slot's state keeps evolving under the
-inactive slots' decode. The audio family's paged cache (the reference
-has one) is not ported and raises ``NotImplementedError``.
+inactive slots' decode. The audio family (musicgen) pages exactly as the
+dense one does. The moe family (MLA's latent cache), the vlm
+(cross-attention) and sliding-window patterns have no paged layout, in
+the reference as here: they serve in the engine's dense mode.
 """
 from __future__ import annotations
 
@@ -35,9 +38,11 @@ PAGED_FAMILIES = ("dense", "audio", "ssm", "hybrid")
 
 
 def supports_paged(cfg) -> bool:
-    """Families the reference's paged decode covers (sliding-window
-    patterns serve in dense mode there)."""
-    return cfg.family in PAGED_FAMILIES and not cfg.sliding_window
+    """Families the paged decode covers. moe (MLA's latent cache), vlm
+    (the cross-attention stream) and sliding-window patterns serve in the
+    engine's sequential dense mode."""
+    return (cfg.family in PAGED_FAMILIES and not cfg.sliding_window
+            and not cfg.kv_lora_rank)
 
 
 def page_size(policy=None, max_len: int | None = None, *,
@@ -88,19 +93,13 @@ class BlockAllocator:
             self._free.append(i)
 
 
-PORTED_PAGED = ("dense", "ssm", "hybrid")
-
-
 def _check_paged(cfg) -> None:
-    """Raise unless the port pages ``cfg``'s family."""
+    """Raise unless ``cfg``'s family has a paged layout."""
     if not supports_paged(cfg):
         raise ValueError(f"no paged cache layout for family {cfg.family!r} "
-                         f"(sliding_window={cfg.sliding_window}) — use the "
+                         f"(sliding_window={cfg.sliding_window}, "
+                         f"kv_lora_rank={cfg.kv_lora_rank}) — use the "
                          "sequential dense engine mode")
-    if cfg.family not in PORTED_PAGED:
-        raise NotImplementedError(
-            f"the paged cache of family {cfg.family!r} is not ported yet "
-            f"(the port pages {PORTED_PAGED}; ROADMAP.md)")
 
 
 def init_paged_cache(cfg, *, max_reqs: int, n_blocks: int, page: int,
@@ -118,7 +117,7 @@ def init_paged_cache(cfg, *, max_reqs: int, n_blocks: int, page: int,
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "audio"):
         return {"layers": kv_pool(cfg.n_layers)}
     # the mamba states of a batch of max_reqs (one slot a request) from
     # init_cache; a hybrid's shared-block cache becomes its block pool
@@ -160,7 +159,7 @@ def scatter_prefill(cfg, pools: dict, block_tables: torch.Tensor,
     allocated block ids, zero-padded to M). In place; returns
     ``(pools, block_tables)``."""
     _check_paged(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "audio"):
         _scatter_kv(pools["layers"], filled["layers"], row)
     elif cfg.family == "ssm":
         _scatter_slot(pools["layers"], filled["layers"], slot)

@@ -13,8 +13,12 @@ Usage (full width unless ``--smoke``; the card unless ``--device cpu``):
         [--smoke] --batch 4 --prompt-len 64 --gen 32 [--mode paged|dense] \
         [--device cuda]
 
-``--arch`` is any ported architecture (``configs.available_archs()``):
-the attention families, mamba2-130m (ssm) and zamba2-7b (hybrid).
+``--arch`` is any architecture the reference registers
+(``configs.available_archs()``). The engine's default mode is paged for
+the dense and audio families, mamba2-130m (ssm) and zamba2-7b (hybrid),
+and dense for gemma3-4b (its sliding window), deepseek-v2-lite-16b and
+deepseek-v2-236b (MLA and MoE) and llama3.2-vision-11b (cross-attention
+onto the engine's zero patch embeddings), which have no paged layout.
 """
 from __future__ import annotations
 

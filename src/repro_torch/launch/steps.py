@@ -15,7 +15,9 @@ def make_train_state(cfg, *, lr: float = 3e-4, seed: int = 0,
                      params: dict | None = None, device="cuda") -> dict:
     """{"params", "opt", "step"}: ``params`` (default: ``init_model`` from
     ``seed`` on ``device``) made trainable in place, and Adam at ``lr``
-    over them (float32 moments, as the reference keeps them)."""
+    over them (float32 moments, as the reference keeps them). The
+    families ``transformer.check_trainable`` refuses raise."""
+    T.check_trainable(cfg)
     if params is None:
         params = T.init_model(cfg, seed=seed, device=device)
     tensors = T.leaves(params)
@@ -45,14 +47,15 @@ def make_train_step(cfg, *, clip: float = 1.0):
 
 
 def make_prefill_step(cfg):
-    def prefill_step(params, cache, tokens):
-        """tokens: (B, S) from position 0 into ``cache``; returns the last
-        position's logits (B, 1, V) and the filled cache."""
+    def prefill_step(params, cache, tokens, vision=None):
+        """tokens: (B, S) from position 0 into ``cache`` (a vlm attends
+        over ``vision``); returns the last position's logits (B, 1, V)
+        and the filled cache."""
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
         logits, cache = T.forward(params, cfg, tokens=tokens,
                                   positions=positions, cache=cache,
-                                  cache_pos=0)
+                                  cache_pos=0, vision=vision)
         return logits[:, -1:], cache
 
     return prefill_step
@@ -61,10 +64,11 @@ def make_prefill_step(cfg):
 def make_serve_step(cfg):
     """One decode step: a single new token against a pre-filled cache
     (the mamba blocks' one-token step, ``decode=True``)."""
-    def serve_step(params, cache, tokens, pos: int):
+    def serve_step(params, cache, tokens, pos: int, vision=None):
         positions = torch.tensor([pos], dtype=torch.int32,
                                  device=tokens.device)
         return T.forward(params, cfg, tokens=tokens, positions=positions,
-                         cache=cache, cache_pos=pos, decode=True)
+                         cache=cache, cache_pos=pos, vision=vision,
+                         decode=True)
 
     return serve_step

@@ -18,7 +18,9 @@ Usage (full width unless ``--smoke``; the card unless ``--device cpu``):
 (``interop.lm_params_to_reference``, bfloat16 widened exactly to
 float32), so ``repro.checkpoint.restore_checkpoint`` reads it, and
 ``restore_checkpoint(PATH, state["params"])`` reads the reference's.
-Model parallelism (``--model-parallel`` > 1) is not ported and raises
+Model parallelism (``--model-parallel`` > 1) and training the moe and
+vlm families and gemma3's sliding-window pattern (they serve only,
+``transformer.check_trainable``) are not ported and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations

@@ -1,5 +1,7 @@
-"""Grouped-query attention of the dense and audio families
-(``repro/models/attention.py:23-253``).
+"""Attention of the LM families (``repro/models/attention.py``):
+grouped-query attention with its sliding window, cache and block pool,
+gated cross-attention (the vlm) and DeepSeek-V2's multi-head latent
+attention (MLA, the moe family).
 
 ``gqa_apply`` attends over x alone (training, the LLM DENSE steps),
 prefills a dense cache and decodes against it; ``gqa_apply_paged``
@@ -7,24 +9,37 @@ decodes one token per request against the serving engine's block pool
 through ``kernels.ops.paged_attention`` (K4 on the card). Query head
 ``h`` attends with KV head ``h // G`` (``h = kv·G + g``, G = n_heads /
 n_kv_heads), masked scores are set to ``NEG_INF = -2^30``, and q, k and
-v carry a bias where ``cfg.qkv_bias`` (qwen), as in the reference.
+v carry a bias where ``cfg.qkv_bias`` (qwen), as in the reference. The
+mask is causal and, for a layer's ``window`` w > 0, keeps keys with
+``q_pos − k_pos < w`` (``attention.py:194-198``).
 
 Without a cache, the route follows the execution policy as in the
 reference (``attention.py:152-172``): under a kernel profile
 (``kernel_vjp != "ref"``, the cuda default) ``kernels.ops.flash_attention``
-runs K2 on (B, H, S, D) copies of q, k and v, causal with window 0 (the
-port has no sliding-window pattern) under the contract that the
-positions are contiguous from 0; under ``"ref"`` the plain ``_sdpa``
-runs. Prefill with a cache stays on ``_sdpa`` on every profile, as in
-the reference.
+runs K2 on (B, H, S, D) copies of q, k and v, causal with the layer's
+window, under the contract that the positions are contiguous from 0;
+under ``"ref"`` the plain path runs. A config with a sliding-window
+pattern (gemma3) takes the plain path in every layer, global ones too:
+the reference scans its per-layer window as a traced value, which keeps
+every layer off its Pallas kernel (``attention.py:120-131``,
+``transformer.py:296-303``). Prefill with a cache stays plain on every
+profile, as in the reference.
+
+The plain path is ``_sdpa`` (scores materialized), or, where S ≥ 4096
+and the blocks tile S and T (``_blockwise``), ``_sdpa_blockwise``:
+the reference's online-softmax prefill over (1024, 1024) blocks,
+with the same arithmetic (a block whose every key is masked adds
+``exp(0)`` terms that the next live block's rescale by 0 wipes out).
+Both stay plain torch matmul and softmax, as MLA and cross-attention
+do: the reference computes them in XLA, outside any Pallas kernel.
+
+MLA caches the compressed latent ``c_kv`` (B, T, kv_lora_rank) and one
+rope key ``k_rope`` (B, T, rope dim) shared by every head, and
+decompresses the whole cache through ``wkv_b`` at every step, as the
+reference does; its scale is 1/√(nope + rope dims).
 
 Caches and pools are updated in place and returned (the reference
 returns updated copies): a decode step writes one row, not a new cache.
-The blockwise online-softmax prefill for S ≥ 4096 (``_use_blockwise``)
-is not ported and raises ``NotImplementedError``.
-
-``_sdpa`` stays plain torch matmul and softmax: the reference computes it
-in XLA, outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -37,7 +52,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 NEG_INF = -2.0 ** 30
-BLOCKWISE_MIN = 4096
+BLOCKWISE_MIN = 4096        # the blockwise prefill from this many queries
 
 
 def gqa_init(cfg, *, generator, dtype, lead: tuple = ()) -> dict:
@@ -68,8 +83,67 @@ def _sdpa(q, k, v, mask, scale):
     return torch.einsum("bkgst,btkd->bskgd", probs, v)
 
 
-def _use_blockwise(sq: int, t: int, bq: int, bk: int) -> bool:
-    return sq >= BLOCKWISE_MIN and sq % bq == 0 and t % bk == 0
+def _sdpa_blockwise(q, k, v, q_pos, k_pos, window: int, scale: float,
+                    bq: int, bk: int):
+    """``_sdpa`` with the mask given by positions and ``window`` (0 =
+    causal only), over (bq, bk) blocks with an online softmax
+    (``repro/models/attention.py:62-111``). q: (B, S, Kh, G, Dk); k: (B,
+    T, Kh, Dk); v: (B, T, Kh, Dv) (Dv may differ from Dk: MLA); q_pos:
+    (S,), k_pos: (T,). Returns (B, S, Kh, G, Dv) in v's dtype."""
+    B, S, Kh, G, _ = q.shape
+    T, Dv = k.shape[1], v.shape[-1]
+    out = []
+    for i in range(0, S, bq):
+        qc, qp = q[:, i:i + bq].float(), q_pos[i:i + bq]
+        m = torch.full((B, Kh, G, bq), NEG_INF, device=q.device)
+        l = torch.zeros((B, Kh, G, bq), device=q.device)
+        acc = torch.zeros((B, Kh, G, bq, Dv), device=q.device)
+        for j in range(0, T, bk):
+            kp = k_pos[j:j + bk]
+            s = torch.einsum("bqkgd,btkd->bkgqt", qc,
+                             k[:, j:j + bk].float()) * scale
+            mask = kp[None, :] <= qp[:, None]
+            if window:
+                mask = mask & (qp[:, None] - kp[None, :] < window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", p.to(v.dtype).float(),
+                v[:, j:j + bk].float())
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        out.append(o.permute(0, 3, 1, 2, 4))            # (B, bq, Kh, G, Dv)
+    return torch.cat(out, dim=1).to(v.dtype)
+
+
+def _blockwise(cfg, S: int, T: int) -> bool:
+    """Whether ``cfg`` attends S queries over T keys blockwise: from
+    ``BLOCKWISE_MIN`` queries, where its blocks tile S and T
+    (``attention.py:114-117``; the blocks then the config's, clamped to S
+    and T)."""
+    return (cfg.use_blockwise_attn and S >= BLOCKWISE_MIN
+            and S % cfg.attn_block_q == 0 and T % cfg.attn_block_kv == 0)
+
+
+def _mask(q_pos, k_pos, window: int):
+    """(S, T): causal, and within ``window`` where it is not 0."""
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window:
+        mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+    return mask
+
+
+def _write(cache: dict, new: dict, pos: int) -> None:
+    """Each ``new[name]`` (B, S, ...) into ``cache[name]`` at ``pos``,
+    clamped as ``dynamic_update_slice`` clamps."""
+    for name, t in new.items():
+        c = cache[name]
+        S = t.shape[1]
+        at = min(max(pos, 0), c.shape[1] - S)
+        c[:, at:at + S] = t.to(c.dtype)
 
 
 def _qkv(p, x, cfg, cos, sin):
@@ -82,13 +156,15 @@ def _qkv(p, x, cfg, cos, sin):
 
 
 def gqa_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-              cache: dict | None = None, cache_pos: int | None = None):
-    """Self-attention. x: (B, S, D); positions: (S,) absolute positions.
+              window: int = 0, cache: dict | None = None,
+              cache_pos: int | None = None):
+    """Self-attention. x: (B, S, D); positions: (S,) absolute positions;
+    ``window``: the layer's window (0: causal only).
 
     Prefill: a cache to fill from ``cache_pos`` (default positions[0]).
     Decode: S == 1 against the cached K/V. ``cache=None`` attends over x
-    alone, through K2 under a kernel profile (positions must then be
-    0..S-1). Returns (y, cache)."""
+    alone, through K2 under a kernel profile without a sliding-window
+    pattern (positions must then be 0..S-1). Returns (y, cache)."""
     B, S, _ = x.shape
     T = S if cache is None else cache["k"].shape[1]
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -96,32 +172,29 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     q, k, v = _qkv(p, x, cfg, cos, sin)
 
     pol = resolve_exec_policy(cfg, device=x.device)
-    if cache is None and pol.kernel_vjp != "ref":
+    if cache is None and pol.kernel_vjp != "ref" and not cfg.sliding_window:
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=True, window=0,
-                                  policy=pol)
+                                  v.transpose(1, 2), causal=True,
+                                  window=window, policy=pol)
         out = out.transpose(1, 2).reshape(B, S, h * hd)
         return L.linear(p["wo"], out.to(x.dtype)), None
-    if cfg.use_blockwise_attn and _use_blockwise(S, T, cfg.attn_block_q,
-                                                 cfg.attn_block_kv):
-        raise NotImplementedError(
-            f"the blockwise prefill (S={S} >= {BLOCKWISE_MIN}) is not "
-            "ported yet (ROADMAP.md)")
 
     if cache is not None:
-        pos = int(positions[0] if cache_pos is None else cache_pos)
-        pos = min(max(pos, 0), T - S)        # as dynamic_update_slice clamps
-        cache["k"][:, pos:pos + S] = k.to(cache["k"].dtype)
-        cache["v"][:, pos:pos + S] = v.to(cache["v"].dtype)
+        _write(cache, {"k": k, "v": v},
+               int(positions[0] if cache_pos is None else cache_pos))
         k_all, v_all = cache["k"], cache["v"]
         k_pos = torch.arange(T, device=x.device)
     else:
         k_all, v_all, k_pos = k, v, positions
-    mask = k_pos[None, :] <= positions[:, None]
-
     q = q.reshape(B, S, kh, h // kh, hd)
-    out = _sdpa(q, k_all.to(q.dtype), v_all.to(q.dtype), mask,
-                1.0 / math.sqrt(hd))
+    scale = 1.0 / math.sqrt(hd)
+    k_all, v_all = k_all.to(q.dtype), v_all.to(q.dtype)
+    if _blockwise(cfg, S, T):
+        out = _sdpa_blockwise(q, k_all, v_all, positions, k_pos, window,
+                              scale, min(cfg.attn_block_q, S),
+                              min(cfg.attn_block_kv, T))
+    else:
+        out = _sdpa(q, k_all, v_all, _mask(positions, k_pos, window), scale)
     return L.linear(p["wo"], out.reshape(B, S, h * hd).to(x.dtype)), cache
 
 
@@ -155,3 +228,125 @@ def gqa_apply_paged(p: dict, x: torch.Tensor, cfg, *,
                               policy=resolve_exec_policy(cfg,
                                                          device=x.device))
     return L.linear(p["wo"], out.reshape(R, 1, h * hd).to(x.dtype)), pool
+
+
+# -------------------------------------------------------- cross-attention --
+
+def cross_attn_init(cfg, *, generator, dtype, lead: tuple = ()) -> dict:
+    """Gated cross-attention onto the stubbed vision stream, its tanh
+    gate zero at init (``attention.py:259-274``)."""
+    d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = cfg.vision_dim or d
+    kw = {"generator": generator, "dtype": dtype, "lead": lead}
+    return {"wq": L.linear_init(d, h * hd, **kw),
+            "wk": L.linear_init(src, kh * hd, **kw),
+            "wv": L.linear_init(src, kh * hd, **kw),
+            "wo": L.linear_init(h * hd, d, **kw),
+            "gate": torch.zeros(lead, dtype=dtype, device=generator.device)}
+
+
+def cross_attn_apply(p: dict, x: torch.Tensor, src: torch.Tensor,
+                     cfg) -> torch.Tensor:
+    """x: (B, S, D) attends over every row of src: (B, P, src_dim);
+    the output scaled by tanh(gate)."""
+    B, S, _ = x.shape
+    P = src.shape[1]
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = src.to(x.dtype)
+    q = L.linear(p["wq"], x).reshape(B, S, kh, h // kh, hd)
+    k = L.linear(p["wk"], src).reshape(B, P, kh, hd)
+    v = L.linear(p["wv"], src).reshape(B, P, kh, hd)
+    mask = torch.ones((S, P), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(hd))
+    y = L.linear(p["wo"], out.reshape(B, S, h * hd).to(x.dtype))
+    return torch.tanh(p["gate"].to(x.dtype)) * y
+
+
+# -------------------------------------------------------------------- MLA --
+
+def mla_init(cfg, *, generator, dtype, lead: tuple = ()) -> dict:
+    """DeepSeek-V2's attention (``attention.py:292-311``): q through the
+    low-rank ``wq_a``/``q_norm``/``wq_b`` where ``q_lora_rank``, else
+    ``wq``; the KV latent and the shared rope key from ``wkv_a``."""
+    d, h = cfg.d_model, cfg.n_heads
+    qd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    kw = {"generator": generator, "dtype": dtype, "lead": lead}
+    dev = generator.device
+    p = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = L.linear_init(d, cfg.q_lora_rank, **kw)
+        p["q_norm"] = L.rmsnorm_init(cfg.q_lora_rank, dtype=dtype,
+                                     device=dev, lead=lead)
+        p["wq_b"] = L.linear_init(cfg.q_lora_rank, h * qd, **kw)
+    else:
+        p["wq"] = L.linear_init(d, h * qd, **kw)
+    p["wkv_a"] = L.linear_init(d, cfg.kv_lora_rank + cfg.qk_rope_head_dim,
+                               **kw)
+    p["kv_norm"] = L.rmsnorm_init(cfg.kv_lora_rank, dtype=dtype, device=dev,
+                                  lead=lead)
+    p["wkv_b"] = L.linear_init(
+        cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim), **kw)
+    p["wo"] = L.linear_init(h * cfg.v_head_dim, d, **kw)
+    return p
+
+
+def mla_cache_init(cfg, batch: int, max_len: int, dtype, device,
+                   lead: tuple = ()) -> dict:
+    """The compressed latent and the shared rope key, zeros."""
+    return {"c_kv": torch.zeros((*lead, batch, max_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((*lead, batch, max_len,
+                                   cfg.qk_rope_head_dim), dtype=dtype,
+                                  device=device)}
+
+
+def mla_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+              cache: dict | None = None, cache_pos: int | None = None,
+              window: int = 0):
+    """MLA over x: (B, S, D) (``attention.py:319-380``), with a cache as
+    ``gqa_apply`` takes one (the latent and the rope key written at
+    ``cache_pos``). Returns (y, cache)."""
+    B, S, _ = x.shape
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    if cfg.q_lora_rank:
+        q = L.linear(p["wq_b"], L.rmsnorm(p["q_norm"],
+                                          L.linear(p["wq_a"], x)))
+    else:
+        q = L.linear(p["wq"], x)
+    q = q.reshape(B, S, h, nd + rd)
+    cos, sin = L.rope_cos_sin(positions, rd, cfg.rope_theta)
+    qn, qr = q[..., :nd], L.apply_rope(q[..., nd:], cos, sin)
+    kv_a = L.linear(p["wkv_a"], x)
+    c_kv = L.rmsnorm(p["kv_norm"], kv_a[..., :r])
+    k_rope = L.apply_rope(kv_a[..., None, r:], cos, sin)[:, :, 0]
+
+    if cache is not None:
+        _write(cache, {"c_kv": c_kv, "k_rope": k_rope},
+               int(positions[0] if cache_pos is None else cache_pos))
+        c_all, r_all = cache["c_kv"], cache["k_rope"]
+        k_pos = torch.arange(c_all.shape[1], device=x.device)
+    else:
+        c_all, r_all, k_pos = c_kv, k_rope, positions
+    T = c_all.shape[1]
+    kv = L.linear(p["wkv_b"], c_all.to(x.dtype)).reshape(B, T, h, nd + vd)
+    kn, v = kv[..., :nd], kv[..., nd:]
+    r_all = r_all.to(x.dtype)
+    scale = 1.0 / math.sqrt(nd + rd)
+    if _blockwise(cfg, S, T):
+        q_cat = torch.cat([qn, qr], -1)[:, :, :, None, :]        # G = 1
+        k_cat = torch.cat([kn, r_all[:, :, None, :].expand(B, T, h, rd)],
+                          -1)
+        out = _sdpa_blockwise(q_cat, k_cat, v, positions, k_pos, window,
+                              scale, min(cfg.attn_block_q, S),
+                              min(cfg.attn_block_kv, T))[:, :, :, 0]
+    else:
+        scores = (torch.einsum("bshd,bthd->bhst", qn.float(), kn.float())
+                  + torch.einsum("bshd,btd->bhst", qr.float(),
+                                 r_all.float())) * scale
+        scores = torch.where(_mask(positions, k_pos, window)[None, None],
+                             scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = torch.einsum("bhst,bthd->bshd", probs, v)
+    y = L.linear(p["wo"], out.reshape(B, S, h * vd).to(x.dtype))
+    return y, cache

@@ -169,9 +169,10 @@ class BatchNorm(nn.Module):
 # ------------------------------------------------------------ LM layers --
 
 def _normal(shape, std: float, generator, dtype) -> torch.Tensor:
-    """N(0, std²) drawn in float32 on the generator's device, then cast."""
+    """N(0, std²) drawn in float32 on the generator's device, then cast
+    (scaled in place: a full-width expert stack is ~19 GB in float32)."""
     w = torch.randn(shape, generator=generator, device=generator.device)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)
 
 
 def linear_init(d_in: int, d_out: int, *, generator, dtype,

@@ -1,5 +1,10 @@
-"""The LM trunk of the dense and audio (attention), ssm (Mamba-2) and
-hybrid (Zamba2) families (``repro/models/transformer.py:59-574``).
+"""The LM trunk of every family the reference registers
+(``repro/models/transformer.py:59-574``): dense (llama, qwen, phi,
+gemma3's sliding-window pattern) and audio (musicgen, the dense blocks
+over codec tokens), moe (DeepSeek-V2: MLA attention, a routed and shared
+MoE, layer 0 a dense MLP), vlm (llama-3.2-vision: self layers and gated
+cross-attention onto stubbed patch embeddings), ssm (Mamba-2) and hybrid
+(Zamba2).
 
 Parameters are a dict of tensors named as the reference's tree:
 ``embed.table``, ``final_norm.scale`` and ``blocks``, whose leaves carry
@@ -7,26 +12,34 @@ a leading layer axis (the reference scans them; the port loops over the
 layers, viewing each by ``layer`` or, in ``forward``, by one ``unstack``).
 A hybrid's ``blocks`` are stacked (n_super, attn_every, ...), its
 ``tail`` (n_layers % attn_every, ...), and its one weight-tied ``shared``
-attention block runs after each super-block. Caches and block pools keep
-the reference's layouts as well, so ``interop`` carries either across as
-it is. The audio family (musicgen) runs the dense blocks over codec
-tokens.
+attention block runs after each super-block. A vlm's ``blocks`` are
+stacked (n_super, cross_every, ...) and its ``cross`` (n_super, ...), one
+cross block after each super-block. A moe's ``blocks`` are its MoE
+layers and ``block0`` its first, dense-MLP layer (MLP width
+``d_ff_expert·(top_k + n_shared_experts)``) where ``first_dense``.
+Caches and block pools keep the reference's layouts as well (MLA's
+``c_kv`` and ``k_rope``, a moe's ``layer0``, a vlm's ``layers`` (n_super,
+cross_every, ...)), so ``interop`` carries either across as it is.
 
   * ``init_model`` / ``init_cache`` — parameters drawn from a
-    ``torch.Generator``; a dense (L, B, T, Kh, Dh) KV cache and the
-    mamba blocks' (L, B, ...) states, zeros.
+    ``torch.Generator``; zero caches: dense (…, B, T, Kh, Dh) KV, MLA's
+    latent, the mamba blocks' (…, B, ...) states.
   * ``forward`` — over ``tokens`` or soft ``embeds`` (the token
     generator's), without a cache (K2 and K3 on the card, each layer
     recomputed in the backward when ``remat``), prefill into a cache
     (K3f seeded with the state) and decode against it (``decode=True``:
-    the mamba blocks' one-token step).
+    the mamba blocks' one-token step); a vlm takes ``vision`` (B, P,
+    vision_dim); ``with_aux`` adds the summed MoE load-balance term.
+    gemma3's layers take ``layer_windows`` and the plain attention path.
   * ``forward_paged`` — one continuous-batching decode step over the
     block pool, through K4 on the card; the mamba blocks step their
-    per-slot states.
-  * ``loss_fn`` — next-token cross-entropy.
+    per-slot states (the families ``launch/paging.supports_paged``
+    takes).
+  * ``loss_fn`` — next-token cross-entropy plus ``router_aux_coef`` times
+    the MoE auxiliary.
 
-Other families (moe, vlm) and sliding-window patterns raise
-``NotImplementedError``.
+Training the moe and vlm families and gemma3 (their gradients, the
+vision batch) is not ported: ``check_trainable`` refuses them.
 """
 from __future__ import annotations
 
@@ -36,26 +49,60 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.backend import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
-FAMILIES = ("dense", "audio", "ssm", "hybrid")
+FAMILIES = ("dense", "audio", "moe", "ssm", "hybrid", "vlm")
 
 
-def check_ported(cfg) -> None:
-    """Raise unless the port has ``cfg``'s family: dense or audio (the
-    same blocks), ssm or hybrid, every attention layer global."""
-    if cfg.family not in FAMILIES or cfg.sliding_window:
+def _check_family(cfg) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def check_trainable(cfg) -> None:
+    """Raise unless the port trains ``cfg``: training the moe and vlm
+    families and sliding-window patterns (their gradients held to the
+    reference, the vision batch, the MoE auxiliary in the step) is not
+    ported yet."""
+    if cfg.family in ("moe", "vlm") or cfg.sliding_window:
         raise NotImplementedError(
-            f"family {cfg.family!r} (sliding_window={cfg.sliding_window}) "
-            "is not ported yet; the port runs the dense, audio, ssm and "
-            "hybrid families without a sliding window (ROADMAP.md lists the "
-            "slices that bring the others)")
+            f"training family {cfg.family!r} (sliding_window="
+            f"{cfg.sliding_window}) is not ported yet; the port serves it "
+            "(ROADMAP.md, Queue 1 item 13; LLM DENSE with it, item 14)")
 
 
 def hybrid_shape(cfg) -> tuple[int, int]:
     """(super-blocks, tail mamba blocks) of a hybrid: ``n_layers`` mamba
     blocks, the shared block after every ``attn_every`` of them."""
     return cfg.n_layers // cfg.attn_every, cfg.n_layers % cfg.attn_every
+
+
+def vlm_shape(cfg) -> tuple[int, int]:
+    """(super-blocks, self layers a super-block) of a vlm: ``n_layers``
+    counts ``cross_every`` self layers and one cross layer a
+    super-block."""
+    per = cfg.cross_every
+    n_super = cfg.n_layers // (per + 1)
+    if n_super * (per + 1) != cfg.n_layers:
+        raise ValueError(f"vlm layout must tile: {cfg.n_layers} layers in "
+                         f"super-blocks of {per} + 1")
+    return n_super, per
+
+
+def layer_windows(cfg) -> list:
+    """Each layer's sliding window, 0 for a global layer (gemma3: every
+    ``global_every``-th layer global, the others ``sliding_window``)."""
+    w = [cfg.sliding_window] * cfg.n_layers
+    if cfg.sliding_window and cfg.global_every:
+        for i in range(cfg.global_every - 1, cfg.n_layers, cfg.global_every):
+            w[i] = 0
+    return w
+
+
+def n_moe_layers(cfg) -> int:
+    """The MoE layers of a moe: all but a ``first_dense`` layer 0."""
+    return cfg.n_layers - (1 if cfg.first_dense else 0)
 
 
 def layer(tree: dict, i: int) -> dict:
@@ -83,10 +130,11 @@ def leaves(tree: dict) -> list:
 def init_model(cfg, *, seed: int = 0, generator: torch.Generator | None = None,
                device="cuda") -> dict:
     """Random parameters: linear weights N(0, 1/d_in), the embedding
-    N(0, 1/d_model), norms at one, as the reference draws them. Drawn in
-    float32 on the generator's device (default: a generator seeded with
-    ``seed`` on ``device``), then cast to ``cfg.param_dtype``."""
-    check_ported(cfg)
+    N(0, 1/d_model), the experts N(0, 1/d_in) (the router float32), norms
+    at one, gates at zero, as the reference draws them. Drawn in float32
+    on the generator's device (default: a generator seeded with ``seed``
+    on ``device``), then cast to ``cfg.param_dtype``."""
+    _check_family(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
@@ -96,26 +144,49 @@ def init_model(cfg, *, seed: int = 0, generator: torch.Generator | None = None,
     params = {"embed": L.embed_init(cfg.vocab_size, d, **kw),
               "final_norm": L.rmsnorm_init(d, dtype=dtype, device=dev)}
 
-    def dense_blocks(lead):
-        return {"norm1": L.rmsnorm_init(d, dtype=dtype, device=dev, lead=lead),
-                "attn": A.gqa_init(cfg, lead=lead, **kw),
-                "norm2": L.rmsnorm_init(d, dtype=dtype, device=dev, lead=lead),
-                "mlp": L.swiglu_init(d, cfg.d_ff, lead=lead, **kw)}
+    def norm(lead):
+        return L.rmsnorm_init(d, dtype=dtype, device=dev, lead=lead)
+
+    def attn(lead):
+        init = A.mla_init if cfg.kv_lora_rank else A.gqa_init
+        return init(cfg, lead=lead, **kw)
+
+    def dense_blocks(lead, d_ff=cfg.d_ff):
+        return {"norm1": norm(lead), "attn": attn(lead), "norm2": norm(lead),
+                "mlp": L.swiglu_init(d, d_ff, lead=lead, **kw)}
 
     def ssm_blocks(lead):
-        return {"norm": L.rmsnorm_init(d, dtype=dtype, device=dev, lead=lead),
-                "mamba": S.mamba2_init(cfg, lead=lead, **kw)}
+        return {"norm": norm(lead), "mamba": S.mamba2_init(cfg, lead=lead,
+                                                           **kw)}
 
     if cfg.family in ("dense", "audio"):
         params["blocks"] = dense_blocks((cfg.n_layers,))
+    elif cfg.family == "moe":
+        lead = (n_moe_layers(cfg),)
+        params["blocks"] = {"norm1": norm(lead), "attn": attn(lead),
+                            "norm2": norm(lead),
+                            "moe": M.moe_init(cfg, lead=lead, **kw)}
+        if cfg.first_dense:
+            params["block0"] = dense_blocks(
+                (), cfg.d_ff_expert * (cfg.top_k + cfg.n_shared_experts))
     elif cfg.family == "ssm":
         params["blocks"] = ssm_blocks((cfg.n_layers,))
-    else:
+    elif cfg.family == "hybrid":
         n_super, tail = hybrid_shape(cfg)
         params["blocks"] = ssm_blocks((n_super, cfg.attn_every))
         if tail:
             params["tail"] = ssm_blocks((tail,))
         params["shared"] = dense_blocks(())
+    else:
+        n_super, per = vlm_shape(cfg)
+        lead = (n_super,)
+        params["blocks"] = dense_blocks((n_super, per))
+        params["cross"] = {
+            "norm1": norm(lead),
+            "xattn": A.cross_attn_init(cfg, lead=lead, **kw),
+            "norm2": norm(lead),
+            "mlp": L.swiglu_init(d, cfg.d_ff, lead=lead, **kw),
+            "mlp_gate": torch.zeros(lead, dtype=dtype, device=dev)}
 
     def to_dev(tree):
         return {k: to_dev(v) if isinstance(v, dict) else v.to(dev)
@@ -126,16 +197,29 @@ def init_model(cfg, *, seed: int = 0, generator: torch.Generator | None = None,
 
 def init_cache(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
     """Zeros in the reference's layout: ``{"layers": {"k", "v"}}`` (L, B,
-    T, Kh, Dh) for the attention families; the mamba blocks' states
-    stacked as their parameters (``"layers"``, and a hybrid's ``"tail"``)
-    beside a hybrid's shared block's KV cache (``"shared"``, one per
-    application)."""
-    check_ported(cfg)
+    T, Kh, Dh) for the dense and audio families, (n_super, cross_every,
+    B, T, Kh, Dh) for a vlm; a moe's MLA ``{"c_kv", "k_rope"}`` for its
+    MoE layers (``"layers"``) and its layer 0 (``"layer0"``); the mamba
+    blocks' states stacked as their parameters (``"layers"``, and a
+    hybrid's ``"tail"``) beside a hybrid's shared block's KV cache
+    (``"shared"``, one per application)."""
+    _check_family(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
+
+    def attn_cache(lead):
+        init = A.mla_cache_init if cfg.kv_lora_rank else A.gqa_cache_init
+        return init(cfg, batch, max_len, dtype, dev, lead=lead)
+
     if cfg.family in ("dense", "audio"):
-        return {"layers": A.gqa_cache_init(cfg, batch, max_len, dtype, dev,
-                                           lead=(cfg.n_layers,))}
+        return {"layers": attn_cache((cfg.n_layers,))}
+    if cfg.family == "moe":
+        c = {"layers": attn_cache((n_moe_layers(cfg),))}
+        if cfg.first_dense:
+            c["layer0"] = attn_cache(())
+        return c
+    if cfg.family == "vlm":
+        return {"layers": attn_cache(vlm_shape(cfg))}
     if cfg.family == "ssm":
         return {"layers": S.mamba2_state_init(cfg, batch, dtype, dev,
                                               lead=(cfg.n_layers,))}
@@ -149,11 +233,37 @@ def init_cache(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
     return c
 
 
-def _dense_block(p, x, cfg, positions, cache, cache_pos):
-    h, _ = A.gqa_apply(p["attn"], L.rmsnorm(p["norm1"], x), cfg,
-                       positions=positions, cache=cache, cache_pos=cache_pos)
+def _attn(p, x, cfg, positions, window, cache, cache_pos):
+    apply = A.mla_apply if cfg.kv_lora_rank else A.gqa_apply
+    return apply(p, x, cfg, positions=positions, window=window, cache=cache,
+                 cache_pos=cache_pos)
+
+
+def _dense_block(p, x, cfg, positions, window, cache, cache_pos):
+    """x + attn(norm(x)), then x + swiglu(norm(x)); MLA attention in a
+    moe's layer 0 (``_apply_mla_dense0``)."""
+    h, _ = _attn(p["attn"], L.rmsnorm(p["norm1"], x), cfg, positions, window,
+                 cache, cache_pos)
     x = x + h
     return x + L.swiglu(p["mlp"], L.rmsnorm(p["norm2"], x))
+
+
+def _moe_block(p, x, cfg, positions, cache, cache_pos):
+    """x + attn(norm(x)), then x + moe(norm(x)); returns (x, aux)."""
+    h, _ = _attn(p["attn"], L.rmsnorm(p["norm1"], x), cfg, positions, 0,
+                 cache, cache_pos)
+    x = x + h
+    y, aux = M.moe_apply(p["moe"], L.rmsnorm(p["norm2"], x), cfg)
+    return x + y, aux
+
+
+def _cross_block(p, x, cfg, vision):
+    """x + gated cross-attention onto ``vision``, then x + tanh(mlp_gate)·
+    swiglu(norm(x))."""
+    x = x + A.cross_attn_apply(p["xattn"], L.rmsnorm(p["norm1"], x), vision,
+                               cfg)
+    return x + torch.tanh(p["mlp_gate"].to(x.dtype)) \
+        * L.swiglu(p["mlp"], L.rmsnorm(p["norm2"], x))
 
 
 def _ssm_block(p, x, cfg, state, decode):
@@ -168,30 +278,48 @@ def _ssm_block(p, x, cfg, state, decode):
 
 
 def _layers(cfg, params: dict) -> list:
-    """The trunk in order: ("ssm", params, state index) and ("attn",
-    params, application index) entries; the state index addresses
-    ``init_cache``'s tree."""
-    if cfg.family in ("dense", "audio"):
-        return [("attn", p, ("layers", i)) for i, p in
+    """The trunk in order: (kind, params, cache index, window) with kind
+    "attn" (a dense-MLP block), "moe", "cross" (no cache) or "ssm"; the
+    cache index (a name, then stack indices) addresses ``init_cache``'s
+    tree."""
+    fam = cfg.family
+    if fam in ("dense", "audio"):
+        return [("attn", p, ("layers", i), w) for i, (p, w) in enumerate(
+            zip(unstack(params["blocks"], cfg.n_layers), layer_windows(cfg)))]
+    if fam == "moe":
+        out = [("attn", params["block0"], ("layer0",), 0)] \
+            if cfg.first_dense else []
+        return out + [("moe", p, ("layers", i), 0) for i, p in enumerate(
+            unstack(params["blocks"], n_moe_layers(cfg)))]
+    if fam == "ssm":
+        return [("ssm", p, ("layers", i), 0) for i, p in
                 enumerate(unstack(params["blocks"], cfg.n_layers))]
-    if cfg.family == "ssm":
-        return [("ssm", p, ("layers", i)) for i, p in
-                enumerate(unstack(params["blocks"], cfg.n_layers))]
-    n_super, tail = hybrid_shape(cfg)
     out = []
+    if fam == "vlm":
+        n_super, per = vlm_shape(cfg)
+        for j, (grp, cross) in enumerate(zip(
+                unstack(params["blocks"], n_super),
+                unstack(params["cross"], n_super))):
+            out += [("attn", p, ("layers", j, i), 0)
+                    for i, p in enumerate(unstack(grp, per))]
+            out.append(("cross", cross, None, 0))
+        return out
+    n_super, tail = hybrid_shape(cfg)
     for j, grp in enumerate(unstack(params["blocks"], n_super)):
-        out += [("ssm", p, ("layers", j, i))
+        out += [("ssm", p, ("layers", j, i), 0)
                 for i, p in enumerate(unstack(grp, cfg.attn_every))]
-        out.append(("attn", params["shared"], ("shared", j)))
+        out.append(("attn", params["shared"], ("shared", j), 0))
     if tail:
-        out += [("ssm", p, ("tail", i))
+        out += [("ssm", p, ("tail", i), 0)
                 for i, p in enumerate(unstack(params["tail"], tail))]
     return out
 
 
-def _at(cache: dict, index: tuple) -> dict:
+def _at(cache: dict | None, index: tuple | None) -> dict | None:
     """The per-layer views of ``cache`` at ``index`` (a name, then stack
-    indices)."""
+    indices); None without a cache or an index."""
+    if cache is None or index is None:
+        return None
     tree = cache[index[0]]
     for i in index[1:]:
         tree = layer(tree, i)
@@ -201,17 +329,24 @@ def _at(cache: dict, index: tuple) -> dict:
 def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
             embeds: torch.Tensor | None = None,
             positions: torch.Tensor | None = None, cache: dict | None = None,
-            cache_pos: int | None = None, decode: bool = False,
-            remat: bool | None = None):
+            cache_pos: int | None = None, vision: torch.Tensor | None = None,
+            decode: bool = False, remat: bool | None = None,
+            with_aux: bool = False):
     """Run the trunk over ``tokens`` (B, S) or soft ``embeds`` (B, S, D),
     cast to ``cfg.dtype``. positions: (S,) absolute positions (default
     arange(S)). cache: from ``init_cache``; prefill fills it and decode
     (``decode=True`` for the mamba blocks' one-token step; the attention
     blocks decode whenever S == 1 against a cache) updates it, in place.
-    Without a cache, ``remat`` (default ``cfg.remat``) recomputes each
-    block in the backward (``torch.utils.checkpoint``). Returns (logits
-    (B, S, V), cache)."""
-    check_ported(cfg)
+    ``vision`` (B, P, vision_dim): a vlm's patch embeddings, which its
+    cross blocks attend over. Without a cache, ``remat`` (default
+    ``cfg.remat``) recomputes each block in the backward
+    (``torch.utils.checkpoint``). Returns (logits (B, S, V), cache), and
+    with ``with_aux`` a third item ``{"moe_aux"}``: the MoE layers'
+    load-balance terms summed (float32, 0 without MoE layers)."""
+    _check_family(cfg)
+    if cfg.family == "vlm" and vision is None:
+        raise ValueError("a vlm needs the (stubbed) patch embeddings: "
+                         "vision=")
     dtype = getattr(torch, cfg.dtype)
     if embeds is None:
         x = L.embed(params["embed"], tokens, compute_dtype=dtype)
@@ -222,22 +357,32 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
                                  device=x.device)
     use_remat = (cfg.remat if remat is None else remat) and cache is None \
         and torch.is_grad_enabled()
-    for kind, p_l, idx in _layers(cfg, params):
+    aux = torch.zeros((), device=x.device)
+    for kind, p_l, idx, window in _layers(cfg, params):
+        c = _at(cache, idx)
         if kind == "attn":
-            fn, args = _dense_block, (cfg, positions, None, None)
-            if cache is not None:
-                args = (cfg, positions, _at(cache, idx), cache_pos)
+            fn, args = _dense_block, (cfg, positions, window, c, cache_pos)
+        elif kind == "moe":
+            fn, args = _moe_block, (cfg, positions, c, cache_pos)
+        elif kind == "cross":
+            fn, args = _cross_block, (cfg, vision)
         else:
-            fn, args = _ssm_block, (cfg, None, False)
-            if cache is not None:
-                args = (cfg, _at(cache, idx), decode)
+            fn, args = _ssm_block, (cfg, c, decode and c is not None)
         if use_remat:
-            x = checkpoint(fn, p_l, x, *args, use_reentrant=False,
+            y = checkpoint(fn, p_l, x, *args, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = fn(p_l, x, *args)
+            y = fn(p_l, x, *args)
+        if kind == "moe":
+            x, a = y
+            aux = aux + a
+        else:
+            x = y
     x = L.rmsnorm(params["final_norm"], x)
-    return L.unembed(params["embed"], x), cache
+    logits = L.unembed(params["embed"], x)
+    if with_aux:
+        return logits, cache, {"moe_aux": aux}
+    return logits, cache
 
 
 def forward_paged(params: dict, cfg, *, tokens: torch.Tensor,
@@ -252,11 +397,19 @@ def forward_paged(params: dict, cfg, *, tokens: torch.Tensor,
     attention blocks swap the cache attention for the paged gather (K4 on
     the card, once per attention block); the mamba blocks take their
     one-token step on the slot-indexed states (the batch axis is the slot
-    axis). Returns (logits (R, 1, V), cache)."""
-    check_ported(cfg)
+    axis). The dense, audio, ssm and hybrid families without a
+    sliding-window pattern; the others serve in the engine's dense mode
+    (a ``ValueError`` here, as in the reference). Returns (logits (R, 1,
+    V), cache)."""
+    from repro_torch.launch.paging import supports_paged
+
+    if not supports_paged(cfg):
+        raise ValueError(f"forward_paged: unsupported family {cfg.family!r} "
+                         "(moe/vlm/sliding-window serve via the sequential "
+                         "dense engine mode)")
     x = L.embed(params["embed"], tokens, compute_dtype=getattr(torch,
                                                                cfg.dtype))
-    for kind, p, idx in _layers(cfg, params):
+    for kind, p, idx, _ in _layers(cfg, params):
         if kind == "ssm":
             x = _ssm_block(p, x, cfg, _at(cache, idx), True)
             continue
@@ -272,10 +425,11 @@ def forward_paged(params: dict, cfg, *, tokens: torch.Tensor,
 def loss_fn(params: dict, cfg, batch: dict):
     """Next-token cross-entropy over ``batch["tokens"]`` (B, S) against
     ``batch["labels"]`` (B, S): float32 log-softmax NLL, averaged over
-    the tokens, or over ``batch["mask"]`` where given. Returns (loss,
-    {"ce", "moe_aux"}); the dense families have no router, so moe_aux is
-    0 and the loss is the cross-entropy."""
-    logits, _ = forward(params, cfg, tokens=batch["tokens"])
+    the tokens, or over ``batch["mask"]`` where given, plus
+    ``router_aux_coef`` times the MoE auxiliary (0 without MoE layers). A
+    vlm reads ``batch["vision"]``. Returns (loss, {"ce", "moe_aux"})."""
+    logits, _, aux = forward(params, cfg, tokens=batch["tokens"],
+                             vision=batch.get("vision"), with_aux=True)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
     mask = batch.get("mask")
@@ -283,4 +437,5 @@ def loss_fn(params: dict, cfg, batch: dict):
         loss = nll.mean()
     else:
         loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return loss, {"ce": loss, "moe_aux": torch.zeros((), device=loss.device)}
+    total = loss + cfg.router_aux_coef * aux["moe_aux"]
+    return total, {"ce": loss, "moe_aux": aux["moe_aux"]}

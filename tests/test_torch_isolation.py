@@ -43,7 +43,11 @@ for m in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
           "repro_torch.checkpoint.io",
           "repro_torch.optim.ldam", "repro_torch.optim.schedules",
           "repro_torch.launch.quickstart",
-          "repro_torch.launch.hetero_oneshot"):
+          "repro_torch.launch.hetero_oneshot", "repro_torch.models.moe",
+          "repro_torch.configs.gemma3_4b",
+          "repro_torch.configs.deepseek_v2_lite_16b",
+          "repro_torch.configs.deepseek_v2_236b",
+          "repro_torch.configs.llama3_2_vision_11b"):
     assert m in names, m
 assert "triton" not in sys.modules
 """

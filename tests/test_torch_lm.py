@@ -70,9 +70,11 @@ def test_config_fields_match_reference(which):
 def test_config_registry_routes():
     assert T_base.get_config("llama3_2_3b") == T_llama.CONFIG
     assert T_base.get_smoke_config("llama3.2-3b") == T_llama.smoke()
-    for name in ("gemma3-4b", "deepseek-v2-lite-16b", "llama3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="slice|families"):
-            T_base.get_config(name)
+    # the dense-mode families resolve through the aliases, as the
+    # reference's registry does
+    for name in ("gemma3-4b", "deepseek-v2-lite-16b", "deepseek_v2_236b",
+                 "llama3.2-vision-11b", "llama-3.2-vision-11b"):
+        assert T_base.get_config(name).name == R_base.get_config(name).name
     with pytest.raises(KeyError, match="unknown arch"):
         T_base.get_config("gpt-17")
 
@@ -323,17 +325,34 @@ def test_unported_routes_raise(model):
                        tokens=toks)[0],
            T_T.forward(tp, tc.replace(kernel_vjp_mode="ref"), tokens=toks)[0],
            TOL_LOGITS)
-    # the blockwise prefill
-    long = torch.zeros((1, 4096, tc.d_model))
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        T_A.gqa_apply(ta, long, tc, positions=torch.arange(4096))
-    for other in (tc.replace(family="vlm"), tc.replace(family="moe"),
-                  tc.replace(sliding_window=8)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            T_T.init_model(other, device="cpu")
-        with pytest.raises(NotImplementedError, match="not ported"):
-            T_T.forward(tp, other, tokens=torch.zeros((1, 2),
-                                                      dtype=torch.int32))
+    # the blockwise prefill (S >= 4096) now runs, and equals the
+    # materialized path
+    long = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, 4096, tc.d_model)).astype(np.float32))
+    _close(T_A.gqa_apply(ta, long, tc, positions=torch.arange(4096))[0],
+           T_A.gqa_apply(ta, long, tc.replace(use_blockwise_attn=False),
+                         positions=torch.arange(4096))[0], TOL_LOGITS)
+    # a sliding-window pattern on the dense trunk, as the reference runs it
+    sw = (rc.replace(sliding_window=3, global_every=2),
+          tc.replace(sliding_window=3, global_every=2))
+    _close(T_T.forward(tp, sw[1], tokens=toks)[0],
+           R_T.forward(rp, sw[0], tokens=jnp.asarray(toks.numpy()))[0],
+           TOL_LOGITS)
+    # still refused: an unknown family, a mesh, the sharded MoE
+    with pytest.raises(ValueError, match="unknown family"):
+        T_T.init_model(tc.replace(family="gnn"), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        T_T.forward(tp, tc.replace(family="gnn"),
+                    tokens=torch.zeros((1, 2), dtype=torch.int32))
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.models import moe as T_M
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ServeEngine(tc, tp, mesh=object(), device="cpu")
+    moe = T_base.get_smoke_config("deepseek-v2-lite-16b")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        T_M.moe_apply(T_M.moe_init(moe, generator=torch.Generator(),
+                                   dtype=torch.float32),
+                      torch.zeros((1, 2, moe.d_model)), moe, mesh=object())
 
 
 # ---------------------------------------------------------------- interop --

@@ -256,19 +256,33 @@ def test_block_allocator_invariants():
 
 
 def test_unported_serving_paths_raise(lm):
-    _, tc, _, tp, _ = lm
-    # the audio family's paged cache is not ported; moe and vlm not at all
-    assert T_PG.supports_paged(tc.replace(family="audio"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        T_PG.init_paged_cache(tc.replace(family="audio"), max_reqs=1,
-                              n_blocks=2, page=4, device="cpu")
-    for fam in ("moe", "vlm"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ServeEngine(tc.replace(family=fam), tp, device="cpu")
+    _, tc, _, tp, prompts = lm
+    # the audio family pages as the dense one does (its streams against
+    # the reference: tests/test_torch_serving_families.py)
+    audio = tc.replace(family="audio")
+    assert T_PG.supports_paged(audio)
+    pools = T_PG.init_paged_cache(audio, max_reqs=1, n_blocks=2, page=4,
+                                  device="cpu")
+    assert tuple(pools["layers"]["k"].shape) == (
+        tc.n_layers, 2, 4, tc.n_kv_heads, tc.head_dim)
+    np.testing.assert_array_equal(
+        _run(ServeEngine(audio, tp, mode="paged", max_reqs=2,
+                         max_len=_MAX_LEN, device="cpu"), prompts)[0],
+        _run(_engine(lm, "paged"), prompts)[0])
+    # moe (MLA), vlm and sliding-window patterns have no paged layout:
+    # they serve in dense mode, and paged mode raises
+    for other in (tc.replace(sliding_window=8), tc.replace(kv_lora_rank=16)):
+        assert not T_PG.supports_paged(other)
+        with pytest.raises(ValueError, match="no paged cache layout"):
+            T_PG.init_paged_cache(other, max_reqs=1, n_blocks=2, page=4,
+                                  device="cpu")
     swcfg = tc.replace(sliding_window=8)
-    assert not T_PG.supports_paged(swcfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(swcfg, tp, device="cpu")
+    assert ServeEngine(swcfg, tp, device="cpu").mode == "dense"
+    with pytest.raises(ValueError, match="paged mode unsupported"):
+        ServeEngine(swcfg, tp, mode="paged", device="cpu")
+    for fam in ("moe", "vlm"):
+        assert not T_PG.supports_paged(tc.replace(family=fam))
+    # still refused: model parallelism
     with pytest.raises(NotImplementedError, match="mesh"):
         ServeEngine(tc, tp, mesh=object(), device="cpu")
 
