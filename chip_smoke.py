@@ -26,7 +26,9 @@ result line is printed:
      device time (``torch.profiler``); then both again in float32 at those
      two shapes on rows holding NaN and ±inf entries and a whole NaN row
      (what a poisoned epoch hands K1): NaN exactly where the plain version
-     gives NaN, ±inf equal, the finite entries within the tolerance;
+     gives NaN, ±inf equal, the finite entries within the tolerance; and
+     a Triton launch that does nothing, timed the same ways: the floor
+     under K1's rows at (128, 10);
   3. K4 (its ``sm90`` route, the split-context kernel and its merge) at
      the serve shape (R 8, Hq 24, Hkv 8, D 128, page 16, M 32, ragged
      seq_lens with 0 and a full table), a D = 32 shape, zamba2-7b's
@@ -61,9 +63,13 @@ result line is printed:
      two server epochs: ``build_federation`` → ``fedavg`` →
      ``train_dense_server`` → ``evaluate``, on the default engines: the
      grouped LocalUpdate engine (``client_loop="grouped"``: the five
-     clients as one stacked network) and the grouped teacher. Every
-     launch count is zeroed just before it; K1's must each read
-     epochs·(t_g + s_steps) just after, every other kernel's 0;
+     clients as one stacked network), the grouped teacher and the fused
+     epoch driver (the first epoch eager, then one captured epoch
+     replayed as a CUDA graph; one host read a chunk). Every launch
+     count is zeroed just before it; K1's must each read
+     epochs·(t_g + s_steps) just after, every other kernel's 0; the
+     driver must be the fused one with epochs − 1 replays. Then the
+     python driver on the same clients, timed beside it;
   6. grouped_check, on the main path's five resnet18 clients at batch
      128, cut to one local epoch on shards of at most 400 images: from the
      same inits, the grouped engine against the per-client loop (params
@@ -77,7 +83,9 @@ result line is printed:
      and busy) in a generator step and in a student step each way, and
      each one's peak device memory;
   7. one server epoch of the main path under ``torch.profiler``: device
-     busy share and kernel time by name;
+     busy share and kernel time by name; then the same epoch captured
+     and replayed as the fused driver runs it: capture seconds, the
+     replay's time, device records and idle share;
   8. paper_tables, the paper's comparison on the main path's five trained
      clients at its cuts: FedDF, Fed-DAFL and Fed-ADI (Table 1), DENSE on
      a federation trained with LDAM (Table 4) and two rounds of
@@ -97,7 +105,8 @@ result line is printed:
      the strict policy and under a quorum of 0.9; (c) the masked teacher
      equals one stacked from the survivors alone to 1e-6 of its largest
      logit, and ``fedavg`` over the survivors runs; (d) three server
-     epochs on the admitted clients with epoch 1's latents NaN:
+     epochs (t_g cut from 30 to 10) on the admitted clients with epoch
+     1's latents NaN:
      ``nan_policy="skip"`` with a checkpoint every epoch (epochs 0 and 2
      finite), ``"rollback"``, a run killed after epoch 2 and resumed
      from its checkpoint, and a second uninterrupted skip run: the
@@ -108,6 +117,23 @@ result line is printed:
      cost a step, the steps with and without it in alternating turns,
      resolved only where it exceeds the spread between turns of one
      kind, and the phase's peak device memory;
+ 9a. fused_check, the fused driver against the python driver on the
+     main path's five trained clients under deterministic algorithms
+     (``fused_check``'s docstring), t_g cut from 30 to 10: 3 epochs in
+     chunks of 2, a restart
+     from the epoch-2 checkpoint, chunk-granular rollback and skip with
+     epoch 1 poisoned, bit for bit (else held to 1e-5 of each tensor's
+     largest entry), K1's launches exact and one host read a chunk;
+ 9b. scale_round, the one-shot round at m = 1000 cnn1 clients
+     (``SCALE``: paper_cifar's widths, 50,000 images, α 0.1, batch 64,
+     quantile buckets, 64-client slices, tree FedAvg of fan-in 8, the
+     teacher in 64-client chunks, 2 fused server epochs, t_g cut from
+     30 to 5):
+     bucketed local training against the single-plan engine, the
+     padded-step waste cut 3x, tree ≡ flat FedAvg, the chunked teacher
+     against the unchunked one at m = 200 with both peaks, one round of
+     m uploads, K1's launches and every loss finite; a cnn1 + cnn2
+     federation's local phase too;
  10. one server step of a small federation on the card (K1 kernels) and
      on the CPU (the plain ``ref`` KL) from the same weights and images:
      the losses, their gradient with respect to the images and the
@@ -456,12 +482,9 @@ def launch_counts() -> list:
 
 def zero_counts() -> None:
     """Every launch counter and K2's, K3's and K4's route counts to 0."""
-    from repro_torch.kernels import flash_attention, paged_attention, ssd_scan
+    from repro_torch import kernels
 
-    for counts in (*launch_counts(), flash_attention.fwd_routes,
-                   flash_attention.bwd_routes, flash_attention.dq_routes,
-                   flash_attention.dkv_routes, paged_attention.routes,
-                   ssd_scan.fwd_routes, ssd_scan.bwd_routes):
+    for counts in kernels.counters():
         for k in counts:
             counts[k] = 0
 
@@ -649,7 +672,37 @@ def kernel_phase(torch):
     if bad:
         fail(f"{len(bad)} kernel checks disagree with the plain versions: "
              f"{bad}")
+    rows["launch_floor"] = empty_launch_floor(torch)
+    emit({"kernel_check": {"name": "empty_triton_launch",
+                           **rows["launch_floor"]}})
     return rows
+
+
+def _empty_kernel(x_ptr):
+    """A Triton kernel that does nothing (``triton.jit`` in
+    ``empty_launch_floor``)."""
+    pass
+
+
+def empty_launch_floor(torch) -> dict:
+    """The time of a Triton launch that does no work, on the host clock
+    (CUDA events over a run of launches) and on the device
+    (``torch.profiler``): the floor under K1's rows at (128, 10), whose
+    bound is nanoseconds."""
+    import triton
+
+    kernel = triton.jit(_empty_kernel)
+    x = torch.empty(1, device="cuda")
+
+    def launch():
+        kernel[(1,)](x, num_warps=1)
+
+    launch()
+    torch.cuda.synchronize()
+    return {"ms": cuda_ms(torch, launch),
+            **device_profile(torch, launch,
+                             {"empty": lambda n: "_empty_kernel" in n},
+                             label="empty Triton launch")}
 
 
 # K1 on rows holding NaN and ±inf (what a poisoned epoch under
@@ -765,6 +818,7 @@ MAIN_PATH_SECONDS: dict = {}
 def main_path(torch, scfg, dev="cuda"):
     from repro_torch.configs import resolve_exec_policy
     from repro_torch.core import evaluate, train_dense_server
+    from repro_torch.core.dense import _chunk_bounds
     from repro_torch.fl import ClientList, CommLedger, build_federation, fedavg
 
     data = cifar_data(scfg)
@@ -785,12 +839,27 @@ def main_path(torch, scfg, dev="cuda"):
     acc_dense, t_eval = clocked(lambda: evaluate(student, xt, yt))
     launches = read_counts()
 
+    on_card = torch.device(dev).type == "cuda"
     want = scfg.epochs * (scfg.t_g + scfg.s_steps)
     # a CPU run (a rehearsal) takes the plain versions and launches nothing
-    if torch.device(dev).type == "cuda" and launches != expected(
-            distill_kl_fwd=want, distill_kl_bwd=want):
+    if on_card and launches != expected(distill_kl_fwd=want,
+                                        distill_kl_bwd=want):
         fail(f"launches on the main path {launches}, expected {want} of "
              "each K1 kernel and no K4")
+    chunks = _chunk_bounds(scfg.epochs, scfg.loop_chunk, 0)
+    if on_card and (hist.loop != "fused"
+                    or hist.graph_replays != scfg.epochs - 1):
+        fail(f"the main path ran the {hist.loop!r} driver with "
+             f"{hist.graph_replays} graph replays, expected the fused "
+             f"driver and {scfg.epochs - 1}")
+    if hist.loop == "fused" and hist.host_reads != len(chunks):
+        fail(f"the fused driver read its losses {hist.host_reads} times, "
+             f"expected once a chunk, {len(chunks)}")
+    # the python driver on the same clients, timed beside it (a reading,
+    # no claim)
+    (_, _, hist_py), t_py = clocked(lambda: train_dense_server(
+        clients, dataclasses.replace(scfg, loop_mode="python", epochs=1),
+        device=dev))
     losses = hist.gen_loss + hist.dis_loss + [
         v for p in hist.gen_parts for v in p.values()]
     if len(hist.gen_loss) != scfg.epochs or not all(
@@ -806,7 +875,13 @@ def main_path(torch, scfg, dev="cuda"):
     MAIN_PATH_SECONDS.update(build_federation=t_fed,
                              dense_per_epoch=t_dense / scfg.epochs)
     emit({"main_path": {
-        "client_loop": client_loop,
+        "client_loop": client_loop, "driver": hist.loop,
+        "graph_replays": hist.graph_replays,
+        "capture_seconds": hist.capture_seconds,
+        "host_reads": hist.host_reads, "chunks": chunks,
+        "python_driver": {"seconds_one_epoch": t_py,
+                          "host_reads": hist_py.host_reads,
+                          "gen_loss": hist_py.gen_loss},
         "groups": [[spec.kind, n] for spec, n in clients.grouped[0]],
         "seconds": {"build_federation": t_fed, "fedavg": t_avg,
                     "train_dense_server": t_dense,
@@ -1189,6 +1264,10 @@ def paper_tables(torch, scfg, clients, dev="cuda"):
 
 FAULT_EPOCHS = 3
 FAULT_POISON = (1,)
+# the server runs' generator steps an epoch, cut from the main path's 30
+# to 10 (the five runs took 48–73 s at 30 on an H100; what they hold,
+# skip, rollback and resume, does not depend on it)
+FAULT_T_G_CUT = (30, 10)
 # the masked teacher against one stacked from the survivors alone: the
 # same rows in the same layout, so the same convolutions (1e-6 of the
 # largest logit)
@@ -1338,8 +1417,11 @@ def fault_round(torch, scfg, clients, dev="cuda"):
     del avg, masked, alone, x, gen
 
     # (d) skip, rollback, checkpoints and resume, on the admitted clients
-    each = scfg.t_g + scfg.s_steps
-    base = dataclasses.replace(scfg, epochs=FAULT_EPOCHS)
+    each = FAULT_T_G_CUT[1] + scfg.s_steps
+    # epoch-granular rollback and resume: the python driver (fused_check
+    # holds the fused driver's chunk-granular ones)
+    base = dataclasses.replace(scfg, epochs=FAULT_EPOCHS,
+                               loop_mode="python", t_g=FAULT_T_G_CUT[1])
     runs, launches, losses = {}, {}, {}
     work = os.path.join(ROOT, "build")
     os.makedirs(work, exist_ok=True)
@@ -1396,6 +1478,7 @@ def fault_round(torch, scfg, clients, dev="cuda"):
              f" from the uninterrupted skip run, beyond the spread of two "
              f"uninterrupted runs, {spread}")
     out["server"] = {"epochs": FAULT_EPOCHS, "poisoned": list(FAULT_POISON),
+                     "cuts": {"t_g": [scfg.t_g, base.t_g]},
                      "runs": losses, "spread_two_uninterrupted": spread,
                      "resumed_vs_uninterrupted": resume,
                      "rollback_vs_skip": rollback,
@@ -1456,6 +1539,488 @@ def fault_round(torch, scfg, clients, dev="cuda"):
     return launches
 
 
+# ----------------------------------------------------------- fused check --
+
+FUSED_EPOCHS = 3
+FUSED_CHUNK = 2
+# the generator steps an epoch, cut from the main path's 30 to 10: the
+# phase's eight runs of 1–3 epochs took 78–82 s at 30 on an H100, which
+# the whole script's 1200 s cannot spare; capture and replay are the same
+FUSED_T_G_CUT = (30, 10)
+FUSED_POISON = (1,)
+FUSED_CKPT_EVERY = 2
+# what fused_check holds where a pair of runs is not bit for bit: each
+# tensor's and each loss's largest difference over its largest entry
+FUSED_TOL = 1e-5
+
+
+def _rel_diff(torch, a: list, b: list) -> float:
+    """The largest, over tensor pairs, of max |a − b| / max |b|."""
+    return max(float((x.float() - y.float()).abs().max()
+                     / y.float().abs().max().clamp(min=1e-30))
+               for x, y in zip(a, b, strict=True))
+
+
+def _hist_values(hist) -> list:
+    return [*hist.gen_loss, *hist.dis_loss,
+            *(v for p in hist.gen_parts for v in p.values())]
+
+
+def _epochs_of(hist, epochs):
+    """The losses of some epochs of a history, as a history."""
+    import types
+
+    return types.SimpleNamespace(
+        gen_loss=[hist.gen_loss[e] for e in epochs],
+        dis_loss=[hist.dis_loss[e] for e in epochs],
+        gen_parts=[hist.gen_parts[e] for e in epochs])
+
+
+def fused_check(torch, scfg, clients, dev="cuda"):
+    """The fused epoch driver against the python driver on the main
+    path's five trained resnet18 clients, float32 without TF32, under
+    cuDNN's and PyTorch's deterministic algorithms, from the same
+    generator and student inits (each run from a copy) and latents, at
+    t_g 10 (``FUSED_T_G_CUT``):
+
+      (a) 3 epochs in chunks of 2 (bounds [0, 2), [2, 3): an eager
+          warm-up epoch, then two replays of the captured epoch) with a
+          checkpoint every 2 epochs, against the python driver: the
+          student, the generator and every loss;
+      (b) a restart of that run from its epoch-2 checkpoint (as a run
+          killed after epoch 3, before any later save, restarts) ends
+          where it ended;
+      (c) ``rollback`` with epoch 1's latents NaN: the chunk [0, 2) is
+          undone whole (a run stopped after it holds the initial state)
+          and epoch 2 goes on from it (a python run over epoch 2's
+          latents alone ends there);
+      (d) ``skip`` with epoch 1 poisoned ends where a python skip run
+          over epochs 0 and 2's latents ends;
+      (e) each run launches K1f and K1b epochs·(t_g + s_steps) times
+          (capture launches nothing, each replay counts what it ran) and
+          the fused runs read their losses once a chunk.
+
+    Each pair is held bit for bit; where one is not, its largest
+    difference over each tensor's largest entry is reported and held to
+    1e-5 instead (``FUSED_TOL``). Returns each run's K1 launches."""
+    import copy
+    import tempfile
+
+    from repro_torch.core import img_generator_init, train_dense_server
+    from repro_torch.core.dense import _chunk_bounds
+    from repro_torch.models import CNNSpec, cnn_init
+
+    on_card = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    each = FUSED_T_G_CUT[1] + scfg.s_steps
+    base = dataclasses.replace(scfg, epochs=FUSED_EPOCHS,
+                               loop_chunk=FUSED_CHUNK, t_g=FUSED_T_G_CUT[1])
+    spec = CNNSpec(kind=scfg.global_kind, num_classes=scfg.num_classes,
+                   in_ch=scfg.in_ch, width=scfg.width,
+                   image_size=scfg.image_size)
+    gen0 = img_generator_init(nz=scfg.nz, img_size=scfg.image_size,
+                              out_ch=scfg.in_ch,
+                              generator=torch.Generator().manual_seed(21),
+                              device=dev)
+    stu0 = cnn_init(spec, generator=torch.Generator().manual_seed(22),
+                    device=dev)
+    draws_src = torch.Generator(device=dev).manual_seed(23)
+    b, nz = scfg.synth_batch, scfg.nz
+    draws = [(torch.randn((b, nz), generator=draws_src, device=dev),
+              torch.randint(0, scfg.num_classes, (b,), generator=draws_src,
+                            device=dev),
+              torch.zeros((0, b, nz), device=dev))
+             for _ in range(FUSED_EPOCHS)]
+    runs, launches = {}, {}
+
+    def run(name, loop, epochs=FUSED_EPOCHS, **kw):
+        fscfg = dataclasses.replace(
+            base, loop_mode=loop, epochs=epochs,
+            **{k: kw.pop(k) for k in ("nan_policy", "checkpoint_every",
+                                      "checkpoint_path") if k in kw})
+        zero_counts()
+        (student, gen, hist), secs = timed(
+            torch, dev, lambda: train_dense_server(
+                clients, fscfg, device=dev, gen=copy.deepcopy(gen0),
+                student=copy.deepcopy(stu0), **kw))
+        got = read_counts()
+        n = len(hist.gen_loss)
+        launches[name] = {k: got[k] for k in ("distill_kl_fwd",
+                                              "distill_kl_bwd")}
+        if on_card and got != expected(distill_kl_fwd=n * each,
+                                       distill_kl_bwd=n * each):
+            fail(f"fused_check: {name} launched {got} over {n} epochs, "
+                 f"expected {n * each} of each K1 kernel")
+        if loop == "fused":
+            stop = kw.get("_stop_after_epoch", 0)
+            chunks = [c for c in _chunk_bounds(
+                epochs, FUSED_CHUNK, 0, fscfg.checkpoint_every
+                if fscfg.checkpoint_path else 0, 0 if stop else epochs - n)
+                if not stop or c[0] < stop]
+            if hist.host_reads != len(chunks) or (
+                    on_card and hist.graph_replays != max(n - 1, 0)):
+                fail(f"fused_check: {name} read its losses "
+                     f"{hist.host_reads} times over chunks {chunks} and "
+                     f"replayed {hist.graph_replays} times over {n} "
+                     "epochs")
+        runs[name] = {"tensors": _server_tensors(student, gen),
+                      "hist": hist, "seconds": secs}
+        return runs[name]
+
+    def same(a, b) -> dict:
+        exact = all(torch.equal(x, y) for x, y in
+                    zip(a["tensors"], b["tensors"], strict=True))
+        ha, hb = _hist_values(a["hist"]), _hist_values(b["hist"])
+        losses_exact = ha == hb
+        diff = {"bit_for_bit": exact and losses_exact,
+                "max_rel_diff": 0.0 if exact else _rel_diff(
+                    torch, a["tensors"], b["tensors"]),
+                "loss_max_rel_diff": 0.0 if losses_exact else max(
+                    abs(x - y) / max(abs(y), 1e-30) for x, y in zip(
+                        ha, hb, strict=True) if finite([x, y]))}
+        if not (diff["bit_for_bit"] or (diff["max_rel_diff"] <= FUSED_TOL
+                                        and diff["loss_max_rel_diff"]
+                                        <= FUSED_TOL)):
+            diff["failed"] = True
+        return diff
+
+    out = {}
+    work = os.path.join(ROOT, "build")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp, \
+            deterministic(torch) as nondeterministic:
+        ckpt = os.path.join(tmp, "fused")
+        run("fused", "fused", checkpoint_every=FUSED_CKPT_EVERY,
+            checkpoint_path=ckpt)
+        run("python", "python")
+        out["fused_vs_python"] = same(runs["fused"], runs["python"])
+        run("resumed", "fused", checkpoint_every=FUSED_CKPT_EVERY,
+            checkpoint_path=ckpt)
+        out["resumed_vs_uninterrupted"] = same(
+            runs["resumed"], {**runs["fused"], "hist": _epochs_of(
+                runs["fused"]["hist"], range(FUSED_CKPT_EVERY,
+                                             FUSED_EPOCHS))})
+        out["resumed_epochs"] = len(runs["resumed"]["hist"].gen_loss)
+
+        run("rollback_chunk", "fused", nan_policy="rollback",
+            noise=draws.__getitem__, _poison_epochs=FUSED_POISON,
+            _stop_after_epoch=FUSED_CHUNK)
+        init = {"tensors": _server_tensors(stu0, gen0),
+                "hist": runs["rollback_chunk"]["hist"]}
+        out["rolled_back_vs_initial"] = same(runs["rollback_chunk"], init)
+        run("rollback", "fused", nan_policy="rollback",
+            noise=draws.__getitem__, _poison_epochs=FUSED_POISON)
+        run("epoch2_alone", "python", epochs=1, nan_policy="rollback",
+            noise=lambda e: draws[FUSED_CHUNK])
+        out["rollback_vs_epoch2_alone"] = same(
+            {**runs["rollback"],
+             "hist": _epochs_of(runs["rollback"]["hist"], (2,))},
+            runs["epoch2_alone"])
+        run("skip", "fused", nan_policy="skip", noise=draws.__getitem__,
+            _poison_epochs=FUSED_POISON)
+        run("skip_unpoisoned", "python", epochs=2, nan_policy="skip",
+            noise=lambda e: draws[2 * e])
+        out["skip_vs_unpoisoned"] = same(
+            {**runs["skip"], "hist": _epochs_of(runs["skip"]["hist"],
+                                                (0, 2))},
+            runs["skip_unpoisoned"])
+    rb = runs["rollback"]["hist"]
+    if len(rb.gen_loss) != FUSED_EPOCHS or finite([rb.gen_loss[1]]) or \
+            not finite([rb.gen_loss[0], rb.gen_loss[2]]):
+        fail(f"fused_check: rollback's history {rb.gen_loss} must keep "
+             "all 3 epochs, the poisoned epoch 1 not finite")
+    bad = {k: v for k, v in out.items()
+           if isinstance(v, dict) and v.get("failed")}
+    if bad or out["resumed_epochs"] != FUSED_EPOCHS - FUSED_CKPT_EVERY:
+        fail(f"fused_check: {bad or out}")
+    out.update(
+        epochs=FUSED_EPOCHS, loop_chunk=FUSED_CHUNK,
+        cuts={"t_g": [scfg.t_g, base.t_g]},
+        poisoned=list(FUSED_POISON), tol_if_not_bit_for_bit=FUSED_TOL,
+        launches=launches,
+        runs={k: {"seconds": v["seconds"],
+                  "seconds_per_epoch": v["seconds"]
+                  / max(len(v["hist"].gen_loss), 1),
+                  "host_reads": v["hist"].host_reads,
+                  "graph_replays": v["hist"].graph_replays,
+                  "capture_seconds": v["hist"].capture_seconds,
+                  "gen_loss": v["hist"].gen_loss}
+              for k, v in runs.items()},
+        deterministic={"cudnn": True, "algorithms": True,
+                       "warned": nondeterministic},
+        seconds_total=time.perf_counter() - t_phase)
+    emit({"fused_check": out})
+    return launches
+
+
+# ----------------------------------------------------------- scale round --
+
+# the server's t_g, 30 in paper_cifar, cut to 5: at 30 an m = 1000
+# epoch takes ~59 s on an H100 (2 s a generator step) and the phase
+# 170 s, which the whole script's 1200 s cannot spare (PERF.md, section 6)
+SCALE_T_G_CUT = (30, 5)
+# the federation DESIGN.md §13's scaling layers are for: m = 1000 cnn1
+# clients at paper_cifar's widths on CIFAR-10's count of training images,
+# Dirichlet α 0.1, with the knobs the reference's scaling table sets
+SCALE = dict(n_clients=1000, client_kinds=("cnn1",), global_kind="cnn1",
+             width=1.0, image_size=32, in_ch=3, num_classes=10,
+             train_per_class=5000, test_per_class=100, alpha=0.1,
+             local_epochs=1, batch_size=64, synth_batch=128, nz=100,
+             t_g=SCALE_T_G_CUT[1], epochs=2, plan_bucketing="quantile",
+             stack_chunk=64, fedavg_mode="tree", fedavg_branch=8,
+             teacher_chunk=64)
+SCALE_TEACHER_M = 200          # the unchunked teacher still fits there
+# the chunked teacher against the unchunked one: logits, each BN
+# statistic and the image gradient to 1e-5 of each one's largest entry,
+# without cuDNN (PyTorch's own float32 convolutions: the two differ by
+# summation order alone). With cuDNN, the path that runs, logits and
+# statistics to 1e-5 too; but cuDNN's float32 image gradient at these
+# shapes lies ~1e-3–1e-2 of its largest entry from the one without
+# cuDNN, chunked or not (an H100 at 700 W: PERF.md, section 6, and
+# scripts/teacher_grad_cudnn.py), so there the chunked
+# gradient is held to no more than twice the unchunked one's distance
+# from it, plus 1e-5
+SCALE_TEACHER_TOL = 1e-5
+SCALE_TEACHER_READINGS = ("logits", "l0.mean", "l0.var", "l1.mean",
+                          "l1.var", "l2.mean", "l2.var", "image_grad")
+SCALE_FEDAVG_TOL = 1e-6
+SCALE_WASTE_CUT = 3.0          # the reference's pinned claim
+
+
+@contextlib.contextmanager
+def without_cudnn(torch):
+    """PyTorch's own convolutions in place of cuDNN's, the flag as it was
+    afterwards (``torch.backends.cudnn.flags`` refuses the TF32 flags
+    ``full_float32`` sets)."""
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
+def _teacher_readings(torch, gspecs, gparams, x, y, chunk):
+    """One generator step's teacher work: logits with BN statistics,
+    L_CE + L_BN and its gradient with respect to the images; each BN
+    statistic concatenated over the clients, and the peak memory."""
+    from repro_torch.core import bn_loss, ce_loss, grouped_ensemble_logits
+
+    on_card = x.is_cuda
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    xg = x.clone().requires_grad_(True)
+    avg, st = grouped_ensemble_logits(gspecs, gparams, xg,
+                                      with_bn_stats=True, chunk=chunk)
+    (grad,) = torch.autograd.grad(ce_loss(avg, y) + bn_loss(st), [xg])
+    stats = [torch.cat([p[1][layer][key] for p in st.parts])
+             for layer in range(len(st.parts[0][1]))
+             for key in ("mean", "var")]
+    peak = None
+    if on_card:
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    return [avg.detach(), *(t.detach() for t in stats), grad], peak
+
+
+def scale_round(torch, dev="cuda"):
+    """The one-shot round at m = 1000 (``SCALE``) with the scaling layers
+    on, through the entry points: ``build_federation`` (quantile buckets,
+    64-client slices), ``fedavg`` (the tree, fan-in 8) and
+    ``train_dense_server`` (the teacher streamed in 64-client chunks, the
+    fused driver). Fails unless the bucketed, chunked local phase equals
+    the single-plan engine per client (``GROUPED_TRAIN_TOL``); the
+    padded-step waste falls at least 3x from ``off`` to ``quantile``;
+    tree FedAvg equals flat within 1e-6 of each tensor's largest entry;
+    the chunked teacher's logits and BN statistics equal the unchunked
+    ones within 1e-5 of each one's largest entry at m = 200
+    (``SCALE_TEACHER_M``), where the unchunked teacher fits, the image
+    gradient too without cuDNN, and with cuDNN lies no further from the
+    one without than twice the unchunked one's (``SCALE_TEACHER_TOL``'s
+    comment says why); the
+    uplink is m uploads in one round; K1 launches epochs·(t_g + s_steps)
+    times each; and every loss is finite. A cnn1 + cnn2 federation (two
+    groups of 500) runs the local phase too."""
+    import numpy as np
+
+    from repro_torch.configs import CONFIG, resolve_exec_policy
+    from repro_torch.core import (evaluate, img_generator_init,
+                                  stack_grouped, train_dense_server)
+    from repro_torch.data import dirichlet_partition, plan_step_waste
+    from repro_torch.fl import CommLedger, build_federation, fedavg
+
+    on_card = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    scfg = dataclasses.replace(CONFIG, **SCALE)
+    pol = resolve_exec_policy(scfg, device=dev)
+    m = scfg.n_clients
+    clocked = functools.partial(timed, torch, dev)
+    out = {"cuts": {"depth": f"{scfg.local_epochs} local epoch, "
+                             f"{scfg.epochs} server epochs of t_g "
+                             f"{scfg.t_g}",
+                    "t_g": list(SCALE_T_G_CUT),
+                    "kept": {k: v if not isinstance(v, tuple) else list(v)
+                             for k, v in SCALE.items()}}}
+    data, t_data = clocked(lambda: cifar_data(scfg))
+    _, y_train = data["train"]
+    sizes = [len(p) for p in dirichlet_partition(
+        y_train, m, scfg.alpha, seed=scfg.seed)]
+    waste = {mode: plan_step_waste(sizes, scfg.batch_size, mode)
+             for mode in ("off", "pow2", "quantile")}
+    if not waste["quantile"] * SCALE_WASTE_CUT <= waste["off"]:
+        fail(f"scale_round: padded-step waste {waste}: quantile buckets "
+             f"must cut it {SCALE_WASTE_CUT}x")
+    out["plan_step_waste"] = {**waste,
+                              "off_over_quantile": waste["off"]
+                              / max(waste["quantile"], 1e-30)}
+    out["shards"] = {"min": min(sizes), "max": max(sizes),
+                     "median": float(np.median(sizes))}
+
+    def peak():
+        return _peak_gib(torch) if on_card else None
+
+    # the local phase: bucketed and chunked, then the single-plan engine
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ledger = CommLedger()
+    (clients, _), t_fed = clocked(lambda: build_federation(
+        scfg, data, device=dev, ledger=ledger, seed=scfg.seed))
+    fed_peak = peak()
+    ups = ledger.kinds("delivered")
+    if len(ups) != m or ledger.rounds != 1 or ledger.downlink_bytes:
+        fail(f"scale_round: {len(ups)} uploads in {ledger.rounds} rounds, "
+             f"{ledger.downlink_bytes} B down: expected {m} in one round")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    single = dataclasses.replace(scfg, plan_bucketing="off", stack_chunk=0)
+    if on_card:
+        torch.cuda.empty_cache()        # one plan of m clients: ~76 GiB
+    (flat_clients, _), t_single = clocked(lambda: build_federation(
+        single, data, device=dev, seed=scfg.seed))
+    single_peak = peak()
+    stack = {k: v.detach() for k, v in clients.grouped[1][0].items()}
+    want = {k: v.detach() for k, v in flat_clients.grouped[1][0].items()}
+    train_err = max(float(((stack[k] - v).abs() / (1 + v.abs())).max())
+                    for k, v in want.items())
+    del flat_clients, want
+    if not train_err <= GROUPED_TRAIN_TOL:
+        fail(f"scale_round: bucketed local training is {train_err} off the "
+             f"single-plan engine, limit {GROUPED_TRAIN_TOL}")
+    if not all(bool(torch.isfinite(v).all()) for v in stack.values()):
+        fail("scale_round: a trained client is not finite")
+    out["local_phase"] = {
+        "seconds_bucketed": t_fed, "seconds_single_plan": t_single,
+        "peak_mem_gib_bucketed": fed_peak,
+        "peak_mem_gib_single_plan": single_peak,
+        "max_err_vs_single_plan": train_err, "tol": GROUPED_TRAIN_TOL,
+        "uploads": len(ups), "rounds": ledger.rounds,
+        "uplink_bytes": ledger.uplink_bytes}
+
+    two = dataclasses.replace(scfg, client_kinds=("cnn1", "cnn2"))
+    (two_clients, _), t_two = clocked(lambda: build_federation(
+        two, data, device=dev, seed=scfg.seed))
+    groups = [[spec.kind, n] for spec, n in two_clients.grouped[0]]
+    if groups != [["cnn1", m // 2], ["cnn2", m // 2]] or not all(
+            bool(torch.isfinite(v).all()) for g in two_clients.grouped[1]
+            for v in g.values()):
+        fail(f"scale_round: the cnn1 + cnn2 federation has groups {groups}"
+             " or a client that is not finite")
+    out["two_groups"] = {"groups": groups, "seconds": t_two}
+    del two_clients
+
+    # FedAvg: the tree against the flat sum
+    (tree, t_tree), (flat, t_flat) = (
+        clocked(lambda: fedavg(clients, policy=pol)),
+        clocked(lambda: fedavg(clients)))
+    favg_err = _rel_diff(torch, list(tree.state_dict().values()),
+                         list(flat.state_dict().values()))
+    if not favg_err <= SCALE_FEDAVG_TOL:
+        fail(f"scale_round: tree FedAvg is {favg_err} off flat, limit "
+             f"{SCALE_FEDAVG_TOL}")
+    out["fedavg"] = {"tree_vs_flat_rel": favg_err, "tol": SCALE_FEDAVG_TOL,
+                     "branch": pol.fedavg_branch, "seconds_tree": t_tree,
+                     "seconds_flat": t_flat}
+    del tree, flat
+
+    # the teacher: chunked against unchunked where the latter fits, then
+    # chunked at the full m
+    gen = img_generator_init(nz=scfg.nz, img_size=scfg.image_size,
+                             out_ch=scfg.in_ch,
+                             generator=torch.Generator().manual_seed(31),
+                             device=dev)
+    src = torch.Generator(device=dev).manual_seed(32)
+    with torch.no_grad():
+        x = gen(torch.randn((scfg.synth_batch, scfg.nz), device=dev,
+                            generator=src))
+    y = torch.randint(0, scfg.num_classes, (scfg.synth_batch,), device=dev,
+                      generator=src)
+    part = stack_grouped(list(clients)[:SCALE_TEACHER_M])
+    chunked, p_chunked = _teacher_readings(torch, *part, x, y,
+                                           pol.teacher_chunk)
+    whole, p_whole = _teacher_readings(torch, *part, x, y, 0)
+    with without_cudnn(torch):
+        native = [_teacher_readings(torch, *part, x, y, chunk)[0]
+                  for chunk in (pol.teacher_chunk, 0)]
+    _, p_full = _teacher_readings(torch, *stack_grouped(clients), x, y,
+                                  pol.teacher_chunk)
+    errs = {name: _rel_diff(torch, [a], [b]) for name, a, b in zip(
+        SCALE_TEACHER_READINGS, chunked, whole, strict=True)}
+    errs_native = {name: _rel_diff(torch, [a], [b]) for name, a, b in zip(
+        SCALE_TEACHER_READINGS, *native, strict=True)}
+    grad_vs_native = {"chunked": _rel_diff(torch, chunked[-1:],
+                                           native[1][-1:]),
+                      "unchunked": _rel_diff(torch, whole[-1:],
+                                             native[1][-1:])}
+    del chunked, whole, native
+    held = [v for k, v in errs.items() if k != "image_grad"]
+    if not (max(held + list(errs_native.values())) <= SCALE_TEACHER_TOL
+            and grad_vs_native["chunked"] <= 2 * grad_vs_native["unchunked"]
+            + SCALE_TEACHER_TOL):
+        fail(f"scale_round: the chunked teacher against the unchunked one "
+             f"{errs}, without cuDNN {errs_native}, limit "
+             f"{SCALE_TEACHER_TOL}; image gradients against the one "
+             f"without cuDNN {grad_vs_native}")
+    out["teacher"] = {"m": SCALE_TEACHER_M, "chunk": pol.teacher_chunk,
+                      "rel_err": errs, "tol": SCALE_TEACHER_TOL,
+                      "rel_err_without_cudnn": errs_native,
+                      "image_grad_rel_err_vs_no_cudnn": grad_vs_native,
+                      "peak_gib_chunked": p_chunked,
+                      "peak_gib_unchunked": p_whole,
+                      "peak_gib_chunked_full_m": p_full}
+    del part, gen, x
+
+    # the server, on the fused driver
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    (student, _, hist), t_dense = clocked(lambda: train_dense_server(
+        clients, scfg, device=dev))
+    got = read_counts()
+    want = scfg.epochs * (scfg.t_g + scfg.s_steps)
+    if on_card and got != expected(distill_kl_fwd=want,
+                                   distill_kl_bwd=want):
+        fail(f"scale_round: the server launched {got}, expected {want} of "
+             "each K1 kernel")
+    if not finite(_hist_values(hist)) or len(hist.gen_loss) != scfg.epochs:
+        fail(f"scale_round: server losses are not finite: {hist}")
+    xt, yt = data["test"]
+    acc = evaluate(student, xt, yt)
+    out["server"] = {
+        "driver": hist.loop, "graph_replays": hist.graph_replays,
+        "capture_seconds": hist.capture_seconds,
+        "host_reads": hist.host_reads, "seconds": t_dense,
+        "seconds_per_epoch": t_dense / scfg.epochs, "launches": got,
+        "expected_launches_each": want, "gen_loss": hist.gen_loss,
+        "dis_loss": hist.dis_loss, "gen_parts": hist.gen_parts,
+        "acc": acc, "peak_mem_gib": peak()}
+    out["seconds"] = {"data": t_data,
+                      "total": time.perf_counter() - t_phase}
+    emit({"scale_round": out})
+    return {k: got[k] for k in ("distill_kl_fwd", "distill_kl_bwd")}
+
+
 # -------------------------------------------------------------- profile --
 
 def device_ms(prof) -> dict:
@@ -1507,25 +2072,59 @@ def profile_epoch(torch, scfg, clients, dev="cuda"):
     t0 = time.perf_counter()
     epoch()
     epoch_ms = (time.perf_counter() - t0) * 1e3
+    on_card = torch.device(dev).type == "cuda"
     activities = [ProfilerActivity.CPU]
-    if torch.device(dev).type == "cuda":
+    if on_card:
         activities.append(ProfilerActivity.CUDA)
     t0 = time.perf_counter()
     with profile(activities=activities) as prof:
         epoch()
     profiled_ms = (time.perf_counter() - t0) * 1e3
     per_kernel = device_ms(prof)
-    busy_ms, summed_ms, _ = profiled_device_ms(torch, prof)
+    busy_ms, summed_ms, records = profiled_device_ms(torch, prof)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     k1_ms = sum(v for k, v in per_kernel.items() if "_kl_" in k)
+    # the same epoch captured once and replayed, as the fused driver
+    # runs every epoch after its first
+    fused = None
+    if on_card:
+        from repro_torch.core.graph import CapturedEpoch
+
+        g_opt.count_on_device()
+
+        def steps():
+            for _ in range(scfg.t_g):
+                gl, _ = gen_step(gen, g_opt, student, z, y)
+            return torch.stack([gl, student_step(student, s_opt, gen, z)])
+
+        graph = CapturedEpoch(steps)
+        graph.replay()                        # warm-up
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        graph.replay()
+        sync(torch, dev)
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=activities) as prof:
+            graph.replay()
+            sync(torch, dev)
+        g_busy, g_summed, g_records = profiled_device_ms(torch, prof)
+        fused = {"capture_seconds": graph.capture_seconds,
+                 "replay_epoch_ms": replay_ms,
+                 "device_busy_ms": g_busy, "device_summed_ms": g_summed,
+                 "device_idle_share": 1 - g_busy / replay_ms,
+                 "device_records_a_replay": g_records,
+                 "k1_ms": sum(v for k, v in device_ms(prof).items()
+                              if "_kl_" in k)}
+        del graph
     # the profiler slows the host several times over: the idle share is
     # taken against the same epoch's time without it
     emit({"profile_epoch": {
         "epoch_ms": epoch_ms, "profiled_epoch_ms": profiled_ms,
         "device_busy_ms": busy_ms, "device_summed_ms": summed_ms,
         "device_idle_share": 1 - busy_ms / epoch_ms,
+        "device_records_an_epoch": records,
         "k1_ms": k1_ms, "n_kernel_names": len(per_kernel),
-        "top_kernels_ms": top}})
+        "top_kernels_ms": top, "fused_replay": fused}})
 
 
 # ----------------------------------------------------- card against CPU --
@@ -3651,7 +4250,11 @@ def main() -> None:
     profile_epoch(torch, scfg, clients)
     paper_launches = paper_tables(torch, scfg, clients)
     fault_launches = fault_round(torch, scfg, clients)
+    fused_launches = fused_check(torch, scfg, clients)
     del clients
+    torch.cuda.empty_cache()
+    scale_launches = scale_round(torch)
+    torch.cuda.empty_cache()
     step_agreement(torch)
     serve_check(torch)
     serve_launches = serve_main_path(torch)
@@ -3691,12 +4294,16 @@ def main() -> None:
                     "paper_tables": {run: c[name] for run, c in
                                      paper_launches.items()},
                     "fault_round": {run: c[name] for run, c in
-                                    fault_launches.items()}},
+                                    fault_launches.items()},
+                    "fused_check": {run: c[name] for run, c in
+                                    fused_launches.items()},
+                    "scale_round": scale_launches[name]},
                 "max_abs_err": main["max_abs_err"], "ms": main["ms"],
                 "device_ms": main.get("device_ms"),
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": None,
                 "shape": list(MAIN_SHAPE), "dtype": "float32",
+                "empty_triton_launch": rows["launch_floor"],
                 "by_shape": rs,
                 "nonfinite_rows": [r for r in nonfinite_rows
                                    if r["name"] == name]}

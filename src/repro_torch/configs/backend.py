@@ -20,11 +20,26 @@ device the tensors live on:
 Both profiles train clients on the grouped engine, ``client_loop =
 "grouped"`` (``fl/federation.py``), as every profile of the reference's
 registry does; ``client_loop_mode="python"`` pins the per-client loop.
+The epoch driver (``loop``, ``core/dense.py``) is ``"python"`` on the
+cpu profile and ``"fused"`` on the cuda one, as on the reference's cpu
+and gpu profiles: on the card one captured CUDA graph an epoch, replayed
+over chunks of ``scfg.loop_chunk`` epochs with one host read a chunk;
+``loop_mode="python"`` pins the per-epoch driver.
+
+The federation-scale knobs (DESIGN.md §13) take the reference's
+``_SCALE_DEFAULTS`` on both profiles, every one off: ``bucketing``
+(``plan_bucketing``: "off", "pow2", "quantile"), ``stack_chunk``,
+``fedavg`` (``fedavg_mode``: "flat", "tree") with ``fedavg_branch``, and
+``teacher_chunk``. They are federation-size choices, not device ones: a
+scenario of m = 1000 clients opts in on its config.
 
 A knob set on the config (``scfg.distill_kl_mode``,
-``scfg.client_loop_mode``, ``cfg.kernel_vjp_mode`` and friends) wins
-over the profile. Modes the port does not have yet raise
-``NotImplementedError`` here, so no caller silently runs another path. ``page`` is the block-pool page size of the
+``scfg.loop_mode``, ``cfg.kernel_vjp_mode`` and friends) wins over the
+profile; an unknown value raises ``ValueError``, as in the reference.
+The one mode the port does not have yet, the client mesh
+(``ensemble_shard_mode``, ROADMAP.md Queue 1 item 12), raises
+``NotImplementedError`` here, so no caller silently runs another path.
+``page`` is the block-pool page size of the
 serving engine, 16 tokens on both profiles as in the reference's
 ``_BLOCKS["gpu"]["paged_attention"]``; the other block tables and the
 autotuner are not ported.
@@ -38,22 +53,25 @@ import torch
 KL_MODES = ("ref", "fused")
 KERNEL_VJP_MODES = ("ref", "autodiff", "fused")
 CLIENT_LOOP_MODES = ("python", "grouped")
+LOOP_MODES = ("python", "fused")
+BUCKETING_MODES = ("off", "pow2", "quantile")
+FEDAVG_MODES = ("flat", "tree")
 
-_PROFILES = {"cpu": {"distill_kl": "ref", "kernel_vjp": "ref",
-                     "client_loop": "grouped", "page": 16},
-             "cuda": {"distill_kl": "fused", "kernel_vjp": "fused",
-                      "client_loop": "grouped", "page": 16}}
+_SCALE_DEFAULTS = {"bucketing": "off", "stack_chunk": 0,
+                   "fedavg": "flat", "fedavg_branch": 8,
+                   "teacher_chunk": 0}
+_PROFILES = {"cpu": {"loop": "python", "distill_kl": "ref",
+                     "kernel_vjp": "ref", "client_loop": "grouped",
+                     "page": 16, **_SCALE_DEFAULTS},
+             "cuda": {"loop": "fused", "distill_kl": "fused",
+                      "kernel_vjp": "fused", "client_loop": "grouped",
+                      "page": 16, **_SCALE_DEFAULTS}}
 
 # config knobs whose non-default values select a path the reference has
 # and the port does not have yet: knob -> the values the port runs
-_PORTED = {"loop_mode": (None, "python"),
-           "ensemble_shard_mode": (None, "none"), "teacher_chunk": (None, 0),
-           "plan_bucketing": (None, "off"), "stack_chunk": (None, 0),
-           "fedavg_mode": (None, "flat")}
+_PORTED = {"ensemble_shard_mode": (None, "none")}
 # ... and the item of ROADMAP.md's Queue 1 that ports each
-_QUEUE_ITEM = {"loop_mode": 7, "ensemble_shard_mode": 12,
-               "teacher_chunk": 11, "plan_bucketing": 11, "stack_chunk": 11,
-               "fedavg_mode": 11}
+_QUEUE_ITEM = {"ensemble_shard_mode": 12}
 
 
 def resolve_device(device) -> torch.device:
@@ -91,13 +109,53 @@ def check_kernel_vjp_mode(mode: str) -> None:
                          f"(expected one of {KERNEL_VJP_MODES})")
 
 
+def check_loop_mode(mode: str) -> None:
+    if mode not in LOOP_MODES:
+        raise ValueError(f"unknown loop_mode {mode!r} "
+                         "(expected 'python' or 'fused')")
+
+
+def check_bucketing_mode(mode: str) -> None:
+    if mode not in BUCKETING_MODES:
+        raise ValueError(f"unknown plan_bucketing {mode!r} "
+                         f"(expected one of {BUCKETING_MODES})")
+
+
+def check_fedavg_mode(mode: str) -> None:
+    if mode not in FEDAVG_MODES:
+        raise ValueError(f"unknown fedavg_mode {mode!r} "
+                         f"(expected one of {FEDAVG_MODES})")
+
+
+def check_chunk_size(name: str, value) -> None:
+    """Chunk knobs are non-negative ints; 0 disables chunking."""
+    if int(value) != value or int(value) < 0:
+        raise ValueError(f"{name} must be a non-negative int, "
+                         f"got {value!r}")
+
+
+def check_fedavg_branch(value) -> None:
+    if int(value) != value or int(value) < 2:
+        raise ValueError(f"fedavg_branch must be an int >= 2, "
+                         f"got {value!r}")
+
+
 @dataclass(frozen=True)
 class ExecPolicy:
+    """Every execution decision of a run, with the reference's short
+    names (``loop``, not ``loop_mode``)."""
     backend: str = "cpu"
+    loop: str = "python"
     distill_kl: str = "ref"
     kernel_vjp: str = "ref"
     client_loop: str = "grouped"
     page: int = 16
+    # federation-scale knobs (DESIGN.md §13)
+    bucketing: str = "off"
+    stack_chunk: int = 0
+    fedavg: str = "flat"
+    fedavg_branch: int = 8
+    teacher_chunk: int = 0
 
 
 def resolve_exec_policy(scfg=None, *, device="cuda") -> ExecPolicy:
@@ -122,13 +180,27 @@ def resolve_exec_policy(scfg=None, *, device="cuda") -> ExecPolicy:
         v = getattr(scfg, name, None)
         return default if v is None else v
 
-    pol = ExecPolicy(backend=backend,
-                     distill_kl=knob("distill_kl_mode", prof["distill_kl"]),
-                     kernel_vjp=knob("kernel_vjp_mode", prof["kernel_vjp"]),
-                     client_loop=knob("client_loop_mode",
-                                      prof["client_loop"]),
-                     page=prof["page"])
-    check_kl_mode(pol.distill_kl)
-    check_kernel_vjp_mode(pol.kernel_vjp)
-    check_client_loop_mode(pol.client_loop)
-    return pol
+    loop = knob("loop_mode", prof["loop"])
+    distill_kl = knob("distill_kl_mode", prof["distill_kl"])
+    kernel_vjp = knob("kernel_vjp_mode", prof["kernel_vjp"])
+    client_loop = knob("client_loop_mode", prof["client_loop"])
+    bucketing = knob("plan_bucketing", prof["bucketing"])
+    stack_chunk = knob("stack_chunk", prof["stack_chunk"])
+    fedavg = knob("fedavg_mode", prof["fedavg"])
+    fedavg_branch = knob("fedavg_branch", prof["fedavg_branch"])
+    teacher_chunk = knob("teacher_chunk", prof["teacher_chunk"])
+    check_loop_mode(loop)
+    check_kl_mode(distill_kl)
+    check_kernel_vjp_mode(kernel_vjp)
+    check_client_loop_mode(client_loop)
+    check_bucketing_mode(bucketing)
+    check_chunk_size("stack_chunk", stack_chunk)
+    check_fedavg_mode(fedavg)
+    check_fedavg_branch(fedavg_branch)
+    check_chunk_size("teacher_chunk", teacher_chunk)
+    return ExecPolicy(backend=backend, loop=loop, distill_kl=distill_kl,
+                      kernel_vjp=kernel_vjp, client_loop=client_loop,
+                      page=prof["page"], bucketing=bucketing,
+                      stack_chunk=int(stack_chunk), fedavg=fedavg,
+                      fedavg_branch=int(fedavg_branch),
+                      teacher_chunk=int(teacher_chunk))

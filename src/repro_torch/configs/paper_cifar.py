@@ -50,7 +50,8 @@ class DenseExperimentConfig:
     # Execution-mode knobs. None defers to the execution-policy profile
     # of the device (configs/backend.py); a set knob pins the mode.
     backend: str | None = None
-    loop_mode: str | None = None    # epoch driver: "python" here
+    loop_mode: str | None = None    # epoch driver: "python" (cpu
+                                    # profile) or "fused" (cuda)
     loop_chunk: int = 8
     client_loop_mode: str | None = None  # LocalUpdate driver: "grouped"
                                     # (the default) or "python"

@@ -7,27 +7,48 @@ the current student, whose decision boundary defines L_div.
 Stage 2 (model distillation): a student step on the same latent batch
 minimizing KL(D(x̂) ‖ f_S(x̂)).
 
-This is the reference's python epoch driver: one host sync per epoch,
-where the losses are read. The frozen ensemble is held in the grouped
-representation, stacked once at setup (``core/ensemble.grouped_teacher``)
-and evaluated with ``grouped_ensemble_logits``: one network a client
-architecture, as the reference's server holds it. Both KL sites go
-through the mode the execution policy resolves (``configs/backend.py``):
-on a CUDA device the K1 kernel pair, with the teacher gradient on in the
-generator step (L_div) and off in the student step (L_dis).
+The frozen ensemble is held in the grouped representation, stacked once
+at setup (``core/ensemble.grouped_teacher``, in slices of the policy's
+``stack_chunk``) and evaluated with ``grouped_ensemble_logits``, one
+network a client architecture, streamed in slices of ``teacher_chunk``
+clients when that is set, as the reference's server holds it. Both KL
+sites go through the mode the execution policy resolves
+(``configs/backend.py``): on a CUDA device the K1 kernel pair, with the
+teacher gradient on in the generator step (L_div) and off in the
+student step (L_dis).
 
-Self-healing and resume (DESIGN.md §10), as the reference's python
-driver has them: ``scfg.nan_policy`` ``"raise"`` (a non-finite loss
-stops the run at the end of its epoch), ``"skip"`` (each step guards its
-own update on the device: a step whose loss or gradient norm is not
-finite changes no parameter, optimizer state or BN running statistic)
-and ``"rollback"`` (a bad epoch is undone from a snapshot of the last
-good one); ``scfg.checkpoint_every`` / ``checkpoint_path`` save the full
-server state every N epochs and restore it on entry.
+Two epoch drivers, as the reference has them (the policy's ``loop``;
+``scfg.loop_mode`` pins one):
 
-Not ported yet, and refused with ``NotImplementedError``: the fused
-(device-resident) epoch driver (ROADMAP.md, Queue 1 item 7) and the
-chunked teacher (item 11).
+  * ``"python"`` (the cpu profile's) — one epoch at a time, eagerly,
+    the losses read on the host after each.
+  * ``"fused"`` (the cuda profile's) — chunks of ``scfg.loop_chunk``
+    epochs (``_chunk_bounds``: a chunk never crosses an eval or
+    checkpoint boundary), each epoch's losses stacked on the device and
+    read once a chunk. On the card the first epoch of the run runs
+    eagerly, as the warm-up (Triton compiles K1, cuDNN picks its
+    algorithms), then one epoch of t_g generator steps and s_steps
+    student steps is captured as a CUDA graph (``core/graph.py``) and
+    replayed for every later epoch of every chunk; on the CPU the same
+    chunks run eagerly. Each epoch's latents are drawn outside the graph,
+    with ``noise(epoch)``, into static buffers, so the latent stream is
+    the python driver's. Adam's count lives on the device
+    (``optim.adam.count_on_device``), so that each replay takes its own
+    bias corrections. The two drivers give the same student, generator
+    and losses bit for bit on the CPU.
+
+Self-healing and resume (DESIGN.md §10), as the reference has them:
+``scfg.nan_policy`` ``"raise"`` (a non-finite loss stops the run at the
+end of its epoch, or of its chunk under the fused driver, naming it),
+``"skip"`` (each step guards its own update on the device: a step whose
+loss or gradient norm is not finite changes no parameter, optimizer
+state or BN running statistic) and ``"rollback"`` (a bad epoch is undone
+from a snapshot of the last good one; under the fused driver a chunk
+with a bad epoch is undone whole, from a snapshot taken before it, and
+the history keeps all its epochs); ``scfg.checkpoint_every`` /
+``checkpoint_path`` save the full server state every N epochs and
+restore it on entry. Snapshots, restores and checkpoint loads copy in
+place, so a captured graph goes on reading the live tensors.
 """
 from __future__ import annotations
 
@@ -44,6 +65,7 @@ from repro_torch.configs.backend import resolve_device, resolve_exec_policy
 from repro_torch.core import losses as LS
 from repro_torch.core.ensemble import Client, grouped_teacher
 from repro_torch.core.generator import img_generator_init
+from repro_torch.core.graph import CapturedEpoch
 from repro_torch.models.cnn import CNN, CNNSpec, cnn_apply, cnn_init, cnn_logits
 
 
@@ -53,6 +75,13 @@ class DenseHistory:
     gen_parts: list = field(default_factory=list)
     dis_loss: list = field(default_factory=list)
     acc: list = field(default_factory=list)
+    # how the run went: its epoch driver, the host reads of its losses,
+    # and on the card under the fused driver the graph's replays and the
+    # seconds its capture took
+    loop: str = "python"
+    host_reads: int = 0
+    graph_replays: int = 0
+    capture_seconds: float | None = None
 
 
 NAN_POLICIES = ("raise", "skip", "rollback")
@@ -78,7 +107,9 @@ def make_dense_steps(clients: Sequence[Client], scfg, *, use_bn: bool = True,
                      nan_guard: bool = False):
     """The two steps of an epoch, closed over the frozen ensemble:
     ``teacher(x, with_bn_stats=False)``, by default the grouped teacher
-    (``grouped_teacher(clients)``, stacked here once).
+    (``grouped_teacher``, stacked here once, with the policy's
+    ``teacher_chunk`` and ``stack_chunk``, as the reference's
+    ``make_dense_steps`` reads them).
 
     Returns (gen_step, student_step):
 
@@ -95,9 +126,11 @@ def make_dense_steps(clients: Sequence[Client], scfg, *, use_bn: bool = True,
     on the device (``_finite``, ``optim``'s ``step_if``); without it the
     steps launch what they launched before the guard existed.
     """
-    kl_mode = resolve_exec_policy(scfg, device=device).distill_kl
+    pol = resolve_exec_policy(scfg, device=device)
+    kl_mode = pol.distill_kl
     if teacher is None:
-        teacher = grouped_teacher(clients)
+        teacher = grouped_teacher(clients, chunk=pol.teacher_chunk,
+                                  stack_chunk=pol.stack_chunk)
 
     def gen_step(gen, g_opt, student, z, y):
         x = gen(z)
@@ -141,7 +174,8 @@ def make_distill_step(clients: Sequence[Client], scfg, *, device="cuda",
     Returns ``step(student, s_opt, x) -> loss``: one SGD step of the
     student on KL(D(x) ‖ f_S(x)) over the images x, with its BN running
     statistics updated in place. The ensemble is ``teacher`` (by default
-    ``grouped_teacher(clients)``, stacked here) and runs without
+    ``grouped_teacher`` with the policy's chunks, stacked here) and runs
+    without
     autograd, its eval BN folded into its convs; the KL goes through the
     mode the execution policy resolves, without the teacher-side
     gradient (the kernel's dL/dt stream is skipped). With ``nan_guard``
@@ -149,9 +183,11 @@ def make_distill_step(clients: Sequence[Client], scfg, *, device="cuda",
     its BN running statistics and the optimizer as they were, decided on
     the device.
     """
-    kl_mode = resolve_exec_policy(scfg, device=device).distill_kl
+    pol = resolve_exec_policy(scfg, device=device)
+    kl_mode = pol.distill_kl
     if teacher is None:
-        teacher = grouped_teacher(clients)
+        teacher = grouped_teacher(clients, chunk=pol.teacher_chunk,
+                                  stack_chunk=pol.stack_chunk)
 
     def step(student, s_opt, x):
         with torch.no_grad():
@@ -276,23 +312,96 @@ def _check_resumable(path: str, own_rng: bool) -> None:
 
 @torch.no_grad()
 def _snapshot(gen, g_opt, student, s_opt) -> dict:
-    """A copy of everything an epoch changes (``nan_policy="rollback"``)."""
+    """A copy of everything an epoch changes (``nan_policy="rollback"``),
+    Adam's count included wherever it lives (no host read)."""
     return {"gen": {k: v.clone() for k, v in gen.state_dict().items()},
             "stu": {k: v.clone() for k, v in student.state_dict().items()},
             "m": [t.clone() for t in g_opt.m],
-            "v": [t.clone() for t in g_opt.v], "t": g_opt.t,
+            "v": [t.clone() for t in g_opt.v],
+            "t": g_opt.t if g_opt.t_dev is None else g_opt.t_dev.clone(),
             "bufs": [t.clone() for t in s_opt.bufs or ()]}
 
 
 @torch.no_grad()
 def _restore(snap: dict, gen, g_opt, student, s_opt) -> None:
+    """Put a ``_snapshot`` back, every tensor in place."""
     gen.load_state_dict(snap["gen"])
     student.load_state_dict(snap["stu"])
     for dst, src in ((g_opt.m, snap["m"]), (g_opt.v, snap["v"]),
                      (s_opt.bufs or [], snap["bufs"])):
         for d, t in zip(dst, src, strict=True):
             d.copy_(t)
-    g_opt.t = snap["t"]
+    if g_opt.t_dev is None:
+        g_opt.t = snap["t"]
+    else:
+        g_opt.t_dev.copy_(snap["t"])
+
+
+def _chunk_bounds(epochs: int, chunk: int, eval_every: int,
+                  ckpt_every: int = 0, start: int = 0):
+    """[start, epochs) in chunks of at most ``chunk`` epochs, none
+    crossing an eval or checkpoint boundary (0 disables either kind), as
+    ``repro/core/dense.py:241-258`` bounds them: the bounds after a
+    checkpoint are the same whether the run started at 0 or resumed
+    there, so a resumed fused run replays the same chunks."""
+    bounds, e = [], start
+    while e < epochs:
+        nxt = min(e + chunk, epochs)
+        if eval_every:
+            nxt = min(nxt, ((e // eval_every) + 1) * eval_every)
+        if ckpt_every:
+            nxt = min(nxt, ((e // ckpt_every) + 1) * ckpt_every)
+        bounds.append((e, nxt))
+        e = nxt
+    return bounds
+
+
+class _EpochRunner:
+    """One epoch of Algorithm 1 (t_g generator steps, then s_steps student
+    steps) on static latent buffers. ``epoch(z, y, extra, replay)``
+    copies the latents in and returns the epoch's losses as one (5,)
+    float32 tensor on the device: gen_loss, its ce, bn and div parts,
+    and dis_loss. With ``replay`` on the card (the fused driver) the
+    first call runs eagerly on a side stream, as the warm-up a capture
+    wants, the second captures the epoch (``CapturedEpoch``) and every
+    call from then on replays it; otherwise the epoch runs eagerly."""
+
+    def __init__(self, steps, models, z, y, extra, t_g: int):
+        self.steps, self.models, self.t_g = steps, models, t_g
+        self.z, self.y, self.extra = (torch.empty_like(t)
+                                      for t in (z, y, extra))
+        self.warm = False
+        self.graph: CapturedEpoch | None = None
+
+    def _run(self):
+        gen_step, student_step = self.steps
+        gen, g_opt, student, s_opt = self.models
+        for _ in range(self.t_g):
+            gl, parts = gen_step(gen, g_opt, student, self.z, self.y)
+        dl = student_step(student, s_opt, gen, self.z)
+        for z_i in self.extra:          # s_steps > 1 (beyond the paper)
+            dl = student_step(student, s_opt, gen, z_i)
+        return torch.stack([gl, parts["ce"], parts["bn"], parts["div"],
+                            dl]).float()
+
+    def epoch(self, z, y, extra, replay: bool) -> torch.Tensor:
+        for dst, src in ((self.z, z), (self.y, y), (self.extra, extra)):
+            dst.copy_(src)
+        if not (replay and self.z.is_cuda):
+            return self._run()
+        if self.warm:
+            if self.graph is None:
+                self.graph = CapturedEpoch(self._run)
+            return self.graph.replay().clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out = self._run()
+        main = torch.cuda.current_stream()
+        main.wait_stream(side)
+        out.record_stream(main)
+        self.warm = True
+        return out
 
 
 def train_dense_server(clients: Sequence[Client], scfg,
@@ -319,11 +428,20 @@ def train_dense_server(clients: Sequence[Client], scfg,
     ``init_generator`` (a CPU generator, seeded ``scfg.seed``). The
     student is trained in place.
 
+    The epoch driver is the policy's ``loop`` (module doc): ``"python"``
+    on the CPU, ``"fused"`` on the card, ``scfg.loop_mode`` to pin one;
+    the fused driver runs chunks of ``scfg.loop_chunk`` epochs
+    (``_chunk_bounds``), one host read a chunk. The history says which
+    driver ran, its host reads and, on the card, the graph's replays and
+    capture seconds.
+
     ``scfg.nan_policy`` says what a non-finite generator or student loss
-    means: ``"raise"`` (``FloatingPointError`` at the end of its epoch),
+    means: ``"raise"`` (``FloatingPointError`` at the end of its epoch,
+    or of its chunk under the fused driver, naming the epochs),
     ``"skip"`` (the bad step changes nothing, decided on the device;
     the epoch's losses are recorded as they were) or ``"rollback"`` (the
-    epoch is undone from a snapshot of the last good one).
+    epoch is undone from a snapshot of the last good one; under the
+    fused driver its whole chunk, the history keeping all of it).
 
     With ``scfg.checkpoint_every`` > 0 and ``scfg.checkpoint_path`` set,
     the full server state (``server_state``) is saved every N epochs and
@@ -333,7 +451,8 @@ def train_dense_server(clients: Sequence[Client], scfg,
     A reference server checkpoint cannot be resumed (``ValueError``).
 
     ``_poison_epochs`` / ``_stop_after_epoch`` are test hooks: NaN-fill
-    the listed epochs' latent batch, and return after that many epochs,
+    the listed epochs' latent batch, and return after that many epochs
+    (under the fused driver, at the end of the chunk that reaches it),
     before the checkpoint is saved (a killed run).
     """
     dev = resolve_device(device)
@@ -383,43 +502,62 @@ def train_dense_server(clients: Sequence[Client], scfg,
                                         gen, g_opt, student, s_opt,
                                         generator)
 
-    hist = DenseHistory()
+    loop = resolve_exec_policy(scfg, device=dev).loop
+    hist = DenseHistory(loop=loop)
     poison = frozenset(_poison_epochs or ())
-    snap = _snapshot(gen, g_opt, student, s_opt) \
-        if nan_policy == "rollback" else None
-    for epoch in range(start_epoch, scfg.epochs):
+    fused = loop == "fused"
+    if fused:
+        g_opt.count_on_device()
+        bounds = _chunk_bounds(scfg.epochs,
+                               max(1, int(getattr(scfg, "loop_chunk", 8))),
+                               eval_every, ck_every if ckpt_on else 0,
+                               start_epoch)
+    else:
+        bounds = [(e, e + 1) for e in range(start_epoch, scfg.epochs)]
+    runner = None
+
+    def losses(epoch):
+        nonlocal runner
         z, y, extra = noise(epoch)
         if epoch in poison:
             z = torch.full_like(z, float("nan"))
-        for _ in range(scfg.t_g):
-            gl, parts = gen_step(gen, g_opt, student, z, y)
-        dl = student_step(student, s_opt, gen, z)
-        for z_i in extra:       # s_steps > 1 (beyond the paper)
-            dl = student_step(student, s_opt, gen, z_i)
-        hist.gen_loss.append(float(gl))
-        hist.gen_parts.append({k: float(v) for k, v in parts.items()})
-        hist.dis_loss.append(float(dl))
-        bad = not (np.isfinite(hist.gen_loss[-1])
-                   and np.isfinite(hist.dis_loss[-1]))
+        if runner is None:
+            runner = _EpochRunner((gen_step, student_step),
+                                  (gen, g_opt, student, s_opt), z, y, extra,
+                                  scfg.t_g)
+        return runner.epoch(z, y, extra, replay=fused)
+
+    for lo, hi in bounds:
+        # a chunk (python driver: an epoch) is undone whole if bad
+        snap = _snapshot(gen, g_opt, student, s_opt) \
+            if nan_policy == "rollback" else None
+        rows = torch.stack([losses(e) for e in range(lo, hi)]).tolist()
+        hist.host_reads += 1                # one read a chunk
+        if runner.graph is not None:
+            hist.graph_replays = runner.graph.replays
+            hist.capture_seconds = runner.graph.capture_seconds
+        bad = False
+        for gl, ce, bn, div, dl in rows:
+            hist.gen_loss.append(gl)
+            hist.gen_parts.append({"ce": ce, "bn": bn, "div": div})
+            hist.dis_loss.append(dl)
+            bad |= not (np.isfinite(gl) and np.isfinite(dl))
         if bad and nan_policy == "raise":
+            where = f"epoch {lo}" if hi - lo == 1 else f"epochs [{lo}, {hi})"
             raise FloatingPointError(
-                f"non-finite loss at epoch {epoch} (gen={hist.gen_loss[-1]},"
-                f" dis={hist.dis_loss[-1]}); set scfg.nan_policy='skip' or "
-                "'rollback' to self-heal")
-        if nan_policy == "rollback":
-            if bad:
-                _restore(snap, gen, g_opt, student, s_opt)
-            else:
-                snap = _snapshot(gen, g_opt, student, s_opt)
-        if eval_fn is not None and eval_every and (epoch + 1) % eval_every == 0:
-            hist.acc.append((epoch + 1, eval_fn(student, student_spec)))
-        if _stop_after_epoch and epoch + 1 >= _stop_after_epoch:
+                f"non-finite loss at {where} (gen={hist.gen_loss[lo - hi:]}, "
+                f"dis={hist.dis_loss[lo - hi:]}); set "
+                "scfg.nan_policy='skip' or 'rollback' to self-heal")
+        if bad and nan_policy == "rollback":
+            _restore(snap, gen, g_opt, student, s_opt)
+        if eval_fn is not None and eval_every and hi % eval_every == 0:
+            hist.acc.append((hi, eval_fn(student, student_spec)))
+        if _stop_after_epoch and hi >= _stop_after_epoch:
             return student, gen, hist       # a killed run: no save
-        if ckpt_on and (epoch + 1) % ck_every == 0:
+        if ckpt_on and hi % ck_every == 0:
             save_checkpoint(ck_path, server_state(gen, g_opt, student, s_opt,
-                                                  epoch + 1, generator),
-                            meta={"epoch": epoch + 1,
-                                  "epochs": int(scfg.epochs)})
+                                                  hi, generator),
+                            meta={"epoch": hi, "epochs": int(scfg.epochs)})
     return student, gen, hist
 
 

@@ -19,16 +19,26 @@ The grouped representation is ``(gspecs, gparams)``: gspecs a tuple of
 (CNNSpec, group size); gparams one entry a group, a stacked group (a
 dict of tensors with a leading client axis, ``models/cnn.stack_models``)
 for a group of more than one, the client's own ``CNN`` for a singleton.
-Not ported, and refused: the mesh-sharded group sum and the chunked
-teacher (ROADMAP.md, Queue 1 items 11 and 12).
+
+For federations of m = 1000 (DESIGN.md §13): ``stack_grouped(chunk=)``
+stacks a group in slices of that many clients, and
+``grouped_ensemble_logits(chunk=)`` streams a group's logit sum through
+slices of ``chunk`` clients (``_chunked_stack_sum``), so the teacher
+never holds an (m, B, ...) activation block; with a gradient, each full
+slice is checkpointed (``torch.utils.checkpoint``) and re-run in the
+backward. ``grouped_teacher`` takes both from the execution policy
+(``stack_chunk``, ``teacher_chunk``). Not ported, and refused: the
+mesh-sharded group sum (ROADMAP.md, Queue 1 item 12).
 """
 from __future__ import annotations
 
+from collections.abc import Sequence as SequenceABC
 from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.cnn import (CNN, CNNSpec, cnn_apply,
                                     cnn_stack_apply_grouped, cnn_view,
@@ -84,6 +94,10 @@ def stack_grouped(clients: Sequence[Client], *, chunk: int | None = None):
     stacked into new tensors, once (call it at setup), and a singleton
     keeps its model.
 
+    ``chunk`` > 0 stacks a group in slices of that many clients,
+    concatenated (``models/cnn.stack_models``): the same values, bit for
+    bit (``repro/core/ensemble.py:97-160``).
+
     A federation that went through upload admission
     (``fl.protocol.admit_uploads``) carries ``group_masks``: its
     quarantined clients are sliced out here (``apply_group_masks``), so
@@ -91,10 +105,6 @@ def stack_grouped(clients: Sequence[Client], *, chunk: int | None = None):
     sees what a federation built without them gives. The full stack,
     quarantined slots zero-filled, stays in the federation's
     ``grouped``."""
-    if chunk:
-        raise NotImplementedError(
-            "stack_grouped(chunk=) is not ported yet (ROADMAP.md, Queue 1 "
-            "item 11)")
     pre = getattr(clients, "grouped", None)
     if pre is not None:
         gspecs, gparams = tuple(pre[0]), list(pre[1])
@@ -103,7 +113,8 @@ def stack_grouped(clients: Sequence[Client], *, chunk: int | None = None):
         for spec, idx in group_clients(clients):
             gspecs.append((spec, len(idx)))
             gparams.append(clients[idx[0]].model if len(idx) == 1 else
-                           stack_models([clients[i].model for i in idx]))
+                           stack_models([clients[i].model for i in idx],
+                                        chunk or 0))
         gspecs = tuple(gspecs)
     return apply_group_masks(gspecs, gparams,
                              getattr(clients, "group_masks", None))
@@ -152,6 +163,73 @@ def apply_group_masks(gspecs, gparams, group_masks):
     return tuple(new_specs), new_params
 
 
+class GroupedStats(SequenceABC):
+    """The per-client BN statistics of a grouped forward, in group order:
+    entry k is client k's list of one dict a BN layer ({"mean", "var",
+    "running_mean", "running_var"}), as ``ensemble_logits`` gives them.
+    They are held as each group's (or chunk's) stacked statistics,
+    ``parts``: (n, a list of one dict a BN layer of (n, C) tensors) for
+    n clients; a singleton's (C,) dicts count as n = 1 unstacked. So
+    ``losses.bn_loss`` sums over the clients a layer at a time, and
+    indexing makes a client's views on demand."""
+
+    def __init__(self):
+        self.parts: list = []          # (n, stats, stacked)
+
+    def add(self, n: int, stats, stacked: bool = True) -> None:
+        self.parts.append((n, stats, stacked))
+
+    def __len__(self) -> int:
+        return sum(n for n, _, _ in self.parts)
+
+    def __getitem__(self, k: int):
+        if not isinstance(k, int):
+            raise TypeError("GroupedStats takes an int index")
+        if k < 0:
+            k += len(self)
+        for n, stats, stacked in self.parts:
+            if k < n:
+                return [{key: v[k] for key, v in layer.items()}
+                        for layer in stats] if stacked else stats
+            k -= n
+        raise IndexError("client index out of range")
+
+
+def _stack_forward(params, spec, x, size, with_stats):
+    """(logits (size, B, K) float32, stacked stats: one dict a BN layer
+    of (size, C) tensors, empty without stats) of one stacked group."""
+    lgs, stats = cnn_stack_apply_grouped(params, spec, x, size,
+                                         with_stats=with_stats)
+    return lgs.float(), stats
+
+
+def _chunked_stack_sum(params, spec, x, size, chunk, with_stats):
+    """One stacked group's logit sum, streamed in slices of ``chunk``
+    clients (``repro/core/ensemble.py:227-270``): each slice's
+    (chunk, B, K) logits are summed into a float32 (B, K) accumulator in
+    client order, the tail slice last. Under a gradient each full slice
+    runs checkpointed (``torch.utils.checkpoint``, non-reentrant, no RNG
+    state: the forward draws none), so the backward re-runs it instead
+    of keeping its activations, as the reference's ``jax.checkpoint``
+    does. Returns (sum (B, K), [(n, stacked stats) a slice])."""
+    acc = torch.zeros((x.shape[0], spec.num_classes), dtype=torch.float32,
+                      device=x.device)
+    parts: list = []
+    remat = torch.is_grad_enabled() and x.requires_grad
+    for c0 in range(0, size, chunk):
+        n = min(chunk, size - c0)
+        sub = {k: v[c0:c0 + n] for k, v in params.items()}
+        if remat and n == chunk:
+            lgs, st = checkpoint(_stack_forward, sub, spec, x, n, with_stats,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+        else:
+            lgs, st = _stack_forward(sub, spec, x, n, with_stats)
+        acc = acc + lgs.sum(dim=0)
+        parts.append((n, st))
+    return acc, parts
+
+
 def grouped_ensemble_logits(gspecs, gparams, x: torch.Tensor, *,
                             with_bn_stats: bool = False, mesh=None,
                             chunk: int | None = None):
@@ -159,43 +237,53 @@ def grouped_ensemble_logits(gspecs, gparams, x: torch.Tensor, *,
 
     Agrees with ``ensemble_logits`` to float tolerance (without stats a
     group folds eval BN into its convs). ``with_bn_stats`` also returns
-    the per-client stats, a flat list in group order."""
+    the per-client stats in group order, a ``GroupedStats``. ``chunk`` > 0
+    streams each group larger than it through slices of that many
+    clients (``_chunked_stack_sum``); the stats stay per client, in
+    group order."""
     if mesh is not None:
         raise NotImplementedError("the mesh-sharded teacher is not ported "
                                   "yet (ROADMAP.md, Queue 1 item 12)")
-    if chunk:
-        raise NotImplementedError("the chunked teacher is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 11)")
     m = sum(size for _, size in gspecs)
-    logits_sum, all_stats = None, []
+    logits_sum, all_stats = None, GroupedStats()
     for (spec, size), params in zip(gspecs, gparams):
         if size == 1:
             lg, stats = cnn_apply(params, x, train=False,
                                   with_stats=with_bn_stats)
             group_sum = lg.float()
             if with_bn_stats:
-                all_stats.append(stats)
+                all_stats.add(1, stats, stacked=False)
         else:
-            lgs, stats = cnn_stack_apply_grouped(params, spec, x, size,
-                                                 with_stats=with_bn_stats)
-            group_sum = lgs.float().sum(dim=0)
+            if chunk and 0 < chunk < size:
+                group_sum, parts = _chunked_stack_sum(
+                    params, spec, x, size, chunk, with_bn_stats)
+            else:
+                lgs, stats = _stack_forward(params, spec, x, size,
+                                            with_bn_stats)
+                group_sum = lgs.sum(dim=0)
+                parts = [(size, stats)]
             if with_bn_stats:
-                all_stats.extend([{k: v[j] for k, v in s.items()}
-                                  for s in stats] for j in range(size))
+                for n, stats in parts:
+                    all_stats.add(n, stats)
         logits_sum = group_sum if logits_sum is None \
             else logits_sum + group_sum
     avg = logits_sum / m
     return (avg, all_stats) if with_bn_stats else avg
 
 
-def grouped_teacher(clients: Sequence[Client]):
+def grouped_teacher(clients: Sequence[Client], *, chunk: int = 0,
+                    stack_chunk: int = 0):
     """The frozen ensemble of a server run: stacked once, here
-    (``stack_grouped``). Returns ``teacher(x, with_bn_stats=False)``,
-    ``grouped_ensemble_logits`` over it."""
-    gspecs, gparams = stack_grouped(clients)
+    (``stack_grouped(chunk=stack_chunk)``). Returns
+    ``teacher(x, with_bn_stats=False)``, ``grouped_ensemble_logits``
+    over it, streamed in slices of ``chunk`` clients when ``chunk`` > 0
+    (the policy's ``teacher_chunk``, as the reference's
+    ``make_dense_steps`` reads it)."""
+    gspecs, gparams = stack_grouped(clients, chunk=stack_chunk)
 
     def teacher(x, *, with_bn_stats: bool = False):
         return grouped_ensemble_logits(gspecs, gparams, x,
-                                       with_bn_stats=with_bn_stats)
+                                       with_bn_stats=with_bn_stats,
+                                       chunk=chunk)
 
     return teacher

@@ -48,9 +48,27 @@ def ce_loss(avg_logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def bn_loss(per_client_stats) -> torch.Tensor:
     """Eq. (3): (1/m) Σ_k Σ_l ‖μ_l(x̂) − μ_{k,l}‖ + ‖σ²_l(x̂) − σ²_{k,l}‖,
-    with unsquared L2 norms."""
+    with unsquared L2 norms. A grouped teacher's stats
+    (``ensemble.GroupedStats``) are summed a stacked group (or chunk)
+    at a time: its clients' terms for all layers at once, then their
+    sum; the same value to float32 summation order, with a few kernels
+    a group instead of a few a client."""
+    parts = getattr(per_client_stats, "parts", None)
+    if parts is None:
+        parts = [(1, stats, False) for stats in per_client_stats]
     total = None
-    for stats in per_client_stats:            # one list per client
+    for _, stats, stacked in parts:
+        if stacked:
+            term = None
+            for s in stats:
+                t = torch.linalg.vector_norm(s["mean"] - s["running_mean"],
+                                             dim=-1) \
+                    + torch.linalg.vector_norm(s["var"] - s["running_var"],
+                                               dim=-1)
+                term = t if term is None else term + t
+            if term is not None:
+                total = term.sum() if total is None else total + term.sum()
+            continue
         for s in stats:                       # one dict per BN layer
             term = torch.linalg.vector_norm(s["mean"] - s["running_mean"]) \
                 + torch.linalg.vector_norm(s["var"] - s["running_var"])

@@ -1,7 +1,8 @@
 """Seeded minibatch iterators and batch plans: the port's own copies of
 ``repro/data/pipeline.py``'s ``batches``, ``lm_batches``, ``BatchPlan``,
-``build_batch_plan`` and ``pad_shards`` (numpy only, the same index
-streams and plans, bit for bit).
+``build_batch_plan``, ``bucket_members``, ``plan_step_waste`` and
+``pad_shards`` (numpy only, the same index streams, plans and buckets,
+bit for bit).
 
 ``build_batch_plan`` lays out a whole group's seeded minibatch streams
 as one padded (m, steps, batch) index array with a validity mask, which
@@ -95,6 +96,56 @@ def build_batch_plan(shard_sizes: Sequence[int], batch_size: int, *,
                 mask[k, s, :len(sel)] = True
     return BatchPlan(idx=idx, mask=mask, steps_per_epoch=nb_max,
                      epochs=epochs, batch_size=batch_size)
+
+
+def bucket_members(shard_sizes: Sequence[int], batch_size: int,
+                   mode: str = "off") -> list[tuple[int, ...]]:
+    """Bin clients by batches an epoch before padding (DESIGN.md §13;
+    ``repro/data/pipeline.py:96-140``).
+
+    Returns a partition of ``range(m)`` as member-index tuples, ordered
+    by ascending bucket step count; members keep their order within a
+    bucket. ``off``: one bucket. ``pow2``: the next power of two of
+    ceil(n_k / batch), so no client wastes 2x padded steps in its
+    bucket. ``quantile``: 4 quantile bins of the batches-an-epoch
+    distribution. No mode changes a client's seeded minibatch stream,
+    only the fully masked padding steps appended to it."""
+    nb = [-(-int(n) // batch_size) for n in shard_sizes]
+    m = len(nb)
+    if mode == "off" or m <= 1:
+        return [tuple(range(m))] if m else []
+    if mode == "pow2":
+        def key(b):
+            p = 1
+            while p < max(b, 1):
+                p *= 2
+            return p
+        keys = [key(b) for b in nb]
+    elif mode == "quantile":
+        qs = np.quantile(np.asarray(nb, np.float64), [0.25, 0.5, 0.75])
+        keys = list(np.searchsorted(qs, np.asarray(nb, np.float64),
+                                    side="left"))
+    else:
+        raise ValueError(f"unknown plan_bucketing mode {mode!r}")
+    buckets: dict = {}
+    for i, k in enumerate(keys):
+        buckets.setdefault(k, []).append(i)
+    # buckets by their most batches an epoch, ascending
+    return [tuple(buckets[k]) for k in
+            sorted(buckets, key=lambda k: max(nb[i] for i in buckets[k]))]
+
+
+def plan_step_waste(shard_sizes: Sequence[int], batch_size: int,
+                    mode: str = "off") -> float:
+    """The share of scheduled optimizer steps that are fully masked
+    padding under ``mode`` bucketing (the epoch count cancels)."""
+    nb = [-(-int(n) // batch_size) for n in shard_sizes]
+    total = real = 0
+    for members in bucket_members(shard_sizes, batch_size, mode):
+        bmax = max(nb[i] for i in members)
+        total += bmax * len(members)
+        real += sum(nb[i] for i in members)
+    return 1.0 - real / total if total else 0.0
 
 
 def pad_shards(shards: Sequence[tuple], *,

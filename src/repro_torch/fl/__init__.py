@@ -1,6 +1,7 @@
 from repro_torch.fl.baselines import (fed_adi, fed_dafl, fed_df,
                                       make_distill_step)
-from repro_torch.fl.client import (local_update, local_update_grouped,
+from repro_torch.fl.client import (local_update, local_update_bucketed,
+                                   local_update_grouped,
                                    make_grouped_local_update, make_local_step)
 from repro_torch.fl.faults import (FAULT_KINDS, Fault, apply_upload_faults,
                                    build_fault_plan, corrupt_params)
@@ -21,7 +22,8 @@ __all__ = ["FAULT_KINDS", "Fault", "QuorumError", "UploadError",
            "validate_upload", "ClientList", "CommLedger", "build_federation",
            "build_grouped_federation", "client_specs", "dense_multi_round",
            "fed_adi", "fed_dafl", "fed_df", "fedavg", "fedavg_stacked",
-           "group_specs", "local_update", "local_update_grouped",
+           "group_specs", "local_update", "local_update_bucketed",
+           "local_update_grouped",
            "make_distill_step", "make_grouped_local_update",
            "make_local_step", "param_bytes", "train_clients_grouped",
            "upload_boundary"]

@@ -24,7 +24,9 @@ baseline takes an optional ``noise(epoch)`` source in place of its random
 draws and optional initial models, as ``train_dense_server`` does, so
 that the tests can inject the reference's ``jax.random`` draws. A
 non-finite loss raises ``FloatingPointError`` at the end of its epoch
-(the reference's baselines go on with it).
+(the reference's baselines go on with it). The epoch driver
+(``loop_mode``) is DENSE's: each baseline runs its own loop, whichever
+the policy resolves, as the reference's do.
 """
 from __future__ import annotations
 

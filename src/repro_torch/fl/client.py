@@ -13,6 +13,11 @@ the shard's class counts. Two engines:
     no valid row its parameters, momentum and running statistics pass
     through unchanged. It consumes the same per-client streams as the
     loop, so the two agree to float tolerance.
+  * ``local_update_bucketed`` — the m = 1000 driver around it
+    (DESIGN.md §13): a group's members binned by batches an epoch
+    (``data.pipeline.bucket_members``) and each bin trained in slices of
+    ``stack_chunk`` clients, so padding steps and the stacked state of
+    one call stay small; the trained stack comes back in member order.
 """
 from __future__ import annotations
 
@@ -21,9 +26,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import optim
-from repro_torch.data.pipeline import BatchPlan, batches
-from repro_torch.models.cnn import (CNN, CNNSpec, cnn_apply,
-                                    cnn_stack_train_grouped, is_running_stat)
+from repro_torch.data.pipeline import (BatchPlan, batches, bucket_members,
+                                       build_batch_plan, pad_shards)
+from repro_torch.models.cnn import (CNN, CNNSpec, cat_stacked, cnn_apply,
+                                    cnn_stack_train_grouped, is_running_stat,
+                                    stack_models, take_stacked)
 
 
 def make_local_step(model: CNN, *, lr: float, momentum: float,
@@ -172,3 +179,53 @@ def local_update_grouped(stacked: dict, spec: CNNSpec, xs, ys,
     loss = torch.stack(losses) if losses else torch.zeros((0, m),
                                                           device=dev)
     return stacked, {"loss": loss, "class_counts": class_counts}
+
+
+def local_update_bucketed(init_model, spec: CNNSpec, shards, *,
+                          batch_size: int, epochs: int, seeds,
+                          lr: float = 0.01, momentum: float = 0.9,
+                          use_ldam: bool = False, num_classes: int = 10,
+                          class_counts: np.ndarray | None = None,
+                          bucketing: str = "off", chunk: int = 0) -> dict:
+    """Bucketed and chunked LocalUpdate of one architecture group
+    (``repro/fl/client.py:245-311``): returns the trained stack, new
+    tensors, in member order.
+
+    ``init_model(j)`` is member j's initial ``CNN`` (copied into its
+    slice's stack, never trained in place); ``shards``, ``seeds`` and
+    ``class_counts`` are per member, in group order. The members are
+    binned by batches an epoch (``bucket_members``, ``bucketing``), then
+    each bin trains in slices of ``chunk`` clients (all of it at 0) on
+    the grouped engine, its shards padded to the bin's largest and its
+    plan to the bin's most batches an epoch. The slices are concatenated
+    on the device and gathered back to member order, so survivor masks
+    and FedAvg weights stay aligned. A client's minibatch stream never
+    depends on its bin or slice, and its padding steps change nothing,
+    so each client trains as on the single-plan engine, to the float
+    tolerance of another batch of stacked convolutions. With
+    ``bucketing="off"`` and no chunk it is that engine, one call."""
+    sizes = [len(y) for _, y in shards]
+    pieces, order = [], []
+    for members in bucket_members(sizes, batch_size, bucketing):
+        nb_bucket = max(-(-sizes[j] // batch_size) for j in members)
+        pad_n = max(sizes[j] for j in members)
+        step = chunk if chunk else len(members)
+        for c0 in range(0, len(members), step):
+            mem = members[c0:c0 + step]
+            stacked = stack_models([init_model(j) for j in mem])
+            xs, ys = pad_shards([shards[j] for j in mem], pad_to=pad_n)
+            plan = build_batch_plan([sizes[j] for j in mem], batch_size,
+                                    epochs=epochs,
+                                    seeds=[seeds[j] for j in mem],
+                                    steps_per_epoch=nb_bucket)
+            cc = None if class_counts is None else \
+                np.asarray(class_counts)[list(mem)]
+            local_update_grouped(stacked, spec, xs, ys, plan, lr=lr,
+                                 momentum=momentum, use_ldam=use_ldam,
+                                 num_classes=num_classes, class_counts=cc)
+            pieces.append(stacked)
+            order.extend(mem)
+    stacked = pieces[0] if len(pieces) == 1 else cat_stacked(pieces)
+    if order != list(range(len(shards))):
+        stacked = take_stacked(stacked, np.argsort(np.asarray(order)))
+    return stacked

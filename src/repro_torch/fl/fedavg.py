@@ -2,12 +2,17 @@
 over every parameter and BN statistic (``repro/fl/fedavg.py``).
 Homogeneous clients only.
 
-``fedavg_stacked`` is one weighted sum over a stacked group's client
-axis (the flat mode; the tree mode is not ported, ROADMAP.md, Queue 1
-item 11). ``fedavg`` reduces a grouped federation's stack
+``fedavg_stacked`` reduces a stacked group's client axis in one of two
+topologies (``mode``, the execution policy's ``fedavg`` for ``fedavg``):
+``"flat"``, one weighted sum, or ``"tree"`` (DESIGN.md §13), fan-in
+``branch`` groups a level, each node the float32 weighted mean of its
+children with their summed weight, as edge aggregators pre-combine
+uploads; the root equals the flat sum to float32 summation order.
+``fedavg`` reduces a grouped federation's stack
 (``fl/federation.ClientList``) directly and stacks the clients' models
 once otherwise; either way it averages the survivors of upload
-admission only (``survivor_mask``).
+admission only (``survivor_mask``). The mesh-sharded tree is not ported
+(ROADMAP.md, Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -33,19 +38,43 @@ def _check_n_data(n_data) -> np.ndarray:
     return n
 
 
+def _tree_level(v: torch.Tensor, w: torch.Tensor, branch: int):
+    """One level (``repro/fl/fedavg.py:56-77``): (m, ...) values and (m,)
+    weights to ceil(m / branch) weighted-mean nodes and their summed
+    weights. The tail group is padded with zero-weight children and
+    keeps at least one real child, so no node divides by zero."""
+    pad = (-v.shape[0]) % branch
+    if pad:
+        v = torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
+        w = torch.cat([w, w.new_zeros(pad)])
+    g = v.shape[0] // branch
+    vg = v.view((g, branch) + v.shape[1:])
+    wg = w.view(g, branch)
+    wsum = wg.sum(1)
+    node = (vg * wg.view((g, branch) + (1,) * (v.dim() - 1))).sum(1) \
+        / wsum.view((g,) + (1,) * (v.dim() - 1))
+    return node, wsum
+
+
+def _tree_reduce(leaf: torch.Tensor, w: torch.Tensor, branch: int):
+    """A (m, ...) leaf to its root weighted mean, float32 throughout."""
+    v, ww = leaf.float(), w
+    while v.shape[0] > 1:
+        v, ww = _tree_level(v, ww, branch)
+    return v[0].to(leaf.dtype)
+
+
 @torch.no_grad()
 def fedavg_stacked(stacked: dict, n_data, survivor_mask=None, *,
-                   mode: str = "flat") -> dict:
+                   mode: str = "flat", branch: int = 8) -> dict:
     """FedAvg over a stacked group (``repro/fl/fedavg.py:126-168``): new
-    tensors, Σ_k w_k θ^k in float32 with w_k = n_k / n, no client axis.
+    tensors, Σ_k w_k θ^k in float32 with w_k = n_k / n, no client axis;
+    ``mode="tree"`` reduces it in fan-in ``branch`` levels (module doc).
 
     ``survivor_mask`` (a host bool array over the clients) leaves the
     masked-out clients out of the sum and of the weights' normalization
     (their n_data need not be positive)."""
-    if mode == "tree":
-        raise NotImplementedError("fedavg mode='tree' is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 11)")
-    if mode != "flat":
+    if mode not in ("flat", "tree"):
         raise ValueError(f"unknown fedavg mode {mode!r} "
                          "(expected 'flat' or 'tree')")
     rows = None
@@ -65,20 +94,28 @@ def fedavg_stacked(stacked: dict, n_data, survivor_mask=None, *,
         if rows is not None:
             leaf = leaf[torch.as_tensor(rows, device=leaf.device)]
         w = torch.tensor(n / n.sum(), dtype=torch.float32,
-                         device=leaf.device).view((-1,) + (1,) * (
-                             leaf.dim() - 1))
-        out[name] = (w * leaf.float()).sum(0).to(leaf.dtype)
+                         device=leaf.device)
+        if mode == "tree":
+            out[name] = _tree_reduce(leaf, w, int(branch))
+        else:
+            w = w.view((-1,) + (1,) * (leaf.dim() - 1))
+            out[name] = (w * leaf.float()).sum(0).to(leaf.dtype)
     return out
 
 
-def fedavg(clients: Sequence[Client]) -> CNN:
+def fedavg(clients: Sequence[Client], *, policy=None) -> CNN:
     """A new model holding the n_data-weighted average of the clients'
-    parameters and BN running statistics, on the clients' device.
+    parameters and BN running statistics, on the clients' device
+    (``repro/fl/fedavg.py:171-205``). ``policy`` (an ``ExecPolicy``)
+    routes the topology, ``fedavg`` and ``fedavg_branch``; None is the
+    flat sum.
 
     A federation that went through upload admission carries
     ``survivor_mask``: its quarantined clients are left out, and the
     result is the average of a federation built without them. Zero
     survivors raise ``ValueError``."""
+    mode = policy.fedavg if policy is not None else "flat"
+    branch = policy.fedavg_branch if policy is not None else 8
     kinds = {c.spec for c in clients}
     if len(kinds) != 1:
         raise ValueError("FedAvg requires homogeneous client models; got "
@@ -89,7 +126,8 @@ def fedavg(clients: Sequence[Client]) -> CNN:
     if grouped is not None and len(grouped[0]) == 1 \
             and grouped[0][0][1] == len(clients) and len(clients) > 1:
         # the engine's own stack
-        avg = fedavg_stacked(grouped[1][0], n_data, survivor_mask=mask)
+        avg = fedavg_stacked(grouped[1][0], n_data, survivor_mask=mask,
+                             mode=mode, branch=branch)
         return cnn_view(clients[0].spec, avg)
     if mask is not None:
         mask = np.asarray(mask, bool)
@@ -98,5 +136,6 @@ def fedavg(clients: Sequence[Client]) -> CNN:
         clients = [c for c, ok in zip(clients, mask) if ok]
         n_data = [c.n_data for c in clients]
     _check_n_data(n_data)
-    avg = fedavg_stacked(stack_models([c.model for c in clients]), n_data)
+    avg = fedavg_stacked(stack_models([c.model for c in clients]), n_data,
+                         mode=mode, branch=branch)
     return cnn_view(clients[0].spec, avg)

@@ -12,10 +12,13 @@ averages the same stack. Each ``Client.model`` is a ``CNN`` viewing its
 row of the stack (``models/cnn.cnn_view``), so per-client evaluation
 needs no copy.
 
-Not ported, and refused: bucketing by batches an epoch, ``stack_chunk``
-and the client mesh (ROADMAP.md, Queue 1 items 11 and 12). With them
-off, the reference's ``local_update_bucketed`` is the single-plan engine
-bit for bit, which is what runs here.
+The execution policy's federation-scale knobs (DESIGN.md §13) reach
+the engine here: ``bucketing`` bins each group by batches an epoch and
+``stack_chunk`` trains each bin in slices of that many clients
+(``fl/client.local_update_bucketed``); the stack comes back in member
+order either way. With both off (every profile's default) it is the
+single-plan engine, one call a group. The client mesh is not ported
+(ROADMAP.md, Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -27,10 +30,8 @@ import torch
 from repro_torch.configs.backend import resolve_device, resolve_exec_policy
 from repro_torch.core.ensemble import Client, group_specs
 from repro_torch.data.partition import dirichlet_partition
-from repro_torch.data.pipeline import build_batch_plan, pad_shards
-from repro_torch.fl.client import local_update_grouped
-from repro_torch.models.cnn import (CNN, CNNSpec, client_views, cnn_init,
-                                    stack_models)
+from repro_torch.fl.client import local_update_bucketed
+from repro_torch.models.cnn import CNN, CNNSpec, client_views, cnn_init
 
 
 class ClientList(list):
@@ -70,15 +71,17 @@ def train_clients_grouped(specs: Sequence[CNNSpec], shards: Sequence[tuple],
                           seeds: Sequence[int], init_models: Sequence[CNN],
                           n_data: Sequence[int] | None = None,
                           ledger=None,
-                          upload_tag: str = "round0-model-upload"
-                          ) -> ClientList:
+                          upload_tag: str = "round0-model-upload",
+                          policy=None) -> ClientList:
     """The grouped LocalUpdate phase of any federation
-    (``repro/fl/federation.py:75-148``).
+    (``repro/fl/federation.py:75-153``).
 
     specs, shards, seeds and ``init_models`` (client i's initial model;
     copied into its group's stack, never trained in place) are per
-    client, in federation order. Records one upload a client, of its
-    own model's bytes, in ``ledger``."""
+    client, in federation order. ``policy`` (an ``ExecPolicy``) routes
+    ``bucketing`` and ``stack_chunk`` (module doc); None is both off.
+    Records one upload a client, of its own model's bytes, in
+    ``ledger``."""
     from repro_torch.fl.protocol import param_bytes  # protocol routes here
     m = len(specs)
     if n_data is None:
@@ -86,18 +89,18 @@ def train_clients_grouped(specs: Sequence[CNNSpec], shards: Sequence[tuple],
     gspecs, gparams = [], []
     models: list = [None] * m
     counts_view: list = [None] * m
+    bucketing = policy.bucketing if policy is not None else "off"
+    stack_chunk = policy.stack_chunk if policy is not None else 0
     for spec, idx in group_specs(specs):
         group_shards = [shards[i] for i in idx]
         counts = np.stack([np.bincount(y, minlength=num_classes)
                            for _, y in group_shards])
-        stacked = stack_models([init_models[i] for i in idx])
-        xs, ys = pad_shards(group_shards)
-        plan = build_batch_plan([len(y) for _, y in group_shards],
-                                batch_size, epochs=epochs,
-                                seeds=[seeds[i] for i in idx])
-        local_update_grouped(stacked, spec, xs, ys, plan, lr=lr,
-                             momentum=momentum, use_ldam=use_ldam,
-                             num_classes=num_classes, class_counts=counts)
+        stacked = local_update_bucketed(
+            lambda j, _idx=idx: init_models[_idx[j]], spec, group_shards,
+            batch_size=batch_size, epochs=epochs,
+            seeds=[seeds[i] for i in idx], lr=lr, momentum=momentum,
+            use_ldam=use_ldam, num_classes=num_classes, class_counts=counts,
+            bucketing=bucketing, chunk=stack_chunk)
         views = client_views(spec, stacked)
         gspecs.append((spec, len(idx)))
         gparams.append(views[0] if len(idx) == 1 else stacked)
@@ -126,7 +129,7 @@ def build_grouped_federation(scfg, data, *, device="cuda",
     to float tolerance."""
     from repro_torch.fl.protocol import init_model
     dev = resolve_device(device)
-    resolve_exec_policy(scfg, device=dev)      # refuses unported knobs
+    pol = resolve_exec_policy(scfg, device=dev)   # refuses unported knobs
     if generator is None:
         generator = torch.Generator().manual_seed(seed)
     x, y = data["train"]
@@ -141,7 +144,7 @@ def build_grouped_federation(scfg, data, *, device="cuda",
         momentum=scfg.local_momentum, batch_size=scfg.batch_size,
         use_ldam=scfg.use_ldam, num_classes=scfg.num_classes,
         seeds=[seed + i for i in range(scfg.n_clients)], init_models=inits,
-        ledger=ledger)
+        ledger=ledger, policy=pol)
     return clients, shards
 
 

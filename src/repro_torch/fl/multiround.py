@@ -10,9 +10,12 @@ the result, except after the last round. Each round's local phase runs
 on the engine the execution policy picks: the grouped engine
 (``fl/federation.train_clients_grouped``, the default: the n clients as
 one stacked network, the stack handed on to the server's teacher as it
-is) or the per-client loop (``client_loop_mode="python"``). The python
-epoch driver runs the server, so on a CUDA device every DENSE step of
-every round runs the K1 pair.
+is) or the per-client loop (``client_loop_mode="python"``). Each
+round's server runs on the epoch driver the policy resolves
+(``core/dense.py``): the python driver on the CPU, the fused driver (one
+captured epoch, replayed) on a CUDA device, as the reference's
+docstring has it; on the card every DENSE step of every round runs the
+K1 pair.
 
 With a fault plan (``scfg.fault_plan``, ``scfg.dropout_frac``) each
 round's uploads pass the fault and admission boundary

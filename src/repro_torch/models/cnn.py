@@ -224,22 +224,62 @@ def cnn_logits(model: CNN, x: torch.Tensor) -> torch.Tensor:
 # channels_last grouped convs were the fastest: NCHW took 1.4x their
 # time, ``torch.func.vmap`` lowers to the same grouped convs.
 
-def stack_tensors(ts) -> torch.Tensor:
+def _stack_chunked(ts, chunk: int = 0) -> torch.Tensor:
+    if chunk and 0 < chunk < len(ts):
+        return torch.cat([torch.stack(ts[i:i + chunk])
+                          for i in range(0, len(ts), chunk)])
+    return torch.stack(ts)
+
+
+def stack_tensors(ts, chunk: int = 0) -> torch.Tensor:
     """Per-client tensors as a new (m, ...) tensor; conv weights (4-D)
-    keep their input channels innermost."""
+    keep their input channels innermost. ``chunk`` > 0 stacks in slices
+    of that many clients, concatenated: the same values, bit for bit
+    (DESIGN.md §13)."""
     if ts[0].dim() == 4:
-        return torch.stack([t.permute(0, 2, 3, 1) for t in ts]).permute(
-            0, 1, 4, 2, 3)
-    return torch.stack(list(ts))
+        return _stack_chunked([t.permute(0, 2, 3, 1) for t in ts],
+                              chunk).permute(0, 1, 4, 2, 3)
+    return _stack_chunked(list(ts), chunk)
 
 
 @torch.no_grad()
-def stack_models(models) -> dict:
+def stack_models(models, chunk: int = 0) -> dict:
     """Same-spec client models as one stacked group: a new tensor a
-    ``net.state_dict()`` entry, with a leading client axis."""
+    ``net.state_dict()`` entry, with a leading client axis (``chunk``:
+    ``stack_tensors``)."""
     states = [m.net.state_dict() for m in models]
-    return {k: stack_tensors([s[k].detach() for s in states])
+    return {k: stack_tensors([s[k].detach() for s in states], chunk)
             for k in states[0]}
+
+
+def _inner_last(v: torch.Tensor) -> torch.Tensor:
+    """A stacked conv weight (m, O, I, k, k) as the (m, O, k, k, I) tensor
+    it is stored as; any other leaf as it is."""
+    return v.permute(0, 1, 3, 4, 2) if v.dim() == 5 else v
+
+
+def _inner_first(v: torch.Tensor) -> torch.Tensor:
+    return v.permute(0, 1, 4, 2, 3) if v.dim() == 5 else v
+
+
+@torch.no_grad()
+def cat_stacked(stacks) -> dict:
+    """Stacked groups of one spec concatenated on the client axis, in the
+    layout ``stack_tensors`` gives: new tensors."""
+    return {k: _inner_first(torch.cat([_inner_last(st[k]) for st in stacks]))
+            for k in stacks[0]}
+
+
+@torch.no_grad()
+def take_stacked(stacked: dict, rows) -> dict:
+    """The clients ``rows`` (a sequence of indices) of a stacked group,
+    in that order, in ``stack_tensors``' layout: new tensors."""
+    out = {}
+    for k, v in stacked.items():
+        idx = torch.as_tensor(rows, dtype=torch.long, device=v.device)
+        out[k] = _inner_first(_inner_last(v).index_select(0, idx)
+                              .contiguous())
+    return out
 
 
 def cnn_view(spec: CNNSpec, tensors: dict) -> CNN:

@@ -16,12 +16,19 @@ momentum (L2 regularization, not decoupled decay).
 ``nan_policy="skip"`` (the reference's ``where(ok, new, old)`` over
 params and optimizer state, ``repro/core/dense.py:149-155``): ``ok`` is
 a 0-d bool on the device, every tensor takes its new value where it is
-True and keeps its old one where it is False, with no host read. Adam's
-step count then lives on the device too, and does not advance on a
-skipped step. Where ``ok`` is True the new values are the ones ``step``
-computes, bit for bit: SGD runs ``step`` itself and puts the old values
-back where ``ok`` is False; Adam keeps a copy of ``step``'s formula,
-since its bias corrections need the count on the device.
+True and keeps its old one where it is False, with no host read. Where
+``ok`` is True the new values are the ones ``step`` computes, bit for
+bit: SGD runs ``step`` itself and puts the old values back where ``ok``
+is False.
+
+Adam's step count lives on the host until ``count_on_device()`` (or the
+first ``step_if``) moves it to the device; from then on every step reads
+and advances it there, with no host read, so that a captured CUDA graph
+of the step (the fused epoch driver, ``core/dense.py``) takes new bias
+corrections on each replay, and a skipped step does not advance it. The
+device-count step and the host-count step are one formula, bit for bit
+(``_div_by``). ``count()`` and ``set_count()`` read and restore the
+count wherever it lives.
 """
 from __future__ import annotations
 
@@ -67,8 +74,10 @@ def _div_by(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _select(ok: torch.Tensor, dst: torch.Tensor, new: torch.Tensor) -> None:
-    dst.copy_(torch.where(ok, new.to(dst.dtype), dst))
+def _select(ok: torch.Tensor | None, dst: torch.Tensor,
+            new: torch.Tensor) -> None:
+    """dst = new where ``ok`` (everywhere when ``ok`` is None), in place."""
+    dst.copy_(new if ok is None else torch.where(ok, new.to(dst.dtype), dst))
 
 
 def _decayed(grads, params, wd: float):
@@ -128,19 +137,33 @@ class adam:
         self.v = [torch.zeros_like(p, dtype=torch.float32)
                   for p in self.params]
         self.t = 0
-        self.t_dev = None           # the count, on the device, for step_if
+        self.t_dev = None           # the count, once it lives on the device
 
     def count(self) -> int:
-        """The steps taken (one host read after ``step_if``)."""
+        """The steps taken (one host read once the count is on the
+        device)."""
         return self.t if self.t_dev is None else int(self.t_dev)
 
     def set_count(self, t: int) -> None:
+        """Restore the count, in place where it lives on the device."""
         self.t = int(t)
         if self.t_dev is not None:
             self.t_dev.fill_(float(t))
 
+    def count_on_device(self) -> torch.Tensor:
+        """Move the count to the device (a 0-d float64 on the params'
+        device) for every later step; returns it."""
+        if self.t_dev is None:
+            _const_lr(self.lr)
+            self.t_dev = torch.tensor(float(self.t), dtype=torch.float64,
+                                      device=self.params[0].device)
+        return self.t_dev
+
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
+        if self.t_dev is not None:
+            self._device_step(grads, None)
+            return
         self.t += 1
         lr = _lr(self.lr, self.t)
         bc1 = 1 - self.b1 ** self.t
@@ -157,13 +180,17 @@ class adam:
     @torch.no_grad()
     def step_if(self, grads: Sequence[torch.Tensor], ok: torch.Tensor) -> None:
         """``step(grads)`` where ``ok``, nothing where not, the count
-        included (module doc). The bias corrections are taken in float64
-        on the device, as ``step`` takes them on the host, and divide as
-        a host float divides (``_div_by``)."""
+        included (module doc)."""
+        self.count_on_device()
+        self._device_step(grads, ok)
+
+    @torch.no_grad()
+    def _device_step(self, grads, ok) -> None:
+        """The step on the device count: the bias corrections are taken
+        in float64 on the device, as ``step`` takes them on the host, and
+        divide as a host float divides (``_div_by``). ``ok`` None: every
+        tensor takes its new value."""
         lr = _const_lr(self.lr)
-        if self.t_dev is None:
-            self.t_dev = torch.tensor(float(self.t), dtype=torch.float64,
-                                      device=ok.device)
         t = self.t_dev + 1
         bc1 = 1 - self.b1 ** t
         bc2 = 1 - self.b2 ** t
@@ -173,8 +200,9 @@ class adam:
             g = g.float()
             m_new = (m * self.b1).add_((1 - self.b1) * g)
             v_new = (v * self.b2).add_((1 - self.b2) * (g * g))
-            _select(ok, p, p.float() - lr * _div_by(m_new, bc1)
-                    / (torch.sqrt(_div_by(v_new, bc2)) + self.eps))
+            new = p.float() - lr * _div_by(m_new, bc1) \
+                / (torch.sqrt(_div_by(v_new, bc2)) + self.eps)
+            _select(ok, p, new)
             _select(ok, m, m_new)
             _select(ok, v, v_new)
         _select(ok, self.t_dev, t)

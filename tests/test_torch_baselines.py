@@ -440,12 +440,16 @@ def test_non_finite_loss_raises(fed):
 
 
 def test_unported_engines_and_other_devices_raise(fed):
-    """An unported engine raises; so does the default device, the card,
-    with clients on the CPU: with no card (RuntimeError) or with one
-    (ValueError), nothing runs on the CPU in its place."""
+    """``loop_mode="fused"`` is accepted and the baseline runs its own
+    loop, as the reference's do: the same student as under the python
+    driver. The default device, the card, with clients on the CPU
+    raises: with no card (RuntimeError) or with one (ValueError),
+    nothing runs on the CPU in its place."""
     clients = _port_clients(fed)
-    with pytest.raises(NotImplementedError, match="loop_mode"):
-        fed_df(clients, dataclasses.replace(_tscfg(), loop_mode="fused"),
-               device="cpu")
+    scfg = _tscfg(epochs=1, s_steps=1)
+    students = [fed_df(clients, dataclasses.replace(scfg, loop_mode=mode),
+                       device="cpu")[0] for mode in ("python", "fused")]
+    for a, b in zip(*(s.state_dict().values() for s in students)):
+        assert torch.equal(a, b)
     with pytest.raises((RuntimeError, ValueError)):
         fed_dafl(clients, _tscfg())

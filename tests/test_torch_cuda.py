@@ -978,3 +978,75 @@ def test_guarded_steps_equal_unguarded_on_the_card(cuda, name):
         assert torch.equal(a, b)
     if name == "adam":
         assert o2.count() == 200
+
+
+def _smoke_server(cuda, **kw):
+    """A smoke federation (3 cnn1 clients, 8x8 images) on the card and a
+    server config over it, with ``kw`` set."""
+    import dataclasses
+
+    from repro_torch.configs import smoke
+    from repro_torch.data import make_classification_data
+    from repro_torch.fl import build_federation
+
+    scfg = dataclasses.replace(smoke(), **{
+        **dict(image_size=8, local_epochs=1, train_per_class=16,
+               test_per_class=4, t_g=3, epochs=3, synth_batch=32), **kw})
+    data = make_classification_data(0, num_classes=scfg.num_classes,
+                                    size=scfg.image_size, ch=scfg.in_ch,
+                                    train_per_class=scfg.train_per_class,
+                                    test_per_class=scfg.test_per_class)
+    clients, _ = build_federation(scfg, data, device=cuda)
+    return scfg, clients
+
+
+def test_fused_graph_replay_equals_eager(ieee_fp32):
+    """Three smoke epochs on the fused driver (the first eager, two
+    replays of the captured epoch) against the python driver from the
+    same seeds, with cuDNN's and PyTorch's deterministic algorithms: the
+    student, the generator and every loss bit for bit."""
+    import dataclasses
+
+    from repro_torch.core import train_dense_server
+
+    scfg, clients = _smoke_server(ieee_fp32, loop_chunk=2)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out = {loop: train_dense_server(
+            clients, dataclasses.replace(scfg, loop_mode=loop),
+            device=ieee_fp32) for loop in ("python", "fused")}
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.use_deterministic_algorithms(flags[1], warn_only=flags[2])
+    (s1, g1, h1), (s2, g2, h2) = out["python"], out["fused"]
+    assert (h1.loop, h2.loop) == ("python", "fused")
+    assert h2.graph_replays == 2 and h2.host_reads == 2
+    for a, b in zip([*s1.state_dict().values(), *g1.state_dict().values()],
+                    [*s2.state_dict().values(), *g2.state_dict().values()]):
+        assert torch.equal(a, b)
+    assert (h1.gen_loss, h1.gen_parts, h1.dis_loss) == \
+        (h2.gen_loss, h2.gen_parts, h2.dis_loss)
+
+
+def test_k1_launch_counts_under_replay(ieee_fp32):
+    """The launch counters count what the card executes: the eager epoch
+    and every replay, not the capture: epochs·(t_g + s_steps) of K1f and
+    K1b over a fused run, and nothing else."""
+    from repro_torch import kernels
+    from repro_torch.core import train_dense_server
+
+    scfg, clients = _smoke_server(ieee_fp32, loop_mode="fused", epochs=4,
+                                  loop_chunk=3)
+    before = [dict(c) for c in kernels.counters()]
+    _, _, hist = train_dense_server(clients, scfg, device=ieee_fp32)
+    torch.cuda.synchronize()
+    got = {k: v - b[k] for c, b in zip(kernels.counters(), before)
+           for k, v in c.items() if v != b[k]}
+    n = scfg.epochs * (scfg.t_g + scfg.s_steps)
+    assert got == {"distill_kl_fwd": n, "distill_kl_bwd": n}
+    assert hist.graph_replays == scfg.epochs - 1 and hist.host_reads == 2
+    assert hist.capture_seconds > 0

@@ -404,8 +404,12 @@ def test_stack_grouped_and_masks_match_reference(hetero):
     assert s_specs == gspecs and s_params[1] is gparams[1]
     _close_trees(interop.grouped_to_reference(s_specs, s_params)[1],
                  _np(rgparams), 0)
-    with pytest.raises(NotImplementedError):
-        stack_grouped(port_clients, chunk=2)
+    # stacked in slices of two clients: the same tensors, bit for bit
+    c_specs, c_params = stack_grouped(port_clients, chunk=2)
+    assert c_specs == gspecs and c_params[1] is gparams[1]
+    for k, v in s_params[0].items():
+        assert torch.equal(c_params[0][k], v)
+        assert c_params[0][k].stride() == v.stride()
     with pytest.raises(ValueError):
         apply_group_masks(gspecs, gparams, [np.array([False] * 3),
                                             np.array([False])])
@@ -420,8 +424,13 @@ def test_fedavg_stacked_with_survivor_mask(hetero):
     got = fedavg_stacked(gparams[0], n_data, survivor_mask=mask)
     model = T_cnn.cnn_view(_tspec("cnn1"), got)
     _close_trees(interop.cnn_to_ref(model), _np(want), 1e-6)
-    with pytest.raises(NotImplementedError):
-        fedavg_stacked(gparams[0], n_data, mode="tree")
+    # the tree mode, against the reference's tree
+    want = r_fedavg_stacked(rgparams[0], n_data, survivor_mask=mask,
+                            mode="tree", branch=2)
+    got = fedavg_stacked(gparams[0], n_data, survivor_mask=mask,
+                         mode="tree", branch=2)
+    _close_trees(interop.cnn_to_ref(T_cnn.cnn_view(_tspec("cnn1"), got)),
+                 _np(want), 1e-6)
     with pytest.raises(ValueError):
         fedavg_stacked(gparams[0], n_data, survivor_mask=[False] * 3)
 
@@ -594,8 +603,18 @@ def test_policy_defaults_to_grouped_and_refuses_the_rest():
     with pytest.raises(ValueError):
         backend.resolve_exec_policy(dataclasses.replace(
             T_cfg.smoke(), client_loop_mode="nope"), device="cpu")
-    for knob in ({"plan_bucketing": "pow2"}, {"stack_chunk": 4},
-                 {"fedavg_mode": "tree"}):
-        with pytest.raises(NotImplementedError):
+    # the scaling knobs resolve (off by default), bad values raise
+    pol = backend.resolve_exec_policy(T_cfg.smoke(), device="cpu")
+    assert (pol.bucketing, pol.stack_chunk, pol.fedavg) == ("off", 0, "flat")
+    for knob, field, want in (({"plan_bucketing": "pow2"}, "bucketing",
+                               "pow2"),
+                              ({"stack_chunk": 4}, "stack_chunk", 4),
+                              ({"fedavg_mode": "tree"}, "fedavg", "tree")):
+        got = backend.resolve_exec_policy(
+            dataclasses.replace(T_cfg.smoke(), **knob), device="cpu")
+        assert getattr(got, field) == want
+    for knob in ({"plan_bucketing": "nope"}, {"stack_chunk": -1},
+                 {"fedavg_mode": "nope"}, {"fedavg_branch": 1}):
+        with pytest.raises(ValueError):
             backend.resolve_exec_policy(
                 dataclasses.replace(T_cfg.smoke(), **knob), device="cpu")

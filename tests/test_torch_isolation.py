@@ -40,7 +40,7 @@ for m in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
           "repro_torch.configs.mamba2_130m", "repro_torch.configs.zamba2_7b",
           "repro_torch.fl.baselines", "repro_torch.fl.multiround",
           "repro_torch.fl.federation", "repro_torch.fl.faults",
-          "repro_torch.checkpoint.io",
+          "repro_torch.checkpoint.io", "repro_torch.core.graph",
           "repro_torch.optim.ldam", "repro_torch.optim.schedules",
           "repro_torch.launch.quickstart",
           "repro_torch.launch.hetero_oneshot", "repro_torch.models.moe",
@@ -185,19 +185,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_gpu, name):
 
 def test_unported_paths_are_refused():
     """What is still unported raises, naming its ROADMAP.md Queue 1 item:
-    the fused epoch driver (7), the scaling layers (11), the mesh and
-    model parallelism (12). Fault tolerance and checkpoints (item 6) run:
-    an unknown nan_policy is a ValueError, as in the reference."""
+    the mesh and model parallelism (12). The fused epoch driver (7) and
+    the scaling layers (11) resolve and run (tests/test_torch_fused.py,
+    tests/test_torch_scale.py); fault tolerance and checkpoints (item 6)
+    run: an unknown nan_policy is a ValueError, as in the reference."""
     import dataclasses
 
     from repro_torch.configs import backend, smoke
     from repro_torch.core import train_dense_server
 
-    for knob, item in (({"loop_mode": "fused"}, 7), ({"teacher_chunk": 4}, 11),
-                       ({"ensemble_shard_mode": "clients"}, 12)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            backend.resolve_exec_policy(dataclasses.replace(smoke(), **knob),
-                                        device="cpu")
+    for knob, field, want in (({"loop_mode": "fused"}, "loop", "fused"),
+                              ({"teacher_chunk": 4}, "teacher_chunk", 4)):
+        pol = backend.resolve_exec_policy(
+            dataclasses.replace(smoke(), **knob), device="cpu")
+        assert getattr(pol, field) == want
+    with pytest.raises(NotImplementedError, match="item 12"):
+        backend.resolve_exec_policy(
+            dataclasses.replace(smoke(), ensemble_shard_mode="clients"),
+            device="cpu")
     with pytest.raises(ValueError, match="nan_policy"):
         train_dense_server([], dataclasses.replace(smoke(),
                                                    nan_policy="ostrich"),

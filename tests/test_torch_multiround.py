@@ -195,16 +195,32 @@ def test_round_one_warm_starts_from_the_global_model(port_run):
     assert port_run["spec"] == T_SPEC
 
 
-@pytest.mark.parametrize("knob,item", [({"loop_mode": "fused"}, 7),
-                                       ({"teacher_chunk": 2}, 11)])
-def test_unported_paths_raise(knob, item):
-    """The fused epoch driver and the chunked teacher are not ported and
-    raise, naming their ROADMAP.md Queue 1 item; upload faults are
-    (tests/test_torch_faults.py)."""
+@pytest.mark.parametrize("knob,exact", [({"loop_mode": "fused"}, True),
+                                        ({"teacher_chunk": 2}, False)])
+def test_unported_paths_raise(ref_run, port_run, knob, exact):
+    """What was refused until the fused epoch driver and the chunked
+    teacher were ported now runs every round: from the same inits and
+    draws, the fused driver (chunks of one epoch here) gives the python
+    driver's global models bit for bit, and the chunked teacher gives
+    the reference's to 1e-3 end to end, with the same ledger."""
     scfg = dataclasses.replace(T_cfg.DenseExperimentConfig(**FIELDS),
-                               **knob)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        dense_multi_round(scfg, _data(), rounds=1, device="cpu")
+                               loop_chunk=1, **knob)
+    xt, _ = _data()["test"]
+    ledger = CommLedger()
+    _, _, logits = dense_multi_round(
+        scfg, _data(), rounds=ROUNDS, ledger=ledger, seed=SEED,
+        device="cpu",
+        init_models=[interop.cnn_from_ref(p, T_SPEC, device="cpu")
+                     for p in ref_run["client_inits"]],
+        server_inputs=_server_inputs(ref_run),
+        eval_fn=lambda m, spec: cnn_logits(
+            m, torch.from_numpy(xt)).detach().numpy())
+    assert ledger.events == port_run["ledger"].events
+    for r in range(ROUNDS):
+        if exact:
+            np.testing.assert_array_equal(logits[r], port_run["logits"][r])
+        np.testing.assert_allclose(logits[r], ref_run["logits"][r],
+                                   rtol=END_TOL, atol=END_TOL)
 
 
 def test_grouped_matches_per_client_two_rounds(ref_run):
