@@ -20,8 +20,9 @@ result line is printed:
   2. K1f and K1b (Triton, both teacher-gradient settings) against their
      plain PyTorch versions, timed with CUDA events beside their bound,
      at the DENSE main path's shape (128, 10), a ragged (1000, 32003), a
-     vocabulary-scale (4096, 32768) and the LLM path's (1024, 128256)
-     (B·gen_seq rows of llama's vocabulary), in float32 and bfloat16, the
+     vocabulary-scale (4096, 32768), the LLM path's (1024, 128256)
+     (B·gen_seq rows of llama's vocabulary) and the moe LLM path's
+     (1024, 102400) (deepseek-v2's), in float32 and bfloat16, the
      float32 rows at (128, 10) and (1024, 128256) with their kernels'
      device time (``torch.profiler``); then both again in float32 at those
      two shapes on rows holding NaN and ±inf entries and a whole NaN row
@@ -46,7 +47,8 @@ result line is printed:
   4. K2 (K2f, K2q, K2kv, CUDA C++) against its plain versions in float32
      without TF32 and in bfloat16 (and float16 at every shape but D = 32),
      at the server shape (B 4, Hq 24, Hkv 8, S 256, D 128), the train
-     shape (B 8), one 4096-token sequence, ragged shapes with a window and
+     shape (B 8), llama3.2-vision-11b's self layers at family_train's
+     batch (B 4, Hq 32, Hkv 8: GQA groups of 4), one 4096-token sequence, ragged shapes with a window and
      dead rows at D = 32, 64, 112 and 128, D = 64 and D = 112 (zamba2's
      shared block at B 2, S 512); timed beside its bound and
      ``F.scaled_dot_product_attention`` pinned to a named backend (its
@@ -254,7 +256,33 @@ result line is printed:
      llama3.2-vision-11b at full width, one super-block, bfloat16, B 2 ×
      S 256, no cache: K2f launches once a self layer, on ``sm90`` at
      D 128, and its logits lie no further from a float32 run's than
-     twice the plain route's.
+     twice the plain route's;
+ 23. family_train: ``launch.train.train`` in bfloat16 at full width, 3
+     steps of B 4 x S 256 from random weights, on gemma3-4b (full depth,
+     34 layers), deepseek-v2-lite-16b (depth 27 -> 6) and
+     llama3.2-vision-11b (40 -> 10, two super-blocks, the reference's zero
+     patch embeddings): every step's loss and grad_norm finite and > 0,
+     moe_aux > 0 for lite, seconds a step and peak memory; the vlm's self
+     layers K2f 16, K2q 8 and K2kv 8 a step on ``sm90`` at D 128, no K2 in
+     gemma3 or lite; then deepseek-v2-236b (60 -> 2) one bfloat16 loss
+     and gradient, no optimizer step (its float32 Adam moments would not
+     fit beside its weights with a margin);
+ 24. family_train_check: the train step's loss and every gradient in
+     float32 without TF32 at full width on the card against the CPU,
+     within 1e-4 of each tensor's largest entry, the float32 floor (the
+     card against its float64 run) below it: gemma3-4b depth 6 over 1040
+     tokens (past its window), deepseek-v2-lite-16b depth 2 with a
+     capacity that drops tokens, llama3.2-vision-11b one super-block with
+     random patch embeddings and both gates non-zero, whose kernel route
+     (float32 K2f 8, K2q 4, K2kv 4 on ``sm90``) is also held to its plain
+     route on the card;
+ 25. moe_llm_main_path, LLM DENSE with the moe family
+     (``dense_llm_oneshot.full_moe()``: two deepseek-v2-lite-16b clients
+     and a lite student, full width, depth 27 -> 3, bfloat16), counted
+     step by step as in 14: no K2 (MLA), K1f and K1b once a server step at
+     (1024, 102400), 8 pairs in the 2 epochs; uplink bytes and one round;
+     then one epoch under ``torch.profiler`` with K1's device time and the
+     idle share.
 
 Output: a line with the card's name and power limit, one JSON line per
 phase, the ``{"kernels": [...]}`` line, and last the result line
@@ -280,8 +308,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 
-# (R, V); (1024, 128256) is the LLM path's: B·gen_seq rows of llama's vocab
-SHAPES = ((128, 10), (1000, 32003), (4096, 32768), (1024, 128256))
+# (R, V); (1024, 128256) is the LLM path's: B·gen_seq rows of llama's
+# vocab, (1024, 102400) the moe LLM path's, deepseek-v2's vocab
+SHAPES = ((128, 10), (1000, 32003), (4096, 32768), (1024, 128256),
+          (1024, 102400))
 MAIN_SHAPE = (128, 10)
 # K1's float32 rows whose kernels' device time is read too
 K1_DEVICE_SHAPES = ((128, 10), (1024, 128256))
@@ -319,7 +349,8 @@ TOL_K4 = {"float32": (0.0, 1e-5), "bfloat16": (0.0, 1e-2),
           "float16": (0.0, 1e-2)}
 # K2 shapes: (name, B, Hq, Hkv, Sq, Sk, D, causal, window). The server's
 # and the train step's are llama3.2-3b's heads at the LLM main path's
-# batches; "long" one 4096-token sequence; "ragged_d32" the smoke heads
+# batches; "vlm" llama3.2-vision-11b's self layers (GQA groups of 4 at
+# D 128) at family_train's batch; "long" one 4096-token sequence; "ragged_d32" the smoke heads
 # with Sq > Sk (dead rows), a window and ragged tiles, and "ragged_d64"
 # and "ragged_d128" the same at the sm90 routes' head dims, off every tile
 # of K2f, K2q and K2kv; "d64" musicgen's heads; "d112" zamba2-7b's shared
@@ -337,6 +368,7 @@ TOL_K4 = {"float32": (0.0, 1e-5), "bfloat16": (0.0, 1e-2),
 # atol = 2u·max|v|, rtol 0, and lse (float32 scores, float32 l) to 1e-4.
 K2_SHAPES = (("server", 4, 24, 8, 256, 256, 128, True, 0),
              ("train", 8, 24, 8, 256, 256, 128, True, 0),
+             ("vlm", 4, 32, 8, 256, 256, 128, True, 0),
              ("long", 1, 24, 8, 4096, 4096, 128, True, 0),
              ("ragged_d32", 2, 4, 2, 300, 200, 32, True, 64),
              ("ragged_d64", 2, 8, 2, 333, 250, 64, True, 100),
@@ -344,7 +376,7 @@ K2_SHAPES = (("server", 4, 24, 8, 256, 256, 128, True, 0),
              ("d64", 4, 32, 32, 256, 256, 64, True, 0),
              ("d112", 2, 32, 32, 512, 512, 112, True, 0),
              ("ragged_d112", 2, 8, 2, 301, 230, 112, True, 90))
-K2_FP16 = ("server", "train", "long", "ragged_d64", "ragged_d128", "d64",
+K2_FP16 = ("server", "train", "vlm", "long", "ragged_d64", "ragged_d128", "d64",
            "d112", "ragged_d112")
 TOL_K2 = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 1e-2}
 UNIT_ROUNDOFF = {"bfloat16": 2.0 ** -9, "float16": 2.0 ** -12}
@@ -416,10 +448,7 @@ def setup():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
     try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines()[0]
+        smi = card()
     except (OSError, subprocess.SubprocessError, IndexError) as e:
         fail(f"nvidia-smi did not report the card: {e!r}")
     print(smi, flush=True)
@@ -446,6 +475,16 @@ def setup():
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "triton": triton.__version__, "python": sys.version.split()[0]}})
     return torch, smi
+
+
+@functools.lru_cache(maxsize=None)
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def full_float32(torch) -> dict:
@@ -2370,14 +2409,22 @@ def run_engine(eng, requests):
 
 
 def trunk_blocks(cfg) -> tuple[int, int]:
-    """(attention blocks, mamba blocks) one pass of the trunk runs: a
-    hybrid applies its shared block once per super-block."""
-    from repro_torch.models.transformer import hybrid_shape
+    """(attention blocks that take K2 without a cache, mamba blocks) one
+    pass of the trunk runs: a hybrid applies its shared block once per
+    super-block; a vlm's self layers take K2, its cross layers attend on
+    the plain path; MLA and a sliding-window pattern (gemma3) attend on
+    the plain path in every layer, as in the reference."""
+    from repro_torch.models.transformer import hybrid_shape, vlm_shape
 
     if cfg.family == "ssm":
         return 0, cfg.n_layers
     if cfg.family == "hybrid":
         return hybrid_shape(cfg)[0], cfg.n_layers
+    if cfg.kv_lora_rank or cfg.sliding_window:
+        return 0, 0
+    if cfg.family == "vlm":
+        n_super, per = vlm_shape(cfg)
+        return n_super * per, 0
     return cfg.n_layers, 0
 
 
@@ -3592,16 +3639,18 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
             oc.student_arch) != cfgs[0]:
         fail(f"{label}: the launch counts assume one config for every "
              "client and the student")
+    full_layers = family_cfg(oc.student_arch).n_layers
+    depth = "no width, depth or batch cut" if L == full_layers else \
+        f"depth {full_layers} -> {L} per model; no width or batch cut"
     emit({f"{label}_cuts": {
         "clients": list(oc.client_archs), "student": oc.student_arch,
-        "n_layers": L, "d_model": cfgs[0].d_model,
+        "n_layers": [full_layers, L], "d_model": cfgs[0].d_model,
         "vocab": cfgs[0].vocab_size, "dtype": cfgs[0].dtype,
         "client_steps": oc.client_steps,
         "client_batch": [ONE.CLIENT_BATCH, oc.client_seq],
         "server_batch": [oc.batch, oc.gen_seq], "nz": oc.nz, "d_g": oc.d_g,
         "epochs": oc.epochs, "t_g": ONE.T_G, "cut": "depth of training: "
-        "3 local steps a client, 2 server epochs; no width, depth or batch "
-        "cut"}})
+        f"3 local steps a client, 2 server epochs; {depth}"}})
 
     routes = {k: 0 for k in read_routes()}
 
@@ -3703,7 +3752,7 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
         fail(f"not one-shot: {ledger.rounds} rounds, "
              f"{ledger.downlink_bytes} B down")
     emit({f"{label}_main_path": {
-        "arch": oc.student_arch,
+        "arch": oc.student_arch, "card": card(),
         "params_per_model": sum(t.numel() for t in T.leaves(student)),
         "seconds": {"train_step": train_s, "gen_step": gen_s,
                     "student_step": stu_s, "epoch": epoch_s},
@@ -3718,6 +3767,7 @@ def llm_main_path(torch, dev="cuda", oc=None, label="llm"):
                               "gen_step": want_gen,
                               "student_step": want_stu},
         "launches_total": totals,
+        "k1_shape": [oc.batch * oc.gen_seq, stu_cfg.vocab_size],
         "fwd_routes": {r: routes[f"fwd_{r}"] for r in ("sm90", "simt")},
         "bwd_routes": {r: routes[f"bwd_{r}"] for r in ("sm90", "simt")},
         "k3f_routes": {r: routes[f"k3f_{r}"] for r in ("sm90", "simt")},
@@ -3774,7 +3824,7 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
     n_kernels = sum(e.count for e in prof.key_averages()
                     if e.key in per_kernel)
     emit({label: {
-        "epoch_ms": epoch_ms, "device_busy_ms": busy_ms,
+        "card": card(), "epoch_ms": epoch_ms, "device_busy_ms": busy_ms,
         "device_summed_ms": summed_ms,
         "device_idle_share": 1 - busy_ms / epoch_ms,
         "k2_ms": k2, "k2_ms_by_route": k2_by_route,
@@ -4153,15 +4203,337 @@ def family_phases(torch, dev="cuda"):
     return audio, vlm_kernel_check(torch, dev)
 
 
+# ------------------- training the dense-mode families; LLM DENSE with moe --
+
+# (arch, depth or None for the full one): launch.train.train in bfloat16 at
+# full width, FAMILY_TRAIN_STEPS steps of FAMILY_TRAIN_BATCH each. gemma3-4b
+# at full depth (34 layers, 3.88 B parameters: ~47 GB of bfloat16 weights
+# and gradients and float32 Adam moments); deepseek-v2-lite-16b 27 -> 6
+# (3.22 B); llama3.2-vision-11b 40 -> 10, two super-blocks (2.71 B)
+FAMILY_TRAIN = (("gemma3-4b", None), ("deepseek-v2-lite-16b", 6),
+                ("llama3.2-vision-11b", 10))
+FAMILY_TRAIN_STEPS = 3
+FAMILY_TRAIN_BATCH = (4, 256)
+# deepseek-v2-236b 60 -> 2 (4.8 B parameters): its float32 Adam moments
+# alone are 38.6 GB beside 19.4 GB of bfloat16 weights and gradients and
+# Adam's per-expert temporaries, more than an 80 GB card holds with a
+# margin; so one bfloat16 loss and gradient, no optimizer step
+FAMILY_GRAD_ONLY = ("deepseek-v2-236b", 2, (2, 128))
+# (arch, depth, (batch, seq)): the train step's loss and gradients on the
+# card against the CPU, float32 without TF32. gemma3-4b at depth 6 (five
+# local layers, one global) over 1040 tokens, past its 1024 window;
+# deepseek-v2-lite-16b at depth 2 with the capacity factor cut to
+# FAMILY_TRAIN_CAPACITY, so that its 64 experts' slots (64 x 8) are fewer
+# than the 128 x 6 assignments and tokens drop; llama3.2-vision-11b one
+# super-block, random patch embeddings, both gates non-zero
+FAMILY_TRAIN_CHECKS = (("gemma3-4b", 6, (1, 1040)),
+                       ("deepseek-v2-lite-16b", 2, (1, 128)),
+                       ("llama3.2-vision-11b", 5, (1, 128)))
+FAMILY_TRAIN_CAPACITY = 0.5
+# every gradient tensor, of its largest entry, and the loss, relative
+FAMILY_TRAIN_TOL = 1e-4
+# full_moe() at depth 27 -> 3 per model (1.47 B parameters each: layer 0
+# and two MoE layers). Cuts to keep the script inside its time: depth 4 ->
+# 3 here, and 256 -> 128 tokens in family_train_check's lite and vision
+# runs (a whole-script call on a slow host read 1058 s at 4 and 256)
+MOE_LLM_LAYERS = 3
+
+
+def _lm_batch(torch, cfg, batch, dev, seed):
+    """One (batch, seq) window of the LM stream at ``cfg``'s vocabulary."""
+    from repro_torch.data import lm_batches, make_lm_data
+
+    toks = make_lm_data(seed, vocab=cfg.vocab_size, n_tokens=200_000)
+    x, y = next(lm_batches(toks, batch[0], batch[1], seed=seed, steps=1))
+    return {"tokens": torch.from_numpy(x).to(dev),
+            "labels": torch.from_numpy(y).to(dev)}
+
+
+def _loss_and_grads(torch, params, cfg, batch):
+    """loss_fn over ``batch`` and its gradient with respect to every
+    parameter, no update: (loss, moe_aux, gradients in ``leaves``
+    order)."""
+    from repro_torch.models import transformer as T
+
+    leaves = T.leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, parts = T.loss_fn(params, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return (float(loss.detach()), float(parts["moe_aux"].detach()),
+            [g.detach() for g in grads])
+
+
+def _k2_on_sm90(torch, cfg) -> bool:
+    from repro_torch.kernels import flash_attention as FA
+
+    return all(FA.route(w, getattr(torch, cfg.dtype), cfg.head_dim)
+               == "sm90" for w in ("fwd", "dq", "dkv"))
+
+
+def family_train(torch, dev="cuda", models=FAMILY_TRAIN,
+                 steps=FAMILY_TRAIN_STEPS, batch=FAMILY_TRAIN_BATCH,
+                 grad_only=FAMILY_GRAD_ONLY):
+    """``launch.train.train`` on the families the reference trains and the
+    engine serves in dense mode, bfloat16 at full width, ``steps`` steps
+    of ``batch`` from random weights: every step's loss and grad_norm
+    finite and > 0, moe_aux > 0 for the moe arch, seconds a step and peak
+    memory. Counted over the steps: the vlm's self layers run K2f twice a
+    step (the forward and its recomputation under remat), K2q and K2kv
+    once, all on ``sm90`` at D 128 (8 self layers: 16, 8 and 8 a step);
+    gemma3 (its window pattern) and MLA launch no K2. Then deepseek-v2-236b
+    (``grad_only``): one bfloat16 loss and gradient. Returns the vlm's
+    launches."""
+    import math
+
+    from repro_torch import optim
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as T
+
+    vlm = None
+    for arch, n_layers in models:
+        cfg = family_cfg(arch, n_layers)
+        per_step = train_launches(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        state, hist = train(arch, steps=steps, batch=batch[0], seq=batch[1],
+                            smoke=False, n_layers=n_layers,
+                            log_every=10 ** 9, device=dev)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        launches, routes = read_counts(), read_routes()
+        n_params = sum(t.numel() for t in T.leaves(state["params"]))
+        del state
+        torch.cuda.empty_cache()
+        totals = {k: c * steps for k, c in per_step.items()}
+        row = {"arch": arch, "family": cfg.family, "card": card(),
+               "n_layers": [get_full_layers(arch), cfg.n_layers],
+               "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+               "dtype": cfg.dtype, "remat": cfg.remat,
+               "window_pattern": T.layer_windows(cfg)
+               if cfg.sliding_window else None,
+               "attention": cfg.attention_kind, "params": n_params,
+               "batch": list(batch), "steps": steps,
+               "loss": [h["loss"] for h in hist],
+               "grad_norm": [h["grad_norm"] for h in hist],
+               "moe_aux": [h["moe_aux"] for h in hist],
+               "seconds": [h["seconds"] for h in hist],
+               "seconds_per_step_median": statistics.median(
+                   h["seconds"] for h in hist[1:] or hist),
+               "wall_s": wall, "peak_mem_gib": _peak_gib(torch),
+               "launches_per_step": per_step, "launches": launches,
+               "k2_routes": {kind: {r: routes[f"{kind}_{r}"]
+                                    for r in ("sm90", "simt")}
+                             for kind in ("fwd", "dq", "dkv")}}
+        emit({"family_train": row})
+        vals = row["loss"] + row["grad_norm"]
+        if len(hist) != steps or not all(
+                math.isfinite(v) and v > 0 for v in vals):
+            fail(f"family_train: {arch}'s losses {row['loss']} or grad norms "
+                 f"{row['grad_norm']} are not all finite and > 0")
+        if cfg.n_experts and not all(v > 0 for v in row["moe_aux"]):
+            fail(f"family_train: {arch}'s moe_aux {row['moe_aux']}")
+        if launches != totals:
+            fail(f"family_train: {arch} launched {launches}, expected "
+                 f"{totals}")
+        check_k2_routes(f"family_train {arch}", launches, routes,
+                        getattr(torch, cfg.dtype), cfg.head_dim)
+        if cfg.family == "vlm":
+            if not (totals["flash_attention_fwd"] and _k2_on_sm90(torch,
+                                                                  cfg)):
+                fail(f"family_train: {arch}'s self layers do not take K2 on "
+                     f"sm90: {totals}")
+            vlm = launches
+
+    arch, n_layers, gb = grad_only
+    cfg = family_cfg(arch, n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, seed=0, device=dev)
+    data = _lm_batch(torch, cfg, gb, dev, seed=0)
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in T.leaves(params))
+    zero_counts()
+    t0 = time.perf_counter()
+    loss, aux, grads = _loss_and_grads(torch, params, cfg, data)
+    gnorm = float(optim.global_norm(grads))
+    sync(torch, dev)
+    row = {"arch": arch, "family": cfg.family, "card": card(),
+           "n_layers": [get_full_layers(arch), cfg.n_layers],
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "dtype": cfg.dtype, "params": n_params, "batch": list(gb),
+           "loss": loss, "grad_norm": gnorm, "moe_aux": aux,
+           "seconds": time.perf_counter() - t0, "init_s": init_s,
+           "peak_mem_gib": _peak_gib(torch), "launches": read_counts(),
+           "cuts": "depth 60 -> 2 (layer 0 and one MoE layer); one loss "
+           "and gradient, no optimizer step: float32 Adam moments of 4.8 B "
+           "parameters (38.6 GB) beside bfloat16 weights and gradients "
+           "(19.4 GB) and Adam's per-expert temporaries leave no margin "
+           "on an 80 GB card"}
+    emit({"family_train": row})
+    del params, grads
+    torch.cuda.empty_cache()
+    if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0
+            and aux > 0) or row["launches"] != expected():
+        fail(f"family_train: {arch}'s loss {loss}, grad_norm {gnorm}, "
+             f"moe_aux {aux}, launches {row['launches']}")
+    return vlm
+
+
+def family_train_check(torch, dev="cuda", checks=FAMILY_TRAIN_CHECKS,
+                       tol=FAMILY_TRAIN_TOL):
+    """The train step's loss and every gradient at full width, depth cut,
+    float32 without TF32, on the card against the CPU, from the same
+    weights and batch, within ``tol`` of each tensor's largest entry; the
+    float32 floor (the card's float32 against its float64 run, on the
+    plain route) must lie below ``tol``. The vlm's gradients on the kernel
+    route (float32 K2f, K2q and K2kv on ``sm90``, counted) are also held
+    to the plain route's on the card. The CPU path is held to the JAX
+    package by tests/test_torch_family_train.py. Reports the host's peak
+    resident memory, which the CPU runs set."""
+    import resource
+
+    from repro_torch.models import transformer as T
+
+    def errs(a, b):
+        return sorted(((_rel_max(x.float(), y.float()), name)
+                       for x, y, name in zip(a, b, names)), reverse=True)
+
+    rows = []
+    for arch, n_layers, batch in checks:
+        t0 = time.perf_counter()
+        cfg = family_cfg(arch, n_layers, "float32")
+        if cfg.n_experts:
+            cfg = cfg.replace(capacity_factor=FAMILY_TRAIN_CAPACITY)
+        params = T.init_model(cfg, seed=4, device=dev)
+        names = _leaf_paths(params)
+        data = _lm_batch(torch, cfg, batch, dev, seed=4)
+        if cfg.family == "vlm":
+            data["vision"] = vlm_inputs(torch, cfg, params, batch[0], dev,
+                                        seed=4)
+        row = {"arch": arch, "family": cfg.family, "card": card(),
+               "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+               "n_layers": [get_full_layers(arch), n_layers],
+               "batch": list(batch), "tol": tol}
+        if cfg.sliding_window:
+            row["windows"] = T.layer_windows(cfg)
+        if cfg.n_experts:
+            from repro_torch.models.moe import _capacity
+            n_tok = batch[0] * batch[1]
+            row["capacity"] = {"factor": cfg.capacity_factor,
+                               "slots": cfg.n_experts * _capacity(n_tok,
+                                                                  cfg),
+                               "assignments": n_tok * cfg.top_k}
+        zero_counts()
+        got = _loss_and_grads(torch, params, cfg, data)
+        sync(torch, dev)
+        launches, routes = read_counts(), read_routes()
+        want = train_launches(cfg)
+        row["launches"] = launches
+        ok = launches == want
+        if cfg.family == "vlm":
+            plain = _loss_and_grads(torch, params, cfg.replace(
+                kernel_vjp_mode="ref"), data)
+            e = errs(got[2], plain[2])
+            row["kernel_vs_plain"] = {
+                "loss_rel_err": abs(got[0] - plain[0]) / abs(plain[0]),
+                "grads_max_err_rel_to_max": e[0][0], "worst": e[:4]}
+            row["k2_routes"] = {kind: {r: routes[f"{kind}_{r}"]
+                                       for r in ("sm90", "simt")}
+                                for kind in ("fwd", "dq", "dkv")}
+            ok &= bool(launches["flash_attention_fwd"]
+                       and _k2_on_sm90(torch, cfg)
+                       and routes["fwd_sm90"] == want["flash_attention_fwd"]
+                       and routes["dq_sm90"] == want["flash_attention_bwd_dq"]
+                       and routes["dkv_sm90"]
+                       == want["flash_attention_bwd_dkv"]
+                       and max(row["kernel_vs_plain"]["loss_rel_err"],
+                               e[0][0]) <= tol)
+            del plain
+        p64 = _tree_to(params, dtype=torch.float64)
+        d64 = {k: v.double() if v.is_floating_point() else v
+               for k, v in data.items()}
+        exact = _loss_and_grads(torch, p64, cfg.replace(
+            dtype="float64", param_dtype="float64", kernel_vjp_mode="ref"),
+            d64)
+        floor = errs(got[2], exact[2])
+        row["float32_floor_rel_to_max"] = floor[0][0]
+        row["float32_floor_loss"] = abs(got[0] - exact[0]) / abs(exact[0])
+        del p64, d64, exact
+        card_loss, card_aux = got[0], got[1]
+        card_grads = [g.cpu() for g in got[2]]
+        cpu_params = _tree_to(params, device="cpu")
+        cpu_data = {k: v.cpu() for k, v in data.items()}
+        del params, data, got
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        # the CPU recomputes nothing: remat changes no number, only time
+        cpu = _loss_and_grads(torch, cpu_params, cfg.replace(remat=False),
+                              cpu_data)
+        row["cpu_seconds"] = time.perf_counter() - t1
+        e = errs(card_grads, cpu[2])
+        loss_err = abs(card_loss - cpu[0]) / abs(cpu[0])
+        row.update({
+            "loss": [card_loss, cpu[0]], "loss_rel_err": loss_err,
+            "moe_aux": [card_aux, cpu[1]],
+            "grads_max_err_rel_to_max": e[0][0], "worst_grads": e[:6],
+            "host_peak_rss_gib": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss / 2 ** 20,
+            "seconds": time.perf_counter() - t0})
+        row["ok"] = bool(ok and max(loss_err, e[0][0]) <= tol
+                         and max(floor[0][0], row["float32_floor_loss"])
+                         < tol and (not cfg.n_experts or card_aux > 0))
+        rows.append(row)
+        emit({"family_train_check": row})
+        del cpu_params, cpu, card_grads
+    bad = [r["arch"] for r in rows if not r["ok"]]
+    if bad:
+        fail(f"family_train_check: the card's train step disagrees with the "
+             f"CPU's or the plain route's, the float32 floor reaches {tol}, "
+             f"or K2 launched off its count or route, for {bad}")
+
+
+def moe_llm_main_path(torch, dev="cuda", n_layers=MOE_LLM_LAYERS):
+    """LLM DENSE with the moe family: ``dense_llm_oneshot.full_moe()``
+    (two deepseek-v2-lite-16b clients and a lite student, bfloat16, full
+    width) at depth 27 -> ``n_layers`` a model, counted step by step as
+    llm_main_path counts: no K2 (MLA attends on the plain path), and K1f
+    and K1b once a server step at (batch·gen_seq, 102400), one pair for
+    each L_div of the t_g generator steps and each L_dis of the student
+    step: 4 pairs an epoch, 8 in the 2 epochs. Then one epoch under
+    ``torch.profiler``: K1's device time and the idle share. Returns the
+    path's launches."""
+    from repro_torch.launch import dense_llm_oneshot as ONE
+
+    oc = dataclasses.replace(ONE.full_moe(), n_layers=n_layers)
+    totals, ctx = llm_main_path(torch, dev, oc=oc, label="moe_llm")
+    stu_cfg = ctx[8]
+    pairs = oc.epochs * (ONE.T_G + 1)
+    shape = (oc.batch * oc.gen_seq, stu_cfg.vocab_size)
+    want = expected(distill_kl_fwd=pairs, distill_kl_bwd=pairs)
+    if totals != want or shape != (1024, 102400):
+        fail(f"moe_llm_main_path: launches {totals} at K1 shape {shape}, "
+             f"expected {want} at (1024, 102400)")
+    profile_llm_epoch(torch, ctx, dev, label="profile_moe_llm_epoch")
+    del ctx
+    torch.cuda.empty_cache()
+    return totals
+
+
 # ----------------------------------------------------------------- main --
 
 def k2_entry(name, which, rs, line, launches, hybrid_launches,
-             vlm_launches):
+             vlm_launches, vlm_train_launches):
     """The kernels line's entry of a K2 kernel: the server shape in
     bfloat16 (the LLM main path's gen_step and student_step), its
     launches over the LLM main path, and by path: the LLM main path's (D
-    128) and ssm_hybrid_train's (D 112), each by route, and the route its
-    float32 calls take (train_check, ssm_train_check)."""
+    128), ssm_hybrid_train's (D 112), vlm_kernel_check's and
+    family_train's vlm (D 128), each by route, and the route its float32
+    calls take (train_check, ssm_train_check, family_train_check)."""
     import torch
 
     from repro_torch.kernels import flash_attention as FA
@@ -4190,7 +4562,9 @@ def k2_entry(name, which, rs, line, launches, hybrid_launches,
                 for path, d, n in (("llm_main_path", 128, launches),
                                    ("ssm_hybrid_train", 112,
                                     hybrid_launches),
-                                   ("vlm_kernel_check", 128, vlm_launches))},
+                                   ("vlm_kernel_check", 128, vlm_launches),
+                                   ("family_train_vlm", 128,
+                                    vlm_train_launches))},
             "float32_route": FA.route(which, torch.float32, 128),
             "by_shape": rs}
 
@@ -4281,6 +4655,9 @@ def main() -> None:
     del ssm_ctx
     torch.cuda.empty_cache()
     audio_launches, vlm_launches = family_phases(torch)
+    vlm_train_launches = family_train(torch)
+    family_train_check(torch)
+    moe_launches = moe_llm_main_path(torch)
 
     def entry(name, rs, replaces):
         main = next(r for r in rs if r["shape"] == list(MAIN_SHAPE)
@@ -4297,7 +4674,8 @@ def main() -> None:
                                     fault_launches.items()},
                     "fused_check": {run: c[name] for run, c in
                                     fused_launches.items()},
-                    "scale_round": scale_launches[name]},
+                    "scale_round": scale_launches[name],
+                    "moe_llm_main_path": moe_launches[name]},
                 "max_abs_err": main["max_abs_err"], "ms": main["ms"],
                 "device_ms": main.get("device_ms"),
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -4334,7 +4712,7 @@ def main() -> None:
          "first_version_ms": k4["first_version_ms"],
          "shape": k4["shape"], "dtype": k4["dtype"], "by_shape": k4_rows},
         *(k2_entry(name, which, k2_rows[which], line, llm_launches,
-                   hybrid_launches, vlm_launches)
+                   hybrid_launches, vlm_launches, vlm_train_launches)
           for name, which, line in (
               ("flash_attention_fwd", "fwd", 171),
               ("flash_attention_bwd_dq", "dq", 342),

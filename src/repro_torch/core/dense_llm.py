@@ -1,7 +1,9 @@
 """DENSE at LLM scale (``repro/core/dense_llm.py:38-190``): the paper's
 technique with decoder LMs as clients.
 
-  * clients  = decoder LMs sharing a vocabulary (the label space);
+  * clients  = decoder LMs sharing a vocabulary (the label space): every
+    family but the vlm (``check_llm_dense_arch``), gemma3's windows and
+    the moe family's MLA and routed experts included;
   * generator = the token generator (``core/generator.TokGenerator``)
     emitting soft embeddings, taken through ``forward(..., embeds=)``;
   * D(x̂)    = the clients' next-token logits averaged over the clients;
@@ -76,6 +78,20 @@ def embed_stats_loss(client_cfgs, client_params, embeds: torch.Tensor):
     return total / len(client_cfgs)
 
 
+def check_llm_dense_arch(cfg) -> None:
+    """Raise for a vlm: the server feeds every trunk the generator's soft
+    embeddings alone, and a vlm's cross blocks attend over patch
+    embeddings that the reference's LLM DENSE never passes (its
+    ``forward`` asserts them, ``repro/models/transformer.py:425``, and
+    ``ensemble_lm_logits`` gives none)."""
+    if cfg.family == "vlm":
+        raise ValueError(
+            f"LLM DENSE cannot take {cfg.name!r} (family 'vlm'): its cross "
+            "blocks need patch embeddings, and DENSE's server passes the "
+            "trunks the generator's soft embeddings alone, as the "
+            "reference's does")
+
+
 def _reject_autodiff_mode(kernel_vjp_mode: str) -> None:
     """Both steps differentiate through the trunk; the bare forward
     kernel cannot be differentiated, so "autodiff" cannot train."""
@@ -114,14 +130,18 @@ def make_llm_dense_steps(student_cfg, client_cfgs: Sequence, *,
     Both update in place and return 0-d tensors (no host sync). Modes
     default to ``device``'s profile (cuda: K1 for the KLs, K2 in every
     trunk; cpu: the plain versions); explicit arguments pin them, and
-    "autodiff" is refused. The tensors given to the steps must lie on
-    ``device``."""
+    "autodiff" is refused, and so is a vlm (``check_llm_dense_arch``).
+    The tensors given to the steps must lie on ``device``. A moe trunk
+    runs without its load-balance term: the server losses carry none, as
+    the reference's do."""
     pol = resolve_exec_policy(None, device=device)
     kl_mode = pol.distill_kl if distill_kl_mode is None else distill_kl_mode
     vjp_mode = pol.kernel_vjp if kernel_vjp_mode is None else kernel_vjp_mode
     check_kl_mode(kl_mode)
     check_kernel_vjp_mode(vjp_mode)
     _reject_autodiff_mode(vjp_mode)
+    for cfg in (student_cfg, *client_cfgs):
+        check_llm_dense_arch(cfg)
     student_cfg = student_cfg.replace(kernel_vjp_mode=vjp_mode)
     client_cfgs = [c.replace(kernel_vjp_mode=vjp_mode) for c in client_cfgs]
     V = student_cfg.vocab_size

@@ -3,7 +3,7 @@ federation of decoder LMs trains locally, uploads once, and the server
 runs the two DENSE stages with the token generator.
 
     PYTHONPATH=src python -m repro_torch.launch.dense_llm_oneshot \
-        [--smoke] [--ssm] [--device cpu]
+        [--smoke] [--ssm | --moe] [--layers N] [--device cpu]
 
 ``--smoke`` runs the example's heterogeneous federation at smoke widths:
 llama, qwen (QKV bias) and musicgen (audio) clients and a phi3 student,
@@ -13,8 +13,15 @@ clients must share a vocabulary), with ``launch/train.py``'s defaults for
 local training and the reference's server defaults
 (``core/dense_llm.py:103-111``); ``--ssm`` takes ``full_ssm()`` instead,
 two mamba2-130m clients and a mamba2-130m student (with ``--smoke``: a
-mamba2 and a zamba2 client and a mamba2 student at smoke widths).
-``LLMOneShotConfig`` holds each.
+mamba2 and a zamba2 client and a mamba2 student at smoke widths), and
+``--moe`` ``full_moe()``, two deepseek-v2-lite-16b clients and a lite
+student (with ``--smoke``: a deepseek-v2-lite and a gemma3 client and a
+deepseek-v2-236b student, MLA with and without q_lora, the routed
+experts and the window pattern). ``--layers N`` cuts every model's
+depth: ``full_moe()`` at lite's 27 layers holds three 15.7 B-parameter
+models, more than one card's 80 GB. ``LLMOneShotConfig`` holds each. A
+vlm cannot be a client or the student (``core/dense_llm.
+check_llm_dense_arch``).
 
 Each client trains on its own Markov stream (``make_lm_data(seed=i)``, a
 disjoint dialect) with the LM train step, and its upload is recorded in
@@ -58,6 +65,7 @@ class LLMOneShotConfig:
     student_arch: str = "phi3-medium-14b"
     smoke: bool = True
     vocab: int | None = 256         # the shared vocabulary; None: the arch's
+    n_layers: int | None = None     # every model's depth; None: the arch's
     # local training
     client_steps: int = 40
     client_seq: int = 32
@@ -73,11 +81,12 @@ class LLMOneShotConfig:
     s_lr: float = 3e-4
 
     def arch_config(self, arch: str):
-        """``arch``'s config at this run's size and vocabulary; the
-        families the port does not train yet (moe, vlm, sliding window)
-        raise."""
+        """``arch``'s config at this run's size, depth and vocabulary; a
+        vlm raises (``check_llm_dense_arch``)."""
         cfg = get_smoke_config(arch) if self.smoke else get_config(arch)
-        T.check_trainable(cfg)
+        DL.check_llm_dense_arch(cfg)
+        if self.n_layers is not None:
+            cfg = cfg.replace(n_layers=self.n_layers)
         return cfg if self.vocab is None else cfg.replace(
             vocab_size=self.vocab)
 
@@ -102,10 +111,26 @@ def full_ssm() -> LLMOneShotConfig:
                                student_arch="mamba2-130m")
 
 
+def full_moe() -> LLMOneShotConfig:
+    """``full()`` with the moe family: two deepseek-v2-lite-16b clients
+    and a lite student at full width (d_model 2048, 64 routed experts
+    top-6 and 2 shared, MLA, vocab 102400), the same local training and
+    server settings. At lite's 27 layers the three models do not fit one
+    card: cut them with ``n_layers``."""
+    return dataclasses.replace(full(),
+                               client_archs=("deepseek-v2-lite-16b",) * 2,
+                               student_arch="deepseek-v2-lite-16b")
+
+
 # the ssm federation at smoke widths: a mamba2 and a zamba2 client, a
 # mamba2 student
 SMOKE_SSM = LLMOneShotConfig(client_archs=("mamba2-130m", "zamba2-7b"),
                              student_arch="mamba2-130m")
+# the moe and window families at smoke widths: a deepseek-v2-lite and a
+# gemma3 client, a deepseek-v2-236b student
+SMOKE_MOE = LLMOneShotConfig(
+    client_archs=("deepseek-v2-lite-16b", "gemma3-4b"),
+    student_arch="deepseek-v2-236b")
 
 
 @dataclass
@@ -216,14 +241,24 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true",
                     help="the example's federation at smoke widths")
-    ap.add_argument("--ssm", action="store_true",
-                    help="the ssm federation (mamba2 clients and student)")
+    fam = ap.add_mutually_exclusive_group()
+    fam.add_argument("--ssm", action="store_true",
+                     help="the ssm federation (mamba2 clients and student)")
+    fam.add_argument("--moe", action="store_true",
+                     help="the moe federation (deepseek-v2 clients and "
+                     "student)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut every model's depth (default: the arch's)")
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
     if a.ssm:
         oc = SMOKE_SSM if a.smoke else full_ssm()
+    elif a.moe:
+        oc = SMOKE_MOE if a.smoke else full_moe()
     else:
         oc = LLMOneShotConfig() if a.smoke else full()
+    if a.layers is not None:
+        oc = dataclasses.replace(oc, n_layers=a.layers)
     res = dense_llm_oneshot(oc, device=a.device)
     print(f"done: {len(res.client_cfgs)} clients, {res.ledger.rounds} round,"
           f" {res.ledger.uplink_bytes} B up; a global student distilled from"

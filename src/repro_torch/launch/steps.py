@@ -15,9 +15,8 @@ def make_train_state(cfg, *, lr: float = 3e-4, seed: int = 0,
                      params: dict | None = None, device="cuda") -> dict:
     """{"params", "opt", "step"}: ``params`` (default: ``init_model`` from
     ``seed`` on ``device``) made trainable in place, and Adam at ``lr``
-    over them (float32 moments, as the reference keeps them). The
-    families ``transformer.check_trainable`` refuses raise."""
-    T.check_trainable(cfg)
+    over them (float32 moments, as the reference keeps them). Every
+    family trains, as in the reference."""
     if params is None:
         params = T.init_model(cfg, seed=seed, device=device)
     tensors = T.leaves(params)
@@ -32,7 +31,8 @@ def make_train_step(cfg, *, clip: float = 1.0):
     "mask"), clipped to global norm ``clip``, one Adam step of the
     state's optimizer (its learning rate is the state's), in place.
     Metrics are 0-d tensors: loss, ce, moe_aux and grad_norm (before
-    clipping)."""
+    clipping). A vlm's batch carries "vision" (B, n_patches,
+    vision_dim)."""
     def train_step(state, batch):
         opt = state["opt"]
         loss, parts = T.loss_fn(state["params"], cfg, batch)
@@ -41,7 +41,8 @@ def make_train_step(cfg, *, clip: float = 1.0):
         opt.step(grads)
         state["step"] += 1
         return state, {"loss": loss.detach(), "ce": parts["ce"].detach(),
-                       "moe_aux": parts["moe_aux"], "grad_norm": gnorm}
+                       "moe_aux": parts["moe_aux"].detach(),
+                       "grad_norm": gnorm}
 
     return train_step
 

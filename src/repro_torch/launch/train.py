@@ -1,16 +1,22 @@
 """LM training (``repro/launch/train.py:28-85``).
 
-Trains an LM (an attention family, mamba2-130m or zamba2-7b) on the
-procedural Markov token stream (``data.make_lm_data``, ``data.lm_batches``,
-the reference's streams) with ``launch/steps.make_train_step``: Adam,
-global-norm clip 1.0, each block recomputed in the backward where
-``cfg.remat`` (the full configs). On the card every attention layer runs
-K2 forward and backward, every mamba block K3f and K3b.
+Trains any registered LM on the procedural Markov token stream
+(``data.make_lm_data``, ``data.lm_batches``, the reference's streams)
+with ``launch/steps.make_train_step``: Adam, global-norm clip 1.0, each
+block recomputed in the backward where ``cfg.remat`` (the full configs),
+the MoE load-balance term in the loss (``router_aux_coef``). A vlm gets
+the reference's batch: zero patch embeddings (batch, n_patches,
+vision_dim) beside the tokens (``repro/launch/train.py:32-35``). On the
+card every GQA layer without a window pattern (the dense, audio and
+hybrid families, a vlm's self layers) runs K2 forward and backward, every
+mamba block K3f and K3b; gemma3's windowed layers, MLA, the MoE layers
+and cross-attention stay on the plain path, as in the reference.
 
 Usage (full width unless ``--smoke``; the card unless ``--device cpu``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
-        [--smoke] --steps 50 --batch 8 --seq 256 [--lr 3e-4] [--device cuda]
+        [--smoke] --steps 50 --batch 8 --seq 256 [--lr 3e-4] [--layers N] \
+        [--device cuda]
 
 ``--ckpt PATH`` saves the trained parameters there at the end
 (``checkpoint/io.py``: ``PATH.npz`` and ``PATH.json`` with ``arch``,
@@ -18,9 +24,7 @@ Usage (full width unless ``--smoke``; the card unless ``--device cpu``):
 (``interop.lm_params_to_reference``, bfloat16 widened exactly to
 float32), so ``repro.checkpoint.restore_checkpoint`` reads it, and
 ``restore_checkpoint(PATH, state["params"])`` reads the reference's.
-Model parallelism (``--model-parallel`` > 1) and training the moe and
-vlm families and gemma3's sliding-window pattern (they serve only,
-``transformer.check_trainable``) are not ported and raise
+Model parallelism (``--model-parallel`` > 1) is not ported and raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -40,38 +44,51 @@ from repro_torch.launch import steps as ST
 
 def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
           lr: float = 3e-4, seed: int = 0, model_parallel: int = 1,
-          ckpt: str | None = None, log_every: int = 10, device="cuda"):
-    """Train ``arch`` for ``steps`` steps of (batch, seq) windows from
-    random weights (``seed``). Returns (state, losses), the losses read
-    on the host after every step; with ``ckpt`` the parameters are saved
-    there (module doc)."""
+          ckpt: str | None = None, log_every: int = 10, device="cuda",
+          n_layers: int | None = None):
+    """Train ``arch`` (``n_layers`` deep where given) for ``steps`` steps
+    of (batch, seq) windows from random weights (``seed``). Returns
+    (state, history), one dict a step read on the host after it: loss,
+    ce, moe_aux and grad_norm as floats, and the step's seconds on the
+    host clock (to the metrics' read, which waits for the device); with
+    ``ckpt`` the parameters are saved there (module doc)."""
     if model_parallel != 1:
         raise NotImplementedError("model parallelism is not ported yet "
                                   "(ROADMAP.md, Queue 1 item 12)")
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     state = ST.make_train_state(cfg, lr=lr, seed=seed, device=dev)
     step_fn = ST.make_train_step(cfg)
+    vision = None
+    if cfg.family == "vlm":
+        vision = torch.zeros((batch, cfg.n_patches, cfg.vision_dim),
+                             device=dev)
     toks = make_lm_data(seed, vocab=cfg.vocab_size,
                         n_tokens=max(200_000, batch * (seq + 1) * 4))
     t0 = time.perf_counter()
-    losses = []
+    history = []
     for i, (x, y) in enumerate(lm_batches(toks, batch, seq, seed=seed,
                                           steps=steps)):
         b = {"tokens": torch.from_numpy(x).to(dev),
              "labels": torch.from_numpy(y).to(dev)}
+        if vision is not None:
+            b["vision"] = vision
+        t_step = time.perf_counter()
         state, m = step_fn(state, b)
-        losses.append(float(m["loss"]))
+        h = {k: float(v) for k, v in m.items()}
+        history.append(h | {"seconds": time.perf_counter() - t_step})
         if (i + 1) % log_every == 0:
             dt = time.perf_counter() - t0
-            print(f"step {i + 1:5d} loss {losses[-1]:.4f} "
-                  f"ce {float(m['ce']):.4f} ({dt / (i + 1):.2f}s/step)",
+            print(f"step {i + 1:5d} loss {h['loss']:.4f} "
+                  f"ce {h['ce']:.4f} ({dt / (i + 1):.2f}s/step)",
                   flush=True)
     if ckpt:
         save_checkpoint(ckpt, interop.lm_params_to_reference(state["params"]),
                         meta={"arch": arch, "steps": steps,
-                              "final_loss": losses[-1]})
-    return state, losses
+                              "final_loss": history[-1]["loss"]})
+    return state, history
 
 
 def main(argv=None):
@@ -85,12 +102,15 @@ def main(argv=None):
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (default: the config's)")
     a = ap.parse_args(argv)
-    _, losses = train(a.arch, steps=a.steps, batch=a.batch, seq=a.seq,
-                      smoke=a.smoke, lr=a.lr,
-                      model_parallel=a.model_parallel, ckpt=a.ckpt,
-                      device=a.device)
-    print(f"first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
+    _, hist = train(a.arch, steps=a.steps, batch=a.batch, seq=a.seq,
+                    smoke=a.smoke, lr=a.lr,
+                    model_parallel=a.model_parallel, ckpt=a.ckpt,
+                    n_layers=a.layers, device=a.device)
+    print(f"first loss {hist[0]['loss']:.4f} -> last "
+          f"{hist[-1]['loss']:.4f}")
 
 
 if __name__ == "__main__":

@@ -36,10 +36,10 @@ cross_every, ...)), so ``interop`` carries either across as it is.
     per-slot states (the families ``launch/paging.supports_paged``
     takes).
   * ``loss_fn`` — next-token cross-entropy plus ``router_aux_coef`` times
-    the MoE auxiliary.
-
-Training the moe and vlm families and gemma3 (their gradients, the
-vision batch) is not ported: ``check_trainable`` refuses them.
+    the MoE auxiliary; every family trains through it, as in the
+    reference (gemma3's windows and MLA on the plain path, a vlm's self
+    layers through K2 forward and backward on the card, its cross blocks
+    and the MoE layers plain).
 """
 from __future__ import annotations
 
@@ -58,18 +58,6 @@ FAMILIES = ("dense", "audio", "moe", "ssm", "hybrid", "vlm")
 def _check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
-
-
-def check_trainable(cfg) -> None:
-    """Raise unless the port trains ``cfg``: training the moe and vlm
-    families and sliding-window patterns (their gradients held to the
-    reference, the vision batch, the MoE auxiliary in the step) is not
-    ported yet."""
-    if cfg.family in ("moe", "vlm") or cfg.sliding_window:
-        raise NotImplementedError(
-            f"training family {cfg.family!r} (sliding_window="
-            f"{cfg.sliding_window}) is not ported yet; the port serves it "
-            "(ROADMAP.md, Queue 1 item 13; LLM DENSE with it, item 14)")
 
 
 def hybrid_shape(cfg) -> tuple[int, int]:

@@ -219,10 +219,10 @@ def test_lm_ckpt_files_cross_between_the_packages(tmp_path):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
 
     ours = os.path.join(tmp_path, "ours")
-    state, losses = lm_train(LM_ARCH, steps=2, batch=2, seq=16, smoke=True,
-                             ckpt=ours, log_every=100, device="cpu")
+    state, hist = lm_train(LM_ARCH, steps=2, batch=2, seq=16, smoke=True,
+                           ckpt=ours, log_every=100, device="cpu")
     assert load_meta(ours) == {"arch": LM_ARCH, "steps": 2,
-                               "final_loss": losses[-1]}
+                               "final_loss": hist[-1]["loss"]}
     assert set(load_meta(theirs)) == set(load_meta(ours))
     r_like = R_steps.make_train_state(jax.random.PRNGKey(0),
                                       r_smoke_config(LM_ARCH))["params"]

@@ -15,9 +15,11 @@ caches 1e-5.
 Also here: the config fields and parameter counts of all ten
 architectures, MoE routing with a binding capacity (both packages drop
 the same tokens) and with tied router probabilities, the blockwise
-prefill at S = 4096 (GQA with a window, MLA), and what the port still
-refuses for these families (training, the sharded MoE). Their engine
-streams are held in ``tests/test_torch_serving_families.py``.
+prefill at S = 4096 (GQA with a window, MLA), and what the port refuses
+for these families (the sharded MoE; a vlm in LLM DENSE, as the
+reference cannot run one there). Their engine streams are held in
+``tests/test_torch_serving_families.py``, their training in
+``tests/test_torch_family_train.py``.
 """
 import dataclasses
 import functools
@@ -35,6 +37,8 @@ from repro.models import transformer as R_T
 
 from repro_torch import interop
 from repro_torch.configs import base as T_base
+from repro_torch.core import dense_llm as T_DL
+from repro_torch.launch import dense_llm_oneshot as T_one
 from repro_torch.launch import steps as T_ST
 from repro_torch.models import attention as T_A
 from repro_torch.models import moe as T_M
@@ -417,8 +421,21 @@ def test_blockwise_prefill_matches_reference(case):
     _close(got, plain, TOL_LOGITS)
 
 
-def test_training_these_families_is_refused():
-    for arch in ARCHS:
-        cfg = T_base.get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            T_ST.make_train_state(cfg, device="cpu")
+def test_llm_dense_refuses_a_vlm_by_name():
+    """LLM DENSE takes these families but the vlm, as a client or the
+    student, by name and with the reason (its cross blocks need patch
+    embeddings the server never has); the other three build their train
+    state and both server steps."""
+    vlm = T_base.get_smoke_config("llama3.2-vision-11b")
+    others = [T_base.get_smoke_config(a) for a in ARCHS if a != ARCHS[-1]]
+    for student, clients in ((vlm, others), (others[0], [others[1], vlm])):
+        with pytest.raises(ValueError, match="llama3-2-vision-11b.*patch "
+                           "embeddings"):
+            T_DL.make_llm_dense_steps(student, clients, device="cpu")
+    oc = T_one.LLMOneShotConfig(client_archs=(ARCHS[0],),
+                                student_arch=ARCHS[-1])
+    with pytest.raises(ValueError, match="vlm"):
+        oc.arch_config(oc.student_arch)
+    assert T_DL.make_llm_dense_steps(others[1], others, device="cpu")
+    for cfg in (*others, vlm):
+        assert T_ST.make_train_state(cfg, device="cpu")["step"] == 0

@@ -113,7 +113,8 @@ def _entry_points():
     from repro_torch.models import transformer
     from repro_torch.core.dense_llm import make_llm_dense_steps
     from repro_torch.core.generator import tok_generator_init
-    from repro_torch.launch.dense_llm_oneshot import dense_llm_oneshot
+    from repro_torch.launch.dense_llm_oneshot import (SMOKE_MOE,
+                                                      dense_llm_oneshot)
     from repro_torch.launch.steps import make_train_state
     from repro_torch.launch.train import train
 
@@ -155,6 +156,11 @@ def _entry_points():
         "ServeEngine_ssm": lambda: ServeEngine(mamba),
         "train_ssm": lambda: train("mamba2-130m", steps=1, batch=1, seq=4,
                                    smoke=True),
+        "train_moe": lambda: train("deepseek-v2-lite-16b", steps=1, batch=1,
+                                   seq=4, smoke=True),
+        "train_vlm": lambda: train("llama3.2-vision-11b", steps=1, batch=1,
+                                   seq=4, smoke=True),
+        "dense_llm_oneshot_moe": lambda: dense_llm_oneshot(SMOKE_MOE),
     }
 
 
@@ -177,7 +183,9 @@ def no_gpu():
                                   "dense_llm_oneshot", "init_model_ssm",
                                   "init_cache_hybrid",
                                   "init_paged_cache_hybrid",
-                                  "ServeEngine_ssm", "train_ssm"])
+                                  "ServeEngine_ssm", "train_ssm",
+                                  "train_moe", "train_vlm",
+                                  "dense_llm_oneshot_moe"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_gpu, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points()[name]()

@@ -63,15 +63,22 @@ def _np(tree):
 
 
 def _ref_params(arch, seed=0):
-    """The reference's smoke parameters, with random q/k/v biases."""
+    """The reference's smoke parameters, with random q/k/v biases and a
+    vlm's two gates (zero at init) set non-zero."""
     rc = R_base.get_smoke_config(arch)
     rp = _np(R_T.init_model(jax.random.PRNGKey(seed), rc))
+    rng = np.random.default_rng(seed + 1)
     if rc.qkv_bias:
-        rng = np.random.default_rng(seed + 1)
         for name in ("wq", "wk", "wv"):
             b = rp["blocks"]["attn"][name]["b"]
             rp["blocks"]["attn"][name]["b"] = rng.standard_normal(
                 b.shape).astype(np.float32) * 0.1
+    if rc.family == "vlm":
+        n_super = rp["cross"]["mlp_gate"].shape[0]
+        rp["cross"]["mlp_gate"] = np.linspace(0.7, -0.5, n_super,
+                                              dtype=np.float32)
+        rp["cross"]["xattn"]["gate"] = np.linspace(-0.6, 0.8, n_super,
+                                                   dtype=np.float32)
     return rc, rp
 
 
@@ -243,15 +250,24 @@ class _Recorder:
         self.opt.step(grads)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen1.5-4b",
+                                  "deepseek-v2-lite-16b",
+                                  "llama3.2-vision-11b"])
 def test_train_step_matches_reference_over_three_steps(arch):
     """Three steps from the same weights on the same batches: the loss,
     grad_norm and the clipped gradients at every step. Each port step
     starts from the reference's parameters of that step (carried across
     in place), so the comparison holds the step and not Adam's
-    amplification of float32 noise (ROADMAP.md Queue 3)."""
+    amplification of float32 noise (ROADMAP.md Queue 3). The moe arch
+    with a binding capacity (its auxiliary in the loss), the vlm with its
+    gates set and random patch embeddings in every batch."""
     rc, rp = _ref_params(arch, seed=7)
     tc = T_base.get_smoke_config(arch).replace(kernel_vjp_mode="fused")
+    if rc.n_experts:
+        rc, tc = (c.replace(capacity_factor=0.5) for c in (rc, tc))
+    vision = np.random.default_rng(9).standard_normal(
+        (4, rc.n_patches, rc.vision_dim)).astype(np.float32) \
+        if rc.family == "vlm" else None
     lr = 3e-3
     rstate = R_ST.make_train_state(jax.random.PRNGKey(0), rc, lr=lr)
     rstate["params"] = jax.tree.map(jnp.asarray, rp)
@@ -268,6 +284,10 @@ def test_train_step_matches_reference_over_three_steps(arch):
         jax.grad(lambda q: R_T.loss_fn(q, rc, b)[0])(p), 1.0)[0])
     for x, y in R_data.lm_batches(toks, 4, 16, seed=1, steps=3):
         rb = {"tokens": jnp.asarray(x), "labels": jnp.asarray(y)}
+        tb = {"tokens": torch.from_numpy(x), "labels": torch.from_numpy(y)}
+        if vision is not None:
+            rb["vision"] = jnp.asarray(vision)
+            tb["vision"] = torch.from_numpy(vision)
         want_g = clipped(rstate["params"], rb)
         with torch.no_grad():
             for t, r in zip(T_T.leaves(tstate["params"]), T_T.leaves(
@@ -275,10 +295,11 @@ def test_train_step_matches_reference_over_three_steps(arch):
                                                 device="cpu"))):
                 t.copy_(r)
         rstate, rm = rstep(rstate, rb)
-        tstate, tm = tstep(tstate, {"tokens": torch.from_numpy(x),
-                                    "labels": torch.from_numpy(y)})
+        tstate, tm = tstep(tstate, tb)
         _close(tm["loss"], rm["loss"], TOL_MODEL)
         _close(tm["ce"], rm["ce"], TOL_MODEL)
+        _close(tm["moe_aux"], rm["moe_aux"], TOL_MODEL)
+        assert (float(rm["moe_aux"]) > 0) == bool(rc.n_experts)
         _close(tm["grad_norm"], rm["grad_norm"], TOL_MODEL)
         assert float(rm["grad_norm"]) > 1.0      # the clip is active
         for g, w in zip(tstate["opt"].grads, T_T.leaves(
