@@ -126,7 +126,15 @@ result line is printed:
      from the epoch-2 checkpoint, chunk-granular rollback and skip with
      epoch 1 poisoned, bit for bit (else held to 1e-5 of each tensor's
      largest entry), K1's launches exact and one host read a chunk;
- 9b. scale_round, the one-shot round at m = 1000 cnn1 clients
+ 9b. mesh_round, the one-shot round with ``ensemble_shard_mode=
+     "clients"`` on a one-rank NCCL world over the card against the same
+     round unsharded (``mesh_round``'s docstring), fused_check's cuts:
+     the sharded grouped engine, FedAvg (flat, and the tree sharded),
+     both DENSE stages on the fused driver with the teacher's
+     all-reduces captured in its graph; uploads, both averages, the
+     generator, the student and every loss bit for bit, K1's launches
+     exact, each run's epoch seconds;
+ 9c. scale_round, the one-shot round at m = 1000 cnn1 clients
      (``SCALE``: paper_cifar's widths, 50,000 images, α 0.1, batch 64,
      quantile buckets, 64-client slices, tree FedAvg of fan-in 8, the
      teacher in 64-client chunks, 2 fused server epochs, t_g cut from
@@ -282,7 +290,21 @@ result line is printed:
      step by step as in 14: no K2 (MLA), K1f and K1b once a server step at
      (1024, 102400), 8 pairs in the 2 epochs; uplink bytes and one round;
      then one epoch under ``torch.profiler`` with K1's device time and the
-     idle share.
+     idle share;
+ 26. pod_distill, after 15's profile on its context: the pod
+     distillation step (``launch.steps.make_distill_step``) on its two
+     trained llama3.2-3b clients stacked (12.85 GB; the client list then
+     views the stack) and its student, bfloat16, batch 4 x 256 of the
+     generator's soft embeddings, a one-pod mesh, 3 steps of each route:
+     materialized (K1f and K1b once a step at (1024, 128256)) and
+     ``chunked_kl`` (64-token chunks, no K1), K2f 4·28, K2q and K2kv 28
+     a step on ``sm90`` in both; the first losses agree to 1e-2
+     relative; seconds a step and peak memory by route;
+ 27. pod_distill_check, after 15's context is freed: one step of each
+     route in float32 without TF32, llama3.2-3b at full width cut to one
+     layer, batch 2 x 64, on the card and on the CPU from the same
+     weights: losses and the student's gradients within 1e-4, the card's
+     K1 and float32 K2 launches counted.
 
 Output: a line with the card's name and power limit, one JSON line per
 phase, the ``{"kernels": [...]}`` line, and last the result line
@@ -1789,6 +1811,110 @@ def fused_check(torch, scfg, clients, dev="cuda"):
                        "warned": nondeterministic},
         seconds_total=time.perf_counter() - t_phase)
     emit({"fused_check": out})
+    return launches
+
+
+# ------------------------------------------------------------ mesh round --
+
+def mesh_round(torch, scfg, dev="cuda"):
+    """The one-shot round on the client mesh (``ensemble_shard_mode=
+    "clients"``, a one-rank NCCL world over the card) against the same
+    round unsharded, at paper_cifar's five resnet18 clients, with
+    fused_check's cuts (3 server epochs in chunks of 2, t_g 10), float32
+    without TF32 and under cuDNN's and PyTorch's deterministic
+    algorithms: the federation (the grouped engine, sharded), FedAvg
+    (the config's flat sum, and the tree sharded over the mesh) and both
+    DENSE stages on the fused driver, whose captured epoch holds the
+    teacher's all-reduces. On one rank every collective is a copy, so the
+    uploads, both averages, the generator, the student and every loss
+    must be equal bit for bit. Each run launches K1f and K1b
+    epochs·(t_g + s_steps) times and replays its graph epochs − 1 times.
+    Returns each run's K1 launches."""
+    from repro_torch.configs import CONFIG, resolve_exec_policy
+    from repro_torch.core import train_dense_server
+    from repro_torch.fl import CommLedger, build_federation, fedavg
+    from repro_torch.fl.sharding import resolve_mesh
+    from repro_torch.launch.mesh import axis_sizes
+
+    on_card = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    data = cifar_data(scfg)
+    base = dataclasses.replace(scfg, epochs=FUSED_EPOCHS,
+                               loop_chunk=FUSED_CHUNK, t_g=FUSED_T_G_CUT[1])
+    each = base.t_g + base.s_steps
+    runs, launches = {}, {}
+
+    def params(models) -> list:
+        return [v.detach().clone() for m in models
+                for v in m.state_dict().values()]
+
+    with deterministic(torch) as nondeterministic:
+        for mode in ("none", "clients"):
+            mcfg = dataclasses.replace(base, ensemble_shard_mode=mode)
+            pol = resolve_exec_policy(mcfg, device=dev)
+            mesh = resolve_mesh(pol, device=dev)
+            if (mesh is None) != (mode == "none"):
+                fail(f"mesh_round: mode {mode!r} resolved the mesh {mesh}")
+            ledger = CommLedger()
+            zero_counts()
+            (clients, _), t_fed = timed(torch, dev, lambda: build_federation(
+                mcfg, data, device=dev, ledger=ledger, seed=mcfg.seed))
+            avg, t_avg = timed(torch, dev, lambda: fedavg(
+                clients, policy=pol, mesh=mesh))
+            tree = fedavg(clients, policy=dataclasses.replace(
+                pol, fedavg="tree"), mesh=mesh)
+            (student, gen, hist), t_dense = timed(
+                torch, dev, lambda: train_dense_server(clients, mcfg,
+                                                       device=dev))
+            got = read_counts()
+            n = len(hist.gen_loss)
+            launches[mode] = {k: got[k] for k in ("distill_kl_fwd",
+                                                  "distill_kl_bwd")}
+            if on_card and got != expected(distill_kl_fwd=n * each,
+                                           distill_kl_bwd=n * each):
+                fail(f"mesh_round: {mode} launched {got} over {n} epochs, "
+                     f"expected {n * each} of each K1 kernel")
+            if on_card and (hist.loop != "fused"
+                            or hist.graph_replays != n - 1):
+                fail(f"mesh_round: {mode} ran the {hist.loop!r} driver "
+                     f"with {hist.graph_replays} replays over {n} epochs")
+            runs[mode] = {
+                "uploads": params(c.model for c in clients),
+                "fedavg": params([avg]), "fedavg_tree": params([tree]),
+                "server": _server_tensors(student, gen),
+                "losses": _hist_values(hist), "gen_loss": hist.gen_loss,
+                "uplink_bytes": ledger.uplink_bytes,
+                "mesh": None if mesh is None else axis_sizes(mesh),
+                "seconds": {"build_federation": t_fed, "fedavg": t_avg,
+                            "train_dense_server": t_dense,
+                            "per_epoch": t_dense / max(n, 1)},
+                "graph_replays": hist.graph_replays,
+                "capture_seconds": hist.capture_seconds,
+                "host_reads": hist.host_reads}
+            del clients, avg, tree, student, gen
+    a, b = runs["clients"], runs["none"]
+    same = {k: all(torch.equal(x, y) for x, y in zip(a[k], b[k],
+                                                    strict=True))
+            for k in ("uploads", "fedavg", "fedavg_tree", "server")}
+    same["losses"] = a["losses"] == b["losses"]
+    diff = {k: 0.0 if v else _rel_diff(torch, a[k], b[k])
+            for k, v in same.items() if k != "losses"}
+    for r in runs.values():
+        for k in ("uploads", "fedavg", "fedavg_tree", "server"):
+            del r[k]
+        del r["losses"]
+    emit({"mesh_round": {
+        "card": card(), "bit_for_bit": same, "max_rel_diff": diff,
+        "epochs": FUSED_EPOCHS, "loop_chunk": FUSED_CHUNK,
+        "cuts": {"t_g": [scfg.t_g, base.t_g],
+                 "epochs": [CONFIG.epochs, FUSED_EPOCHS]},
+        "launches": launches, "runs": runs,
+        "deterministic": {"cudnn": True, "algorithms": True,
+                          "warned": nondeterministic},
+        "seconds_total": time.perf_counter() - t_phase}})
+    if not all(same.values()) or a["uplink_bytes"] != b["uplink_bytes"]:
+        fail(f"mesh_round: the sharded round is not the unsharded one bit "
+             f"for bit: {same}, {diff}")
     return launches
 
 
@@ -3851,6 +3977,239 @@ def profile_llm_epoch(torch, ctx, dev="cuda", label="profile_llm_epoch"):
 
 # ---------------------------- the dense-mode families, the audio family --
 
+# ------------------------------------------------- the pod distillation --
+
+# the pod cell at the LLM main path's server batch and llama's vocabulary
+POD_BATCH = (4, 256)
+POD_KL_CHUNK = 64
+POD_STEPS = 3
+# chunked against materialized, the first step's loss from the same
+# student: the routes round the teacher's logits differently (bf16
+# logits widened against a float32 readout of bf16 hidden states); the
+# first call on an H100 read 1.74e-6, and this holds it with ~50x room
+POD_ROUTE_TOL = 1e-4
+# pod_distill_check: llama3.2-3b at full width, depth cut to 1, float32
+POD_CHECK = {"n_layers": 1, "batch": (2, 64), "kl_chunk": 32}
+
+
+def stack_clients(torch, trees: list) -> dict:
+    """The clients' parameter trees stacked leaf by leaf on a leading
+    client dim; each client's leaf is then replaced by a view of its row,
+    so the originals are freed as the stack is built."""
+    out = {}
+    for k, v in trees[0].items():
+        if isinstance(v, dict):
+            out[k] = stack_clients(torch, [t[k] for t in trees])
+            continue
+        out[k] = torch.stack([t[k] for t in trees])
+        for i, t in enumerate(trees):
+            t[k] = out[k][i]
+    return out
+
+
+def pod_launches(cfg, n: int, materialized: bool) -> dict:
+    """One pod distillation step: every client trunk forward, the
+    student's forward and its remat recompute (K2f), the student's
+    backward (K2q, K2kv), and K1f + K1b in the materialized route."""
+    n_attn, _ = trunk_blocks(cfg)
+    k1 = 1 if materialized else 0
+    return expected(flash_attention_fwd=(n + 2) * n_attn,
+                    flash_attention_bwd_dq=n_attn,
+                    flash_attention_bwd_dkv=n_attn,
+                    distill_kl_fwd=k1, distill_kl_bwd=k1)
+
+
+class _PeakAtStep:
+    """Wraps an optimizer: reads the device's peak allocation when the
+    step is called (the loss and its gradient, before the update's own
+    temporaries), then steps."""
+
+    def __init__(self, opt):
+        self.opt, self.params, self.peak = opt, opt.params, None
+
+    def step(self, grads):
+        import torch
+
+        self.peak = torch.cuda.max_memory_allocated()
+        self.opt.step(grads)
+
+
+def pod_distill(torch, ctx, dev="cuda"):
+    """``make_pod_distill_step`` (``launch.steps.make_distill_step``) on
+    the LLM main path's two trained llama3.2-3b clients and its student,
+    bfloat16, at the server batch 4 x 256 of the generator's soft
+    embeddings on a one-pod ("data", "model") mesh: the clients' tensors
+    stacked (the client list then views the stack), POD_STEPS Adam steps
+    of each route from the same student (its weights restored between
+    the routes), each step's launches counted (``pod_launches``: K1 in
+    the materialized route only, K2f/K2q/K2kv on sm90 in both) and its
+    seconds and peak device memory read. The routes' first losses agree
+    to POD_ROUTE_TOL. The peak above the resident tensors is read twice:
+    at the Adam step (the loss route's own: logits or chunks, and the
+    gradients) and over the whole step (the update's float32
+    temporaries included). Returns each route's launches over its
+    steps."""
+    from repro_torch.core.generator import tok_generator
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import axis_sizes, make_host_mesh
+    from repro_torch.models import transformer as T
+
+    (_, _, _, s_opt, gen, student, client_params, oc, stu_cfg,
+     draws) = ctx
+    on_card = torch.device(dev).type == "cuda"
+    n, B, S = len(client_params), *POD_BATCH
+    t_phase = time.perf_counter()
+    stacked, t_stack = timed(torch, dev,
+                             lambda: stack_clients(torch, client_params))
+    stack_gib = sum(t.numel() * t.element_size()
+                    for t in T.leaves(stacked)) / 2 ** 30
+    mesh = make_host_mesh(device=dev)
+    z = torch.randn((B, oc.nz), generator=draws, device=dev)
+    y = torch.randint(0, stu_cfg.vocab_size, (B, S), generator=draws,
+                      device=dev)
+    with torch.no_grad():
+        embeds = tok_generator(gen, z, y[:, 0])
+    if tuple(embeds.shape) != (B, S, stu_cfg.d_model):
+        fail(f"pod_distill: embeds {tuple(embeds.shape)}, expected "
+             f"{(B, S, stu_cfg.d_model)}")
+    start = [t.detach().clone() for t in T.leaves(student)]
+    at_step = _PeakAtStep(s_opt)
+    state = {"params": student, "opt": at_step, "step": 0}
+    out, launches = {}, {}
+    for route in ("materialized", "chunked"):
+        chunked = route == "chunked"
+        step = ST.make_distill_step(stu_cfg, mesh, n_clients=n,
+                                    s_lr=oc.s_lr, chunked_kl=chunked,
+                                    kl_chunk=POD_KL_CHUNK, device=dev)
+        with torch.no_grad():
+            for t, t0 in zip(T.leaves(student), start):
+                t.copy_(t0)
+        want = pod_launches(stu_cfg, n, not chunked)
+        totals = {k: 0 for k in read_counts()}
+        routes = {k: 0 for k in read_routes()}
+        secs, losses, peak, above, loss_grad = [], [], [], [], []
+        for _ in range(POD_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            zero_counts()
+            (_, m), dt = timed(torch, dev,
+                               lambda: step(state, stacked, embeds))
+            got = read_counts()
+            if on_card and got != want:
+                fail(f"pod_distill {route}: launches {got}, expected {want}")
+            for k, c in got.items():
+                totals[k] += c
+            for k, c in read_routes().items():
+                routes[k] += c
+            secs.append(dt)
+            losses.append(float(m["dis_loss"]))
+            peak.append(_peak_gib(torch))
+            above.append((torch.cuda.max_memory_allocated() - resident)
+                         / 2 ** 30)
+            if on_card:
+                loss_grad.append((at_step.peak - resident) / 2 ** 30)
+        if on_card:
+            check_k2_routes(f"pod_distill {route}", totals, routes,
+                            getattr(torch, stu_cfg.dtype), stu_cfg.head_dim)
+        if not finite(losses):
+            fail(f"pod_distill {route}: losses {losses}")
+        launches[route] = totals
+        out[route] = {"dis_loss": losses, "seconds": secs,
+                      "seconds_median": statistics.median(secs),
+                      "peak_mem_gib": peak,
+                      "peak_above_resident_gib": above,
+                      "peak_at_adam_step_above_resident_gib": loss_grad,
+                      "launches_per_step": want,
+                      "k2_routes": {k: routes[k] for k in (
+                          "fwd_sm90", "fwd_simt", "dq_sm90", "dq_simt",
+                          "dkv_sm90", "dkv_simt")}}
+    a, b = out["chunked"]["dis_loss"][0], out["materialized"]["dis_loss"][0]
+    rel = abs(a - b) / max(abs(b), 1e-30)
+    emit({"pod_distill": {
+        "card": card(), "arch": stu_cfg.name, "n_clients": n,
+        "n_layers": stu_cfg.n_layers, "dtype": stu_cfg.dtype,
+        "batch": [B, S], "kl_chunk": POD_KL_CHUNK, "steps": POD_STEPS,
+        "mesh": axis_sizes(mesh),
+        "params_per_model": sum(t.numel() for t in T.leaves(student)),
+        "stack_gib": stack_gib, "stack_seconds": t_stack,
+        "materialized_logits_gib": B * S * stu_cfg.vocab_size * 4 / 2 ** 30,
+        "routes": out, "first_loss_rel_diff": rel, "tol": POD_ROUTE_TOL,
+        "seconds_total": time.perf_counter() - t_phase}})
+    if rel > POD_ROUTE_TOL:
+        fail(f"pod_distill: the chunked route's loss {a} against the "
+             f"materialized route's {b} ({rel} > {POD_ROUTE_TOL})")
+    return launches
+
+
+def pod_distill_check(torch, devices=("cuda", "cpu")):
+    """One pod distillation step of each route on the card and on the
+    CPU, float32 without TF32, llama3.2-3b at full width cut to
+    POD_CHECK's depth and batch, two clients, from the same weights and
+    embeddings: the losses and the student's gradients agree to
+    STEP_TOL (relative, and of each tensor's largest entry), as
+    dense_llm_check holds LLM DENSE; the card's launches are counted."""
+    from repro_torch.core import dense_llm as DL
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = family_cfg("llama3.2-3b", n_layers=POD_CHECK["n_layers"],
+                     dtype="float32")
+    init = torch.Generator().manual_seed(31)
+    clients = [T.init_model(cfg, generator=init, device="cpu")
+               for _ in range(2)]
+    stacked0 = stack_clients(torch, clients)
+    stu0 = T.init_model(cfg, generator=init, device="cpu")
+    B, S = POD_CHECK["batch"]
+    embeds0 = torch.randn((B, S, cfg.d_model), generator=init)
+    res = {}
+    for dev in devices:
+        stacked = _tree_to(stacked0, device=dev)
+        embeds = embeds0.to(dev)
+        for chunked in (False, True):
+            step = DL.make_pod_distill_step(
+                cfg, None, n_clients=2, chunked_kl=chunked,
+                kl_chunk=POD_CHECK["kl_chunk"], device=dev)
+            state = step.make_state(_tree_to(stu0, device=dev))
+            state["opt"] = _Capture(state["opt"].params)
+            zero_counts()
+            _, m = step(state, stacked, embeds)
+            sync(torch, dev)
+            res[dev, chunked] = (float(m["dis_loss"]), state["opt"].grads,
+                                 read_counts(), read_routes())
+            del state, step
+        del stacked
+    out = {}
+    for chunked in (False, True):
+        (la, ga, ca, ra), (lb, gb, _, _) = (res[d, chunked] for d in devices)
+        route = "chunked" if chunked else "materialized"
+        out[route] = {"loss_cuda": la, "loss_cpu": lb,
+                      "loss_rel_err": abs(la - lb) / max(abs(lb), 1e-30),
+                      "grad_max_err_rel_to_max": max(
+                          _grad_err(a, b) for a, b in zip(ga, gb)),
+                      "launches_cuda": {k: v for k, v in ca.items() if v},
+                      "k2_routes_cuda": {k: v for k, v in ra.items()
+                                         if v and k.split("_")[0] in (
+                                             "fwd", "dq", "dkv")}}
+        want = pod_launches(cfg, 2, not chunked)
+        if torch.device(devices[0]).type != "cuda":
+            continue                # a CPU rehearsal launches nothing
+        if ca != want:
+            fail(f"pod_distill_check {route}: launches {ca}, expected "
+                 f"{want}")
+        check_k2_routes(f"pod_distill_check {route}", ca, ra,
+                        torch.float32, cfg.head_dim)
+    emit({"pod_distill_check": {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "batch": [B, S],
+        "kl_chunk": POD_CHECK["kl_chunk"], "dtype": "float32",
+        "routes": out, "tol": STEP_TOL,
+        "seconds_total": time.perf_counter() - t_phase}})
+    bad = {r: v for r, v in out.items()
+           if max(v["loss_rel_err"], v["grad_max_err_rel_to_max"])
+           > STEP_TOL}
+    if bad:
+        fail(f"pod_distill_check: the card disagrees with the CPU: {bad}")
+
+
 # the paged attention families at full width, depth 2 (serve_check): the
 # audio family's K4 at D 64 beside qwen1.5-4b's and phi3-medium-14b's D 128
 PAGED_CHECK_ARCHS = ("musicgen-large", "qwen1.5-4b", "phi3-medium-14b")
@@ -4527,12 +4886,13 @@ def moe_llm_main_path(torch, dev="cuda", n_layers=MOE_LLM_LAYERS):
 # ----------------------------------------------------------------- main --
 
 def k2_entry(name, which, rs, line, launches, hybrid_launches,
-             vlm_launches, vlm_train_launches):
+             vlm_launches, vlm_train_launches, pod_launches):
     """The kernels line's entry of a K2 kernel: the server shape in
     bfloat16 (the LLM main path's gen_step and student_step), its
     launches over the LLM main path, and by path: the LLM main path's (D
     128), ssm_hybrid_train's (D 112), vlm_kernel_check's and
-    family_train's vlm (D 128), each by route, and the route its float32
+    family_train's vlm (D 128), pod_distill's two routes (D 128), each by
+    route, and the route its float32
     calls take (train_check, ssm_train_check, family_train_check)."""
     import torch
 
@@ -4564,7 +4924,11 @@ def k2_entry(name, which, rs, line, launches, hybrid_launches,
                                     hybrid_launches),
                                    ("vlm_kernel_check", 128, vlm_launches),
                                    ("family_train_vlm", 128,
-                                    vlm_train_launches))},
+                                    vlm_train_launches),
+                                   ("pod_distill_materialized", 128,
+                                    pod_launches["materialized"]),
+                                   ("pod_distill_chunked", 128,
+                                    pod_launches["chunked"]))},
             "float32_route": FA.route(which, torch.float32, 128),
             "by_shape": rs}
 
@@ -4625,6 +4989,7 @@ def main() -> None:
     paper_launches = paper_tables(torch, scfg, clients)
     fault_launches = fault_round(torch, scfg, clients)
     fused_launches = fused_check(torch, scfg, clients)
+    mesh_launches = mesh_round(torch, scfg)
     del clients
     torch.cuda.empty_cache()
     scale_launches = scale_round(torch)
@@ -4636,7 +5001,10 @@ def main() -> None:
     dense_llm_check(torch)
     llm_launches, llm_ctx = llm_main_path(torch)
     profile_llm_epoch(torch, llm_ctx)
+    pod_launches = pod_distill(torch, llm_ctx)
     del llm_ctx
+    torch.cuda.empty_cache()
+    pod_distill_check(torch)
     torch.cuda.empty_cache()
     k3_rows = k3_phase(torch)
     serve_check(torch, arch="zamba2-7b", n_layers=7, label="ssm_serve_check",
@@ -4674,8 +5042,12 @@ def main() -> None:
                                     fault_launches.items()},
                     "fused_check": {run: c[name] for run, c in
                                     fused_launches.items()},
+                    "mesh_round": {run: c[name] for run, c in
+                                   mesh_launches.items()},
                     "scale_round": scale_launches[name],
-                    "moe_llm_main_path": moe_launches[name]},
+                    "moe_llm_main_path": moe_launches[name],
+                    "pod_distill": {route: c[name] for route, c in
+                                    pod_launches.items()}},
                 "max_abs_err": main["max_abs_err"], "ms": main["ms"],
                 "device_ms": main.get("device_ms"),
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -4712,7 +5084,8 @@ def main() -> None:
          "first_version_ms": k4["first_version_ms"],
          "shape": k4["shape"], "dtype": k4["dtype"], "by_shape": k4_rows},
         *(k2_entry(name, which, k2_rows[which], line, llm_launches,
-                   hybrid_launches, vlm_launches, vlm_train_launches)
+                   hybrid_launches, vlm_launches, vlm_train_launches,
+                   pod_launches)
           for name, which, line in (
               ("flash_attention_fwd", "fwd", 171),
               ("flash_attention_bwd_dq", "dq", 342),
@@ -4720,6 +5093,10 @@ def main() -> None:
         *(k3_entry(name, k3_rows[which], line, ssm_launches)
           for name, which, line in (("ssd_scan_fwd", "fwd", 143),
                                     ("ssd_scan_bwd", "bwd", 278)))]})
+    import torch.distributed as dist
+
+    if dist.is_initialized():       # the mesh phases' one-rank world
+        dist.destroy_process_group()
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

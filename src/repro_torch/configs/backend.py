@@ -33,16 +33,23 @@ The federation-scale knobs (DESIGN.md §13) take the reference's
 ``teacher_chunk``. They are federation-size choices, not device ones: a
 scenario of m = 1000 clients opts in on its config.
 
+``ensemble_shard`` (``ensemble_shard_mode``: "none", "clients") is
+"none" on both profiles, as in the reference; "clients" shards every
+stacked client group over the ("clients", "data") mesh of the process
+world (``fl/sharding.py``): the grouped local phase, the teacher and
+the tree FedAvg.
+
 A knob set on the config (``scfg.distill_kl_mode``,
 ``scfg.loop_mode``, ``cfg.kernel_vjp_mode`` and friends) wins over the
 profile; an unknown value raises ``ValueError``, as in the reference.
-The one mode the port does not have yet, the client mesh
-(``ensemble_shard_mode``, ROADMAP.md Queue 1 item 12), raises
-``NotImplementedError`` here, so no caller silently runs another path.
 ``page`` is the block-pool page size of the
 serving engine, 16 tokens on both profiles as in the reference's
 ``_BLOCKS["gpu"]["paged_attention"]``; the other block tables and the
 autotuner are not ported.
+
+``full_float32()`` turns TF32 off in matrix products and cuDNN
+convolutions, so float32 is computed as the reference computes it;
+every entry point calls it where it resolves its policy.
 """
 from __future__ import annotations
 
@@ -56,22 +63,19 @@ CLIENT_LOOP_MODES = ("python", "grouped")
 LOOP_MODES = ("python", "fused")
 BUCKETING_MODES = ("off", "pow2", "quantile")
 FEDAVG_MODES = ("flat", "tree")
+SHARD_MODES = ("none", "clients")
 
 _SCALE_DEFAULTS = {"bucketing": "off", "stack_chunk": 0,
                    "fedavg": "flat", "fedavg_branch": 8,
                    "teacher_chunk": 0}
-_PROFILES = {"cpu": {"loop": "python", "distill_kl": "ref",
-                     "kernel_vjp": "ref", "client_loop": "grouped",
-                     "page": 16, **_SCALE_DEFAULTS},
-             "cuda": {"loop": "fused", "distill_kl": "fused",
-                      "kernel_vjp": "fused", "client_loop": "grouped",
-                      "page": 16, **_SCALE_DEFAULTS}}
-
-# config knobs whose non-default values select a path the reference has
-# and the port does not have yet: knob -> the values the port runs
-_PORTED = {"ensemble_shard_mode": (None, "none")}
-# ... and the item of ROADMAP.md's Queue 1 that ports each
-_QUEUE_ITEM = {"ensemble_shard_mode": 12}
+_PROFILES = {"cpu": {"loop": "python", "ensemble_shard": "none",
+                     "distill_kl": "ref", "kernel_vjp": "ref",
+                     "client_loop": "grouped", "page": 16,
+                     **_SCALE_DEFAULTS},
+             "cuda": {"loop": "fused", "ensemble_shard": "none",
+                      "distill_kl": "fused", "kernel_vjp": "fused",
+                      "client_loop": "grouped", "page": 16,
+                      **_SCALE_DEFAULTS}}
 
 
 def resolve_device(device) -> torch.device:
@@ -89,6 +93,34 @@ def resolve_device(device) -> torch.device:
         # "cuda" names the current card; tensors report it with its index
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def full_float32() -> dict:
+    """No TF32 in matrix products or cuDNN convolutions, forward or
+    backward: float32 as the JAX reference computes it. Recent torch
+    keeps a precision per backend and operation (cuDNN convolutions
+    default to TF32); older torch has the ``allow_tf32`` flags. Harmless
+    on the CPU. Returns the settings as they now read."""
+    conv = getattr(torch.backends.cudnn, "conv", None)
+    if conv is None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    torch.backends.fp32_precision = "ieee"
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.fp32_precision = "ieee"
+    conv.fp32_precision = "ieee"
+    return {"generic": torch.backends.fp32_precision,
+            "cuda_matmul": torch.backends.cuda.matmul.fp32_precision,
+            "cudnn": torch.backends.cudnn.fp32_precision,
+            "cudnn_conv": conv.fp32_precision}
+
+
+def check_shard_mode(mode: str) -> None:
+    if mode not in SHARD_MODES:
+        raise ValueError(f"unknown ensemble_shard_mode {mode!r} "
+                         f"(expected one of {SHARD_MODES})")
 
 
 def check_kl_mode(mode: str) -> None:
@@ -146,6 +178,7 @@ class ExecPolicy:
     names (``loop``, not ``loop_mode``)."""
     backend: str = "cpu"
     loop: str = "python"
+    ensemble_shard: str = "none"
     distill_kl: str = "ref"
     kernel_vjp: str = "ref"
     client_loop: str = "grouped"
@@ -163,17 +196,9 @@ def resolve_exec_policy(scfg=None, *, device="cuda") -> ExecPolicy:
     any knob the config sets. ``scfg`` is a ``DenseExperimentConfig``, an
     ``ArchConfig`` (the model layers read its ``kernel_vjp_mode``, as the
     reference's ``arch_policy`` does) or None. An ``ExecPolicy`` is
-    returned unchanged.
-    A knob that asks for a path the port does not have raises
-    ``NotImplementedError``."""
+    returned unchanged."""
     if isinstance(scfg, ExecPolicy):
         return scfg
-    for knob, ported in _PORTED.items():
-        if getattr(scfg, knob, None) not in ported:
-            raise NotImplementedError(
-                f"{knob}={getattr(scfg, knob)!r} is not ported yet "
-                f"(ROADMAP.md, Queue 1 item {_QUEUE_ITEM[knob]}); the "
-                f"port runs {knob}={ported[-1]!r}")
     backend = resolve_device(device).type
     prof = _PROFILES[backend]
     def knob(name, default):
@@ -181,6 +206,7 @@ def resolve_exec_policy(scfg=None, *, device="cuda") -> ExecPolicy:
         return default if v is None else v
 
     loop = knob("loop_mode", prof["loop"])
+    shard = knob("ensemble_shard_mode", prof["ensemble_shard"])
     distill_kl = knob("distill_kl_mode", prof["distill_kl"])
     kernel_vjp = knob("kernel_vjp_mode", prof["kernel_vjp"])
     client_loop = knob("client_loop_mode", prof["client_loop"])
@@ -190,6 +216,7 @@ def resolve_exec_policy(scfg=None, *, device="cuda") -> ExecPolicy:
     fedavg_branch = knob("fedavg_branch", prof["fedavg_branch"])
     teacher_chunk = knob("teacher_chunk", prof["teacher_chunk"])
     check_loop_mode(loop)
+    check_shard_mode(shard)
     check_kl_mode(distill_kl)
     check_kernel_vjp_mode(kernel_vjp)
     check_client_loop_mode(client_loop)
@@ -198,8 +225,9 @@ def resolve_exec_policy(scfg=None, *, device="cuda") -> ExecPolicy:
     check_fedavg_mode(fedavg)
     check_fedavg_branch(fedavg_branch)
     check_chunk_size("teacher_chunk", teacher_chunk)
-    return ExecPolicy(backend=backend, loop=loop, distill_kl=distill_kl,
-                      kernel_vjp=kernel_vjp, client_loop=client_loop,
+    return ExecPolicy(backend=backend, loop=loop, ensemble_shard=shard,
+                      distill_kl=distill_kl, kernel_vjp=kernel_vjp,
+                      client_loop=client_loop,
                       page=prof["page"], bucketing=bucketing,
                       stack_chunk=int(stack_chunk), fedavg=fedavg,
                       fedavg_branch=int(fedavg_branch),

@@ -11,7 +11,12 @@ The frozen ensemble is held in the grouped representation, stacked once
 at setup (``core/ensemble.grouped_teacher``, in slices of the policy's
 ``stack_chunk``) and evaluated with ``grouped_ensemble_logits``, one
 network a client architecture, streamed in slices of ``teacher_chunk``
-clients when that is set, as the reference's server holds it. Both KL
+clients when that is set, as the reference's server holds it. With
+``ensemble_shard_mode="clients"`` the teacher runs on the client mesh
+(``fl.sharding.resolve_mesh``, ``repro/core/dense.py:104-127``): each
+rank holds its own clients of every group the axis divides, and the
+group sums are all-reduced over it (``core/ensemble.py``); on the card
+the fused driver captures those all-reduces in its graph. Both KL
 sites go through the mode the execution policy resolves
 (``configs/backend.py``): on a CUDA device the K1 kernel pair, with the
 teacher gradient on in the generator step (L_div) and off in the
@@ -104,7 +109,7 @@ def _finite(loss: torch.Tensor, grads) -> torch.Tensor:
 def make_dense_steps(clients: Sequence[Client], scfg, *, use_bn: bool = True,
                      use_div: bool = True, device="cuda",
                      teacher: Callable | None = None,
-                     nan_guard: bool = False):
+                     nan_guard: bool = False, mesh=None):
     """The two steps of an epoch, closed over the frozen ensemble:
     ``teacher(x, with_bn_stats=False)``, by default the grouped teacher
     (``grouped_teacher``, stacked here once, with the policy's
@@ -124,13 +129,18 @@ def make_dense_steps(clients: Sequence[Client], scfg, *, use_bn: bool = True,
     they are. ``use_bn`` / ``use_div=False`` are the paper's ablations
     (Table 6). ``nan_guard`` (``nan_policy="skip"``) guards each update
     on the device (``_finite``, ``optim``'s ``step_if``); without it the
-    steps launch what they launched before the guard existed.
+    steps launch what they launched before the guard existed. ``mesh``
+    (default: ``fl.sharding.resolve_mesh`` of the policy) shards the
+    teacher's client groups.
     """
     pol = resolve_exec_policy(scfg, device=device)
     kl_mode = pol.distill_kl
     if teacher is None:
+        if mesh is None:
+            from repro_torch.fl.sharding import resolve_mesh
+            mesh = resolve_mesh(pol, device=device)
         teacher = grouped_teacher(clients, chunk=pol.teacher_chunk,
-                                  stack_chunk=pol.stack_chunk)
+                                  stack_chunk=pol.stack_chunk, mesh=mesh)
 
     def gen_step(gen, g_opt, student, z, y):
         x = gen(z)
@@ -167,15 +177,15 @@ def make_dense_steps(clients: Sequence[Client], scfg, *, use_bn: bool = True,
 
 def make_distill_step(clients: Sequence[Client], scfg, *, device="cuda",
                       teacher: Callable | None = None,
-                      nan_guard: bool = False):
+                      nan_guard: bool = False, mesh=None):
     """The distillation step of Eq. (6), shared by DENSE's stage 2 and
     the one-shot baselines (``fl/baselines.py``).
 
     Returns ``step(student, s_opt, x) -> loss``: one SGD step of the
     student on KL(D(x) ‖ f_S(x)) over the images x, with its BN running
     statistics updated in place. The ensemble is ``teacher`` (by default
-    ``grouped_teacher`` with the policy's chunks, stacked here) and runs
-    without
+    ``grouped_teacher`` with the policy's chunks, stacked here, on
+    ``mesh`` or the policy's) and runs without
     autograd, its eval BN folded into its convs; the KL goes through the
     mode the execution policy resolves, without the teacher-side
     gradient (the kernel's dL/dt stream is skipped). With ``nan_guard``
@@ -186,8 +196,11 @@ def make_distill_step(clients: Sequence[Client], scfg, *, device="cuda",
     pol = resolve_exec_policy(scfg, device=device)
     kl_mode = pol.distill_kl
     if teacher is None:
+        if mesh is None:
+            from repro_torch.fl.sharding import resolve_mesh
+            mesh = resolve_mesh(pol, device=device)
         teacher = grouped_teacher(clients, chunk=pol.teacher_chunk,
-                                  stack_chunk=pol.stack_chunk)
+                                  stack_chunk=pol.stack_chunk, mesh=mesh)
 
     def step(student, s_opt, x):
         with torch.no_grad():

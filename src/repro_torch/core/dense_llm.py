@@ -21,8 +21,22 @@ The ensemble loops over the members of each group of identical configs
 and sums their logits in the reference's order (groups in order of first
 appearance, then the group sums). It does not stack them, as the
 reference's vmap does: two stacked full-size clients would double their
-memory. The pod-sharded ``make_pod_distill_step`` and ``chunked_kl``
-need a mesh and are not ported (ROADMAP.md).
+memory.
+
+The paper-scale distillation cell (``make_pod_distill_step``,
+``repro/core/dense_llm.py:189-303``) is DENSE's stage 2 against a
+homogeneous client stack: one config, the clients' tensors stacked on a
+leading ensemble dim (``pod_stack_specs`` names its sharding). The
+teacher's mean runs as a loop over that dim in client order, under no
+gradient (the hand-written kernels do not pass ``torch.func.vmap``); on
+a mesh with a ``pod`` axis each rank holds its pod's clients and the
+mean is a local sum, one all-reduce over ``pod`` and a divide. Two loss
+routes: the materialized (B·S, V) logits through ``LS.distill_loss``
+(the K1 pair on the card, dL/dt off), or ``chunked_kl``: hidden states
+and a readout fused with the plain KL over ``kl_chunk``-token chunks,
+each chunk recomputed in the backward, so no (B·S, V) tensor is ever
+held. The student trunk runs with the policy's ``kernel_vjp`` (K2 on
+the card) and remat.
 """
 from __future__ import annotations
 
@@ -181,3 +195,136 @@ def make_llm_dense_steps(student_cfg, client_cfgs: Sequence, *,
         return optim.adam(T.leaves(student_params), s_lr)
 
     return gen_step, student_step, make_g_opt, make_s_opt
+
+
+# ------------------------------------------------- the pod distillation cell
+
+def pod_stack_specs(param_specs_tree, mesh):
+    """The stacked client params' specs: the per-client Megatron specs
+    (``launch/shardings.param_specs``) with the leading client dim over
+    ``pod`` on a multi-pod mesh, replicated on one pod
+    (``fl.sharding.stack_specs``; the CNN path names the same axis
+    "clients")."""
+    from repro_torch.fl.sharding import stack_specs
+    from repro_torch.launch.mesh import axis_names
+
+    axis = "pod" if mesh is not None and "pod" in axis_names(mesh) else None
+    return stack_specs(param_specs_tree, axis)
+
+
+def make_pod_distill_step(cfg, mesh=None, *, n_clients: int,
+                          s_lr: float = 1e-4, chunked_kl: bool = False,
+                          kl_chunk: int = 64,
+                          distill_kl_mode: str | None = None,
+                          kernel_vjp_mode: str | None = None,
+                          policy=None, device=None):
+    """DENSE stage-2 distillation against a homogeneous client stack
+    (module doc). Returns ``distill_step(stu_state, stacked, embeds) ->
+    (stu_state, {"dis_loss"})``: ``stu_state`` is {"params", "opt",
+    "step"} (``distill_step.make_state(params)`` makes one with Adam at
+    ``s_lr``, as the reference's step owns its optimizer), ``stacked``
+    the clients' params tree with a leading dim of this rank's clients
+    (all ``n_clients`` on one pod), ``embeds`` (B, S, D). It takes one
+    Adam step of the student in place and returns the loss before it.
+
+    ``mesh``: None or a mesh; with a ``pod`` axis of size > 1 the
+    teacher's mean is all-reduced over it. ``distill_kl_mode`` routes the
+    materialized route's KL and ``kernel_vjp_mode`` the trunk (defaults:
+    the policy's, on ``device`` or the mesh's device type);
+    "autodiff" cannot train and is refused."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.launch.mesh import axis_size
+
+    if device is None:
+        device = getattr(mesh, "device_type", "cuda")
+    pol = resolve_exec_policy(policy, device=device)
+    kl_mode = pol.distill_kl if distill_kl_mode is None else distill_kl_mode
+    vjp_mode = pol.kernel_vjp if kernel_vjp_mode is None else kernel_vjp_mode
+    check_kl_mode(kl_mode)
+    check_kernel_vjp_mode(vjp_mode)
+    _reject_autodiff_mode(vjp_mode)
+    check_llm_dense_arch(cfg)
+    cfg = cfg.replace(kernel_vjp_mode=vjp_mode)
+    V = cfg.vocab_size
+    pods = axis_size(mesh, "pod") if mesh is not None else 1
+
+    def pod_mean(total):
+        """Σ over this rank's clients → the mean over all of them."""
+        if pods > 1:
+            import torch.distributed as dist
+            dist.all_reduce(total, group=mesh.get_group("pod"))
+        return total / n_clients
+
+    def client_outputs(stacked, embeds, hidden: bool):
+        """Each local client's logits (float32) or hidden states, in
+        client order, without autograd."""
+        n = next(iter(T.leaves(stacked))).shape[0]
+        with torch.no_grad():
+            for i in range(n):
+                out, _ = T.forward(T.layer(stacked, i), cfg, embeds=embeds,
+                                   remat=False, return_hidden=hidden)
+                yield out if hidden else out.float()
+
+    def loss_materialized(sp, stacked, embeds):
+        total = None
+        for lg in client_outputs(stacked, embeds, hidden=False):
+            total = lg if total is None else total + lg
+        avg = pod_mean(total)
+        stu, _ = T.forward(sp, cfg, embeds=embeds, remat=True)
+        # the teacher is constant: skip the kernel's dL/dt stream
+        return LS.distill_loss(avg.reshape(-1, V),
+                               stu.float().reshape(-1, V), mode=kl_mode,
+                               with_teacher_grad=False)
+
+    def chunk_kl(sh_c, s_tbl, t_tbl, *th_c):
+        """Σ over a chunk's tokens of KL(teacher mean ‖ student), the
+        readouts through the embedding tables: the teachers' in float32,
+        the student's in its dtype, as the reference computes them."""
+        with torch.no_grad():
+            t_lg = None
+            for i, h in enumerate(th_c):
+                lg = h.float() @ t_tbl[i].float().T
+                t_lg = lg if t_lg is None else t_lg + lg
+            t_lg = pod_mean(t_lg)
+        s_lg = sh_c @ s_tbl.to(sh_c.dtype).T
+        return torch.sum(LS.softmax_kl(t_lg.reshape(-1, V),
+                                       s_lg.float().reshape(-1, V)))
+
+    def loss_chunked(sp, stacked, embeds):
+        th = list(client_outputs(stacked, embeds, hidden=True))
+        sh, _ = T.forward(sp, cfg, embeds=embeds, remat=True,
+                          return_hidden=True)
+        B, S, _ = sh.shape
+        if S % kl_chunk:
+            raise ValueError(f"chunked_kl needs kl_chunk ({kl_chunk}) to "
+                             f"divide the sequence ({S})")
+        t_tbl = stacked["embed"]["table"]
+        s_tbl = sp["embed"]["table"]
+        tot = None
+        for c0 in range(0, S, kl_chunk):
+            sl = slice(c0, c0 + kl_chunk)
+            kl = checkpoint(chunk_kl, sh[:, sl], s_tbl, t_tbl,
+                            *(h[:, sl] for h in th), use_reentrant=False,
+                            preserve_rng_state=False)
+            tot = kl if tot is None else tot + kl
+        return tot / (B * S)
+
+    loss_impl = loss_chunked if chunked_kl else loss_materialized
+
+    def distill_step(stu_state, stacked, embeds):
+        opt = stu_state["opt"]
+        loss = loss_impl(stu_state["params"], _frozen(stacked), embeds)
+        opt.step(torch.autograd.grad(loss, opt.params))
+        stu_state["step"] += 1
+        return stu_state, {"dis_loss": loss.detach()}
+
+    def make_state(params: dict) -> dict:
+        tensors = T.leaves(params)
+        for t in tensors:
+            t.requires_grad_(True)
+        return {"params": params, "opt": optim.adam(tensors, s_lr),
+                "step": 0}
+
+    distill_step.make_state = make_state
+    return distill_step

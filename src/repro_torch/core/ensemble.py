@@ -27,8 +27,18 @@ slices of ``chunk`` clients (``_chunked_stack_sum``), so the teacher
 never holds an (m, B, ...) activation block; with a gradient, each full
 slice is checkpointed (``torch.utils.checkpoint``) and re-run in the
 backward. ``grouped_teacher`` takes both from the execution policy
-(``stack_chunk``, ``teacher_chunk``). Not ported, and refused: the
-mesh-sharded group sum (ROADMAP.md, Queue 1 item 12).
+(``stack_chunk``, ``teacher_chunk``).
+
+On a ("clients", "data") mesh (``fl/sharding.py``, ``mesh=``) a stacked
+group the clients axis divides is summed sharded
+(``_group_sum_sharded``, ``repro/core/ensemble.py:272-306``): each rank
+runs the grouped forward on its own clients and the group's logit sum
+is one all-reduce over ``clients`` (one a slice with ``chunk``), through
+``fl.sharding.sum_over_clients``; the images enter through
+``fl.sharding.replicated_input``, so the generator's teacher gradient
+is the sum of the ranks' shares, all-reduced once. The per-client BN
+statistics stay on their rank: ``GroupedStats`` marks such a part and
+``losses.bn_loss`` sums its terms on the rank, then over the axis.
 """
 from __future__ import annotations
 
@@ -168,27 +178,35 @@ class GroupedStats(SequenceABC):
     entry k is client k's list of one dict a BN layer ({"mean", "var",
     "running_mean", "running_var"}), as ``ensemble_logits`` gives them.
     They are held as each group's (or chunk's) stacked statistics,
-    ``parts``: (n, a list of one dict a BN layer of (n, C) tensors) for
-    n clients; a singleton's (C,) dicts count as n = 1 unstacked. So
-    ``losses.bn_loss`` sums over the clients a layer at a time, and
-    indexing makes a client's views on demand."""
+    ``parts``: (n, a list of one dict a BN layer of (n, C) tensors,
+    stacked, mesh) for n clients; a singleton's (C,) dicts count as
+    n = 1 unstacked. A part of a group sharded over a mesh's clients
+    axis carries that mesh and holds this rank's n / axis clients of it.
+    So ``losses.bn_loss`` sums over the clients a layer at a time, and
+    indexing makes a client's views on demand (not of a part sharded
+    over more than one rank: those live on their ranks)."""
 
     def __init__(self):
-        self.parts: list = []          # (n, stats, stacked)
+        self.parts: list = []          # (n, stats, stacked, mesh)
 
-    def add(self, n: int, stats, stacked: bool = True) -> None:
-        self.parts.append((n, stats, stacked))
+    def add(self, n: int, stats, stacked: bool = True, mesh=None) -> None:
+        self.parts.append((n, stats, stacked, mesh))
 
     def __len__(self) -> int:
-        return sum(n for n, _, _ in self.parts)
+        return sum(n for n, _, _, _ in self.parts)
 
     def __getitem__(self, k: int):
+        from repro_torch.fl.sharding import client_axis_size
+
         if not isinstance(k, int):
             raise TypeError("GroupedStats takes an int index")
         if k < 0:
             k += len(self)
-        for n, stats, stacked in self.parts:
+        for n, stats, stacked, mesh in self.parts:
             if k < n:
+                if client_axis_size(mesh) > 1:
+                    raise IndexError(f"client {k}'s statistics are "
+                                     "sharded over the clients axis")
                 return [{key: v[k] for key, v in layer.items()}
                         for layer in stats] if stacked else stats
             k -= n
@@ -203,7 +221,8 @@ def _stack_forward(params, spec, x, size, with_stats):
     return lgs.float(), stats
 
 
-def _chunked_stack_sum(params, spec, x, size, chunk, with_stats):
+def _chunked_stack_sum(params, spec, x, size, chunk, with_stats,
+                       reduce=None):
     """One stacked group's logit sum, streamed in slices of ``chunk``
     clients (``repro/core/ensemble.py:227-270``): each slice's
     (chunk, B, K) logits are summed into a float32 (B, K) accumulator in
@@ -211,7 +230,9 @@ def _chunked_stack_sum(params, spec, x, size, chunk, with_stats):
     runs checkpointed (``torch.utils.checkpoint``, non-reentrant, no RNG
     state: the forward draws none), so the backward re-runs it instead
     of keeping its activations, as the reference's ``jax.checkpoint``
-    does. Returns (sum (B, K), [(n, stacked stats) a slice])."""
+    does. ``reduce`` (the sharded path's sum over the clients axis) is
+    applied to every slice's partial sum before it is accumulated.
+    Returns (sum (B, K), [(n, stacked stats) a slice])."""
     acc = torch.zeros((x.shape[0], spec.num_classes), dtype=torch.float32,
                       device=x.device)
     parts: list = []
@@ -225,9 +246,28 @@ def _chunked_stack_sum(params, spec, x, size, chunk, with_stats):
                                  preserve_rng_state=False)
         else:
             lgs, st = _stack_forward(sub, spec, x, n, with_stats)
-        acc = acc + lgs.sum(dim=0)
+        part = lgs.sum(dim=0)
+        acc = acc + (part if reduce is None else reduce(part))
         parts.append((n, st))
     return acc, parts
+
+
+def _group_sum_sharded(params, spec, x, size, mesh, with_stats, chunk=None):
+    """A stacked group's logit sum with its clients sharded over the
+    mesh's ``clients`` axis (``repro/core/ensemble.py:272-306``):
+    ``params`` holds this rank's size // axis clients, which run the
+    grouped forward on the (``replicated_input``) images; their partial
+    sum is all-reduced once, or once a slice with ``chunk``. Returns
+    (sum (B, K) float32, replicated; [(n, stacked stats)] of this rank's
+    clients)."""
+    from repro_torch.fl.sharding import client_axis_size, sum_over_clients
+
+    loc = size // client_axis_size(mesh)
+    if chunk and 0 < chunk < loc:
+        return _chunked_stack_sum(params, spec, x, loc, chunk, with_stats,
+                                  reduce=lambda v: sum_over_clients(v, mesh))
+    lgs, stats = _stack_forward(params, spec, x, loc, with_stats)
+    return sum_over_clients(lgs.sum(dim=0), mesh), [(loc, stats)]
 
 
 def grouped_ensemble_logits(gspecs, gparams, x: torch.Tensor, *,
@@ -240,14 +280,32 @@ def grouped_ensemble_logits(gspecs, gparams, x: torch.Tensor, *,
     the per-client stats in group order, a ``GroupedStats``. ``chunk`` > 0
     streams each group larger than it through slices of that many
     clients (``_chunked_stack_sum``); the stats stay per client, in
-    group order."""
-    if mesh is not None:
-        raise NotImplementedError("the mesh-sharded teacher is not ported "
-                                  "yet (ROADMAP.md, Queue 1 item 12)")
+    group order.
+
+    ``mesh``: a ("clients", "data") mesh (``fl/sharding.py``). Each
+    stacked group whose size the clients axis divides is summed sharded
+    (``_group_sum_sharded``) over this rank's rows of its stack
+    (``fl.sharding.put_stacked``, as the reference's ``shard_map`` sees
+    its shard). Other groups and singletons run as without a mesh, on
+    every rank."""
+    from repro_torch.fl.sharding import (client_axis_size, group_shardable,
+                                         put_stacked, replicated_input)
+
     m = sum(size for _, size in gspecs)
     logits_sum, all_stats = None, GroupedStats()
+    x_sh = None
     for (spec, size), params in zip(gspecs, gparams):
-        if size == 1:
+        if group_shardable(mesh, size):
+            if x_sh is None:        # one gradient all-reduce for them all
+                x_sh = replicated_input(x, mesh)
+            group_sum, parts = _group_sum_sharded(
+                put_stacked(params, mesh, size), spec, x_sh, size, mesh,
+                with_bn_stats, chunk)
+            if with_bn_stats:
+                for n, stats in parts:
+                    all_stats.add(n * client_axis_size(mesh), stats,
+                                  mesh=mesh)
+        elif size == 1:
             lg, stats = cnn_apply(params, x, train=False,
                                   with_stats=with_bn_stats)
             group_sum = lg.float()
@@ -272,18 +330,19 @@ def grouped_ensemble_logits(gspecs, gparams, x: torch.Tensor, *,
 
 
 def grouped_teacher(clients: Sequence[Client], *, chunk: int = 0,
-                    stack_chunk: int = 0):
+                    stack_chunk: int = 0, mesh=None):
     """The frozen ensemble of a server run: stacked once, here
     (``stack_grouped(chunk=stack_chunk)``). Returns
     ``teacher(x, with_bn_stats=False)``, ``grouped_ensemble_logits``
     over it, streamed in slices of ``chunk`` clients when ``chunk`` > 0
     (the policy's ``teacher_chunk``, as the reference's
-    ``make_dense_steps`` reads it)."""
+    ``make_dense_steps`` reads it), on ``mesh`` when given (each rank
+    runs its own clients of every group the clients axis divides)."""
     gspecs, gparams = stack_grouped(clients, chunk=stack_chunk)
 
     def teacher(x, *, with_bn_stats: bool = False):
         return grouped_ensemble_logits(gspecs, gparams, x,
                                        with_bn_stats=with_bn_stats,
-                                       chunk=chunk)
+                                       mesh=mesh, chunk=chunk)
 
     return teacher

@@ -52,12 +52,18 @@ def bn_loss(per_client_stats) -> torch.Tensor:
     (``ensemble.GroupedStats``) are summed a stacked group (or chunk)
     at a time: its clients' terms for all layers at once, then their
     sum; the same value to float32 summation order, with a few kernels
-    a group instead of a few a client."""
+    a group instead of a few a client. A part sharded over a mesh's
+    clients axis holds this rank's clients: their terms are summed here,
+    then over the axis (``fl.sharding.sum_over_clients``: its gradient
+    stays this rank's share, which the teacher's ``replicated_input``
+    sums)."""
+    from repro_torch.fl.sharding import sum_over_clients
+
     parts = getattr(per_client_stats, "parts", None)
     if parts is None:
-        parts = [(1, stats, False) for stats in per_client_stats]
+        parts = [(1, stats, False, None) for stats in per_client_stats]
     total = None
-    for _, stats, stacked in parts:
+    for _, stats, stacked, mesh in parts:
         if stacked:
             term = None
             for s in stats:
@@ -67,7 +73,10 @@ def bn_loss(per_client_stats) -> torch.Tensor:
                                                dim=-1)
                 term = t if term is None else term + t
             if term is not None:
-                total = term.sum() if total is None else total + term.sum()
+                term = term.sum()
+                if mesh is not None:
+                    term = sum_over_clients(term, mesh)
+                total = term if total is None else total + term
             continue
         for s in stats:                       # one dict per BN layer
             term = torch.linalg.vector_norm(s["mean"] - s["running_mean"]) \

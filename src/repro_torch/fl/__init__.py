@@ -15,8 +15,11 @@ from repro_torch.fl.protocol import (CommLedger, QuorumError, UploadError,
                                      direction_outliers, norm_outliers,
                                      param_bytes, upload_boundary,
                                      validate_upload)
+from repro_torch.fl.sharding import (CLIENT_AXIS, group_shardable,
+                                     put_grouped, put_stacked, resolve_mesh,
+                                     stack_specs)
 
-__all__ = ["FAULT_KINDS", "Fault", "QuorumError", "UploadError",
+__all__ = ["CLIENT_AXIS", "FAULT_KINDS", "Fault", "QuorumError", "UploadError",
            "admit_uploads", "apply_upload_faults", "build_fault_plan",
            "corrupt_params", "direction_outliers", "norm_outliers",
            "validate_upload", "ClientList", "CommLedger", "build_federation",
@@ -25,5 +28,6 @@ __all__ = ["FAULT_KINDS", "Fault", "QuorumError", "UploadError",
            "group_specs", "local_update", "local_update_bucketed",
            "local_update_grouped",
            "make_distill_step", "make_grouped_local_update",
-           "make_local_step", "param_bytes", "train_clients_grouped",
-           "upload_boundary"]
+           "make_local_step", "param_bytes", "put_grouped", "put_stacked",
+           "resolve_mesh", "stack_specs", "train_clients_grouped",
+           "group_shardable", "upload_boundary"]

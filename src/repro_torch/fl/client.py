@@ -18,6 +18,14 @@ the shard's class counts. Two engines:
     (``data.pipeline.bucket_members``) and each bin trained in slices of
     ``stack_chunk`` clients, so padding steps and the stacked state of
     one call stay small; the trained stack comes back in member order.
+
+On a ("clients", "data") mesh (``fl/sharding.py``, ``mesh=`` or the
+policy's ``ensemble_shard``) a group the clients axis divides trains
+sharded (``repro/fl/client.py:200-245``): each rank trains its own rows
+of the stack, the momentum, the padded shards, the plan and the
+margins, with no per-client math crossing ranks, and the trained rows
+are all-gathered back into the stack in client order, so the upload,
+the ledger and admission see the whole federation as before.
 """
 from __future__ import annotations
 
@@ -141,7 +149,8 @@ def local_update_grouped(stacked: dict, spec: CNNSpec, xs, ys,
                          plan: BatchPlan, *, lr: float = 0.01,
                          momentum: float = 0.9, use_ldam: bool = False,
                          num_classes: int = 10,
-                         class_counts: np.ndarray | None = None):
+                         class_counts: np.ndarray | None = None,
+                         mesh=None, policy=None):
     """Train a stacked group of m same-spec clients in place, on the
     stack's device (``repro/fl/client.py:184-242``).
 
@@ -150,7 +159,17 @@ def local_update_grouped(stacked: dict, spec: CNNSpec, xs, ys,
     class_counts (m, num_classes): the real shards' label counts (read
     off the plan's first epoch when None); LDAM takes its margins from
     them. Returns (stacked, info) with info["loss"] a (steps, m) tensor
-    on the device, 0 on a client's padding steps."""
+    on the device, 0 on a client's padding steps.
+
+    ``mesh`` (default: ``fl.sharding.resolve_mesh(policy)`` when a
+    policy is given): when its clients axis divides m, this rank trains
+    its own rows and the stack and the losses are all-gathered back
+    (module doc)."""
+    from repro_torch.fl.sharding import (client_rows, gather_rows,
+                                         group_shardable, resolve_mesh)
+
+    if mesh is None and policy is not None:
+        mesh = resolve_mesh(policy)
     dev = next(iter(stacked.values())).device
     m = plan.idx.shape[0]
     if class_counts is None:
@@ -158,6 +177,23 @@ def local_update_grouped(stacked: dict, spec: CNNSpec, xs, ys,
         class_counts = np.stack(
             [np.bincount(np.asarray(ys[k][:int(sizes[k])]),
                          minlength=num_classes) for k in range(m)])
+    if group_shardable(mesh, m):
+        lo, hi = client_rows(mesh, m)
+        local = {k: v[lo:hi].detach().clone() for k, v in stacked.items()}
+        rows = BatchPlan(idx=plan.idx[lo:hi], mask=plan.mask[lo:hi],
+                         steps_per_epoch=plan.steps_per_epoch,
+                         epochs=plan.epochs, batch_size=plan.batch_size)
+        _, info = local_update_grouped(
+            local, spec, np.asarray(xs)[lo:hi], np.asarray(ys)[lo:hi], rows,
+            lr=lr, momentum=momentum, use_ldam=use_ldam,
+            num_classes=num_classes,
+            class_counts=np.asarray(class_counts)[lo:hi])
+        with torch.no_grad():
+            for k, v in stacked.items():
+                v.copy_(gather_rows(local[k], mesh))
+                v.requires_grad_(local[k].requires_grad)
+        loss = gather_rows(info["loss"].T, mesh).T
+        return stacked, {"loss": loss, "class_counts": class_counts}
     margins = torch.stack([optim.class_margins(c) for c in class_counts]
                           ).to(dev) if use_ldam else None
     step, _ = make_grouped_local_update(spec, stacked, lr=lr,
@@ -186,7 +222,8 @@ def local_update_bucketed(init_model, spec: CNNSpec, shards, *,
                           lr: float = 0.01, momentum: float = 0.9,
                           use_ldam: bool = False, num_classes: int = 10,
                           class_counts: np.ndarray | None = None,
-                          bucketing: str = "off", chunk: int = 0) -> dict:
+                          bucketing: str = "off", chunk: int = 0,
+                          mesh=None) -> dict:
     """Bucketed and chunked LocalUpdate of one architecture group
     (``repro/fl/client.py:245-311``): returns the trained stack, new
     tensors, in member order.
@@ -203,7 +240,9 @@ def local_update_bucketed(init_model, spec: CNNSpec, shards, *,
     depends on its bin or slice, and its padding steps change nothing,
     so each client trains as on the single-plan engine, to the float
     tolerance of another batch of stacked convolutions. With
-    ``bucketing="off"`` and no chunk it is that engine, one call."""
+    ``bucketing="off"`` and no chunk it is that engine, one call. Each
+    slice the ``mesh``'s clients axis divides trains sharded
+    (``local_update_grouped``)."""
     sizes = [len(y) for _, y in shards]
     pieces, order = [], []
     for members in bucket_members(sizes, batch_size, bucketing):
@@ -222,7 +261,8 @@ def local_update_bucketed(init_model, spec: CNNSpec, shards, *,
                 np.asarray(class_counts)[list(mem)]
             local_update_grouped(stacked, spec, xs, ys, plan, lr=lr,
                                  momentum=momentum, use_ldam=use_ldam,
-                                 num_classes=num_classes, class_counts=cc)
+                                 num_classes=num_classes, class_counts=cc,
+                                 mesh=mesh)
             pieces.append(stacked)
             order.extend(mem)
     stacked = pieces[0] if len(pieces) == 1 else cat_stacked(pieces)

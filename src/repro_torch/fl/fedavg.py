@@ -11,8 +11,12 @@ uploads; the root equals the flat sum to float32 summation order.
 ``fedavg`` reduces a grouped federation's stack
 (``fl/federation.ClientList``) directly and stacks the clients' models
 once otherwise; either way it averages the survivors of upload
-admission only (``survivor_mask``). The mesh-sharded tree is not ported
-(ROADMAP.md, Queue 1 item 12).
+admission only (``survivor_mask``). On a ("clients", "data") mesh
+(``mesh=``, ``fl/sharding.py``) whose clients axis divides the
+(surviving) clients, the tree is sharded (``_tree_reduce_sharded``,
+``repro/fl/fedavg.py:100-125``): each rank tree-reduces its own clients
+to one node and the mesh is the top level of the tree, a weighted sum
+pair all-reduced over the axis.
 """
 from __future__ import annotations
 
@@ -64,16 +68,42 @@ def _tree_reduce(leaf: torch.Tensor, w: torch.Tensor, branch: int):
     return v[0].to(leaf.dtype)
 
 
+def _tree_reduce_sharded(leaf: torch.Tensor, w: torch.Tensor, branch: int,
+                         mesh):
+    """The tree over a client-sharded (m, ...) leaf: this rank's rows
+    reduce to one (value, weight) node, then Σ v·w and Σ w are
+    all-reduced over the clients axis and divided."""
+    import torch.distributed as dist
+
+    from repro_torch.fl.sharding import client_rows, put_stacked
+
+    lo, hi = client_rows(mesh, leaf.shape[0])
+    v, ww = put_stacked(leaf, mesh, leaf.shape[0]).float(), w[lo:hi]
+    while v.shape[0] > 1:
+        v, ww = _tree_level(v, ww, branch)
+    num, den = (v[0] * ww[0]).contiguous(), ww[0].clone()
+    group = mesh.get_group("clients")
+    dist.all_reduce(num, group=group)
+    dist.all_reduce(den, group=group)
+    return (num / den).to(leaf.dtype)
+
+
 @torch.no_grad()
 def fedavg_stacked(stacked: dict, n_data, survivor_mask=None, *,
-                   mode: str = "flat", branch: int = 8) -> dict:
+                   mode: str = "flat", branch: int = 8,
+                   mesh=None) -> dict:
     """FedAvg over a stacked group (``repro/fl/fedavg.py:126-168``): new
     tensors, Σ_k w_k θ^k in float32 with w_k = n_k / n, no client axis;
     ``mode="tree"`` reduces it in fan-in ``branch`` levels (module doc).
 
     ``survivor_mask`` (a host bool array over the clients) leaves the
     masked-out clients out of the sum and of the weights' normalization
-    (their n_data need not be positive)."""
+    (their n_data need not be positive). ``mode="tree"`` with a
+    ``mesh`` whose clients axis divides the (surviving) clients reduces
+    sharded (``_tree_reduce_sharded``); every rank holds the whole stack
+    and gets the whole average."""
+    from repro_torch.fl.sharding import group_shardable
+
     if mode not in ("flat", "tree"):
         raise ValueError(f"unknown fedavg mode {mode!r} "
                          "(expected 'flat' or 'tree')")
@@ -89,13 +119,16 @@ def fedavg_stacked(stacked: dict, n_data, survivor_mask=None, *,
         rows = np.nonzero(mask)[0]
         n_data = n_all[rows]
     n = _check_n_data(n_data)
+    sharded = mode == "tree" and group_shardable(mesh, len(n))
     out = {}
     for name, leaf in stacked.items():
         if rows is not None:
             leaf = leaf[torch.as_tensor(rows, device=leaf.device)]
         w = torch.tensor(n / n.sum(), dtype=torch.float32,
                          device=leaf.device)
-        if mode == "tree":
+        if sharded:
+            out[name] = _tree_reduce_sharded(leaf, w, int(branch), mesh)
+        elif mode == "tree":
             out[name] = _tree_reduce(leaf, w, int(branch))
         else:
             w = w.view((-1,) + (1,) * (leaf.dim() - 1))
@@ -103,7 +136,7 @@ def fedavg_stacked(stacked: dict, n_data, survivor_mask=None, *,
     return out
 
 
-def fedavg(clients: Sequence[Client], *, policy=None) -> CNN:
+def fedavg(clients: Sequence[Client], *, policy=None, mesh=None) -> CNN:
     """A new model holding the n_data-weighted average of the clients'
     parameters and BN running statistics, on the clients' device
     (``repro/fl/fedavg.py:171-205``). ``policy`` (an ``ExecPolicy``)
@@ -113,7 +146,8 @@ def fedavg(clients: Sequence[Client], *, policy=None) -> CNN:
     A federation that went through upload admission carries
     ``survivor_mask``: its quarantined clients are left out, and the
     result is the average of a federation built without them. Zero
-    survivors raise ``ValueError``."""
+    survivors raise ``ValueError``. ``mesh`` shards the tree
+    (``fedavg_stacked``)."""
     mode = policy.fedavg if policy is not None else "flat"
     branch = policy.fedavg_branch if policy is not None else 8
     kinds = {c.spec for c in clients}
@@ -127,7 +161,7 @@ def fedavg(clients: Sequence[Client], *, policy=None) -> CNN:
             and grouped[0][0][1] == len(clients) and len(clients) > 1:
         # the engine's own stack
         avg = fedavg_stacked(grouped[1][0], n_data, survivor_mask=mask,
-                             mode=mode, branch=branch)
+                             mode=mode, branch=branch, mesh=mesh)
         return cnn_view(clients[0].spec, avg)
     if mask is not None:
         mask = np.asarray(mask, bool)
@@ -137,5 +171,5 @@ def fedavg(clients: Sequence[Client], *, policy=None) -> CNN:
         n_data = [c.n_data for c in clients]
     _check_n_data(n_data)
     avg = fedavg_stacked(stack_models([c.model for c in clients]), n_data,
-                         mode=mode, branch=branch)
+                         mode=mode, branch=branch, mesh=mesh)
     return cnn_view(clients[0].spec, avg)

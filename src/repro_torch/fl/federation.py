@@ -17,8 +17,11 @@ the engine here: ``bucketing`` bins each group by batches an epoch and
 ``stack_chunk`` trains each bin in slices of that many clients
 (``fl/client.local_update_bucketed``); the stack comes back in member
 order either way. With both off (every profile's default) it is the
-single-plan engine, one call a group. The client mesh is not ported
-(ROADMAP.md, Queue 1 item 12).
+single-plan engine, one call a group. With ``ensemble_shard_mode=
+"clients"`` each group the client mesh's axis divides trains sharded
+over it (``fl/sharding.py``, ``fl/client.local_update_grouped``;
+``repro/fl/federation.py:168-180``): the same seeds and the same math,
+the stack gathered back whole on every rank.
 """
 from __future__ import annotations
 
@@ -72,7 +75,7 @@ def train_clients_grouped(specs: Sequence[CNNSpec], shards: Sequence[tuple],
                           n_data: Sequence[int] | None = None,
                           ledger=None,
                           upload_tag: str = "round0-model-upload",
-                          policy=None) -> ClientList:
+                          policy=None, mesh=None) -> ClientList:
     """The grouped LocalUpdate phase of any federation
     (``repro/fl/federation.py:75-153``).
 
@@ -80,6 +83,8 @@ def train_clients_grouped(specs: Sequence[CNNSpec], shards: Sequence[tuple],
     copied into its group's stack, never trained in place) are per
     client, in federation order. ``policy`` (an ``ExecPolicy``) routes
     ``bucketing`` and ``stack_chunk`` (module doc); None is both off.
+    ``mesh``: a ("clients", "data") mesh; each group its clients axis
+    divides trains sharded (``fl/client.local_update_grouped``).
     Records one upload a client, of its own model's bytes, in
     ``ledger``."""
     from repro_torch.fl.protocol import param_bytes  # protocol routes here
@@ -100,7 +105,7 @@ def train_clients_grouped(specs: Sequence[CNNSpec], shards: Sequence[tuple],
             batch_size=batch_size, epochs=epochs,
             seeds=[seeds[i] for i in idx], lr=lr, momentum=momentum,
             use_ldam=use_ldam, num_classes=num_classes, class_counts=counts,
-            bucketing=bucketing, chunk=stack_chunk)
+            bucketing=bucketing, chunk=stack_chunk, mesh=mesh)
         views = client_views(spec, stacked)
         gspecs.append((spec, len(idx)))
         gparams.append(views[0] if len(idx) == 1 else stacked)
@@ -126,10 +131,12 @@ def build_grouped_federation(scfg, data, *, device="cuda",
     ``generator`` (a CPU ``torch.Generator``, seeded ``seed`` when None)
     in client order, and its minibatch stream is seeded ``seed + i``:
     both as the per-client engine draws them, so the two engines agree
-    to float tolerance."""
+    to float tolerance. ``scfg.ensemble_shard_mode="clients"`` trains
+    each divisible group sharded over the client mesh."""
     from repro_torch.fl.protocol import init_model
+    from repro_torch.fl.sharding import resolve_mesh
     dev = resolve_device(device)
-    pol = resolve_exec_policy(scfg, device=dev)   # refuses unported knobs
+    pol = resolve_exec_policy(scfg, device=dev)
     if generator is None:
         generator = torch.Generator().manual_seed(seed)
     x, y = data["train"]
@@ -144,7 +151,7 @@ def build_grouped_federation(scfg, data, *, device="cuda",
         momentum=scfg.local_momentum, batch_size=scfg.batch_size,
         use_ldam=scfg.use_ldam, num_classes=scfg.num_classes,
         seeds=[seed + i for i in range(scfg.n_clients)], init_models=inits,
-        ledger=ledger, policy=pol)
+        ledger=ledger, policy=pol, mesh=resolve_mesh(pol, device=dev))
     return clients, shards
 
 

@@ -26,6 +26,10 @@ masked out of that round's ensemble, and the broadcast still reaches
 every client. The boundary is ``fl.protocol.upload_boundary``, the one
 ``build_federation`` crosses; round r's corruption is seeded
 ``fl.faults.fault_seed`` (the reference's ``fault_seed · 7919 + r``).
+
+With ``ensemble_shard_mode="clients"`` every round's grouped local phase
+and server teacher run on the client mesh (``fl.sharding.resolve_mesh``,
+``repro/fl/multiround.py:43-46``).
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from repro_torch.fl.faults import build_fault_plan
 from repro_torch.fl.federation import train_clients_grouped
 from repro_torch.fl.protocol import (CommLedger, init_model, param_bytes,
                                      upload_boundary)
+from repro_torch.fl.sharding import resolve_mesh
 from repro_torch.models.cnn import CNN, CNNSpec, cnn_init
 
 
@@ -69,7 +74,8 @@ def dense_multi_round(scfg, data, *, rounds: int,
     ``corrupt`` is passed on to ``fl.protocol.upload_boundary``.
     """
     dev = resolve_device(device)
-    pol = resolve_exec_policy(scfg, device=dev)  # refuses unported engines
+    pol = resolve_exec_policy(scfg, device=dev)
+    mesh = resolve_mesh(pol, device=dev)
     x, y = data["train"]
     parts = dirichlet_partition(y, scfg.n_clients, scfg.alpha, seed=seed)
     spec = CNNSpec(kind=scfg.global_kind, num_classes=scfg.num_classes,
@@ -98,7 +104,8 @@ def dense_multi_round(scfg, data, *, rounds: int,
                 lr=scfg.local_lr, momentum=scfg.local_momentum,
                 batch_size=scfg.batch_size, use_ldam=False,
                 num_classes=scfg.num_classes, seeds=seeds,
-                init_models=inits, ledger=train_ledger, upload_tag=tag)
+                init_models=inits, ledger=train_ledger, upload_tag=tag,
+                mesh=mesh)
         else:
             clients = []
             for i, (xi, yi) in enumerate(shards):

@@ -382,7 +382,7 @@ def build_federation(scfg, data, *, device="cuda",
     (arrived, delayed). Without faults nothing changes.
     """
     dev = resolve_device(device)
-    pol = resolve_exec_policy(scfg, device=dev)  # refuses unported engines
+    pol = resolve_exec_policy(scfg, device=dev)
     plan = build_fault_plan(scfg, round=round)
     faulty = bool(plan) or bool(pending)
     train_ledger = None if faulty else ledger

@@ -41,7 +41,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.backend import resolve_device
+from repro_torch.configs.backend import full_float32, resolve_device
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.core import dense_llm as DL
 from repro_torch.core.generator import tok_generator_init
@@ -174,8 +174,10 @@ def dense_llm_oneshot(oc: LLMOneShotConfig = LLMOneShotConfig(), *,
                       log: Callable | None = print) -> LLMOneShotResult:
     """One round. ``client_params[i]`` (trained in place) and
     ``student_params``/``gen`` (trained in place) replace the random
-    initial weights when given."""
+    initial weights when given. Float32 runs without TF32
+    (``configs.backend.full_float32``)."""
     dev = resolve_device(device)
+    full_float32()
     ledger = CommLedger()
     cfgs = [oc.arch_config(a) for a in oc.client_archs]
     params, losses, seconds = [], [], {}

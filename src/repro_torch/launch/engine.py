@@ -38,7 +38,8 @@ request and the token index — how the reference's
 ``fold_in(fold_in(k, rid), token_index)``. The default noise comes from a
 ``torch.Generator`` seeded from ``(seed, rid, token_index)``; the tests
 inject the reference's draws. Steps run under ``torch.inference_mode()``.
-Model parallelism (the reference's ``mesh``) is not ported.
+Model parallelism (the reference's ``mesh``) is not ported (ROADMAP.md,
+Queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -101,8 +102,8 @@ class ServeEngine:
                  noise=None):
         if mesh is not None:
             raise NotImplementedError(
-                "model parallelism (a mesh) is not ported yet; the engine "
-                "runs on one device")
+                "model parallelism (a mesh) is not ported yet (ROADMAP.md, "
+                "Queue 1 item 16); the engine runs on one device")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.policy = resolve_exec_policy(policy, device=self.device)

@@ -7,7 +7,8 @@ reference's example.
 
     PYTHONPATH=src python -m repro_torch.launch.hetero_oneshot [--device cpu]
 
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given, in float32 without
+TF32 (``parse_device`` calls ``configs.backend.full_float32``).
 """
 from __future__ import annotations
 

@@ -11,7 +11,8 @@ per-client loop).
 
     PYTHONPATH=src python -m repro_torch.launch.quickstart [--device cpu]
 
-Runs on the card unless ``--device cpu`` is given. The reference keys
+Runs on the card unless ``--device cpu`` is given, in float32 without
+TF32 (``configs.backend.full_float32``). The reference keys
 its server with ``PRNGKey(1)``; here the server's init and latent
 generators are seeded 1.
 """
@@ -23,6 +24,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs import resolve_device, smoke
+from repro_torch.configs.backend import full_float32
 from repro_torch.core import evaluate, train_dense_server
 from repro_torch.data import make_classification_data
 from repro_torch.fl import CommLedger, build_federation, fedavg
@@ -45,7 +47,9 @@ def parse_device(argv, doc: str) -> torch.device:
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu, the plain path")
-    return resolve_device(ap.parse_args(argv).device)
+    dev = resolve_device(ap.parse_args(argv).device)
+    full_float32()
+    return dev
 
 
 def main(argv=None):

@@ -26,6 +26,7 @@ import argparse
 
 import numpy as np
 
+from repro_torch.configs.backend import full_float32, resolve_device
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.launch.engine import ServeEngine
 
@@ -35,7 +36,10 @@ def serve(arch: str, *, batch: int, prompt_len: int, gen: int,
           temperature: float = 1.0, mode: str | None = None, device="cuda"):
     """``batch`` synthetic requests through a ServeEngine. Returns
     (tokens (batch, gen) int32, stats with prefill_s, decode_s and
-    tok_per_s)."""
+    tok_per_s). Float32 runs without TF32
+    (``configs.backend.full_float32``)."""
+    device = resolve_device(device)
+    full_float32()
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (batch, prompt_len), dtype=np.int32)

@@ -1,8 +1,9 @@
 """Step functions shared by the entry points (``repro/launch/steps.py``): the
 LM train state and step (``:17-49``), used by ``launch/train.py`` and
-the LLM DENSE clients, and the prefill and decode steps against a dense
-cache (``:69,84``), the serving engine's dense mode and the sequential
-oracle its paged mode is held to."""
+the LLM DENSE clients, the pod distillation step (``:52-66``), and the
+prefill and decode steps against a dense cache (``:69,84``), the serving
+engine's dense mode and the sequential oracle its paged mode is held
+to."""
 from __future__ import annotations
 
 import torch
@@ -45,6 +46,17 @@ def make_train_step(cfg, *, clip: float = 1.0):
                        "grad_norm": gnorm}
 
     return train_step
+
+
+def make_distill_step(cfg, mesh=None, *, n_clients: int, **kw):
+    """The LLM student step against a homogeneous client stack: DENSE's
+    stage 2 at paper scale, ``core/dense_llm.make_pod_distill_step``,
+    routed through this module as the reference routes every step.
+    Keywords (``s_lr``, ``chunked_kl``, ``kl_chunk``,
+    ``distill_kl_mode``, ``kernel_vjp_mode``, ``policy``, ``device``)
+    are passed on as they are; unpinned modes take the policy's."""
+    from repro_torch.core import dense_llm as DL
+    return DL.make_pod_distill_step(cfg, mesh, n_clients=n_clients, **kw)
 
 
 def make_prefill_step(cfg):

@@ -24,8 +24,9 @@ Usage (full width unless ``--smoke``; the card unless ``--device cpu``):
 (``interop.lm_params_to_reference``, bfloat16 widened exactly to
 float32), so ``repro.checkpoint.restore_checkpoint`` reads it, and
 ``restore_checkpoint(PATH, state["params"])`` reads the reference's.
-Model parallelism (``--model-parallel`` > 1) is not ported and raises
-``NotImplementedError``.
+Float32 runs without TF32 (``configs.backend.full_float32``). Model
+parallelism (``--model-parallel`` > 1) is not ported and raises
+``NotImplementedError`` (ROADMAP.md, Queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ import torch
 
 from repro_torch import interop
 from repro_torch.checkpoint import save_checkpoint
-from repro_torch.configs.backend import resolve_device
+from repro_torch.configs.backend import full_float32, resolve_device
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.data import lm_batches, make_lm_data
 from repro_torch.launch import steps as ST
@@ -54,8 +55,9 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
     ``ckpt`` the parameters are saved there (module doc)."""
     if model_parallel != 1:
         raise NotImplementedError("model parallelism is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 12)")
+                                  "(ROADMAP.md, Queue 1 item 16)")
     dev = resolve_device(device)
+    full_float32()
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)

@@ -23,7 +23,8 @@ with the reference's capacity-bounded, sort-free dispatch
 
 It also returns the switch-style load-balance auxiliary ``E·Σ_e f_e·p_e``
 over the full router distribution. The expert-parallel ``mesh=`` path
-(``shard_map`` with a ``psum``) is not ported.
+(``shard_map`` with a ``psum``) is not ported (ROADMAP.md, Queue 1
+item 16).
 """
 from __future__ import annotations
 
@@ -101,7 +102,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, *, mesh=None):
     if mesh is not None:
         raise NotImplementedError(
             "the expert-parallel (mesh-sharded) MoE is not ported yet "
-            "(ROADMAP.md, Queue 1 item 12)")
+            "(ROADMAP.md, Queue 1 item 16)")
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
     y, aux = _moe_local(xf, p["router"]["w"], p["gate"], p["up"], p["down"],

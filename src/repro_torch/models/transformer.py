@@ -319,7 +319,7 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
             positions: torch.Tensor | None = None, cache: dict | None = None,
             cache_pos: int | None = None, vision: torch.Tensor | None = None,
             decode: bool = False, remat: bool | None = None,
-            with_aux: bool = False):
+            with_aux: bool = False, return_hidden: bool = False):
     """Run the trunk over ``tokens`` (B, S) or soft ``embeds`` (B, S, D),
     cast to ``cfg.dtype``. positions: (S,) absolute positions (default
     arange(S)). cache: from ``init_cache``; prefill fills it and decode
@@ -330,7 +330,11 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
     ``cfg.remat``) recomputes each block in the backward
     (``torch.utils.checkpoint``). Returns (logits (B, S, V), cache), and
     with ``with_aux`` a third item ``{"moe_aux"}``: the MoE layers'
-    load-balance terms summed (float32, 0 without MoE layers)."""
+    load-balance terms summed (float32, 0 without MoE layers).
+    ``return_hidden`` returns the final norm's output (B, S, D) in place
+    of the logits, for callers that fuse their own readout
+    (``core/dense_llm.make_pod_distill_step``'s ``chunked_kl``), as the
+    reference's ``forward(..., return_hidden=True)`` does."""
     _check_family(cfg)
     if cfg.family == "vlm" and vision is None:
         raise ValueError("a vlm needs the (stubbed) patch embeddings: "
@@ -367,10 +371,10 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
         else:
             x = y
     x = L.rmsnorm(params["final_norm"], x)
-    logits = L.unembed(params["embed"], x)
+    out = x if return_hidden else L.unembed(params["embed"], x)
     if with_aux:
-        return logits, cache, {"moe_aux": aux}
-    return logits, cache
+        return out, cache, {"moe_aux": aux}
+    return out, cache
 
 
 def forward_paged(params: dict, cfg, *, tokens: torch.Tensor,

@@ -1050,3 +1050,53 @@ def test_k1_launch_counts_under_replay(ieee_fp32):
     assert got == {"distill_kl_fwd": n, "distill_kl_bwd": n}
     assert hist.graph_replays == scfg.epochs - 1 and hist.host_reads == 2
     assert hist.capture_seconds > 0
+
+
+def test_quickstart_round_is_full_float32_bit_for_bit(cuda, tmp_path):
+    """``launch/quickstart.py``'s round, set up as the entry point sets it
+    up (``parse_device`` turns TF32 off), equals the same round under
+    ``chip_smoke.full_float32`` bit for bit, each in a fresh process
+    under deterministic algorithms (``tests/_tf32_round.py``): uploads,
+    FedAvg, student, generator and losses."""
+    import os
+    import subprocess
+    import sys
+
+    script = os.path.join(os.path.dirname(__file__), "_tf32_round.py")
+    got = {}
+    for mode in ("entry", "chip_smoke"):
+        out = tmp_path / f"{mode}.pt"
+        run = subprocess.run([sys.executable, script, mode, str(out)],
+                             capture_output=True, text=True, timeout=600)
+        assert run.returncode == 0, run.stderr[-3000:]
+        got[mode] = torch.load(out, weights_only=False)
+    a, b = got["entry"], got["chip_smoke"]
+    assert a["loop"] == b["loop"] == "fused"
+    assert a["losses"] == b["losses"]
+    assert len(a["tensors"]) == len(b["tensors"])
+    for x, y in zip(a["tensors"], b["tensors"]):
+        assert torch.equal(x, y)
+
+
+def test_mesh_gradient_rule_on_a_one_rank_nccl_world(cuda):
+    """On a one-rank NCCL world over the card (``launch.mesh``'s own), the
+    sum over the clients axis passes its cotangent through and a
+    replicated input's gradient is all-reduced once: d(Σy² + Σx)/dx for
+    y = w·x is 2w²x + 1, eagerly."""
+    import torch.distributed as dist
+
+    from repro_torch.fl.sharding import replicated_input, sum_over_clients
+    from repro_torch.launch.mesh import make_client_mesh
+
+    mesh = make_client_mesh(device="cuda")
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(257, generator=g, device="cuda", requires_grad=True)
+        w = torch.randn(257, generator=g, device="cuda")
+        y = sum_over_clients(replicated_input(x, mesh) * w, mesh)
+        gx, = torch.autograd.grad((y * y).sum() + x.sum(), x)
+        torch.testing.assert_close(gx, 2 * w * w * x.detach() + 1,
+                                   rtol=1e-6, atol=1e-6)
+    finally:
+        dist.destroy_process_group()

@@ -366,7 +366,7 @@ def test_moe_with_a_binding_capacity_drops_the_same_tokens():
     gy, aux2 = T_M.moe_apply(tm, torch.tensor(x), tc)
     _close(gy, wy)
     _close(aux2, waux2)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         T_M.moe_apply(tm, torch.tensor(x), tc, mesh=object())
 
 

@@ -47,7 +47,9 @@ for m in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
           "repro_torch.configs.gemma3_4b",
           "repro_torch.configs.deepseek_v2_lite_16b",
           "repro_torch.configs.deepseek_v2_236b",
-          "repro_torch.configs.llama3_2_vision_11b"):
+          "repro_torch.configs.llama3_2_vision_11b",
+          "repro_torch.launch.mesh", "repro_torch.launch.shardings",
+          "repro_torch.fl.sharding"):
     assert m in names, m
 assert "triton" not in sys.modules
 """
@@ -193,23 +195,29 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_gpu, name):
 
 def test_unported_paths_are_refused():
     """What is still unported raises, naming its ROADMAP.md Queue 1 item:
-    the mesh and model parallelism (12). The fused epoch driver (7) and
-    the scaling layers (11) resolve and run (tests/test_torch_fused.py,
-    tests/test_torch_scale.py); fault tolerance and checkpoints (item 6)
-    run: an unknown nan_policy is a ValueError, as in the reference."""
+    model parallelism (16). The fused epoch driver (7), the scaling
+    layers (11) and the client mesh (``ensemble_shard_mode="clients"``,
+    tests/test_torch_mesh_spmd.py) resolve and run
+    (tests/test_torch_fused.py, tests/test_torch_scale.py); fault
+    tolerance and checkpoints (item 6) run: an unknown nan_policy is a
+    ValueError, as in the reference, and so is an unknown shard mode."""
     import dataclasses
 
     from repro_torch.configs import backend, smoke
     from repro_torch.core import train_dense_server
 
     for knob, field, want in (({"loop_mode": "fused"}, "loop", "fused"),
-                              ({"teacher_chunk": 4}, "teacher_chunk", 4)):
+                              ({"teacher_chunk": 4}, "teacher_chunk", 4),
+                              ({"ensemble_shard_mode": "clients"},
+                               "ensemble_shard", "clients")):
         pol = backend.resolve_exec_policy(
             dataclasses.replace(smoke(), **knob), device="cpu")
         assert getattr(pol, field) == want
-    with pytest.raises(NotImplementedError, match="item 12"):
+    assert backend.resolve_exec_policy(smoke(),
+                                       device="cpu").ensemble_shard == "none"
+    with pytest.raises(ValueError, match="ensemble_shard_mode"):
         backend.resolve_exec_policy(
-            dataclasses.replace(smoke(), ensemble_shard_mode="clients"),
+            dataclasses.replace(smoke(), ensemble_shard_mode="pods"),
             device="cpu")
     with pytest.raises(ValueError, match="nan_policy"):
         train_dense_server([], dataclasses.replace(smoke(),
@@ -217,6 +225,6 @@ def test_unported_paths_are_refused():
                            device="cpu")
     from repro_torch.launch.train import train
 
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         train("llama3.2-3b", steps=1, batch=1, seq=4, smoke=True,
               model_parallel=2, device="cpu")

@@ -349,7 +349,7 @@ def test_unported_routes_raise(model):
     with pytest.raises(NotImplementedError, match="mesh"):
         ServeEngine(tc, tp, mesh=object(), device="cpu")
     moe = T_base.get_smoke_config("deepseek-v2-lite-16b")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         T_M.moe_apply(T_M.moe_init(moe, generator=torch.Generator(),
                                    dtype=torch.float32),
                       torch.zeros((1, 2, moe.d_model)), moe, mesh=object())
