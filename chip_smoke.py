@@ -304,7 +304,23 @@ result line is printed:
      route in float32 without TF32, llama3.2-3b at full width cut to one
      layer, batch 2 x 64, on the card and on the CPU from the same
      weights: losses and the student's gradients within 1e-4, the card's
-     K1 and float32 K2 launches counted.
+     K1 and float32 K2 launches counted;
+ 28. model_axis, after 25: the model axis at run time on a two-rank
+     world spawned on the one card (gloo, ``launch/mesh``'s backend
+     rule), deepseek-v2-lite-16b at full width cut to 3 layers (two MoE
+     layers, 32 of the 64 experts a rank), float32 without TF32, each
+     rank first running its share of the one-rank reference in a world
+     of its own: 3 train steps of ``launch.train.train`` at
+     ``--model-parallel`` 2 against 1 (losses, grad norms and Adam's
+     moments within 1e-4 of each tensor's largest entry, the parameters
+     within the larger of 1e-4 and twice the floor of two one-rank runs,
+     the replicated parameters bit for bit across the ranks); the dense
+     engine on model 2, 4 greedy requests of 16 new tokens (the same
+     streams on every rank as the one-rank engine's, its first decode
+     logits within 1e-4); one gen_step and one student_step of
+     ``full_moe()``'s federation cut to 3 layers on the mesh (K1f and
+     K1b once a step each at (1024, 102400) on every rank, the losses
+     within 1e-4); each part's seconds and peak GiB per rank.
 
 Output: a line with the card's name and power limit, one JSON line per
 phase, the ``{"kernels": [...]}`` line, and last the result line
@@ -4883,6 +4899,391 @@ def moe_llm_main_path(torch, dev="cuda", n_layers=MOE_LLM_LAYERS):
     return totals
 
 
+# ----------------------------------------------------------- model axis --
+
+MODEL_AXIS_ARCH = "deepseek-v2-lite-16b"
+MODEL_AXIS_WORLD = 2
+# layer 0 (a dense MLP) and two MoE layers, 32 of the 64 experts a rank
+MODEL_AXIS_LAYERS = 3
+MODEL_AXIS_STEPS = 3
+MODEL_AXIS_BATCH = (2, 128)
+# requests, prompt tokens, new tokens (greedy)
+MODEL_AXIS_REQUESTS = (4, 32, 16)
+MODEL_AXIS_TOL = FAMILY_TRAIN_TOL
+# the updated parameters lie within the larger of MODEL_AXIS_TOL and this
+# many times the float32 floor: how far two one-rank runs of the same
+# program lie from each other (3.2e-4 of the embedding's largest entry
+# after 3 Adam steps on an H100, scripts/model_axis_floor.py: Adam's
+# update turns the float32 noise of near-zero gradients into a change of
+# a whole step on a few entries); the Adam moments within MODEL_AXIS_TOL
+MODEL_AXIS_FLOOR_FACTOR = 2
+# the spawned world's seconds before it is killed and the phase fails
+MODEL_AXIS_DEADLINE = 300
+
+
+def _axis_cfg():
+    from repro_torch.configs import get_config
+
+    return get_config(MODEL_AXIS_ARCH).replace(
+        n_layers=MODEL_AXIS_LAYERS, dtype="float32", param_dtype="float32")
+
+
+def _axis_part(torch, dev, fn):
+    """(fn(), its record: seconds and this rank's peak GiB)."""
+    on_card = torch.device(dev).type == "cuda"
+    sync(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, dev)
+    return out, {"seconds": time.perf_counter() - t0,
+                 "peak_gib": _peak_gib(torch) if on_card else None}
+
+
+def _axis_train(torch, model_parallel, dev):
+    """``launch.train.train`` at ``model_parallel``: (history, this rank's
+    parameters and Adam's first moments, each a tree)."""
+    from repro_torch.launch.train import train
+
+    state, hist = train(MODEL_AXIS_ARCH, steps=MODEL_AXIS_STEPS,
+                        batch=MODEL_AXIS_BATCH[0], seq=MODEL_AXIS_BATCH[1],
+                        smoke=False, model_parallel=model_parallel,
+                        n_layers=MODEL_AXIS_LAYERS, dtype="float32",
+                        log_every=10 ** 6, device=dev)
+    return ([{k: v for k, v in h.items() if k != "seconds"} for h in hist],
+            state["params"], _tree_from(state["params"], state["opt"].m))
+
+
+def _tree_from(like: dict, flat: list) -> dict:
+    """``flat`` (in ``transformer.leaves`` order) in ``like``'s tree."""
+    it = iter(flat)
+
+    def build(tree):
+        return {k: build(v) if isinstance(v, dict) else next(it)
+                for k, v in tree.items()}
+
+    return build(like)
+
+
+def _to_host(tree: dict) -> dict:
+    return {k: _to_host(v) if isinstance(v, dict) else v.detach().cpu()
+            for k, v in tree.items()}
+
+
+def _axis_engine(torch, mesh, dev):
+    """The dense engine on ``mesh``: the greedy streams of
+    MODEL_AXIS_REQUESTS and the first decode step's logits (float32)."""
+    from repro_torch.launch.engine import ServeEngine
+
+    cfg = _axis_cfg()
+    n, prompt, new = MODEL_AXIS_REQUESTS
+    prompts = torch.randint(0, cfg.vocab_size, (n, prompt),
+                            generator=torch.Generator().manual_seed(5))
+    eng = ServeEngine(cfg, None, mesh=mesh, max_reqs=n, max_len=prompt + new,
+                      seed=1, device=dev)
+    first, step = [], eng._dec
+
+    def recording(*args, **kw):
+        logits, cache = step(*args, **kw)
+        if not first:
+            first.append(logits[0, -1].float().clone())
+        return logits, cache
+
+    eng._dec = recording
+    rids = [eng.submit(p.numpy(), max_new=new) for p in prompts]
+    res = eng.drain()
+    return [res[r].tolist() for r in rids], first[0], eng.mode
+
+
+def _axis_llm(torch, mesh, dev):
+    """One gen_step and one student_step of ``make_llm_dense_steps`` with
+    ``full_moe()``'s federation (two lite clients, a lite student) cut
+    to MODEL_AXIS_LAYERS, float32, on ``mesh``: the losses, each step's
+    launches and K1's shape."""
+    from repro_torch.core import dense_llm as DL
+    from repro_torch.core.generator import tok_generator_init
+    from repro_torch.launch import dense_llm_oneshot as ONE
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import dp_axes_of
+    from repro_torch.models import transformer as T
+
+    oc, cfg = ONE.full_moe(), _axis_cfg()
+    clients = [SH.local_params(T.init_model(cfg, seed=11 + i, device=dev),
+                               cfg, mesh)
+               for i in range(len(oc.client_archs))]
+    stu = SH.local_params(T.init_model(cfg, seed=13, device=dev), cfg, mesh)
+    for t in T.leaves(stu):
+        t.requires_grad_(True)
+    gen = tok_generator_init(
+        nz=oc.nz, seq=oc.gen_seq, d_model=cfg.d_model, d_g=oc.d_g,
+        n_classes=cfg.vocab_size, generator=torch.Generator().manual_seed(8),
+        device=dev)
+    gen_step, student_step, make_g, make_s = DL.make_llm_dense_steps(
+        cfg, [cfg] * len(clients), g_lr=oc.g_lr, s_lr=oc.s_lr, mesh=mesh,
+        dp_axes=dp_axes_of(mesh), device=dev)
+    draws = torch.Generator(device=dev).manual_seed(9)
+    z = torch.randn((oc.batch, oc.nz), generator=draws, device=dev)
+    y = torch.randint(0, cfg.vocab_size, (oc.batch, oc.gen_seq),
+                      generator=draws, device=dev)
+    g_opt, s_opt = make_g(gen), make_s(stu)
+    zero_counts()
+    gl, parts = gen_step(gen, g_opt, stu, clients, z, y)
+    sync(torch, dev)
+    gen_launches = read_counts()
+    zero_counts()
+    dl = student_step(stu, s_opt, gen, clients, z, y)
+    sync(torch, dev)
+    return {"gen_loss": float(gl),
+            "parts": {k: float(v) for k, v in parts.items()},
+            "dis_loss": float(dl),
+            "launches": {"gen_step": gen_launches,
+                         "student_step": read_counts()},
+            "k1_shape": [oc.batch * oc.gen_seq, cfg.vocab_size]}
+
+
+def _axis_compare(torch, got: dict, want: dict) -> dict:
+    """Per tensor of two trees with the same layout (``want`` on the
+    host): max |got − want| over max |want|, the worst tensors and the
+    entries past MODEL_AXIS_TOL of their tensor's largest entry."""
+    from repro_torch.launch.shardings import leaf_paths
+
+    rows, past = [], 0
+    for (keys, a), (_, b) in zip(leaf_paths(got), leaf_paths(want),
+                                 strict=True):
+        b = b.to(a.device)
+        scale = float(b.abs().max())
+        diff = (a.detach().float() - b.float()).abs()
+        past += int((diff > MODEL_AXIS_TOL * scale).sum())
+        rows.append((float(diff.max()) / max(scale, 1e-30), "/".join(keys)))
+    rows.sort(reverse=True)
+    return {"max_rel": rows[0][0], "worst": rows[:4],
+            "entries_past_tol": past}
+
+
+def model_axis_rank(rank: int, world: int, port: int, out: str,
+                    dev: str = "cuda") -> None:
+    """One rank of ``model_axis``'s world (``torch.multiprocessing``'s
+    spawn), the card ``cuda:{rank % device_count}``. First each rank runs,
+    in a one-rank world of its own, the one-rank reference train steps
+    twice (the second run against the first: the float32 floor) and its
+    share of the rest (rank 0 the engine, rank 1 the LLM DENSE steps);
+    then both join the two-rank world from ``torchrun``'s environment
+    variables, set here, and run every part at model 2, each rank holding
+    its expert rows and replicated parameters to its own first
+    reference's. Writes its numbers to ``out/rank<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs.backend import full_float32 as float32_only
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import transformer as T
+
+    float32_only()
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    res: dict = {"rank": rank, "ref": {}, "mesh": {}}
+    M.ensure_world(dev)                    # one rank, an in-process store
+    one = M.make_host_mesh(1, device=dev)
+    (hist, ref_params, ref_m), rec = _axis_part(
+        torch, dev, lambda: _axis_train(torch, 1, dev))
+    ref_params, ref_m = _to_host(ref_params), _to_host(ref_m)
+    res["ref"]["train"] = {"history": hist, **rec}
+    free()
+    (_, params, moments), rec = _axis_part(
+        torch, dev, lambda: _axis_train(torch, 1, dev))
+    res["ref"]["train"]["floor"] = {
+        "params": _axis_compare(torch, params, ref_params),
+        "adam_m": _axis_compare(torch, moments, ref_m), **rec}
+    del params, moments
+    free()
+    if rank == 0:
+        (streams, ref_logits, mode), rec = _axis_part(
+            torch, dev, lambda: _axis_engine(torch, one, dev))
+        res["ref"]["engine"] = {"streams": streams, "mode": mode, **rec}
+    else:
+        llm, rec = _axis_part(torch, dev, lambda: _axis_llm(torch, one, dev))
+        res["ref"]["llm"] = {**llm, **rec}
+    res["ref"]["backend"] = dist.get_backend()
+    dist.destroy_process_group()
+    free()
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    mesh = M.make_host_mesh(world, device=dev)
+    res["backend"] = dist.get_backend()
+    res["mesh_shape"] = M.axis_sizes(mesh)
+    res["mesh_device_type"] = mesh.device_type
+    (hist, params, moments), rec = _axis_part(
+        torch, dev, lambda: _axis_train(torch, world, dev))
+    res["device"] = str(T.leaves(params)[0].device)
+    res["expert_rows"] = list(params["blocks"]["moe"]["gate"].shape)
+    cfg = _axis_cfg()
+    train = {"history": hist, **rec,
+             "params": _axis_compare(torch, params, SH.local_params(
+                 ref_params, cfg, mesh)),
+             "adam_m": _axis_compare(torch, moments, SH.local_params(
+                 ref_m, cfg, mesh))}
+    del ref_params, ref_m
+    # the replicated parameters, bit for bit across the ranks
+    unequal = []
+    for (keys, t), expert in zip(SH.leaf_paths(params),
+                                 SH.expert_mask(params)):
+        if not expert:
+            other = t.detach().clone()
+            dist.broadcast(other, src=1)
+            if not torch.equal(other, t.detach()):
+                unequal.append("/".join(keys))
+    train["replicated_unequal"] = unequal
+    res["mesh"]["train"] = train
+    del params, moments
+    free()
+    (streams, logits, mode), rec = _axis_part(
+        torch, dev, lambda: _axis_engine(torch, mesh, dev))
+    res["mesh"]["engine"] = {"streams": streams, "mode": mode, **rec}
+    if rank == 0:
+        scale = float(ref_logits.abs().max())
+        res["mesh"]["engine"]["first_logits_max_rel"] = \
+            float((logits - ref_logits).abs().max()) / scale
+    del logits
+    free()
+    llm, rec = _axis_part(torch, dev, lambda: _axis_llm(torch, mesh, dev))
+    res["mesh"]["llm"] = {**llm, **rec}
+    dist.destroy_process_group()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def model_axis(torch, dev="cuda"):
+    """The model axis at run time on a two-rank world on the one card
+    (gloo: two ranks share it, ``launch/mesh``'s backend rule):
+    deepseek-v2-lite-16b at full width (d_model 2048, 64 routed experts
+    top-6 and 2 shared, MLA, vocab 102400) cut to MODEL_AXIS_LAYERS,
+    float32 without TF32, 32 experts a layer a rank:
+
+      (a) MODEL_AXIS_STEPS train steps of ``launch.train.train`` at
+          ``--model-parallel`` 2 and at 1 (a one-rank world), the same
+          weights and batch (2 x 128): the losses, grad norms and Adam's
+          first moments within MODEL_AXIS_TOL of each tensor's largest
+          entry, the updated parameters within the larger of it and
+          MODEL_AXIS_FLOOR_FACTOR times the floor that two one-rank runs
+          read in this call (each rank its expert rows); the replicated
+          parameters bit for bit across the ranks;
+      (b) the dense engine on model 2, 4 greedy requests of 16 new
+          tokens: the streams equal the one-rank engine's and each
+          other's, the first decode step's logits within MODEL_AXIS_TOL;
+      (c) one gen_step and one student_step of ``make_llm_dense_steps``
+          with ``full_moe()``'s federation cut to MODEL_AXIS_LAYERS: K1f
+          and K1b once a step each at (1024, 102400) on every rank, the
+          losses within MODEL_AXIS_TOL of the one-rank run's.
+
+    Each part's seconds and peak GiB per rank, the backend, the phase's
+    seconds. A failed spawn, a failed collective or a rank past
+    MODEL_AXIS_DEADLINE fails the script. Returns K1's launches in the
+    two-rank run by rank."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    world = MODEL_AXIS_WORLD
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.start_processes(model_axis_rank,
+                                 args=(world, _free_port(), out, dev),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + MODEL_AXIS_DEADLINE
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                    fail(f"model_axis: the {world}-rank world ran past "
+                         f"{MODEL_AXIS_DEADLINE} s")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            fail(f"model_axis: a rank failed: {e}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    r0, r1 = ranks[0], ranks[1]
+    ref_train, ref_engine = r0["ref"]["train"], r0["ref"]["engine"]
+    ref_llm = r1["ref"]["llm"]
+
+    def rel(a, b) -> float:
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    train_err = max(rel(h[k], w[k]) for r in ranks
+                    for h, w in zip(r["mesh"]["train"]["history"],
+                                    ref_train["history"], strict=True)
+                    for k in ("loss", "grad_norm"))
+    llm_err = max(rel(r["mesh"]["llm"][k], ref_llm[k]) for r in ranks
+                  for k in ("gen_loss", "dis_loss"))
+    pair = expected(distill_kl_fwd=1, distill_kl_bwd=1)
+    steps = [c for r in ranks for c in r["mesh"]["llm"]["launches"].values()]
+    launches_ok = all(c == pair for c in
+                      steps + list(ref_llm["launches"].values()))
+    trains = [r["mesh"]["train"] for r in ranks]
+    floor = max(r["ref"]["train"]["floor"]["params"]["max_rel"]
+                for r in ranks)
+    params_limit = max(MODEL_AXIS_TOL, MODEL_AXIS_FLOOR_FACTOR * floor)
+    checks = {
+        "backend_gloo": all(r["backend"] == "gloo" for r in ranks),
+        "on_card": all(r["device"].startswith("cuda")
+                       and r["mesh_device_type"] == "cuda" for r in ranks),
+        "expert_rows": all(r["expert_rows"][1] == 32 for r in ranks),
+        "train_history": train_err <= MODEL_AXIS_TOL
+        and trains[1]["history"] == trains[0]["history"],
+        "train_params": all(t["params"]["max_rel"] <= params_limit
+                            for t in trains),
+        "train_adam_m": all(t["adam_m"]["max_rel"] <= MODEL_AXIS_TOL
+                            for t in trains),
+        "replicated_bit_for_bit": not any(t["replicated_unequal"]
+                                          for t in trains),
+        "engine_dense": all(r["mesh"]["engine"]["mode"] == "dense"
+                            for r in ranks),
+        "engine_streams": all(r["mesh"]["engine"]["streams"]
+                              == ref_engine["streams"] for r in ranks),
+        "engine_logits": r0["mesh"]["engine"]["first_logits_max_rel"]
+        <= MODEL_AXIS_TOL,
+        "llm_losses": llm_err <= MODEL_AXIS_TOL,
+        "llm_k1_launches": launches_ok
+        and ref_llm["k1_shape"] == [1024, 102400]}
+    k1 = {f"rank{r['rank']}": {
+        k: sum(c[k] for c in r["mesh"]["llm"]["launches"].values())
+        for k in ("distill_kl_fwd", "distill_kl_bwd")} for r in ranks}
+    emit({"model_axis": {
+        "card": card(), "arch": MODEL_AXIS_ARCH, "dtype": "float32",
+        "n_layers": [get_full_layers(MODEL_AXIS_ARCH), MODEL_AXIS_LAYERS],
+        "world": world, "backend": r0["backend"],
+        "mesh": r0["mesh_shape"], "tol": MODEL_AXIS_TOL,
+        "checks": checks, "train_rel_err": train_err,
+        "params_floor": floor, "params_limit": params_limit,
+        "llm_rel_err": llm_err, "k1_launches": k1,
+        "ranks": ranks, "seconds_total": time.perf_counter() - t0}})
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"model_axis: {bad} failed")
+    return k1
+
+
 # ----------------------------------------------------------------- main --
 
 def k2_entry(name, which, rs, line, launches, hybrid_launches,
@@ -5026,6 +5427,8 @@ def main() -> None:
     vlm_train_launches = family_train(torch)
     family_train_check(torch)
     moe_launches = moe_llm_main_path(torch)
+    torch.cuda.empty_cache()
+    axis_launches = model_axis(torch)
 
     def entry(name, rs, replaces):
         main = next(r for r in rs if r["shape"] == list(MAIN_SHAPE)
@@ -5046,6 +5449,8 @@ def main() -> None:
                                    mesh_launches.items()},
                     "scale_round": scale_launches[name],
                     "moe_llm_main_path": moe_launches[name],
+                    "model_axis": {rank: c[name] for rank, c in
+                                   axis_launches.items()},
                     "pod_distill": {route: c[name] for route, c in
                                     pod_launches.items()}},
                 "max_abs_err": main["max_abs_err"], "ms": main["ms"],

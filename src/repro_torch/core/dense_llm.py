@@ -37,6 +37,14 @@ and a readout fused with the plain KL over ``kl_chunk``-token chunks,
 each chunk recomputed in the backward, so no (B·S, V) tensor is ever
 held. The student trunk runs with the policy's ``kernel_vjp`` (K2 on
 the card) and remat.
+
+Both step factories take the reference's ``mesh`` and pass it into every
+client, teacher and student forward (``make_llm_dense_steps`` with its
+``dp_axes``, the pod step with ("data",) where the mesh has it), where
+the MoE layers run expert-parallel over ``model``: the clients' and the
+student's experts are then this rank's rows
+(``launch/shardings.local_params``), and Adam steps the student's where
+they are.
 """
 from __future__ import annotations
 
@@ -61,15 +69,17 @@ def group_lm_clients(client_cfgs):
     return [(cfg, tuple(idx)) for cfg, idx in groups.items()]
 
 
-def ensemble_lm_logits(client_cfgs, client_params, embeds: torch.Tensor):
+def ensemble_lm_logits(client_cfgs, client_params, embeds: torch.Tensor, *,
+                       mesh=None, dp_axes: tuple = ()):
     """D(x̂): the clients' logits over ``embeds`` (B, S, D), float32,
-    averaged; (B, S, V)."""
+    averaged; (B, S, V). ``mesh`` and ``dp_axes`` reach every client's
+    MoE layers (``transformer.forward``)."""
     acc = None
     for cfg, idx in group_lm_clients(client_cfgs):
         group_sum = None
         for i in idx:
             lg, _ = T.forward(client_params[i], cfg, embeds=embeds,
-                              remat=False)
+                              mesh=mesh, dp_axes=dp_axes, remat=False)
             lg = lg.float()
             group_sum = lg if group_sum is None else group_sum + lg
         acc = group_sum if acc is None else acc + group_sum
@@ -125,6 +135,7 @@ def _frozen(tree: dict) -> dict:
 def make_llm_dense_steps(student_cfg, client_cfgs: Sequence, *,
                          g_lr: float = 1e-3, s_lr: float = 1e-4,
                          lambda_bn: float = 1.0, lambda_div: float = 0.5,
+                         mesh=None, dp_axes: tuple = (),
                          distill_kl_mode: str | None = None,
                          kernel_vjp_mode: str | None = None,
                          device="cuda"):
@@ -147,7 +158,9 @@ def make_llm_dense_steps(student_cfg, client_cfgs: Sequence, *,
     "autodiff" is refused, and so is a vlm (``check_llm_dense_arch``).
     The tensors given to the steps must lie on ``device``. A moe trunk
     runs without its load-balance term: the server losses carry none, as
-    the reference's do."""
+    the reference's do. ``mesh`` and ``dp_axes`` reach every forward (on
+    a mesh with a ``model`` axis the clients and the student hold this
+    rank's expert rows)."""
     pol = resolve_exec_policy(None, device=device)
     kl_mode = pol.distill_kl if distill_kl_mode is None else distill_kl_mode
     vjp_mode = pol.kernel_vjp if kernel_vjp_mode is None else kernel_vjp_mode
@@ -163,9 +176,11 @@ def make_llm_dense_steps(student_cfg, client_cfgs: Sequence, *,
     def gen_step(gen, g_opt, student_params, client_params, z, y):
         cparams = [_frozen(p) for p in client_params]
         embeds = tok_generator(gen, z, y[:, 0])
-        avg = ensemble_lm_logits(client_cfgs, cparams, embeds)
+        avg = ensemble_lm_logits(client_cfgs, cparams, embeds, mesh=mesh,
+                                 dp_axes=dp_axes)
         stu, _ = T.forward(_frozen(student_params), student_cfg,
-                           embeds=embeds, remat=False)
+                           embeds=embeds, mesh=mesh, dp_axes=dp_axes,
+                           remat=False)
         af = avg.reshape(-1, V)
         sf = stu.float().reshape(-1, V)
         l_ce = LS.ce_loss(af, y.reshape(-1))
@@ -179,9 +194,10 @@ def make_llm_dense_steps(student_cfg, client_cfgs: Sequence, *,
     def student_step(student_params, s_opt, gen, client_params, z, y):
         with torch.no_grad():
             embeds = tok_generator(gen, z, y[:, 0])
-            avg = ensemble_lm_logits(client_cfgs, client_params, embeds)
+            avg = ensemble_lm_logits(client_cfgs, client_params, embeds,
+                                     mesh=mesh, dp_axes=dp_axes)
         stu, _ = T.forward(student_params, student_cfg, embeds=embeds,
-                           remat=False)
+                           mesh=mesh, dp_axes=dp_axes, remat=False)
         # the teacher is constant here: skip the kernel's dL/dt stream
         loss = LS.distill_loss(avg.reshape(-1, V), stu.float().reshape(-1, V),
                                mode=kl_mode, with_teacher_grad=False)
@@ -228,13 +244,16 @@ def make_pod_distill_step(cfg, mesh=None, *, n_clients: int,
     Adam step of the student in place and returns the loss before it.
 
     ``mesh``: None or a mesh; with a ``pod`` axis of size > 1 the
-    teacher's mean is all-reduced over it. ``distill_kl_mode`` routes the
-    materialized route's KL and ``kernel_vjp_mode`` the trunk (defaults:
-    the policy's, on ``device`` or the mesh's device type);
-    "autodiff" cannot train and is refused."""
+    teacher's mean is all-reduced over it, and every forward takes the
+    mesh with ("data",) where it has that axis (the MoE layers
+    expert-parallel over ``model``, as in ``make_llm_dense_steps``).
+    ``distill_kl_mode`` routes the materialized route's KL and
+    ``kernel_vjp_mode`` the trunk (defaults: the policy's, on ``device``
+    or the mesh's device type); "autodiff" cannot train and is
+    refused."""
     from torch.utils.checkpoint import checkpoint
 
-    from repro_torch.launch.mesh import axis_size
+    from repro_torch.launch.mesh import axis_names, axis_size
 
     if device is None:
         device = getattr(mesh, "device_type", "cuda")
@@ -248,6 +267,8 @@ def make_pod_distill_step(cfg, mesh=None, *, n_clients: int,
     cfg = cfg.replace(kernel_vjp_mode=vjp_mode)
     V = cfg.vocab_size
     pods = axis_size(mesh, "pod") if mesh is not None else 1
+    dp = tuple(a for a in ("data",) if mesh is not None
+               and a in axis_names(mesh))
 
     def pod_mean(total):
         """Σ over this rank's clients → the mean over all of them."""
@@ -263,7 +284,8 @@ def make_pod_distill_step(cfg, mesh=None, *, n_clients: int,
         with torch.no_grad():
             for i in range(n):
                 out, _ = T.forward(T.layer(stacked, i), cfg, embeds=embeds,
-                                   remat=False, return_hidden=hidden)
+                                   mesh=mesh, dp_axes=dp, remat=False,
+                                   return_hidden=hidden)
                 yield out if hidden else out.float()
 
     def loss_materialized(sp, stacked, embeds):
@@ -271,7 +293,8 @@ def make_pod_distill_step(cfg, mesh=None, *, n_clients: int,
         for lg in client_outputs(stacked, embeds, hidden=False):
             total = lg if total is None else total + lg
         avg = pod_mean(total)
-        stu, _ = T.forward(sp, cfg, embeds=embeds, remat=True)
+        stu, _ = T.forward(sp, cfg, embeds=embeds, mesh=mesh, dp_axes=dp,
+                           remat=True)
         # the teacher is constant: skip the kernel's dL/dt stream
         return LS.distill_loss(avg.reshape(-1, V),
                                stu.float().reshape(-1, V), mode=kl_mode,
@@ -293,8 +316,8 @@ def make_pod_distill_step(cfg, mesh=None, *, n_clients: int,
 
     def loss_chunked(sp, stacked, embeds):
         th = list(client_outputs(stacked, embeds, hidden=True))
-        sh, _ = T.forward(sp, cfg, embeds=embeds, remat=True,
-                          return_hidden=True)
+        sh, _ = T.forward(sp, cfg, embeds=embeds, mesh=mesh, dp_axes=dp,
+                          remat=True, return_hidden=True)
         B, S, _ = sh.shape
         if S % kl_chunk:
             raise ValueError(f"chunked_kl needs kl_chunk ({kl_chunk}) to "

@@ -20,16 +20,13 @@ onto the ("clients", "data") mesh (``launch/mesh.make_client_mesh``):
     ``client_stack_sharding`` / ``replicated_sharding`` give the DTensor
     placements of the two layouts (``launch/mesh.placements``).
   * ``sum_over_clients`` and ``replicated_input`` are the two collectives
-    of a sharded sum that autograd flows through. The forward sum over
-    ``clients`` is an all-reduce whose backward is the identity: the
-    cotangent of a replicated result is already the same on every rank.
-    A replicated input (the generator's images) that feeds the
-    rank-local part is the identity forward and all-reduces its
-    gradient in the backward, once, so each rank's local share of the
-    gradient is summed. PyTorch's own autograd all-reduce
-    (``torch.distributed.nn.functional.all_reduce``) all-reduces the
-    cotangent in its backward instead, which for a replicated input
-    gives each rank its own wrong gradient.
+    of a sharded sum that autograd flows through, ``launch/mesh``'s
+    ``sum_over`` and ``replicated_over`` on the ``clients`` axis: the
+    forward sum is an all-reduce whose backward is the identity (the
+    cotangent of a replicated result is already the same on every rank);
+    a replicated input (the generator's images) that feeds the
+    rank-local part is the identity forward and all-reduces its gradient
+    in the backward, once, so each rank's local share is summed.
   * ``gather_rows`` all-gathers rank-local rows back into the stack, in
     client order.
 
@@ -41,8 +38,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.backend import SHARD_MODES, resolve_exec_policy
-from repro_torch.launch.mesh import (P, axis_size, make_client_mesh,
-                                     placements)
+from repro_torch.launch.mesh import (P, axis_size, gather_over,
+                                     make_client_mesh, placements,
+                                     replicated_over, sum_over)
 
 CLIENT_AXIS = "clients"
 
@@ -138,68 +136,23 @@ def put_grouped(gspecs, gparams, mesh):
             for (_, size), params in zip(gspecs, gparams)]
 
 
-def _group(mesh):
-    return mesh.get_group(CLIENT_AXIS)
-
-
-class _SumOverClients(torch.autograd.Function):
-    """Forward: the all-reduce sum over ``clients``. Backward: the
-    identity (the result is replicated, and so is its cotangent)."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        import torch.distributed as dist
-
-        out = t.clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _ReplicatedInput(torch.autograd.Function):
-    """Forward: the identity on a replicated tensor. Backward: the
-    all-reduce sum over ``clients`` of its rank-local gradient."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        import torch.distributed as dist
-
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
 def sum_over_clients(t: torch.Tensor, mesh) -> torch.Tensor:
     """Σ over the clients axis of each rank's ``t`` (replicated result);
     its gradient is passed through as it is."""
-    return _SumOverClients.apply(t, _group(mesh))
+    return sum_over(t, mesh, CLIENT_AXIS)
 
 
 def replicated_input(t: torch.Tensor, mesh) -> torch.Tensor:
     """``t`` (the same on every rank) for a rank-local computation: its
     gradient is summed over the clients axis in the backward."""
-    return _ReplicatedInput.apply(t, _group(mesh))
+    return replicated_over(t, mesh, CLIENT_AXIS)
 
 
 @torch.no_grad()
 def gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
     """The rank-local rows of every rank along dim 0, concatenated in
     rank order (client order)."""
-    import torch.distributed as dist
-
-    n = client_axis_size(mesh)
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t, group=_group(mesh))
-    return torch.cat(parts)
+    return gather_over(t, mesh, CLIENT_AXIS)
 
 
 __all__ = ["CLIENT_AXIS", "SHARD_MODES", "client_axis_size", "client_rows",

@@ -38,8 +38,19 @@ request and the token index — how the reference's
 ``fold_in(fold_in(k, rid), token_index)``. The default noise comes from a
 ``torch.Generator`` seeded from ``(seed, rid, token_index)``; the tests
 inject the reference's draws. Steps run under ``torch.inference_mode()``.
-Model parallelism (the reference's ``mesh``) is not ported (ROADMAP.md,
-Queue 1 item 16).
+
+Model parallelism (``mesh=``, ``launch/mesh.make_host_mesh``): the dense
+steps take the mesh, whose MoE layers run expert-parallel over
+``model`` (the engine holds this rank's expert rows,
+``launch/shardings.local_params``); every other layer runs replicated.
+With more than one ``model`` rank the mode defaults to dense and paged
+is refused, as in the reference (``repro/launch/engine.py:98-109``).
+Every rank samples the same token: greedy takes the argmax of logits
+that the all-reduce made the same on every rank, and sampling adds the
+seed's noise, the same on every rank. A data axis of more than one rank
+cannot split the batch-1 step's one decode token (``moe.moe_apply``
+raises); drive the engine with ``model`` the whole world, as
+``make_host_mesh(n)`` builds it.
 """
 from __future__ import annotations
 
@@ -51,7 +62,9 @@ import torch
 
 from repro_torch.configs.backend import resolve_device, resolve_exec_policy
 from repro_torch.launch import paging as PG
+from repro_torch.launch import shardings as SH
 from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import axis_size
 from repro_torch.models import transformer as T
 
 supports_paged = PG.supports_paged
@@ -92,35 +105,36 @@ class ServeEngine:
     per request; ``max_reqs`` is the number of concurrent slots;
     ``n_blocks`` defaults to enough for ``max_reqs`` worst-case requests
     plus the null block. ``params=None`` draws random ones from ``seed``
-    (``transformer.init_model``). ``device`` is the card unless the
-    caller asks for the CPU."""
+    (``transformer.init_model``); on a mesh they are cut to this rank's
+    expert rows. ``device`` is the card unless the caller asks for the
+    CPU."""
 
     def __init__(self, cfg, params=None, policy=None, *, mesh=None,
                  max_reqs: int = 4, max_len: int = 256,
                  n_blocks: int | None = None, page: int | None = None,
                  mode: str | None = None, seed: int = 0, device="cuda",
                  noise=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "model parallelism (a mesh) is not ported yet (ROADMAP.md, "
-                "Queue 1 item 16); the engine runs on one device")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.policy = resolve_exec_policy(policy, device=self.device)
-        self.params = T.init_model(cfg, seed=seed, device=self.device) \
-            if params is None else params
-        self._noise = gumbel_noise(seed) if noise is None else noise
-        self.max_reqs, self.max_len = int(max_reqs), int(max_len)
+        model_par = mesh is not None and axis_size(mesh, SH.MP) > 1
         if mode is None:
-            mode = "paged" if supports_paged(cfg) else "dense"
+            mode = "paged" if supports_paged(cfg) and not model_par \
+                else "dense"
         if mode not in ("paged", "dense"):
             raise ValueError(f"unknown mode {mode!r}")
-        if mode == "paged" and not supports_paged(cfg):
+        if mode == "paged" and (not supports_paged(cfg) or model_par):
             raise ValueError(
                 f"paged mode unsupported here (family={cfg.family!r}, "
                 f"sliding_window={cfg.sliding_window}, "
-                f"kv_lora_rank={cfg.kv_lora_rank}); use mode='dense'")
+                f"kv_lora_rank={cfg.kv_lora_rank}, "
+                f"model_parallel={model_par}); use mode='dense'")
         self.mode = mode
+        if params is None:
+            params = T.init_model(cfg, seed=seed, device=self.device)
+        self.params = SH.local_params(params, cfg, mesh)
+        self._noise = gumbel_noise(seed) if noise is None else noise
+        self.max_reqs, self.max_len = int(max_reqs), int(max_len)
 
         self._queue: list[_Request] = []
         self._reqs: dict[int, _Request] = {}
@@ -146,8 +160,8 @@ class ServeEngine:
             self._seq = np.zeros((self.max_reqs,), np.int32)
             self._cur = np.zeros((self.max_reqs,), np.int32)
         else:
-            self._prefill = ST.make_prefill_step(cfg)
-            self._dec = ST.make_serve_step(cfg)
+            self._prefill = ST.make_prefill_step(cfg, mesh)
+            self._dec = ST.make_serve_step(cfg, mesh)
             self._vision = torch.zeros(
                 (1, cfg.n_patches, cfg.vision_dim), device=self.device) \
                 if cfg.family == "vlm" else None

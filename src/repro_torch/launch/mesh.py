@@ -13,12 +13,43 @@ world those processes form, with the reference's axis names:
 
 The world is ``torchrun``'s when its environment is set (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``): the default process
-group is initialized from it, NCCL on ``cuda`` and gloo on ``cpu``.
+group is initialized from it (the backend by the rule below).
 Without one, and with no process group initialized, a one-rank world is
 started on the caller's device over an in-process store, so nothing
 listens on a port. A mesh is built once per device type, shape and
 world and then reused: building one makes process groups, which every
 rank must do together and which a captured CUDA graph cannot do.
+
+The backend follows from how many ranks share a visible device: NCCL
+refuses two ranks on one card ("Duplicate GPU detected"), so a ``cuda``
+world whose local ranks outnumber the cards takes gloo, whose
+all-reduce, all-gather and broadcast take CUDA tensors (the tensors stay
+on the card; only those three collectives run on such a world); NCCL
+otherwise, and gloo on the CPU. Rank r's card is ``cuda:{LOCAL_RANK %
+device_count}``.
+
+The collectives of a sharded computation that autograd flows through,
+over any named axis or tuple of axes (an axis of size 1 is a copy, so a
+one-rank mesh gives the unsharded results bit for bit):
+
+  * ``sum_over`` — the all-reduce sum; its backward is the identity (the
+    result is replicated, and so is its cotangent);
+  * ``replicated_over`` — the identity on a tensor that is the same on
+    every rank of the axes and feeds a rank-local part; its backward
+    all-reduces the gradient over them, once, so each rank's local share
+    is summed. PyTorch's own autograd all-reduce
+    (``torch.distributed.nn.functional.all_reduce``) all-reduces the
+    cotangent in its backward instead, which gives such an input each
+    rank's own wrong gradient;
+  * ``gather_over`` — the all-gather of each rank's rows along dim 0 in
+    rank order (the leading axis outermost); its backward takes this
+    rank's rows of the cotangent;
+  * ``take_rows`` — this rank's rows of a replicated tensor; its backward
+    all-gathers the rows' gradients back into the whole.
+
+``make_production_mesh`` gives the reference's TPU meshes (16 x 16 and
+2 x 16 x 16) as axis names and sizes alone, for the rules: there are no
+256 ranks to build a ``DeviceMesh`` on.
 
 The spec vocabulary is ``PartitionSpec``: a tuple with one entry a
 tensor dim, an axis name, a tuple of axis names or None (replicated),
@@ -33,6 +64,7 @@ ranks.
 from __future__ import annotations
 
 import os
+from types import SimpleNamespace
 
 import torch
 
@@ -90,8 +122,11 @@ def placements(spec, mesh) -> tuple:
     return tuple(out)
 
 
-def _backend(device_type: str) -> str:
-    return "nccl" if device_type == "cuda" else "gloo"
+def backend_for(device_type: str, ranks_per_device: int = 1) -> str:
+    """gloo on the CPU and where ranks share a card, NCCL otherwise."""
+    if device_type == "cuda" and ranks_per_device <= 1:
+        return "nccl"
+    return "gloo"
 
 
 def ensure_world(device="cuda") -> int:
@@ -103,14 +138,20 @@ def ensure_world(device="cuda") -> int:
     dev = torch.device(device)
     if not dist.is_initialized():
         if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            share = 1
             if dev.type == "cuda":
-                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-            dist.init_process_group(_backend(dev.type))
+                cards = torch.cuda.device_count()
+                local = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                           os.environ["WORLD_SIZE"]))
+                share = -(-local // cards)
+                torch.cuda.set_device(
+                    int(os.environ.get("LOCAL_RANK", 0)) % cards)
+            dist.init_process_group(backend_for(dev.type, share))
         else:
             if dev.type == "cuda":
                 torch.cuda.set_device(dev.index if dev.index is not None
                                       else torch.cuda.current_device())
-            dist.init_process_group(_backend(dev.type),
+            dist.init_process_group(backend_for(dev.type),
                                     store=dist.HashStore(), rank=0,
                                     world_size=1)
     return dist.get_world_size()
@@ -145,6 +186,24 @@ def make_host_mesh(model: int = 1, device="cuda"):
     return _mesh(device, (n // model, model), ("data", "model"))
 
 
+def entry_mesh(model_parallel: int, device):
+    """An entry point's ``(mesh, device)``: ``make_host_mesh(
+    model_parallel)`` where a process group runs, ``torchrun``'s
+    environment names one or ``model_parallel`` > 1, else None (a
+    one-rank mesh gives the same results); the device this rank runs
+    on, which the world sets."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.backend import resolve_device
+
+    resolve_device(device)          # no card: fail before a world forms
+    world = dist.is_initialized() or ("RANK" in os.environ
+                                      and "WORLD_SIZE" in os.environ)
+    mesh = make_host_mesh(model_parallel, device=device) \
+        if model_parallel > 1 or world else None
+    return mesh, resolve_device(device)
+
+
 def make_client_mesh(*, data: int = 1, device="cuda"):
     """("clients", "data") over the world. Takes the leading
     ``(n // data) * data`` ranks, so a world that ``data`` does not
@@ -155,10 +214,139 @@ def make_client_mesh(*, data: int = 1, device="cuda"):
     return _mesh(device, (n // data, data), ("clients", "data"))
 
 
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh by names and sizes: (data 16,
+    model 16), or (pod 2, data 16, model 16) with ``multi_pod``."""
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    sizes = (2, 16, 16) if multi_pod else (16, 16)
+    return SimpleNamespace(axis_names=names, shape=dict(zip(names, sizes)))
+
+
 def dp_axes_of(mesh) -> tuple[str, ...]:
     return tuple(a for a in axis_names(mesh) if a in DP_AXES)
 
 
-__all__ = ["P", "PartitionSpec", "axis_names", "axis_size",
-           "axis_sizes", "dp_axes_of", "ensure_world", "make_client_mesh",
-           "make_host_mesh", "placements"]
+# ------------------------------------------------------------ collectives --
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _groups(mesh, axes) -> list:
+    """The process group of each of ``axes`` that has more than one
+    rank, in order."""
+    return [mesh.get_group(a) for a in _axes(axes) if axis_size(mesh, a) > 1]
+
+
+def _block(mesh, axes) -> tuple[int, int]:
+    """(this rank's index, the count) over ``axes``, the first
+    outermost."""
+    idx, n = 0, 1
+    for a in _axes(axes):
+        size = axis_size(mesh, a)
+        idx = idx * size + (mesh.get_local_rank(a) if size > 1 else 0)
+        n *= size
+    return idx, n
+
+
+def _all_gather(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Every rank's ``t`` along dim 0, in rank order over ``axes``."""
+    import torch.distributed as dist
+
+    for a in reversed(_axes(axes)):         # the innermost axis first
+        size = axis_size(mesh, a)
+        if size > 1:
+            t = t.contiguous()
+            parts = [torch.empty_like(t) for _ in range(size)]
+            dist.all_gather(parts, t, group=mesh.get_group(a))
+            t = torch.cat(parts)
+    return t
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, groups):
+        import torch.distributed as dist
+
+        out = t.clone()
+        for g in groups:
+            dist.all_reduce(out, group=g)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone()
+        for grp in ctx.groups:
+            dist.all_reduce(g, group=grp)
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.rows, ctx.idx = t.shape[0], _block(mesh, axes)[0]
+        return _all_gather(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.idx * ctx.rows:(ctx.idx + 1) * ctx.rows], None, None
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        idx, n = _block(mesh, axes)
+        if t.shape[0] % n:
+            raise ValueError(f"{t.shape[0]} rows do not split over {n} "
+                             f"ranks of {_axes(axes)}")
+        rows = t.shape[0] // n
+        ctx.mesh, ctx.axes = mesh, axes
+        return t[idx * rows:(idx + 1) * rows]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.mesh, ctx.axes), None, None
+
+
+def sum_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Σ over ``axes`` of each rank's ``t`` (replicated result); its
+    gradient is passed through as it is."""
+    return _Sum.apply(t, _groups(mesh, axes))
+
+
+def replicated_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t`` (the same on every rank of ``axes``) for a rank-local
+    computation: its gradient is summed over ``axes`` in the backward."""
+    return _Replicated.apply(t, _groups(mesh, axes))
+
+
+def gather_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Every rank's rows of ``t`` along dim 0 in rank order over
+    ``axes``; the backward takes this rank's rows."""
+    return _Gather.apply(t, mesh, _axes(axes))
+
+
+def take_rows(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """This rank's equal share of ``t``'s rows (dim 0) over ``axes``, in
+    rank order; the backward all-gathers the gradient."""
+    return _TakeRows.apply(t, mesh, _axes(axes))
+
+
+__all__ = ["DP_AXES", "P", "PartitionSpec", "axis_names", "axis_size",
+           "axis_sizes", "backend_for", "dp_axes_of", "ensure_world",
+           "entry_mesh", "gather_over", "make_client_mesh", "make_host_mesh",
+           "make_production_mesh", "placements", "replicated_over",
+           "sum_over", "take_rows"]

@@ -21,8 +21,12 @@ anything with a ``.shape`` (tensors, meta tensors). Spec trees are
 nested dicts of ``PartitionSpec``, entry for entry the reference's
 ``P(...)``; ``to_named`` turns one into DTensor placements. The port
 applies them to the pod cell's stacked clients
-(``core/dense_llm.pod_stack_specs``); the trunk does not take them yet
-(ROADMAP.md, Queue 1 item 16).
+(``core/dense_llm.pod_stack_specs``) and, at run time, to the MoE's
+routed experts alone, as the reference's run time does (its trunk takes
+the rules only in the dry run): ``local_params`` cuts a parameter tree's
+expert leaves (``expert_parallel``) to this rank's rows of their
+``model`` dim, ``gather_params`` puts them back together. The rest of
+the trunk stays replicated (ROADMAP.md, Queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -82,7 +86,7 @@ def param_specs(cfg, params_shape, mesh):
                 else pad([None, None])
         # MoE experts: (E, d, f) tensors under .../moe/
         if "/moe/" in path or path.startswith("moe/"):
-            if keys[-1] in ("gate", "up", "down") and "shared" not in keys:
+            if expert_parallel(keys):
                 return pad([MP, None, None])
             if "router" in keys:
                 return pad([None] * min(nd, 2))
@@ -204,6 +208,97 @@ def cache_specs(cfg, cache_shape, mesh, *, batch: int,
     return _map_with_path(rule, cache_shape)
 
 
+def expert_parallel(keys) -> bool:
+    """A MoE's routed expert tensors (``gate``, ``up``, ``down``, not the
+    shared experts'): the leaves the run-time model axis shards."""
+    return "moe" in keys and "shared" not in keys \
+        and keys[-1] in ("gate", "up", "down")
+
+
+def leaf_paths(tree, keys=()):
+    """(keys, leaf) of a nested dict, in ``transformer.leaves`` order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from leaf_paths(v, keys + (k,))
+        else:
+            yield keys + (k,), v
+
+
+def expert_mask(params) -> list:
+    """Per leaf of ``params`` (``transformer.leaves`` order): whether it
+    is an expert-parallel leaf."""
+    return [expert_parallel(k) for k, _ in leaf_paths(params)]
+
+
+def _expert_dim(cfg, params, mesh) -> dict:
+    """{keys: the dim ``param_specs`` puts on ``model``} of the expert
+    leaves."""
+    specs = param_specs(cfg, params, mesh)
+    out = {}
+    for keys, _ in leaf_paths(params):
+        if expert_parallel(keys):
+            spec = specs
+            for k in keys:
+                spec = spec[k]
+            out[keys] = list(spec).index(MP)
+    return out
+
+
+def _rebuild(params, fn, keys=()):
+    return {k: _rebuild(v, fn, keys + (k,)) if isinstance(v, dict)
+            else fn(keys + (k,), v) for k, v in params.items()}
+
+
+def local_params(params, cfg, mesh):
+    """``params`` as this rank holds them on ``mesh``: each expert leaf
+    cut to this rank's rows of its ``model`` dim (a copy, so the full
+    tensor can be freed), every other leaf as it is. Leaves already cut
+    stay as they are; without experts, a mesh or more than one ``model``
+    rank the tree is returned as it is."""
+    n = _axis(mesh, MP) if mesh is not None else 1
+    if n == 1 or not cfg.n_experts:
+        return params
+    if cfg.n_experts % n:
+        raise ValueError(f"{cfg.n_experts} experts do not split over {n} "
+                         "model ranks")
+    rows = cfg.n_experts // n
+    r = mesh.get_local_rank(MP)
+    dims = _expert_dim(cfg, params, mesh)
+
+    def cut(keys, leaf):
+        if keys not in dims or leaf.shape[dims[keys]] == rows:
+            return leaf
+        if leaf.shape[dims[keys]] != cfg.n_experts:
+            raise ValueError(f"{'/'.join(keys)}: {leaf.shape[dims[keys]]} "
+                             f"experts, expected {cfg.n_experts}")
+        return leaf.detach().narrow(dims[keys], r * rows, rows).clone()
+
+    return _rebuild(params, cut)
+
+
+def gather_params(params, cfg, mesh):
+    """The inverse of ``local_params``: each expert leaf all-gathered over
+    ``model`` (no gradient), every other leaf as it is."""
+    import torch
+
+    from repro_torch.launch.mesh import gather_over
+
+    n = _axis(mesh, MP) if mesh is not None else 1
+    if n == 1 or not cfg.n_experts:
+        return params
+    dims = _expert_dim(cfg, params, mesh)
+
+    def gather(keys, leaf):
+        if keys not in dims:
+            return leaf
+        d = dims[keys]
+        with torch.no_grad():
+            return gather_over(leaf.detach().movedim(d, 0), mesh,
+                               MP).movedim(0, d).contiguous()
+
+    return _rebuild(params, gather)
+
+
 def to_named(tree, mesh):
     """A spec tree as DTensor placements on ``mesh`` (the counterpart of
     the reference's ``NamedSharding`` tree)."""
@@ -213,4 +308,6 @@ def to_named(tree, mesh):
 
 
 __all__ = ["MP", "attn_sharded", "batch_specs", "cache_specs",
-           "param_specs", "ssm_sharded", "to_named", "zero1_specs"]
+           "expert_mask", "expert_parallel", "gather_params", "leaf_paths",
+           "local_params", "param_specs", "ssm_sharded", "to_named",
+           "zero1_specs"]

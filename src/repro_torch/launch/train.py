@@ -24,9 +24,23 @@ Usage (full width unless ``--smoke``; the card unless ``--device cpu``):
 (``interop.lm_params_to_reference``, bfloat16 widened exactly to
 float32), so ``repro.checkpoint.restore_checkpoint`` reads it, and
 ``restore_checkpoint(PATH, state["params"])`` reads the reference's.
-Float32 runs without TF32 (``configs.backend.full_float32``). Model
-parallelism (``--model-parallel`` > 1) is not ported and raises
-``NotImplementedError`` (ROADMAP.md, Queue 1 item 16).
+Float32 runs without TF32 (``configs.backend.full_float32``).
+
+``--model-parallel N`` runs on ``launch/mesh.make_host_mesh(N)``, the
+("data", "model") mesh over ``torchrun``'s world, as the reference's
+driver does (``repro/launch/train.py:37-40``): the MoE layers run
+expert-parallel over ``model`` (each rank holds E/N experts a layer,
+``launch/shardings.local_params``), every other layer and the batch
+replicated. Two ranks on one card (gloo, ``launch/mesh``'s backend
+rule) or on the CPU:
+
+    torchrun --nproc_per_node 2 -m repro_torch.launch.train \
+        --arch deepseek-v2-lite-16b --smoke --model-parallel 2 [--device cpu]
+
+Every rank logs the same history; ``--ckpt`` gathers the expert rows
+over ``model`` and rank 0 alone writes. Without a world and at
+``--model-parallel 1`` no mesh is built (a one-rank mesh gives the same
+results bit for bit).
 """
 from __future__ import annotations
 
@@ -37,32 +51,37 @@ import torch
 
 from repro_torch import interop
 from repro_torch.checkpoint import save_checkpoint
-from repro_torch.configs.backend import full_float32, resolve_device
+from repro_torch.configs.backend import full_float32
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.data import lm_batches, make_lm_data
+from repro_torch.launch import shardings as SH
 from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import entry_mesh
 
 
 def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
           lr: float = 3e-4, seed: int = 0, model_parallel: int = 1,
           ckpt: str | None = None, log_every: int = 10, device="cuda",
-          n_layers: int | None = None):
-    """Train ``arch`` (``n_layers`` deep where given) for ``steps`` steps
-    of (batch, seq) windows from random weights (``seed``). Returns
-    (state, history), one dict a step read on the host after it: loss,
-    ce, moe_aux and grad_norm as floats, and the step's seconds on the
-    host clock (to the metrics' read, which waits for the device); with
-    ``ckpt`` the parameters are saved there (module doc)."""
-    if model_parallel != 1:
-        raise NotImplementedError("model parallelism is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 16)")
-    dev = resolve_device(device)
+          n_layers: int | None = None, dtype: str | None = None):
+    """Train ``arch`` (``n_layers`` deep where given, in ``dtype`` where
+    given: the compute and parameter dtype) for ``steps`` steps of
+    (batch, seq) windows from random weights (``seed``) on
+    ``model_parallel`` ranks a model group (module doc). Returns (state,
+    history), one dict a step read on the host after it: loss, ce,
+    moe_aux and grad_norm as floats, and the step's seconds on the host
+    clock (to the metrics' read, which waits for the device); on a mesh
+    (``make_host_mesh(model_parallel)`` gives it back) the state holds
+    this rank's expert rows. With ``ckpt`` the parameters are saved
+    there (module doc)."""
+    mesh, dev = entry_mesh(model_parallel, device)
     full_float32()
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)
-    state = ST.make_train_state(cfg, lr=lr, seed=seed, device=dev)
-    step_fn = ST.make_train_step(cfg)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype, param_dtype=dtype)
+    state = ST.make_train_state(cfg, lr=lr, seed=seed, device=dev, mesh=mesh)
+    step_fn = ST.make_train_step(cfg, mesh)
     vision = None
     if cfg.family == "vlm":
         vision = torch.zeros((batch, cfg.n_patches, cfg.vision_dim),
@@ -87,9 +106,11 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
                   f"ce {h['ce']:.4f} ({dt / (i + 1):.2f}s/step)",
                   flush=True)
     if ckpt:
-        save_checkpoint(ckpt, interop.lm_params_to_reference(state["params"]),
-                        meta={"arch": arch, "steps": steps,
-                              "final_loss": history[-1]["loss"]})
+        full = SH.gather_params(state["params"], cfg, mesh)
+        if mesh is None or mesh.get_rank() == 0:
+            save_checkpoint(ckpt, interop.lm_params_to_reference(full),
+                            meta={"arch": arch, "steps": steps,
+                                  "final_loss": history[-1]["loss"]})
     return state, history
 
 

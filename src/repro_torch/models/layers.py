@@ -168,9 +168,19 @@ class BatchNorm(nn.Module):
 
 # ------------------------------------------------------------ LM layers --
 
+class MetaDraws:
+    """Stands in for a ``torch.Generator`` where nothing is drawn: the
+    initializers then build meta tensors of the right shapes and dtypes
+    (``transformer.init_model(cfg, device="meta")``)."""
+    device = torch.device("meta")
+
+
 def _normal(shape, std: float, generator, dtype) -> torch.Tensor:
     """N(0, std²) drawn in float32 on the generator's device, then cast
-    (scaled in place: a full-width expert stack is ~19 GB in float32)."""
+    (scaled in place: a full-width expert stack is ~19 GB in float32); an
+    empty meta tensor for ``MetaDraws``."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=generator, device=generator.device)
     return w.mul_(std).to(dtype)
 

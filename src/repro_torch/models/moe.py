@@ -22,9 +22,20 @@ with the reference's capacity-bounded, sort-free dispatch
     add to every token.
 
 It also returns the switch-style load-balance auxiliary ``E·Σ_e f_e·p_e``
-over the full router distribution. The expert-parallel ``mesh=`` path
-(``shard_map`` with a ``psum``) is not ported (ROADMAP.md, Queue 1
-item 16).
+over the full router distribution.
+
+Expert parallelism (``mesh=`` with an ``ep_axis``, ``moe.py:104-141``):
+rank (d, m) of a mesh whose ``ep_axis`` has n ranks holds experts
+[m·E/n, (m+1)·E/n) (the ``gate``, ``up`` and ``down`` rows that
+``launch/shardings.local_params`` cuts) and routes its data coordinate
+d's slice of the flat (B·S, D) block over ``dp_axes`` to them, with the
+capacity of that slice; assignments to other ranks' experts fall into
+the drop bucket. y is summed over ``ep_axis`` and gathered over
+``dp_axes``; the auxiliary is each shard's, averaged over
+(``*dp_axes``, ``ep_axis``), as the reference's ``pmean``. The
+gradients are those of that function (``launch/mesh``'s collectives):
+the expert rows' summed over ``dp_axes``, the router's over every axis,
+x's over ``ep_axis`` and gathered over ``dp_axes``.
 """
 from __future__ import annotations
 
@@ -33,6 +44,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import mesh as M
+from repro_torch.launch.mesh import axis_names, axis_size
 from repro_torch.models import layers as L
 
 
@@ -61,11 +74,16 @@ def _capacity(n_tokens: int, cfg) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def _moe_local(xf, router_w, w_gate, w_up, w_down, *, cfg, capacity: int):
-    """Route xf: (T, D) through all E experts. Returns (y (T, D), the
-    load-balance auxiliary, float32)."""
+def _moe_local(xf, router_w, w_gate, w_up, w_down, *, cfg, capacity: int,
+               offset: int = 0):
+    """Route xf: (T, D) through the experts [offset, offset + e_local)
+    whose weights are ``w_*`` (e_local, ...); assignments to the others
+    are dropped. Returns (y (T, D), the partial sum over these experts,
+    and the load-balance auxiliary over the full router distribution,
+    float32)."""
     T, D = xf.shape
     k, E = cfg.top_k, cfg.n_experts
+    e_local = w_gate.shape[0]
     probs = torch.softmax(xf.float() @ router_w.float(), dim=-1)
     gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = gate[:, :k], idx[:, :k]
@@ -74,20 +92,23 @@ def _moe_local(xf, router_w, w_gate, w_up, w_down, *, cfg, capacity: int):
     f_e = F.one_hot(idx, E).float().mean(dim=(0, 1))
     aux = E * torch.sum(f_e * probs.mean(dim=0))
 
-    flat_e = idx.reshape(-1)                                # (T·k,)
+    local_e = idx.reshape(-1) - offset                      # (T·k,)
+    mine = (local_e >= 0) & (local_e < e_local)
+    e_cl = torch.where(mine, local_e, e_local)              # drop bucket
     token_ids = torch.arange(T * k, device=xf.device) // k
-    onehot = F.one_hot(flat_e, E)
-    pos = (torch.cumsum(onehot, dim=0) - 1).gather(1, flat_e[:, None])[:, 0]
-    keep = pos < capacity
+    onehot = F.one_hot(e_cl, e_local + 1)
+    pos = (torch.cumsum(onehot, dim=0) - 1).gather(1, e_cl[:, None])[:, 0]
+    keep = mine & (pos < capacity)
     # slot -> token; unfilled slots point at the zero pad row T
-    slot_tok = torch.full((E, capacity), T, dtype=torch.long,
+    slot_tok = torch.full((e_local, capacity), T, dtype=torch.long,
                           device=xf.device)
-    slot_tok[flat_e[keep], pos[keep]] = token_ids[keep]
-    slot_gate = torch.zeros((E, capacity), dtype=xf.dtype, device=xf.device)
-    slot_gate[flat_e[keep], pos[keep]] = gate.reshape(-1)[keep].to(xf.dtype)
+    slot_tok[e_cl[keep], pos[keep]] = token_ids[keep]
+    slot_gate = torch.zeros((e_local, capacity), dtype=xf.dtype,
+                            device=xf.device)
+    slot_gate[e_cl[keep], pos[keep]] = gate.reshape(-1)[keep].to(xf.dtype)
 
     x_pad = torch.cat([xf, xf.new_zeros((1, D))])
-    xd = x_pad[slot_tok]                                    # (E, C, D)
+    xd = x_pad[slot_tok]                                    # (e, C, D)
     h = F.silu(torch.bmm(xd, w_gate.to(xf.dtype))) \
         * torch.bmm(xd, w_up.to(xf.dtype))
     out = torch.bmm(h, w_down.to(xf.dtype)) * slot_gate[..., None]
@@ -96,17 +117,47 @@ def _moe_local(xf, router_w, w_gate, w_up, w_down, *, cfg, capacity: int):
     return y[:T], aux
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg, *, mesh=None):
+def _moe_sharded(p, xf, cfg, mesh, ep_axis, dp_axes):
+    """This rank's shard of the expert-parallel MoE (module doc)."""
+    n, E = axis_size(mesh, ep_axis), cfg.n_experts
+    if E % n:
+        raise ValueError(f"{E} experts do not split over {n} ranks of "
+                         f"{ep_axis!r}")
+    e_local = E // n
+    if p["gate"].shape[0] != e_local:
+        raise ValueError(
+            f"the expert-parallel MoE takes this rank's {e_local} expert "
+            f"rows, got {p['gate'].shape[0]}: cut the parameters with "
+            "launch.shardings.local_params")
+    dp = 1
+    for a in dp_axes:
+        dp *= axis_size(mesh, a)
+    cap = _capacity(xf.shape[0] // dp, cfg)
+    xb = M.replicated_over(M.take_rows(xf, mesh, dp_axes), mesh, ep_axis)
+    rw = M.replicated_over(p["router"]["w"], mesh, (*dp_axes, ep_axis))
+    w = [M.replicated_over(p[k], mesh, dp_axes) for k in ("gate", "up",
+                                                          "down")]
+    off = (mesh.get_local_rank(ep_axis) if n > 1 else 0) * e_local
+    y, aux = _moe_local(xb, rw, *w, cfg=cfg, capacity=cap, offset=off)
+    y = M.gather_over(M.sum_over(y, mesh, ep_axis), mesh, dp_axes)
+    aux = M.sum_over(aux, mesh, (*dp_axes, ep_axis)) / (dp * n)
+    return y, aux
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg, *, mesh=None,
+              ep_axis: str = "model", dp_axes: tuple = ()):
     """x: (B, S, D) -> (y, aux): the routed experts over the B·S tokens
-    plus the shared experts."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the expert-parallel (mesh-sharded) MoE is not ported yet "
-            "(ROADMAP.md, Queue 1 item 16)")
+    plus the shared experts. Expert-parallel iff ``mesh`` has
+    ``ep_axis`` (module doc); then ``p``'s experts are this rank's
+    rows."""
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
-    y, aux = _moe_local(xf, p["router"]["w"], p["gate"], p["up"], p["down"],
-                        cfg=cfg, capacity=_capacity(xf.shape[0], cfg))
+    if mesh is None or ep_axis not in axis_names(mesh):
+        y, aux = _moe_local(xf, p["router"]["w"], p["gate"], p["up"],
+                            p["down"], cfg=cfg,
+                            capacity=_capacity(xf.shape[0], cfg))
+    else:
+        y, aux = _moe_sharded(p, xf, cfg, mesh, ep_axis, tuple(dp_axes))
     y = y.reshape(B, S, D)
     if "shared" in p:
         y = y + L.swiglu(p["shared"], x)

@@ -115,17 +115,26 @@ def leaves(tree: dict) -> list:
             for t in (leaves(v) if isinstance(v, dict) else [v])]
 
 
+def _device(device) -> torch.device:
+    """``resolve_device``, which also passes the meta device."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
+
+
 def init_model(cfg, *, seed: int = 0, generator: torch.Generator | None = None,
                device="cuda") -> dict:
     """Random parameters: linear weights N(0, 1/d_in), the embedding
     N(0, 1/d_model), the experts N(0, 1/d_in) (the router float32), norms
     at one, gates at zero, as the reference draws them. Drawn in float32
     on the generator's device (default: a generator seeded with ``seed``
-    on ``device``), then cast to ``cfg.param_dtype``."""
+    on ``device``), then cast to ``cfg.param_dtype``. On the meta device
+    nothing is drawn: the tree's shapes and dtypes alone
+    (``launch/specs.abstract_params``)."""
     _check_family(cfg)
-    dev = resolve_device(device)
+    dev = _device(device)
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(seed)
+        generator = L.MetaDraws() if dev.type == "meta" \
+            else torch.Generator(device=dev).manual_seed(seed)
     dtype = getattr(torch, cfg.param_dtype)
     kw = {"generator": generator, "dtype": dtype}
     d = cfg.d_model
@@ -190,9 +199,9 @@ def init_cache(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
     MoE layers (``"layers"``) and its layer 0 (``"layer0"``); the mamba
     blocks' states stacked as their parameters (``"layers"``, and a
     hybrid's ``"tail"``) beside a hybrid's shared block's KV cache
-    (``"shared"``, one per application)."""
+    (``"shared"``, one per application). ``device`` may be meta."""
     _check_family(cfg)
-    dev = resolve_device(device)
+    dev = _device(device)
     dtype = getattr(torch, cfg.dtype)
 
     def attn_cache(lead):
@@ -236,12 +245,14 @@ def _dense_block(p, x, cfg, positions, window, cache, cache_pos):
     return x + L.swiglu(p["mlp"], L.rmsnorm(p["norm2"], x))
 
 
-def _moe_block(p, x, cfg, positions, cache, cache_pos):
-    """x + attn(norm(x)), then x + moe(norm(x)); returns (x, aux)."""
+def _moe_block(p, x, cfg, positions, cache, cache_pos, mesh, dp_axes):
+    """x + attn(norm(x)), then x + moe(norm(x)) (expert-parallel on a
+    mesh with a ``model`` axis); returns (x, aux)."""
     h, _ = _attn(p["attn"], L.rmsnorm(p["norm1"], x), cfg, positions, 0,
                  cache, cache_pos)
     x = x + h
-    y, aux = M.moe_apply(p["moe"], L.rmsnorm(p["norm2"], x), cfg)
+    y, aux = M.moe_apply(p["moe"], L.rmsnorm(p["norm2"], x), cfg,
+                         mesh=mesh, dp_axes=dp_axes)
     return x + y, aux
 
 
@@ -318,7 +329,8 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
             embeds: torch.Tensor | None = None,
             positions: torch.Tensor | None = None, cache: dict | None = None,
             cache_pos: int | None = None, vision: torch.Tensor | None = None,
-            decode: bool = False, remat: bool | None = None,
+            mesh=None, dp_axes: tuple = (), decode: bool = False,
+            remat: bool | None = None,
             with_aux: bool = False, return_hidden: bool = False):
     """Run the trunk over ``tokens`` (B, S) or soft ``embeds`` (B, S, D),
     cast to ``cfg.dtype``. positions: (S,) absolute positions (default
@@ -326,9 +338,12 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
     (``decode=True`` for the mamba blocks' one-token step; the attention
     blocks decode whenever S == 1 against a cache) updates it, in place.
     ``vision`` (B, P, vision_dim): a vlm's patch embeddings, which its
-    cross blocks attend over. Without a cache, ``remat`` (default
-    ``cfg.remat``) recomputes each block in the backward
-    (``torch.utils.checkpoint``). Returns (logits (B, S, V), cache), and
+    cross blocks attend over. ``mesh`` and ``dp_axes`` reach the MoE
+    layers alone, as in the reference: on a mesh with a ``model`` axis
+    they run expert-parallel (``moe.moe_apply``; the experts are then
+    this rank's rows), every other layer replicated. Without a cache,
+    ``remat`` (default ``cfg.remat``) recomputes each block in the
+    backward (``torch.utils.checkpoint``). Returns (logits (B, S, V), cache), and
     with ``with_aux`` a third item ``{"moe_aux"}``: the MoE layers'
     load-balance terms summed (float32, 0 without MoE layers).
     ``return_hidden`` returns the final norm's output (B, S, D) in place
@@ -355,7 +370,8 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
         if kind == "attn":
             fn, args = _dense_block, (cfg, positions, window, c, cache_pos)
         elif kind == "moe":
-            fn, args = _moe_block, (cfg, positions, c, cache_pos)
+            fn, args = _moe_block, (cfg, positions, c, cache_pos, mesh,
+                                    dp_axes)
         elif kind == "cross":
             fn, args = _cross_block, (cfg, vision)
         else:
@@ -414,14 +430,17 @@ def forward_paged(params: dict, cfg, *, tokens: torch.Tensor,
     return L.unembed(params["embed"], x), cache
 
 
-def loss_fn(params: dict, cfg, batch: dict):
+def loss_fn(params: dict, cfg, batch: dict, *, mesh=None,
+            dp_axes: tuple = ()):
     """Next-token cross-entropy over ``batch["tokens"]`` (B, S) against
     ``batch["labels"]`` (B, S): float32 log-softmax NLL, averaged over
     the tokens, or over ``batch["mask"]`` where given, plus
     ``router_aux_coef`` times the MoE auxiliary (0 without MoE layers). A
-    vlm reads ``batch["vision"]``. Returns (loss, {"ce", "moe_aux"})."""
+    vlm reads ``batch["vision"]``; ``mesh`` and ``dp_axes`` as in
+    ``forward``. Returns (loss, {"ce", "moe_aux"})."""
     logits, _, aux = forward(params, cfg, tokens=batch["tokens"],
-                             vision=batch.get("vision"), with_aux=True)
+                             vision=batch.get("vision"), mesh=mesh,
+                             dp_axes=dp_axes, with_aux=True)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
     mask = batch.get("mask")

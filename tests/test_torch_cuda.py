@@ -1100,3 +1100,42 @@ def test_mesh_gradient_rule_on_a_one_rank_nccl_world(cuda):
                                    rtol=1e-6, atol=1e-6)
     finally:
         dist.destroy_process_group()
+
+
+def test_one_rank_model_axis_train_step_is_unsharded_bit_for_bit(cuda):
+    """``launch.train``'s setup under a world of one rank on the card
+    (``make_host_mesh(1)``: a 1 x 1 (data, model) mesh, the MoE layers
+    on their expert-parallel path) equals the train step without a mesh
+    bit for bit: deepseek-v2-lite at smoke widths, float32, the capacity
+    binding, two steps, under deterministic algorithms (the MoE's
+    ``index_add_`` adds in no fixed order without them)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke_config("deepseek-v2-lite-16b").replace(
+        capacity_factor=0.5)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                              device="cuda") for k in ("tokens", "labels")}
+    mesh = make_host_mesh(1, device="cuda")
+    flags = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = []
+        for m in (mesh, None):
+            state = ST.make_train_state(cfg, seed=3, device="cuda", mesh=m)
+            step = ST.make_train_step(cfg, m)
+            metrics = [step(state, batch)[1] for _ in range(2)]
+            runs.append((metrics, T.leaves(state["params"])))
+        (m1, p1), (m0, p0) = runs
+        for a, b in zip(m1, m0):
+            assert all(torch.equal(a[k], b[k]) for k in b)
+        assert all(torch.equal(a, b) for a, b in zip(p1, p0))
+        assert float(m0[0]["moe_aux"]) > 0
+    finally:
+        torch.use_deterministic_algorithms(flags)
+        dist.destroy_process_group()

@@ -23,6 +23,7 @@ reference cannot run one there). Their engine streams are held in
 """
 import dataclasses
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -366,8 +367,13 @@ def test_moe_with_a_binding_capacity_drops_the_same_tokens():
     gy, aux2 = T_M.moe_apply(tm, torch.tensor(x), tc)
     _close(gy, wy)
     _close(aux2, waux2)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        T_M.moe_apply(tm, torch.tensor(x), tc, mesh=object())
+    # a mesh without the expert axis takes the unsharded path, as the
+    # reference's moe_apply does
+    no_ep = SimpleNamespace(axis_names=("pod", "data"),
+                            shape={"pod": 2, "data": 16})
+    y2, a2 = T_M.moe_apply(tm, torch.tensor(x), tc, mesh=no_ep,
+                           dp_axes=("pod", "data"))
+    assert torch.equal(y2, gy) and torch.equal(a2, aux2)
 
 
 def test_moe_ties_go_to_the_lower_expert():

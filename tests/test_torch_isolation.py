@@ -49,7 +49,7 @@ for m in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
           "repro_torch.configs.deepseek_v2_236b",
           "repro_torch.configs.llama3_2_vision_11b",
           "repro_torch.launch.mesh", "repro_torch.launch.shardings",
-          "repro_torch.fl.sharding"):
+          "repro_torch.fl.sharding", "repro_torch.launch.specs"):
     assert m in names, m
 assert "triton" not in sys.modules
 """
@@ -194,8 +194,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_gpu, name):
 
 
 def test_unported_paths_are_refused():
-    """What is still unported raises, naming its ROADMAP.md Queue 1 item:
-    model parallelism (16). The fused epoch driver (7), the scaling
+    """What the port refuses, it refuses as the reference does: the paged
+    engine under a model axis of more than one rank (model parallelism,
+    ROADMAP.md Queue 1 item 16, serves in dense mode there:
+    tests/test_torch_model_axis.py). The fused epoch driver (7), the scaling
     layers (11) and the client mesh (``ensemble_shard_mode="clients"``,
     tests/test_torch_mesh_spmd.py) resolve and run
     (tests/test_torch_fused.py, tests/test_torch_scale.py); fault
@@ -223,8 +225,10 @@ def test_unported_paths_are_refused():
         train_dense_server([], dataclasses.replace(smoke(),
                                                    nan_policy="ostrich"),
                            device="cpu")
-    from repro_torch.launch.train import train
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.launch.mesh import make_production_mesh
 
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train("llama3.2-3b", steps=1, batch=1, seq=4, smoke=True,
-              model_parallel=2, device="cpu")
+    with pytest.raises(ValueError, match="model_parallel=True"):
+        ServeEngine(get_smoke_config("llama3.2-3b"), mode="paged",
+                    mesh=make_production_mesh(), device="cpu")

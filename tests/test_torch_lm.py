@@ -8,6 +8,7 @@ Tolerance rtol = atol = 1e-5 (float32 on both sides, summed in another
 order), 1e-4 for full logits over the vocabulary.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -338,21 +339,27 @@ def test_unported_routes_raise(model):
     _close(T_T.forward(tp, sw[1], tokens=toks)[0],
            R_T.forward(rp, sw[0], tokens=jnp.asarray(toks.numpy()))[0],
            TOL_LOGITS)
-    # still refused: an unknown family, a mesh, the sharded MoE
+    # still refused: an unknown family; under a model axis the paged
+    # engine, and the expert-parallel MoE handed all of its experts
     with pytest.raises(ValueError, match="unknown family"):
         T_T.init_model(tc.replace(family="gnn"), device="cpu")
     with pytest.raises(ValueError, match="unknown family"):
         T_T.forward(tp, tc.replace(family="gnn"),
                     tokens=torch.zeros((1, 2), dtype=torch.int32))
     from repro_torch.launch.engine import ServeEngine
+    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import moe as T_M
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ServeEngine(tc, tp, mesh=object(), device="cpu")
+    pod = make_production_mesh()
+    assert ServeEngine(tc, tp, mesh=pod, device="cpu").mode == "dense"
+    with pytest.raises(ValueError, match="model_parallel=True"):
+        ServeEngine(tc, tp, mesh=pod, mode="paged", device="cpu")
     moe = T_base.get_smoke_config("deepseek-v2-lite-16b")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    two = SimpleNamespace(axis_names=("data", "model"),
+                          shape={"data": 1, "model": 2})
+    with pytest.raises(ValueError, match="local_params"):
         T_M.moe_apply(T_M.moe_init(moe, generator=torch.Generator(),
                                    dtype=torch.float32),
-                      torch.zeros((1, 2, moe.d_model)), moe, mesh=object())
+                      torch.zeros((1, 2, moe.d_model)), moe, mesh=two)
 
 
 # ---------------------------------------------------------------- interop --

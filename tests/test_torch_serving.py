@@ -282,9 +282,13 @@ def test_unported_serving_paths_raise(lm):
         ServeEngine(swcfg, tp, mode="paged", device="cpu")
     for fam in ("moe", "vlm"):
         assert not T_PG.supports_paged(tc.replace(family=fam))
-    # still refused: model parallelism
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ServeEngine(tc, tp, mesh=object(), device="cpu")
+    # under a model axis the engine serves in dense mode and refuses
+    # paged mode, as the reference's does
+    from repro_torch.launch.mesh import make_production_mesh
+    pod = make_production_mesh()
+    assert ServeEngine(tc, tp, mesh=pod, device="cpu").mode == "dense"
+    with pytest.raises(ValueError, match="model_parallel=True"):
+        ServeEngine(tc, tp, mesh=pod, mode="paged", device="cpu")
 
 
 def test_default_noise_is_keyed_by_request_and_token():

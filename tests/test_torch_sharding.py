@@ -18,6 +18,7 @@ from torch.distributed.tensor import Replicate, Shard
 from repro.configs.base import available_archs, get_config as r_get_config
 from repro.core import dense_llm as R_DL
 from repro.fl import sharding as R_FS
+from repro.launch import mesh as R_mesh
 from repro.launch import shardings as R_SH
 from repro.launch import specs as R_SP
 from repro.models import transformer as R_T
@@ -28,6 +29,8 @@ from repro_torch.core import dense_llm as T_DL
 from repro_torch.fl import sharding as T_FS
 from repro_torch.launch import mesh as T_M
 from repro_torch.launch import shardings as T_SH
+from repro_torch.launch import specs as T_SP
+from repro_torch.models import transformer as T_T
 
 MESHES = {"pod": (("data", "model"), {"data": 16, "model": 16}),
           "multipod": (("pod", "data", "model"),
@@ -121,6 +124,52 @@ def test_cache_and_batch_specs_match_reference(arch, mesh):
     for batch in (1, 2, 16, 32, 48, 128, 256):
         assert T_SH.batch_specs(tmesh, batch) == \
             R_SH.batch_specs(rmesh, batch)
+
+
+def _abstract(tree):
+    """{path: (shape, dtype name)} of a tree of reference abstract arrays
+    or of the port's meta tensors."""
+    if isinstance(tree, dict):
+        return {k: _abstract(v) for k, v in tree.items()}
+    dtype = getattr(tree.dtype, "name", None) or str(tree.dtype).split(".")[-1]
+    return tuple(tree.shape), dtype
+
+
+@pytest.mark.parametrize("shape", sorted(R_SP.SHAPES))
+@pytest.mark.parametrize("arch", available_archs())
+def test_input_specs_and_abstract_params_match_reference(abstract, arch,
+                                                         shape):
+    """``launch/specs.py``: the meta-device inputs of every arch and
+    shape, and the meta parameter tree, against the reference's
+    ``jax.eval_shape`` shapes and dtypes; ``long_context_ok`` per arch."""
+    rcfg, tcfg = r_get_config(arch), t_get_config(arch)
+    assert T_SP.SHAPES == R_SP.SHAPES
+    assert T_SP.long_context_ok(tcfg) == R_SP.long_context_ok(rcfg)
+    got, want = T_SP.input_specs(tcfg, shape), R_SP.input_specs(rcfg, shape)
+    assert set(got) == set(want)
+    for k in want:
+        if k in ("kind", "batch", "seq"):
+            assert got[k] == want[k]
+        else:
+            assert _abstract(got[k]) == _abstract(want[k]), k
+    params = T_SP.abstract_params(tcfg)
+    assert all(t.device.type == "meta" for t in T_T.leaves(params))
+    assert _abstract(params) == _abstract(abstract[arch])
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_mesh_names_and_sizes(monkeypatch, multi_pod):
+    """``make_production_mesh`` gives the names and sizes the reference's
+    builds its 256- or 512-device mesh with (read off its call to
+    ``jax.make_mesh``: this host has one device)."""
+    monkeypatch.setattr(R_mesh.jax, "make_mesh", lambda shape, axes, **kw:
+                        SimpleNamespace(axis_names=tuple(axes),
+                                        shape=dict(zip(axes, shape))))
+    want = R_mesh.make_production_mesh(multi_pod=multi_pod)
+    got = T_M.make_production_mesh(multi_pod=multi_pod)
+    assert got.axis_names == want.axis_names and got.shape == want.shape
+    assert T_M.axis_sizes(got) == want.shape
+    assert T_M.dp_axes_of(got) == R_mesh.dp_axes_of(want)
 
 
 def test_spec_vocabulary():
