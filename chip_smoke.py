@@ -320,7 +320,15 @@ result line is printed:
      logits within 1e-4); one gen_step and one student_step of
      ``full_moe()``'s federation cut to 3 layers on the mesh (K1f and
      K1b once a step each at (1024, 102400) on every rank, the losses
-     within 1e-4); each part's seconds and peak GiB per rank.
+     within 1e-4); then the partitioned trunk, the steps given the dry
+     run's specs against the same steps at model 1: lite's 3 train steps,
+     and llama3-2-3b at full width cut to 2 layers (12/4 heads a rank): 3
+     train steps (K2f, K2q, K2kv on ``sm90``), a prefill and 8 greedy
+     decode steps (logits within 1e-5 of their largest entry, tokens
+     equal), one materialized pod step (K1f and K1b at (256, 128256) on
+     the logits gathered over ``model``); the parameters held where
+     every step's gradient is above 1e-3 of its tensor's largest; each
+     part's seconds and peak GiB per rank.
 
 Output: a line with the card's name and power limit, one JSON line per
 phase, the ``{"kernels": [...]}`` line, and last the result line
@@ -5042,23 +5050,227 @@ def _axis_llm(torch, mesh, dev):
             "k1_shape": [oc.batch * oc.gen_seq, cfg.vocab_size]}
 
 
-def _axis_compare(torch, got: dict, want: dict) -> dict:
+def _axis_compare(torch, got: dict, want: dict, held=None) -> dict:
     """Per tensor of two trees with the same layout (``want`` on the
     host): max |got − want| over max |want|, the worst tensors and the
-    entries past MODEL_AXIS_TOL of their tensor's largest entry."""
+    entries past MODEL_AXIS_TOL of their tensor's largest entry; with
+    ``held`` (a tree of bool masks) over the held entries alone, and
+    the share held."""
     from repro_torch.launch.shardings import leaf_paths
 
-    rows, past = [], 0
+    rows, past, kept, n = [], 0, 0, 0
+    masks = leaf_paths(held) if held is not None else None
     for (keys, a), (_, b) in zip(leaf_paths(got), leaf_paths(want),
                                  strict=True):
         b = b.to(a.device)
         scale = float(b.abs().max())
         diff = (a.detach().float() - b.float()).abs()
+        if masks is not None:
+            mask = next(masks)[1].to(a.device)
+            diff = torch.where(mask, diff, 0.0)
+            kept += int(mask.sum())
+        n += diff.numel()
         past += int((diff > MODEL_AXIS_TOL * scale).sum())
         rows.append((float(diff.max()) / max(scale, 1e-30), "/".join(keys)))
     rows.sort(reverse=True)
-    return {"max_rel": rows[0][0], "worst": rows[:4],
-            "entries_past_tol": past}
+    out = {"max_rel": rows[0][0], "worst": rows[:4],
+           "entries_past_tol": past}
+    if held is not None:
+        out["held_share"] = kept / n
+    return out
+
+
+# the partitioned trunk (the steps given the dry run's specs) at model 2:
+# llama3-2-3b at full width (24 / 8 heads: 12 / 4 a rank), float32
+MODEL_AXIS_LLAMA = "llama3-2-3b"
+MODEL_AXIS_LLAMA_LAYERS = 2
+MODEL_AXIS_LLAMA_BATCH = (2, 256)
+# prompts, prompt tokens, greedy decode steps against a dense cache
+MODEL_AXIS_DECODE = (2, 64, 8)
+# the pod step's clients, batch and sequence: K1 at (batch·seq, 128256)
+MODEL_AXIS_POD = (2, 2, 128)
+# decode logits within this much of their largest entry
+MODEL_AXIS_LOGITS_TOL = 1e-5
+# the partitioned steps' parameters are held to MODEL_AXIS_TOL wherever
+# the one-rank run's gradient was above this share of its tensor's
+# largest at every step: below it Adam's update lr·g/(|g| + 1e-8) turns
+# float32 noise, here the sums over ``model`` taken in another order,
+# into a change of the update (on an H100 llama's one-rank floor reads 0,
+# yet model 2 lies 5.3e-4–1.7e-3 from model 1 over every entry; ROADMAP.md
+# Queue 3). At least MODEL_AXIS_HELD_SHARE of the entries are held; an
+# absolute floor of 1e-5 (tests/test_torch_partitioned.py's, at smoke
+# widths) held 5% of lite's and 16% of llama's at full width there
+MODEL_AXIS_GRAD_FLOOR = 1e-3
+MODEL_AXIS_HELD_SHARE = 0.25
+
+
+class _GradFloor:
+    """Stands in for a train state's Adam, which it calls: keeps, per
+    parameter, where every step's gradient was above
+    MODEL_AXIS_GRAD_FLOOR of the tensor's largest."""
+
+    def __init__(self, opt):
+        self.opt, self.params, self.m = opt, opt.params, opt.m
+        self.held = None
+
+    def step(self, grads):
+        big = [g.abs() > MODEL_AXIS_GRAD_FLOOR * g.abs().max()
+               for g in grads]
+        self.held = big if self.held is None else [
+            a & b for a, b in zip(self.held, big, strict=True)]
+        self.opt.step(grads)
+
+
+def _llama_axis_cfg():
+    from repro_torch.configs import get_config
+
+    return get_config(MODEL_AXIS_LLAMA).replace(
+        n_layers=MODEL_AXIS_LLAMA_LAYERS, dtype="float32",
+        param_dtype="float32")
+
+
+def _axis_steps(torch, cfg, mesh, dev, batch, held: bool = False):
+    """MODEL_AXIS_STEPS train steps of ``make_train_step`` from
+    ``init_model`` (seed 0) on ``launch.train``'s token stream (seed 0),
+    the weights and batches ``launch.train.train`` takes: with the specs
+    on ``mesh`` (the partitioned trunk), without them where ``mesh`` is
+    None. Returns (history, this rank's parameters and Adam's first
+    moments (each rank compares its own shards: gathering them would
+    move them through gloo's host copies), its ``wq``/``wk`` shapes
+    where there are any, launches, routes, and with ``held`` the entries
+    whose gradient was above MODEL_AXIS_GRAD_FLOOR at every step, else
+    None)."""
+    from repro_torch.data import lm_batches, make_lm_data
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import P
+    from repro_torch.models import transformer as T
+
+    B, S = batch
+    params = T.init_model(cfg, seed=0, device=dev)
+    if mesh is None:
+        state = ST.make_train_state(cfg, params=params, device=dev)
+        step = ST.make_train_step(cfg)
+    else:
+        pspecs, sspecs = SH.train_state_specs(cfg, mesh)
+        bspec = P(SH.batch_specs(mesh, B), None)
+        state = ST.make_train_state(cfg, params=params, device=dev,
+                                    mesh=mesh, specs=sspecs)
+        step = ST.make_train_step(cfg, mesh, specs=(
+            sspecs, {"tokens": bspec, "labels": bspec}))
+    del params
+    if held:
+        state["opt"] = _GradFloor(state["opt"])
+    toks = make_lm_data(0, vocab=cfg.vocab_size,
+                        n_tokens=max(200_000, B * (S + 1) * 4))
+    hist = []
+    zero_counts()
+    for x, y in lm_batches(toks, B, S, seed=0, steps=MODEL_AXIS_STEPS):
+        b = {"tokens": torch.from_numpy(x).to(dev),
+             "labels": torch.from_numpy(y).to(dev)}
+        if mesh is not None:
+            b = {k: SH.cut(v, bspec, mesh) for k, v in b.items()}
+        state, m = step(state, b)
+        hist.append({k: float(v) for k, v in m.items()})
+    sync(torch, dev)
+    launches, routes = read_counts(), read_routes()
+    attn = state["params"]["blocks"].get("attn", {})
+    local = {k: list(attn[k]["w"].shape[-2:]) for k in ("wq", "wk")
+             if k in attn}
+    moments = _tree_from(state["params"], state["opt"].m)
+    mask = _tree_from(state["params"], state["opt"].held) if held else None
+    return hist, state["params"], moments, local, launches, routes, mask
+
+
+def _axis_cut(cfg, mesh, params, moments, held):
+    """A one-rank run's parameters, first moments and held entries (host
+    trees) cut to this rank's shards by the specs (``zero1_specs`` for
+    the moments)."""
+    from repro_torch.launch import shardings as SH
+
+    pspecs, sspecs = SH.train_state_specs(cfg, mesh)
+    return (SH.local_params(params, cfg, mesh, pspecs),
+            SH.local_tree(moments, sspecs["opt"]["m"], mesh),
+            SH.local_params(held, cfg, mesh, pspecs))
+
+
+def _axis_serve(torch, cfg, mesh, dev):
+    """A prefill of MODEL_AXIS_DECODE's prompts into a dense cache and
+    its greedy decode steps, with the specs on ``mesh`` (the cache cut
+    by ``cache_specs``), without where ``mesh`` is None: (the greedy
+    tokens, each decode step's logits on the host)."""
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import P
+    from repro_torch.models import transformer as T
+
+    n, plen, steps = MODEL_AXIS_DECODE
+    params = T.init_model(cfg, seed=3, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (n, plen),
+                            generator=torch.Generator().manual_seed(5)
+                            ).to(dev)
+    cache = T.init_cache(cfg, n, plen + steps, device=dev)
+    if mesh is None:
+        pre, dec = ST.make_prefill_step(cfg), ST.make_serve_step(cfg)
+    else:
+        pspecs, _ = SH.train_state_specs(cfg, mesh)
+        cspecs = SH.cache_specs(cfg, cache, mesh, batch=n)
+        tspec = P(SH.batch_specs(mesh, n), None)
+        params = SH.local_params(params, cfg, mesh, pspecs)
+        cache = SH.local_tree(cache, cspecs, mesh)
+        prompts = SH.cut(prompts, tspec, mesh)
+        pre = ST.make_prefill_step(cfg, mesh, specs=(pspecs, cspecs, tspec))
+        dec = ST.make_serve_step(cfg, mesh,
+                                 specs=(pspecs, cspecs, tspec, P()))
+    toks, logits_all = [], []
+    with torch.no_grad():
+        logits, cache = pre(params, cache, prompts)
+        for i in range(steps + 1):
+            if i:
+                logits, cache = dec(params, cache, tok, plen + i - 1)
+                logits_all.append(logits[:, -1].float().cpu())
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            toks.append(tok[:, 0].tolist())
+    return toks, logits_all
+
+
+def _axis_pod(torch, cfg, mesh, dev):
+    """One materialized ``make_pod_distill_step`` (K1 on the card) of a
+    stack of MODEL_AXIS_POD's clients, with the specs on ``mesh`` (the
+    logits all-gathered over ``model`` for K1), without where ``mesh``
+    is None: (the loss, launches, routes)."""
+    from repro_torch.core import dense_llm as DL
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import P
+    from repro_torch.models import transformer as T
+
+    def stack(trees):
+        return {k: stack([t[k] for t in trees]) if isinstance(v, dict)
+                else torch.stack([t[k] for t in trees])
+                for k, v in trees[0].items()}
+
+    n, B, S = MODEL_AXIS_POD
+    stacked = stack([T.init_model(cfg, seed=21 + i, device=dev)
+                     for i in range(n)])
+    student = T.init_model(cfg, seed=23, device=dev)
+    embeds = torch.randn((B, S, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+    if mesh is None:
+        step = DL.make_pod_distill_step(cfg, None, n_clients=n, device=dev)
+    else:
+        pspecs, sspecs = SH.train_state_specs(cfg, mesh)
+        cspecs = DL.pod_stack_specs(pspecs, mesh)
+        espec = P("data", None, None)
+        step = DL.make_pod_distill_step(cfg, mesh, n_clients=n, device=dev,
+                                        specs=(sspecs, cspecs, espec))
+        stacked = SH.local_tree(stacked, cspecs, mesh)
+        embeds = SH.cut(embeds, espec, mesh)
+    state = step.make_state(student)
+    del student
+    zero_counts()
+    state, met = step(state, stacked, embeds)
+    sync(torch, dev)
+    return float(met["dis_loss"]), read_counts(), read_routes()
 
 
 def model_axis_rank(rank: int, world: int, port: int, out: str,
@@ -5071,7 +5283,10 @@ def model_axis_rank(rank: int, world: int, port: int, out: str,
     then both join the two-rank world from ``torchrun``'s environment
     variables, set here, and run every part at model 2, each rank holding
     its expert rows and replicated parameters to its own first
-    reference's. Writes its numbers to ``out/rank<rank>.json``."""
+    reference's, then the partitioned parts (llama3-2-3b's model-1
+    references first, side by side), each rank its shards to the
+    reference cut to them. Writes its numbers to
+    ``out/rank<rank>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -5098,8 +5313,12 @@ def model_axis_rank(rank: int, world: int, port: int, out: str,
     ref_params, ref_m = _to_host(ref_params), _to_host(ref_m)
     res["ref"]["train"] = {"history": hist, **rec}
     free()
-    (_, params, moments), rec = _axis_part(
-        torch, dev, lambda: _axis_train(torch, 1, dev))
+    # the second run, the same program through the steps (no specs),
+    # also keeps where its gradients stayed above the floor
+    (_, params, moments, _, _, _, ref_held), rec = _axis_part(
+        torch, dev, lambda: _axis_steps(torch, _axis_cfg(), None, dev,
+                                        MODEL_AXIS_BATCH, held=True))
+    ref_held = _to_host(ref_held)
     res["ref"]["train"]["floor"] = {
         "params": _axis_compare(torch, params, ref_params),
         "adam_m": _axis_compare(torch, moments, ref_m), **rec}
@@ -5133,7 +5352,6 @@ def model_axis_rank(rank: int, world: int, port: int, out: str,
                  ref_params, cfg, mesh)),
              "adam_m": _axis_compare(torch, moments, SH.local_params(
                  ref_m, cfg, mesh))}
-    del ref_params, ref_m
     # the replicated parameters, bit for bit across the ranks
     unequal = []
     for (keys, t), expert in zip(SH.leaf_paths(params),
@@ -5146,6 +5364,72 @@ def model_axis_rank(rank: int, world: int, port: int, out: str,
     train["replicated_unequal"] = unequal
     res["mesh"]["train"] = train
     del params, moments
+    free()
+    # the partitioned steps: lite's train against its run-time reference
+    (hist, params, moments, local, launches, routes, _), rec = _axis_part(
+        torch, dev, lambda: _axis_steps(torch, cfg, mesh, dev,
+                                        MODEL_AXIS_BATCH))
+    want_p, want_m, held = _axis_cut(cfg, mesh, ref_params, ref_m,
+                                     ref_held)
+    res["mesh"]["lite_partitioned"] = {
+        "history": hist, **rec, "local_attn": local,
+        "params": _axis_compare(torch, params, want_p),
+        "params_held": _axis_compare(torch, params, want_p, held),
+        "adam_m": _axis_compare(torch, moments, want_m)}
+    del params, moments, ref_params, ref_m, ref_held, want_p, want_m, held
+    free()
+    # llama3-2-3b at model 1 without specs, on each rank side by side
+    # (here rather than before the world forms: rank 1's one-rank LLM
+    # steps peak at 38 GiB): train twice (the floor), the decode and the
+    # pod step
+    lcfg = _llama_axis_cfg()
+    (l_hist, l_params, l_m, _, _, _, l_held), rec = _axis_part(
+        torch, dev, lambda: _axis_steps(torch, lcfg, None, dev,
+                                        MODEL_AXIS_LLAMA_BATCH, held=True))
+    l_params, l_m, l_held = (_to_host(t) for t in (l_params, l_m, l_held))
+    res["ref"]["llama_train"] = {"history": l_hist, **rec}
+    free()
+    (_, params, moments, _, _, _, _), rec = _axis_part(
+        torch, dev, lambda: _axis_steps(torch, lcfg, None, dev,
+                                        MODEL_AXIS_LLAMA_BATCH))
+    res["ref"]["llama_train"]["floor"] = {
+        "params": _axis_compare(torch, params, l_params),
+        "adam_m": _axis_compare(torch, moments, l_m), **rec}
+    del params, moments
+    free()
+    (l_toks, l_logits), rec = _axis_part(
+        torch, dev, lambda: _axis_serve(torch, lcfg, None, dev))
+    res["ref"]["llama_serve"] = {"tokens": l_toks, **rec}
+    free()
+    (l_pod, _, _), rec = _axis_part(
+        torch, dev, lambda: _axis_pod(torch, lcfg, None, dev))
+    res["ref"]["llama_pod"] = {"loss": l_pod, **rec}
+    free()
+    (hist, params, moments, local, launches, routes, _), rec = _axis_part(
+        torch, dev, lambda: _axis_steps(torch, lcfg, mesh, dev,
+                                        MODEL_AXIS_LLAMA_BATCH))
+    want_p, want_m, held = _axis_cut(lcfg, mesh, l_params, l_m, l_held)
+    res["mesh"]["llama_train"] = {
+        "history": hist, **rec, "local_attn": local,
+        "params": _axis_compare(torch, params, want_p),
+        "params_held": _axis_compare(torch, params, want_p, held),
+        "adam_m": _axis_compare(torch, moments, want_m),
+        "launches": launches, "routes": routes}
+    del params, moments, l_params, l_m, l_held, want_p, want_m, held
+    free()
+    (toks, logits), rec = _axis_part(
+        torch, dev, lambda: _axis_serve(torch, lcfg, mesh, dev))
+    res["mesh"]["llama_serve"] = {
+        "tokens": toks, **rec,
+        "logits_max_rel": max(float((a - b).abs().max())
+                              / float(b.abs().max())
+                              for a, b in zip(logits, l_logits,
+                                              strict=True))}
+    free()
+    (loss, launches, routes), rec = _axis_part(
+        torch, dev, lambda: _axis_pod(torch, lcfg, mesh, dev))
+    res["mesh"]["llama_pod"] = {"loss": loss, **rec, "launches": launches,
+                                "routes": routes}
     free()
     (streams, logits, mode), rec = _axis_part(
         torch, dev, lambda: _axis_engine(torch, mesh, dev))
@@ -5172,7 +5456,8 @@ def _free_port() -> int:
 
 
 def model_axis(torch, dev="cuda"):
-    """The model axis at run time on a two-rank world on the one card
+    """The model axis at run time, then the partitioned trunk, on a
+    two-rank world on the one card
     (gloo: two ranks share it, ``launch/mesh``'s backend rule):
     deepseek-v2-lite-16b at full width (d_model 2048, 64 routed experts
     top-6 and 2 shared, MLA, vocab 102400) cut to MODEL_AXIS_LAYERS,
@@ -5192,12 +5477,36 @@ def model_axis(torch, dev="cuda"):
       (c) one gen_step and one student_step of ``make_llm_dense_steps``
           with ``full_moe()``'s federation cut to MODEL_AXIS_LAYERS: K1f
           and K1b once a step each at (1024, 102400) on every rank, the
-          losses within MODEL_AXIS_TOL of the one-rank run's.
+          losses within MODEL_AXIS_TOL of the one-rank run's;
+
+    then the partitioned trunk, the steps given the dry run's specs
+    (``launch/steps``, every layer on this rank's shards), each held to
+    the same step at model 1 without specs: the losses, grad norms and
+    Adam's first moments within MODEL_AXIS_TOL, the parameters within
+    it wherever the one-rank run's gradient stayed above
+    MODEL_AXIS_GRAD_FLOOR of its tensor's largest (the floor rule of (a)
+    is reported beside):
+
+      (d) lite's MODEL_AXIS_STEPS train steps (attention, the shared
+          experts, the dense layer and the vocabulary over ``model``, 32
+          experts a rank) against (a)'s one-rank run;
+      (e) llama3-2-3b at full width cut to MODEL_AXIS_LLAMA_LAYERS (12
+          query and 4 KV heads a rank), float32: MODEL_AXIS_STEPS train
+          steps at MODEL_AXIS_LLAMA_BATCH, K2f, K2q and K2kv all on
+          ``sm90`` at the head-sharded shape; a prefill and greedy
+          decode steps against a
+          dense cache (MODEL_AXIS_DECODE): the tokens equal and each
+          step's logits within MODEL_AXIS_LOGITS_TOL of their largest
+          entry;
+      (f) one materialized ``make_pod_distill_step`` of llama3-2-3b
+          (MODEL_AXIS_POD): K1f and K1b once each on the logits gathered
+          over ``model`` (batch·seq, 128256), K2f on ``sm90``, the loss
+          within MODEL_AXIS_TOL.
 
     Each part's seconds and peak GiB per rank, the backend, the phase's
     seconds. A failed spawn, a failed collective or a rank past
-    MODEL_AXIS_DEADLINE fails the script. Returns K1's launches in the
-    two-rank run by rank."""
+    MODEL_AXIS_DEADLINE fails the script. Returns K1's and K2's
+    launches in the two-rank run by rank."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -5266,28 +5575,103 @@ def model_axis(torch, dev="cuda"):
         "llm_losses": llm_err <= MODEL_AXIS_TOL,
         "llm_k1_launches": launches_ok
         and ref_llm["k1_shape"] == [1024, 102400]}
-    k1 = {f"rank{r['rank']}": {
+
+    # the partitioned steps against model 1 (the module doc's (d)-(f))
+    def hist_err(got, want):
+        return max(rel(h[k], w[k]) for h, w in zip(got, want, strict=True)
+                   for k in ("loss", "grad_norm"))
+
+    lite_p = [r["mesh"]["lite_partitioned"] for r in ranks]
+    llama = [r["mesh"]["llama_train"] for r in ranks]
+    l_ref = r0["ref"]["llama_train"]
+    l_floor = max(r["ref"]["llama_train"]["floor"]["params"]["max_rel"]
+                  for r in ranks)
+    l_limit = max(MODEL_AXIS_TOL, MODEL_AXIS_FLOOR_FACTOR * l_floor)
+    lite_err = max(hist_err(t["history"], ref_train["history"])
+                   for t in lite_p)
+    llama_err = max(hist_err(t["history"], l_ref["history"]) for t in llama)
+    pod_err = max(rel(r["mesh"]["llama_pod"]["loss"],
+                      r0["ref"]["llama_pod"]["loss"]) for r in ranks)
+    logits_err = max(r["mesh"]["llama_serve"]["logits_max_rel"]
+                     for r in ranks)
+    pair = expected(distill_kl_fwd=1, distill_kl_bwd=1)
+
+    def k2_sm90(launches, routes) -> bool:
+        n = {k: launches[f"flash_attention_{k}"]
+             for k in ("fwd", "bwd_dq", "bwd_dkv")}
+        return all(n.values()) and routes["fwd_sm90"] == n["fwd"] \
+            and routes["dq_sm90"] == n["bwd_dq"] \
+            and routes["dkv_sm90"] == n["bwd_dkv"]
+
+    checks.update({
+        "lite_partitioned_history": lite_err <= MODEL_AXIS_TOL,
+        "lite_partitioned_params": all(
+            t["params_held"]["max_rel"] <= MODEL_AXIS_TOL
+            and t["params_held"]["held_share"] >= MODEL_AXIS_HELD_SHARE
+            for t in lite_p),
+        "lite_partitioned_adam_m": all(t["adam_m"]["max_rel"]
+                                       <= MODEL_AXIS_TOL for t in lite_p),
+        "llama_heads_local": all(t["local_attn"] == {"wq": [3072, 1536],
+                                                     "wk": [3072, 512]}
+                                 for t in llama),
+        "llama_train_history": llama_err <= MODEL_AXIS_TOL,
+        "llama_train_params": all(
+            t["params_held"]["max_rel"] <= MODEL_AXIS_TOL
+            and t["params_held"]["held_share"] >= MODEL_AXIS_HELD_SHARE
+            for t in llama),
+        "llama_train_adam_m": all(t["adam_m"]["max_rel"] <= MODEL_AXIS_TOL
+                                  for t in llama),
+        "llama_train_k2_sm90": all(k2_sm90(t["launches"], t["routes"])
+                                   for t in llama),
+        "llama_decode_logits": logits_err <= MODEL_AXIS_LOGITS_TOL,
+        "llama_greedy_tokens": all(r["mesh"]["llama_serve"]["tokens"]
+                                   == r0["ref"]["llama_serve"]["tokens"]
+                                   for r in ranks),
+        "llama_pod_loss": pod_err <= MODEL_AXIS_TOL,
+        "llama_pod_k1": all(
+            {k: v for k, v in r["mesh"]["llama_pod"]["launches"].items()
+             if k.startswith("distill_kl")} ==
+            {k: v for k, v in pair.items() if k.startswith("distill_kl")}
+            for r in ranks),
+        "llama_pod_k2_sm90": all(
+            r["mesh"]["llama_pod"]["launches"]["flash_attention_fwd"] > 0
+            and r["mesh"]["llama_pod"]["routes"]["fwd_sm90"]
+            == r["mesh"]["llama_pod"]["launches"]["flash_attention_fwd"]
+            for r in ranks)})
+    names = ("distill_kl_fwd", "distill_kl_bwd", "flash_attention_fwd",
+             "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    by_rank = {f"rank{r['rank']}": {
         k: sum(c[k] for c in r["mesh"]["llm"]["launches"].values())
-        for k in ("distill_kl_fwd", "distill_kl_bwd")} for r in ranks}
+        + r["mesh"]["llama_train"]["launches"][k]
+        + r["mesh"]["llama_pod"]["launches"][k] for k in names}
+        for r in ranks}
     emit({"model_axis": {
         "card": card(), "arch": MODEL_AXIS_ARCH, "dtype": "float32",
         "n_layers": [get_full_layers(MODEL_AXIS_ARCH), MODEL_AXIS_LAYERS],
+        "partitioned_arch": MODEL_AXIS_LLAMA,
+        "partitioned_n_layers": [get_full_layers(MODEL_AXIS_LLAMA),
+                                 MODEL_AXIS_LLAMA_LAYERS],
         "world": world, "backend": r0["backend"],
         "mesh": r0["mesh_shape"], "tol": MODEL_AXIS_TOL,
+        "logits_tol": MODEL_AXIS_LOGITS_TOL,
         "checks": checks, "train_rel_err": train_err,
         "params_floor": floor, "params_limit": params_limit,
-        "llm_rel_err": llm_err, "k1_launches": k1,
+        "llm_rel_err": llm_err,
+        "lite_partitioned_rel_err": lite_err,
+        "llama_train_rel_err": llama_err, "llama_params_floor": l_floor,
+        "llama_params_limit": l_limit, "llama_logits_rel_err": logits_err,
+        "llama_pod_rel_err": pod_err, "launches": by_rank,
         "ranks": ranks, "seconds_total": time.perf_counter() - t0}})
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         fail(f"model_axis: {bad} failed")
-    return k1
+    return by_rank
 
 
 # ----------------------------------------------------------------- main --
 
 def k2_entry(name, which, rs, line, launches, hybrid_launches,
-             vlm_launches, vlm_train_launches, pod_launches):
+             vlm_launches, vlm_train_launches, pod_launches, axis_launches):
     """The kernels line's entry of a K2 kernel: the server shape in
     bfloat16 (the LLM main path's gen_step and student_step), its
     launches over the LLM main path, and by path: the LLM main path's (D
@@ -5329,7 +5713,11 @@ def k2_entry(name, which, rs, line, launches, hybrid_launches,
                                    ("pod_distill_materialized", 128,
                                     pod_launches["materialized"]),
                                    ("pod_distill_chunked", 128,
-                                    pod_launches["chunked"]))},
+                                    pod_launches["chunked"]))}
+            | {"model_axis": {"D": 128, "dtype": "float32",
+                              "route": FA.route(which, torch.float32, 128),
+                              "launches": {rank: c[name] for rank, c in
+                                           axis_launches.items()}}},
             "float32_route": FA.route(which, torch.float32, 128),
             "by_shape": rs}
 
@@ -5490,7 +5878,7 @@ def main() -> None:
          "shape": k4["shape"], "dtype": k4["dtype"], "by_shape": k4_rows},
         *(k2_entry(name, which, k2_rows[which], line, llm_launches,
                    hybrid_launches, vlm_launches, vlm_train_launches,
-                   pod_launches)
+                   pod_launches, axis_launches)
           for name, which, line in (
               ("flash_attention_fwd", "fwd", 171),
               ("flash_attention_bwd_dq", "dq", 342),

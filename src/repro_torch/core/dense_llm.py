@@ -31,12 +31,17 @@ teacher's mean runs as a loop over that dim in client order, under no
 gradient (the hand-written kernels do not pass ``torch.func.vmap``); on
 a mesh with a ``pod`` axis each rank holds its pod's clients and the
 mean is a local sum, one all-reduce over ``pod`` and a divide. Two loss
-routes: the materialized (B·S, V) logits through ``LS.distill_loss``
-(the K1 pair on the card, dL/dt off), or ``chunked_kl``: hidden states
+routes: the materialized (B·S, V) logits through ``LS.softmax_kl``, the
+mean over the rows (the K1 pair on the card, dL/dt off), or ``chunked_kl``: hidden states
 and a readout fused with the plain KL over ``kl_chunk``-token chunks,
 each chunk recomputed in the backward, so no (B·S, V) tensor is ever
 held. The student trunk runs with the policy's ``kernel_vjp`` (K2 on
-the card) and remat.
+the card) and remat. Given ``specs`` (the student state's, the stack's
+``pod_stack_specs`` and the embeddings', as the reference's dry run jits
+the cell) every trunk runs partitioned on this rank's shards
+(``launch/steps``' module doc), the KL vocabulary-parallel (K1 on
+logits all-gathered over ``model``) and its mean over the rows of every
+``data`` shard.
 
 Both step factories take the reference's ``mesh`` and pass it into every
 client, teacher and student forward (``make_llm_dense_steps`` with its
@@ -233,7 +238,7 @@ def make_pod_distill_step(cfg, mesh=None, *, n_clients: int,
                           kl_chunk: int = 64,
                           distill_kl_mode: str | None = None,
                           kernel_vjp_mode: str | None = None,
-                          policy=None, device=None):
+                          policy=None, device=None, specs=None):
     """DENSE stage-2 distillation against a homogeneous client stack
     (module doc). Returns ``distill_step(stu_state, stacked, embeds) ->
     (stu_state, {"dis_loss"})``: ``stu_state`` is {"params", "opt",
@@ -250,10 +255,14 @@ def make_pod_distill_step(cfg, mesh=None, *, n_clients: int,
     ``distill_kl_mode`` routes the materialized route's KL and
     ``kernel_vjp_mode`` the trunk (defaults: the policy's, on ``device``
     or the mesh's device type); "autodiff" cannot train and is
-    refused."""
+    refused. ``specs``: (the student state's spec tree, the stack's
+    ``pod_stack_specs``, the embeddings' spec), the reference's
+    ``in_shardings``; ``make_state`` then cuts the student and the step
+    takes this rank's shards of the stack and rows of ``embeds`` (module
+    doc)."""
     from torch.utils.checkpoint import checkpoint
 
-    from repro_torch.launch.mesh import axis_names, axis_size
+    from repro_torch.launch.mesh import axis_names, axis_size, sum_over
 
     if device is None:
         device = getattr(mesh, "device_type", "cuda")
@@ -265,10 +274,28 @@ def make_pod_distill_step(cfg, mesh=None, *, n_clients: int,
     _reject_autodiff_mode(vjp_mode)
     check_llm_dense_arch(cfg)
     cfg = cfg.replace(kernel_vjp_mode=vjp_mode)
-    V = cfg.vocab_size
     pods = axis_size(mesh, "pod") if mesh is not None else 1
     dp = tuple(a for a in ("data",) if mesh is not None
                and a in axis_names(mesh))
+    lay = part = None
+    rows_over = 1
+    if specs is not None:
+        from repro_torch.launch import shardings as SH
+        from repro_torch.launch import steps as ST
+
+        pspecs, zspecs = ST.split_state_specs(specs[0])
+        bat = ST.batch_axes_of(specs[2])
+        lay = SH.Layout(cfg, mesh, pspecs)
+        part = ST.Partitioned(cfg, mesh, pspecs, zspecs, bat)
+        for a in part.batch_axes:
+            rows_over *= axis_size(mesh, a)
+
+    def global_mean(total, rows: int):
+        """The mean over every data shard's rows of a sum over this
+        rank's."""
+        if part is None:
+            return total / rows
+        return sum_over(total, mesh, part.batch_axes) / (rows * rows_over)
 
     def pod_mean(total):
         """Σ over this rank's clients → the mean over all of them."""
@@ -285,7 +312,7 @@ def make_pod_distill_step(cfg, mesh=None, *, n_clients: int,
             for i in range(n):
                 out, _ = T.forward(T.layer(stacked, i), cfg, embeds=embeds,
                                    mesh=mesh, dp_axes=dp, remat=False,
-                                   return_hidden=hidden)
+                                   return_hidden=hidden, tp=lay)
                 yield out if hidden else out.float()
 
     def loss_materialized(sp, stacked, embeds):
@@ -294,11 +321,12 @@ def make_pod_distill_step(cfg, mesh=None, *, n_clients: int,
             total = lg if total is None else total + lg
         avg = pod_mean(total)
         stu, _ = T.forward(sp, cfg, embeds=embeds, mesh=mesh, dp_axes=dp,
-                           remat=True)
+                           remat=True, tp=lay)
+        v = avg.shape[-1]
         # the teacher is constant: skip the kernel's dL/dt stream
-        return LS.distill_loss(avg.reshape(-1, V),
-                               stu.float().reshape(-1, V), mode=kl_mode,
-                               with_teacher_grad=False)
+        kl = LS.softmax_kl(avg.reshape(-1, v), stu.float().reshape(-1, v),
+                           mode=kl_mode, with_teacher_grad=False, tp=lay)
+        return global_mean(kl.sum(), kl.shape[0])
 
     def chunk_kl(sh_c, s_tbl, t_tbl, *th_c):
         """Σ over a chunk's tokens of KL(teacher mean ‖ student), the
@@ -310,14 +338,17 @@ def make_pod_distill_step(cfg, mesh=None, *, n_clients: int,
                 lg = h.float() @ t_tbl[i].float().T
                 t_lg = lg if t_lg is None else t_lg + lg
             t_lg = pod_mean(t_lg)
+        if lay is not None and lay.vocab:
+            sh_c = lay.enter(sh_c)
         s_lg = sh_c @ s_tbl.to(sh_c.dtype).T
-        return torch.sum(LS.softmax_kl(t_lg.reshape(-1, V),
-                                       s_lg.float().reshape(-1, V)))
+        v = s_lg.shape[-1]
+        return torch.sum(LS.softmax_kl(t_lg.reshape(-1, v),
+                                       s_lg.float().reshape(-1, v), tp=lay))
 
     def loss_chunked(sp, stacked, embeds):
         th = list(client_outputs(stacked, embeds, hidden=True))
         sh, _ = T.forward(sp, cfg, embeds=embeds, mesh=mesh, dp_axes=dp,
-                          remat=True, return_hidden=True)
+                          remat=True, return_hidden=True, tp=lay)
         B, S, _ = sh.shape
         if S % kl_chunk:
             raise ValueError(f"chunked_kl needs kl_chunk ({kl_chunk}) to "
@@ -331,22 +362,31 @@ def make_pod_distill_step(cfg, mesh=None, *, n_clients: int,
                             *(h[:, sl] for h in th), use_reentrant=False,
                             preserve_rng_state=False)
             tot = kl if tot is None else tot + kl
-        return tot / (B * S)
+        return global_mean(tot, B * S)
 
     loss_impl = loss_chunked if chunked_kl else loss_materialized
 
     def distill_step(stu_state, stacked, embeds):
-        opt = stu_state["opt"]
-        loss = loss_impl(stu_state["params"], _frozen(stacked), embeds)
-        opt.step(torch.autograd.grad(loss, opt.params))
+        opt, params = stu_state["opt"], stu_state["params"]
+        if part is not None:
+            part.check(params)
+        tensors = T.leaves(params)
+        loss = loss_impl(params, _frozen(stacked), embeds)
+        grads = torch.autograd.grad(loss, tensors)
+        opt.step(grads if part is None else part.reduce(grads))
+        if part is not None:
+            part.gather(tensors, opt.params)
         stu_state["step"] += 1
         return stu_state, {"dis_loss": loss.detach()}
 
     def make_state(params: dict) -> dict:
+        if part is not None:
+            params = SH.local_params(params, cfg, mesh, part.pspecs)
         tensors = T.leaves(params)
         for t in tensors:
             t.requires_grad_(True)
-        return {"params": params, "opt": optim.adam(tensors, s_lr),
+        targets = tensors if part is None else part.targets(tensors)
+        return {"params": params, "opt": optim.adam(targets, s_lr),
                 "step": 0}
 
     distill_step.make_state = make_state

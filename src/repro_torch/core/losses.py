@@ -10,6 +10,13 @@ Every KL-based loss takes ``mode``: ``"ref"`` (materialized log-softmax,
 torch autograd) or ``"fused"`` (the K1 pair, kernels/distill_kl.py).
 ``with_teacher_grad=False`` lets the student step, whose teacher is
 constant, skip the kernel's dL/dt stream.
+
+On logits that are this rank's vocabulary columns (``tp``, a
+vocabulary-parallel ``launch/shardings.Layout``: the partitioned pod
+step) the plain KL takes each row's log-sum-exp over ``model`` (an
+all-reduce max and sum) and sums the row's terms over ``model``; K1
+takes the logits all-gathered over ``model`` first, as the reference's
+compiler does with a custom call that has no partitioning rule.
 """
 from __future__ import annotations
 
@@ -19,17 +26,44 @@ from repro_torch.configs.backend import check_kl_mode
 from repro_torch.kernels import ops
 
 
+def _vocab_log_softmax(t: torch.Tensor, tp) -> torch.Tensor:
+    """log softmax over the vocabulary of which ``t`` holds this rank's
+    columns: the log-sum-exp over ``model``, entering this rank's
+    columns through ``tp.enter`` (its gradient sums every rank's
+    share)."""
+    from repro_torch.launch.mesh import max_over
+
+    mx = max_over(t.amax(dim=-1, keepdim=True), tp.mesh, "model")
+    lse = mx + torch.log(tp.sum(torch.exp(t - mx).sum(dim=-1,
+                                                      keepdim=True)))
+    return t - tp.enter(lse)
+
+
 def softmax_kl(p_logits: torch.Tensor, q_logits: torch.Tensor,
                temperature: float = 1.0, *, mode: str = "ref",
-               with_teacher_grad: bool = True) -> torch.Tensor:
+               with_teacher_grad: bool = True, tp=None) -> torch.Tensor:
     """Per-sample KL(softmax(p/T) ‖ softmax(q/T)) over the last axis.
 
     The temperature is applied outside the kernel, so the 1/T chain rule
     is the same in both modes. Any leading shape is accepted; the kernel
-    sees the flattened (rows, V) view."""
+    sees the flattened (rows, V) view. ``tp``: the logits are this
+    rank's vocabulary columns (module doc)."""
     check_kl_mode(mode)
     pt = p_logits.float() / temperature
     qt = q_logits.float() / temperature
+    if tp is not None and tp.vocab:
+        if mode == "fused":
+            from repro_torch.launch.mesh import gather_over
+
+            def whole(t):
+                return gather_over(t.movedim(-1, 0).contiguous(), tp.mesh,
+                                   "model").movedim(0, -1)
+            pt, qt = whole(pt), whole(qt)
+        else:
+            logp = _vocab_log_softmax(pt, tp)
+            logq = _vocab_log_softmax(qt, tp)
+            return tp.sum(torch.sum(torch.exp(logp) * (logp - logq),
+                                    dim=-1))
     if mode == "fused":
         lead, v = pt.shape[:-1], pt.shape[-1]
         kl = ops.distill_kl(pt.reshape(-1, v), qt.reshape(-1, v),

@@ -48,8 +48,22 @@ one-rank mesh gives the unsharded results bit for bit):
     all-gathers the rows' gradients back into the whole.
 
 ``make_production_mesh`` gives the reference's TPU meshes (16 x 16 and
-2 x 16 x 16) as axis names and sizes alone, for the rules: there are no
-256 ranks to build a ``DeviceMesh`` on.
+2 x 16 x 16) as axis names and sizes alone, for the rules.
+``fake_world`` starts a world of 256 or 512 ranks that runs no
+collective (torch's ``fake`` backend over a ``FakeStore``), and
+``fake_mesh`` builds those meshes as real ``DeviceMesh``es on it: the
+dry run (``launch/dryrun.py``) traces rank 0 of it. It refuses to start
+beside a real process group.
+
+The partitioned trunk's other collectives, none of which autograd flows
+through: ``max_over`` (an all-reduce max), ``reduce_scatter_over`` (a
+gradient's sum over axes, each rank keeping its block of one dim) and
+``gather_dim`` (every rank's block of one dim, in rank order).
+
+The roofline constants (``PEAK_FLOPS_BF16``, ``HBM_BW``, ``NVLINK_BW``,
+``IB_BW``) are the datasheet figures of the NVIDIA H100 80GB HBM3 (SXM)
+at 700 W, not measurements; ``GPUS_PER_NODE`` ranks share a node's
+NVLink.
 
 The spec vocabulary is ``PartitionSpec``: a tuple with one entry a
 tensor dim, an axis name, a tuple of axis names or None (replicated),
@@ -64,11 +78,20 @@ ranks.
 from __future__ import annotations
 
 import os
+import warnings
 from types import SimpleNamespace
 
 import torch
 
 DP_AXES = ("pod", "data")
+
+# datasheet figures of the NVIDIA H100 80GB HBM3 (SXM) at 700 W, per GPU:
+# not measurements
+PEAK_FLOPS_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
+HBM_BW = 3.35e12                # bytes/s
+NVLINK_BW = 450e9               # bytes/s a direction (NVLink 4, 18 links)
+IB_BW = 50e9                    # bytes/s a GPU across nodes (400 Gb/s)
+GPUS_PER_NODE = 8
 
 
 class PartitionSpec(tuple):
@@ -222,6 +245,47 @@ def make_production_mesh(*, multi_pod: bool = False):
     return SimpleNamespace(axis_names=names, shape=dict(zip(names, sizes)))
 
 
+def fake_world(world: int) -> None:
+    """Start (or restart at another size) a world of ``world`` ranks on
+    torch's ``fake`` backend, this process rank 0: every collective
+    returns at once and moves nothing. Refuses where a real process
+    group is initialized."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                "fake_world: a real process group "
+                f"({dist.get_backend()}) is initialized in this process")
+        if dist.get_world_size() == world:
+            return
+        dist.destroy_process_group()
+        _MESHES.clear()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+
+
+def fake_mesh(*, multi_pod: bool = False, dims: tuple | None = None):
+    """The production mesh (``make_production_mesh``), or ``dims`` over
+    the trailing names of ("pod", "data", "model"), as a ``DeviceMesh``
+    on a fake world of as many ranks (``fake_world``)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if dims is None:
+        prod = make_production_mesh(multi_pod=multi_pod)
+        names, dims = prod.axis_names, tuple(prod.shape.values())
+    else:
+        dims = tuple(int(d) for d in dims)
+        names = ("pod", "data", "model")[-len(dims):]
+    n = 1
+    for d in dims:
+        n *= d
+    fake_world(n)
+    return DeviceMesh("cpu", torch.arange(n).reshape(dims),
+                      mesh_dim_names=names)
+
+
 def dp_axes_of(mesh) -> tuple[str, ...]:
     return tuple(a for a in axis_names(mesh) if a in DP_AXES)
 
@@ -321,6 +385,49 @@ class _TakeRows(torch.autograd.Function):
         return _all_gather(g, ctx.mesh, ctx.axes), None, None
 
 
+@torch.no_grad()
+def max_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise max over ``axes`` of each rank's ``t`` (no
+    gradient)."""
+    import torch.distributed as dist
+
+    out = t.detach().clone()
+    for g in _groups(mesh, axes):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g)
+    return out
+
+
+@torch.no_grad()
+def reduce_scatter_over(t: torch.Tensor, mesh, axes, dim: int):
+    """Σ over ``axes`` of each rank's ``t``, of which this rank keeps its
+    block of ``dim`` (the blocks in rank order, the leading axis
+    outermost): a gradient's reduce-scatter (no gradient)."""
+    import torch.distributed as dist
+
+    t = t.detach().movedim(dim, 0)
+    for a in _axes(axes):                 # the outermost axis first
+        size = axis_size(mesh, a)
+        if size > 1:
+            if t.shape[0] % size:
+                raise ValueError(f"{t.shape[0]} rows do not split over "
+                                 f"{size} ranks of {a!r}")
+            out = t.new_empty((t.shape[0] // size, *t.shape[1:]))
+            with warnings.catch_warnings():     # deprecated in torch 2.13
+                warnings.simplefilter("ignore", FutureWarning)
+                dist.reduce_scatter_tensor(out, t.contiguous(),
+                                           group=mesh.get_group(a))
+            t = out
+    return t.movedim(0, dim)
+
+
+@torch.no_grad()
+def gather_dim(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """Every rank's block of ``dim`` in rank order over ``axes`` (no
+    gradient)."""
+    return _all_gather(t.detach().movedim(dim, 0), mesh,
+                       axes).movedim(0, dim).contiguous()
+
+
 def sum_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Σ over ``axes`` of each rank's ``t`` (replicated result); its
     gradient is passed through as it is."""
@@ -345,8 +452,11 @@ def take_rows(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     return _TakeRows.apply(t, mesh, _axes(axes))
 
 
-__all__ = ["DP_AXES", "P", "PartitionSpec", "axis_names", "axis_size",
-           "axis_sizes", "backend_for", "dp_axes_of", "ensure_world",
-           "entry_mesh", "gather_over", "make_client_mesh", "make_host_mesh",
-           "make_production_mesh", "placements", "replicated_over",
+__all__ = ["DP_AXES", "GPUS_PER_NODE", "HBM_BW", "IB_BW", "NVLINK_BW",
+           "P", "PEAK_FLOPS_BF16", "PartitionSpec", "axis_names",
+           "axis_size", "axis_sizes", "backend_for", "dp_axes_of",
+           "ensure_world", "entry_mesh", "fake_mesh", "fake_world",
+           "gather_dim", "gather_over", "make_client_mesh",
+           "make_host_mesh", "make_production_mesh", "max_over",
+           "placements", "reduce_scatter_over", "replicated_over",
            "sum_over", "take_rows"]

@@ -40,6 +40,20 @@ reference does; its scale is 1/√(nope + rope dims).
 
 Caches and pools are updated in place and returned (the reference
 returns updated copies): a decode step writes one row, not a new cache.
+
+Partitioned (``tp``, a ``launch/shardings.Layout``): where
+``attn_sharded``, ``gqa_apply`` runs this rank's n_heads/m query and
+n_kv_heads/m KV heads (``wq``/``wk``/``wv`` column-, ``wo`` row-sharded,
+the output summed over ``model``) and ``mla_apply`` this rank's n_heads/m
+heads (``wq_b``/``wkv_b`` column-, ``wo`` row-sharded; the latent and
+the rope key replicated). Cross-attention stays replicated. A cache
+whose sequence dim is cut (``cache_specs``: over ``model`` where
+attention is replicated, over ``data`` at a global batch of one) holds
+this rank's positions: a write lands on the rank that holds the
+position, each rank attends over its slice and the slices' row maxima,
+sums and weighted values are combined over the cut axes, flash-decode
+style (``_sdpa_over``), as the reference's compiler realizes the softmax
+over a sharded axis.
 """
 from __future__ import annotations
 
@@ -49,6 +63,7 @@ import torch
 
 from repro_torch.configs.backend import resolve_exec_policy
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import _block, max_over, sum_over
 from repro_torch.models import layers as L
 
 NEG_INF = -2.0 ** 30
@@ -136,19 +151,72 @@ def _mask(q_pos, k_pos, window: int):
     return mask
 
 
-def _write(cache: dict, new: dict, pos: int) -> None:
+def _write(cache: dict, new: dict, pos: int, off: int = 0,
+           total: int | None = None) -> None:
     """Each ``new[name]`` (B, S, ...) into ``cache[name]`` at ``pos``,
-    clamped as ``dynamic_update_slice`` clamps."""
+    clamped as ``dynamic_update_slice`` clamps. A cache holding the
+    positions [off, off + its length) of ``total`` takes the rows that
+    fall there."""
     for name, t in new.items():
         c = cache[name]
-        S = t.shape[1]
-        at = min(max(pos, 0), c.shape[1] - S)
-        c[:, at:at + S] = t.to(c.dtype)
+        S, T = t.shape[1], c.shape[1]
+        at = min(max(pos, 0), (T if total is None else total) - S)
+        lo, hi = max(at, off), min(at + S, off + T)
+        if lo < hi:
+            c[:, lo - off:hi - off] = t[:, lo - at:hi - at].to(c.dtype)
 
 
-def _qkv(p, x, cfg, cos, sin):
+def _seq_slice(tp, axes, T: int):
+    """(this rank's first position, the full length) of a cache whose
+    sequence dim (T a rank) is cut over ``axes``."""
+    idx, n = _block(tp.mesh, axes)
+    return idx * T, n * T
+
+
+def _sdpa_over(q, k, v, q_pos, k_pos, window: int, scale: float, bq: int,
+               mesh, axes):
+    """Attention of q (B, S, Kh, G, Dk) over the keys this rank holds, k
+    (B, T, Kh, Dk) and v (B, T, Kh, Dv) at positions ``k_pos``, combined
+    over ``axes``: per query block of ``bq`` rows, this rank's row
+    maxima, sums of exponentials and weighted values, then one all-reduce
+    max and one all-reduce sum over ``axes`` (a slice with every key
+    masked weighs exp(NEG_INF − max) = 0). Returns (B, S, Kh, G, Dv) in
+    v's dtype."""
+    S = q.shape[1]
+    ms, ls, accs = [], [], []
+    for i in range(0, S, bq):
+        s = torch.einsum("bqkgd,btkd->bkgqt", q[:, i:i + bq].float(),
+                         k.float()) * scale
+        s = torch.where(_mask(q_pos[i:i + bq], k_pos, window), s, NEG_INF)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype).float(),
+                                 v.float()))
+    m, l, acc = torch.cat(ms, -1), torch.cat(ls, -1), torch.cat(accs, -2)
+    w = torch.exp(m - max_over(m, mesh, axes))
+    both = sum_over(torch.cat([acc * w[..., None], (l * w)[..., None]], -1),
+                    mesh, axes)
+    out = both[..., :-1] / torch.clamp(both[..., -1:], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).to(v.dtype)
+
+
+def _query_block(cfg, S: int) -> int:
+    """``_sdpa_over``'s query block: the config's where the blockwise
+    prefill would run (``_blockwise``' rule on the queries), else S."""
+    if cfg.use_blockwise_attn and S >= BLOCKWISE_MIN \
+            and S % cfg.attn_block_q == 0:
+        return cfg.attn_block_q
+    return S
+
+
+def _qkv(p, x, cfg, cos, sin, heads: tuple | None = None):
+    """Rotated q (B, S, h, hd), k and v (B, S, kh, hd); ``heads`` (h, kh)
+    where this rank holds a share of them."""
     B, S, _ = x.shape
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h, kh = heads or (cfg.n_heads, cfg.n_kv_heads)
+    hd = cfg.head_dim
     q = L.apply_rope(L.linear(p["wq"], x).reshape(B, S, h, hd), cos, sin)
     k = L.apply_rope(L.linear(p["wk"], x).reshape(B, S, kh, hd), cos, sin)
     v = L.linear(p["wv"], x).reshape(B, S, kh, hd)
@@ -157,28 +225,49 @@ def _qkv(p, x, cfg, cos, sin):
 
 def gqa_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
               window: int = 0, cache: dict | None = None,
-              cache_pos: int | None = None):
+              cache_pos: int | None = None, tp=None):
     """Self-attention. x: (B, S, D); positions: (S,) absolute positions;
     ``window``: the layer's window (0: causal only).
 
     Prefill: a cache to fill from ``cache_pos`` (default positions[0]).
     Decode: S == 1 against the cached K/V. ``cache=None`` attends over x
     alone, through K2 under a kernel profile without a sliding-window
-    pattern (positions must then be 0..S-1). Returns (y, cache)."""
+    pattern (positions must then be 0..S-1). ``tp``: partitioned (module
+    doc). Returns (y, cache)."""
     B, S, _ = x.shape
     T = S if cache is None else cache["k"].shape[1]
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sharded = tp is not None and tp.attn
+    if sharded:
+        h, kh = tp.local(h, "n_heads"), tp.local(kh, "n_kv_heads")
+        x = tp.enter(x)
     cos, sin = L.rope_cos_sin(positions, hd, cfg.rope_theta)
-    q, k, v = _qkv(p, x, cfg, cos, sin)
+    q, k, v = _qkv(p, x, cfg, cos, sin, (h, kh))
+
+    def out_proj(out):
+        y = L.linear(p["wo"], out.reshape(B, S, h * hd).to(x.dtype))
+        return tp.sum(y) if sharded else y
 
     pol = resolve_exec_policy(cfg, device=x.device)
     if cache is None and pol.kernel_vjp != "ref" and not cfg.sliding_window:
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=True,
                                   window=window, policy=pol)
-        out = out.transpose(1, 2).reshape(B, S, h * hd)
-        return L.linear(p["wo"], out.to(x.dtype)), None
+        return out_proj(out.transpose(1, 2)), None
 
+    q = q.reshape(B, S, kh, h // kh, hd)
+    scale = 1.0 / math.sqrt(hd)
+    seq = tp.kv_seq if tp is not None and cache is not None else ()
+    if seq:
+        off, total = _seq_slice(tp, seq, T)
+        _write(cache, {"k": k, "v": v},
+               int(positions[0] if cache_pos is None else cache_pos), off,
+               total)
+        k_pos = torch.arange(off, off + T, device=x.device)
+        out = _sdpa_over(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                         positions, k_pos, window, scale,
+                         _query_block(cfg, S), tp.mesh, seq)
+        return out_proj(out), cache
     if cache is not None:
         _write(cache, {"k": k, "v": v},
                int(positions[0] if cache_pos is None else cache_pos))
@@ -186,8 +275,6 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         k_pos = torch.arange(T, device=x.device)
     else:
         k_all, v_all, k_pos = k, v, positions
-    q = q.reshape(B, S, kh, h // kh, hd)
-    scale = 1.0 / math.sqrt(hd)
     k_all, v_all = k_all.to(q.dtype), v_all.to(q.dtype)
     if _blockwise(cfg, S, T):
         out = _sdpa_blockwise(q, k_all, v_all, positions, k_pos, window,
@@ -195,7 +282,7 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                               min(cfg.attn_block_kv, T))
     else:
         out = _sdpa(q, k_all, v_all, _mask(positions, k_pos, window), scale)
-    return L.linear(p["wo"], out.reshape(B, S, h * hd).to(x.dtype)), cache
+    return out_proj(out), cache
 
 
 def gqa_apply_paged(p: dict, x: torch.Tensor, cfg, *,
@@ -302,18 +389,26 @@ def mla_cache_init(cfg, batch: int, max_len: int, dtype, device,
 
 def mla_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
               cache: dict | None = None, cache_pos: int | None = None,
-              window: int = 0):
+              window: int = 0, tp=None):
     """MLA over x: (B, S, D) (``attention.py:319-380``), with a cache as
     ``gqa_apply`` takes one (the latent and the rope key written at
-    ``cache_pos``). Returns (y, cache)."""
+    ``cache_pos``). ``tp``: partitioned (module doc). Returns (y,
+    cache)."""
     B, S, _ = x.shape
     h, r = cfg.n_heads, cfg.kv_lora_rank
     nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    sharded = tp is not None and tp.attn
+    if sharded:
+        h = tp.local(h, "n_heads")
+
+    def local_in(t):            # a replicated tensor into this rank's heads
+        return tp.enter(t) if sharded else t
+
     if cfg.q_lora_rank:
-        q = L.linear(p["wq_b"], L.rmsnorm(p["q_norm"],
-                                          L.linear(p["wq_a"], x)))
+        q = L.linear(p["wq_b"], local_in(L.rmsnorm(
+            p["q_norm"], L.linear(p["wq_a"], x))))
     else:
-        q = L.linear(p["wq"], x)
+        q = L.linear(p["wq"], local_in(x))
     q = q.reshape(B, S, h, nd + rd)
     cos, sin = L.rope_cos_sin(positions, rd, cfg.rope_theta)
     qn, qr = q[..., :nd], L.apply_rope(q[..., nd:], cos, sin)
@@ -321,18 +416,35 @@ def mla_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     c_kv = L.rmsnorm(p["kv_norm"], kv_a[..., :r])
     k_rope = L.apply_rope(kv_a[..., None, r:], cos, sin)[:, :, 0]
 
+    seq = tp.latent_seq if tp is not None and cache is not None else ()
     if cache is not None:
+        T = cache["c_kv"].shape[1]
+        off, total = _seq_slice(tp, seq, T) if seq else (0, None)
         _write(cache, {"c_kv": c_kv, "k_rope": k_rope},
-               int(positions[0] if cache_pos is None else cache_pos))
+               int(positions[0] if cache_pos is None else cache_pos), off,
+               total)
         c_all, r_all = cache["c_kv"], cache["k_rope"]
-        k_pos = torch.arange(c_all.shape[1], device=x.device)
+        k_pos = torch.arange(off, off + T, device=x.device)
     else:
         c_all, r_all, k_pos = c_kv, k_rope, positions
     T = c_all.shape[1]
-    kv = L.linear(p["wkv_b"], c_all.to(x.dtype)).reshape(B, T, h, nd + vd)
+    kv = L.linear(p["wkv_b"], local_in(c_all.to(x.dtype))).reshape(
+        B, T, h, nd + vd)
     kn, v = kv[..., :nd], kv[..., nd:]
-    r_all = r_all.to(x.dtype)
+    r_all = local_in(r_all.to(x.dtype))
     scale = 1.0 / math.sqrt(nd + rd)
+
+    def out_proj(out):
+        y = L.linear(p["wo"], out.reshape(B, S, h * vd).to(x.dtype))
+        return tp.sum(y) if sharded else y
+
+    if seq:
+        q_cat = torch.cat([qn, qr], -1)[:, :, :, None, :]        # G = 1
+        k_cat = torch.cat([kn, r_all[:, :, None, :].expand(B, T, h, rd)],
+                          -1)
+        out = _sdpa_over(q_cat, k_cat, v, positions, k_pos, window, scale,
+                         _query_block(cfg, S), tp.mesh, seq)[:, :, :, 0]
+        return out_proj(out), cache
     if _blockwise(cfg, S, T):
         q_cat = torch.cat([qn, qr], -1)[:, :, :, None, :]        # G = 1
         k_cat = torch.cat([kn, r_all[:, :, None, :].expand(B, T, h, rd)],
@@ -348,5 +460,4 @@ def mla_apply(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                              scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
         out = torch.einsum("bhst,bthd->bshd", probs, v)
-    y = L.linear(p["wo"], out.reshape(B, S, h * vd).to(x.dtype))
-    return y, cache
+    return out_proj(out), cache

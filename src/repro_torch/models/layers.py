@@ -26,6 +26,16 @@ key with no change of layout: ``linear`` weights stay (d_in, d_out).
   * ``layernorm`` (the token generator's) uses the biased variance and
     eps 1e-5; ``gelu_mlp`` the tanh form of gelu, ``jax.nn.gelu``'s
     default.
+
+Given ``tp`` (a ``launch/shardings.Layout``) the layers hold this rank's
+shards, as ``param_specs`` cuts them, and write out the collectives the
+reference's compiler inserts: ``embed`` looks up the rows of this rank's
+vocabulary slice, zero elsewhere, summed over ``model``; ``unembed``
+gives this rank's vocabulary columns; the MLPs take ``gate``/``up``
+column- and ``down`` row-sharded, their output summed over ``model``.
+A replicated activation that feeds a rank-local product enters it
+through ``tp.enter`` (``replicated_over``), so that its gradient sums
+every rank's share.
 """
 from __future__ import annotations
 
@@ -228,15 +238,29 @@ def embed_init(vocab: int, d: int, *, generator, dtype) -> dict:
                              dtype)}
 
 
-def embed(p: dict, ids: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+def embed(p: dict, ids: torch.Tensor, compute_dtype=None,
+          tp=None) -> torch.Tensor:
     """Rows of the table, cast after the gather (the same values as the
-    reference's cast-then-take)."""
-    x = p["table"][ids]
+    reference's cast-then-take). Vocabulary-parallel under ``tp``: the
+    table holds this rank's rows."""
+    table = p["table"]
+    if tp is not None and tp.vocab:
+        n = table.shape[0]
+        local = ids.long() - tp.rank * n
+        inside = ((local >= 0) & (local < n))[..., None]
+        x = tp.sum(torch.where(inside, table[local.clamp(0, n - 1)],
+                               torch.zeros((), dtype=table.dtype,
+                                           device=table.device)))
+    else:
+        x = table[ids]
     return x if compute_dtype is None else x.to(compute_dtype)
 
 
-def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Tied-weights readout: (..., d) @ (d, vocab)."""
+def unembed(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Tied-weights readout: (..., d) @ (d, vocab); under a
+    vocabulary-parallel ``tp``, this rank's vocabulary columns."""
+    if tp is not None and tp.vocab:
+        x = tp.enter(x)
     return x @ p["table"].to(x.dtype).T
 
 
@@ -274,12 +298,24 @@ def swiglu_init(d: int, d_ff: int, *, generator, dtype,
             "down": linear_init(d_ff, d, **kw)}
 
 
-def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+def swiglu_partial(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """down(silu(gate(x))·up(x)) over the columns ``p`` holds: the whole
+    MLP, or under a layout this rank's share of it (to be summed over
+    ``model``)."""
     return linear(p["down"], F.silu(linear(p["gate"], x))
-                     * linear(p["up"], x))
+                  * linear(p["up"], x))
 
 
-def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def swiglu(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    if tp is None:
+        return swiglu_partial(p, x)
+    return tp.sum(swiglu_partial(p, tp.enter(x)))
+
+
+def gelu_mlp(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     """down(gelu(up(x))) with the tanh form of gelu, as ``jax.nn.gelu``
     computes it by default."""
-    return linear(p["down"], F.gelu(linear(p["up"], x), approximate="tanh"))
+    if tp is not None:
+        x = tp.enter(x)
+    y = linear(p["down"], F.gelu(linear(p["up"], x), approximate="tanh"))
+    return y if tp is None else tp.sum(y)

@@ -36,6 +36,14 @@ the drop bucket. y is summed over ``ep_axis`` and gathered over
 gradients are those of that function (``launch/mesh``'s collectives):
 the expert rows' summed over ``dp_axes``, the router's over every axis,
 x's over ``ep_axis`` and gathered over ``dp_axes``.
+
+Partitioned (``tp``, a ``launch/shardings.Layout``; the batch already
+cut over the data axes by the step): this rank's E/m routed experts as
+above, with the capacity of this rank's tokens, and the shared experts'
+``gate``/``up`` column- and ``down`` row-sharded; the two partial
+outputs are summed over ``model`` together, in one all-reduce, and the
+auxiliary is averaged over ``model`` (the step averages it over the
+data axes).
 """
 from __future__ import annotations
 
@@ -99,13 +107,18 @@ def _moe_local(xf, router_w, w_gate, w_up, w_down, *, cfg, capacity: int,
     onehot = F.one_hot(e_cl, e_local + 1)
     pos = (torch.cumsum(onehot, dim=0) - 1).gather(1, e_cl[:, None])[:, 0]
     keep = mine & (pos < capacity)
-    # slot -> token; unfilled slots point at the zero pad row T
-    slot_tok = torch.full((e_local, capacity), T, dtype=torch.long,
-                          device=xf.device)
-    slot_tok[e_cl[keep], pos[keep]] = token_ids[keep]
-    slot_gate = torch.zeros((e_local, capacity), dtype=xf.dtype,
-                            device=xf.device)
-    slot_gate[e_cl[keep], pos[keep]] = gate.reshape(-1)[keep].to(xf.dtype)
+    # slot -> token; unfilled slots point at the zero pad row T. Dropped
+    # assignments write a spare slot past the last (no data-dependent
+    # shapes: the dry run traces this on fake tensors)
+    n_slots = e_local * capacity
+    flat = torch.where(keep, e_cl * capacity + pos, n_slots)
+    slot_tok = torch.full((n_slots + 1,), T, dtype=torch.long,
+                          device=xf.device).index_put_((flat,), token_ids)
+    slot_tok = slot_tok[:n_slots].view(e_local, capacity)
+    slot_gate = torch.zeros((n_slots + 1,), dtype=xf.dtype,
+                            device=xf.device).index_put_(
+        (flat,), gate.reshape(-1).to(xf.dtype))
+    slot_gate = slot_gate[:n_slots].view(e_local, capacity)
 
     x_pad = torch.cat([xf, xf.new_zeros((1, D))])
     xd = x_pad[slot_tok]                                    # (e, C, D)
@@ -144,12 +157,33 @@ def _moe_sharded(p, xf, cfg, mesh, ep_axis, dp_axes):
     return y, aux
 
 
+def _moe_partitioned(p, x, cfg, tp):
+    """This rank's share of the routed and shared experts over its
+    tokens, summed over ``model`` (module doc)."""
+    B, S, D = x.shape
+    e_local = tp.local(cfg.n_experts, "n_experts")
+    if p["gate"].shape[0] != e_local:
+        raise ValueError(f"the partitioned MoE takes this rank's {e_local} "
+                         f"expert rows, got {p['gate'].shape[0]}")
+    xr = tp.enter(x)
+    y, aux = _moe_local(xr.reshape(B * S, D), tp.enter(p["router"]["w"]),
+                        p["gate"], p["up"], p["down"], cfg=cfg,
+                        capacity=_capacity(B * S, cfg),
+                        offset=tp.rank * e_local)
+    y = y.reshape(B, S, D)
+    if "shared" in p:
+        y = y + L.swiglu_partial(p["shared"], xr)
+    return tp.sum(y), tp.sum(aux) / tp.m
+
+
 def moe_apply(p: dict, x: torch.Tensor, cfg, *, mesh=None,
-              ep_axis: str = "model", dp_axes: tuple = ()):
+              ep_axis: str = "model", dp_axes: tuple = (), tp=None):
     """x: (B, S, D) -> (y, aux): the routed experts over the B·S tokens
     plus the shared experts. Expert-parallel iff ``mesh`` has
     ``ep_axis`` (module doc); then ``p``'s experts are this rank's
-    rows."""
+    rows. ``tp``: partitioned (module doc)."""
+    if tp is not None:
+        return _moe_partitioned(p, x, cfg, tp)
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
     if mesh is None or ep_axis not in axis_names(mesh):

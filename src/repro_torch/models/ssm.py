@@ -24,6 +24,17 @@ dtype.
 States are dicts ``{"ssm" (B, H, P, N) float32, "conv_x" (B, K-1,
 d_inner), "conv_bc" (B, K-1, 2·G·N)}`` in ``cfg.dtype``; ``mamba2_apply``
 returns the new one and leaves the given one as it is.
+
+Partitioned where ``ssm_sharded`` (``tp``, a ``launch/shardings.Layout``):
+this rank holds H/m heads, ``in_z``/``in_x``/``in_dt`` column-sharded,
+``conv_x``, ``a_log``/``dt_bias``/``d_skip`` and the gated norm's scale
+cut by head, ``out_proj`` row-sharded and its output summed over
+``model``; ``in_bc``/``conv_bc`` replicated, and B and C enter this
+rank's heads through ``tp.enter`` (their gradient sums every rank's
+share). The gated RMSNorm normalizes over the whole d_inner, so its sum
+of squares is summed over ``model`` (and, feeding rank-local outputs,
+its gradient too). The state's ``ssm`` and ``conv_x`` hold this rank's
+heads and channels (``cache_specs``).
 """
 from __future__ import annotations
 
@@ -142,18 +153,42 @@ def ssd_chunked(x, dt, a, b, c, *, chunk: int, initial_state=None):
     return y.to(x.dtype), s
 
 
+def _local_groups(bmat, cmat, h: int, h_local: int, rank: int):
+    """B and C (B, S, G, N) of the groups this rank's heads [rank·h_local,
+    (rank + 1)·h_local) read (head j reads group j // (h / G))."""
+    rep = h // bmat.shape[2]
+    lo = rank * h_local // rep
+    hi = ((rank + 1) * h_local - 1) // rep + 1
+    return bmat[:, :, lo:hi], cmat[:, :, lo:hi]
+
+
+def _gated_norm(p, y, z, tp, d_inner: int, eps: float = 1e-6):
+    """``rmsnorm(p["norm"], y) * silu(z)`` with the mean of squares over
+    the whole d_inner: this rank's sum summed over ``model``."""
+    yf = y.float()
+    ss = tp.enter(tp.sum((yf * yf).sum(dim=-1, keepdim=True)))
+    yn = (yf * torch.rsqrt(ss / d_inner + eps)).to(y.dtype)
+    return yn * p["norm"]["scale"].to(y.dtype) * F.silu(z)
+
+
 def mamba2_apply(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
-                 decode: bool = False):
-    """The full Mamba-2 block over x (B, S, D). Returns (y (B, S, D), the
-    new state or None)."""
+                 decode: bool = False, tp=None):
+    """The full Mamba-2 block over x (B, S, D); ``tp``: partitioned
+    (module doc). Returns (y (B, S, D), the new state or None)."""
     B, S, _ = x.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_n_groups, cfg.ssm_state, cfg.n_ssm_heads
     pd = cfg.ssm_head_dim
+    sharded = tp is not None and tp.ssm
+    xr = x
+    if sharded:
+        h_full, h = h, tp.local(h, "n_ssm_heads")
+        di = h * pd
+        xr = tp.enter(x)
 
-    z = L.linear(p["in_z"], x)
-    xi = L.linear(p["in_x"], x)
+    z = L.linear(p["in_z"], xr)
+    xi = L.linear(p["in_x"], xr)
     bc = L.linear(p["in_bc"], x)
-    dt_raw = L.linear(p["in_dt"], x)
+    dt_raw = L.linear(p["in_dt"], xr)
 
     pad_x = state["conv_x"] if state is not None else None
     pad_bc = state["conv_bc"] if state is not None else None
@@ -163,10 +198,15 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
                                    p["conv_bc"]["b"].to(bc.dtype), pad_bc)
     xi = F.silu(xi)
     bc = F.silu(bc)
+    if sharded:
+        bc = tp.enter(bc)
 
     xs = xi.reshape(B, S, h, pd)
     bmat = bc[..., :g * n].reshape(B, S, g, n)
     cmat = bc[..., g * n:].reshape(B, S, g, n)
+    if sharded:
+        bmat, cmat = _local_groups(bmat, cmat, h_full, h, tp.rank)
+        g = bmat.shape[2]
     v = dt_raw.float() + p["dt_bias"]
     dt = torch.logaddexp(v, torch.zeros_like(v))          # softplus
     a = -torch.exp(p["a_log"])                            # (H,) < 0
@@ -193,8 +233,12 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
 
     y = y + p["d_skip"].to(x.dtype)[None, None, :, None] * xs
     y = y.reshape(B, S, di)
-    y = L.rmsnorm(p["norm"], y) * F.silu(z)               # gated norm
-    out = L.linear(p["out_proj"], y)
+    if sharded:
+        out = tp.sum(L.linear(p["out_proj"],
+                              _gated_norm(p, y, z, tp, cfg.d_inner)))
+    else:
+        y = L.rmsnorm(p["norm"], y) * F.silu(z)           # gated norm
+        out = L.linear(p["out_proj"], y)
     new_state = None
     if state is not None:
         new_state = {"ssm": new_ssm, "conv_x": new_conv_x,

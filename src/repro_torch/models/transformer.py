@@ -40,6 +40,14 @@ cross_every, ...)), so ``interop`` carries either across as it is.
     reference (gemma3's windows and MLA on the plain path, a vlm's self
     layers through K2 forward and backward on the card, its cross blocks
     and the MoE layers plain).
+
+``forward`` and ``loss_fn`` take ``tp`` (a ``launch/shardings.Layout``):
+the partitioned trunk, every layer on this rank's shards as
+``param_specs`` cuts them and the batch as the step cut it (module docs
+of ``layers``, ``attention``, ``ssm`` and ``moe``); the logits are then
+this rank's vocabulary columns where the embedding is cut, and
+``loss_fn`` takes the cross-entropy over them vocabulary-parallel and
+the mean over ``batch_axes``.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.backend import resolve_device
+from repro_torch.launch.mesh import axis_size, max_over, sum_over
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -230,46 +239,47 @@ def init_cache(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
     return c
 
 
-def _attn(p, x, cfg, positions, window, cache, cache_pos):
+def _attn(p, x, cfg, positions, window, cache, cache_pos, tp=None):
     apply = A.mla_apply if cfg.kv_lora_rank else A.gqa_apply
     return apply(p, x, cfg, positions=positions, window=window, cache=cache,
-                 cache_pos=cache_pos)
+                 cache_pos=cache_pos, tp=tp)
 
 
-def _dense_block(p, x, cfg, positions, window, cache, cache_pos):
+def _dense_block(p, x, cfg, positions, window, cache, cache_pos, tp=None):
     """x + attn(norm(x)), then x + swiglu(norm(x)); MLA attention in a
     moe's layer 0 (``_apply_mla_dense0``)."""
     h, _ = _attn(p["attn"], L.rmsnorm(p["norm1"], x), cfg, positions, window,
-                 cache, cache_pos)
+                 cache, cache_pos, tp)
     x = x + h
-    return x + L.swiglu(p["mlp"], L.rmsnorm(p["norm2"], x))
+    return x + L.swiglu(p["mlp"], L.rmsnorm(p["norm2"], x), tp)
 
 
-def _moe_block(p, x, cfg, positions, cache, cache_pos, mesh, dp_axes):
+def _moe_block(p, x, cfg, positions, cache, cache_pos, mesh, dp_axes,
+               tp=None):
     """x + attn(norm(x)), then x + moe(norm(x)) (expert-parallel on a
     mesh with a ``model`` axis); returns (x, aux)."""
     h, _ = _attn(p["attn"], L.rmsnorm(p["norm1"], x), cfg, positions, 0,
-                 cache, cache_pos)
+                 cache, cache_pos, tp)
     x = x + h
     y, aux = M.moe_apply(p["moe"], L.rmsnorm(p["norm2"], x), cfg,
-                         mesh=mesh, dp_axes=dp_axes)
+                         mesh=mesh, dp_axes=dp_axes, tp=tp)
     return x + y, aux
 
 
-def _cross_block(p, x, cfg, vision):
-    """x + gated cross-attention onto ``vision``, then x + tanh(mlp_gate)·
-    swiglu(norm(x))."""
+def _cross_block(p, x, cfg, vision, tp=None):
+    """x + gated cross-attention onto ``vision`` (replicated), then x +
+    tanh(mlp_gate)·swiglu(norm(x))."""
     x = x + A.cross_attn_apply(p["xattn"], L.rmsnorm(p["norm1"], x), vision,
                                cfg)
     return x + torch.tanh(p["mlp_gate"].to(x.dtype)) \
-        * L.swiglu(p["mlp"], L.rmsnorm(p["norm2"], x))
+        * L.swiglu(p["mlp"], L.rmsnorm(p["norm2"], x), tp)
 
 
-def _ssm_block(p, x, cfg, state, decode):
+def _ssm_block(p, x, cfg, state, decode, tp=None):
     """x + mamba(norm(x)); a given state (views of the cache) is
     overwritten with the new one."""
     h, new = S.mamba2_apply(p["mamba"], L.rmsnorm(p["norm"], x), cfg,
-                            state=state, decode=decode)
+                            state=state, decode=decode, tp=tp)
     if state is not None:
         for k, t in new.items():
             state[k].copy_(t)
@@ -331,7 +341,7 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
             cache_pos: int | None = None, vision: torch.Tensor | None = None,
             mesh=None, dp_axes: tuple = (), decode: bool = False,
             remat: bool | None = None,
-            with_aux: bool = False, return_hidden: bool = False):
+            with_aux: bool = False, return_hidden: bool = False, tp=None):
     """Run the trunk over ``tokens`` (B, S) or soft ``embeds`` (B, S, D),
     cast to ``cfg.dtype``. positions: (S,) absolute positions (default
     arange(S)). cache: from ``init_cache``; prefill fills it and decode
@@ -339,9 +349,13 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
     blocks decode whenever S == 1 against a cache) updates it, in place.
     ``vision`` (B, P, vision_dim): a vlm's patch embeddings, which its
     cross blocks attend over. ``mesh`` and ``dp_axes`` reach the MoE
-    layers alone, as in the reference: on a mesh with a ``model`` axis
-    they run expert-parallel (``moe.moe_apply``; the experts are then
-    this rank's rows), every other layer replicated. Without a cache,
+    layers alone, as the reference's run time takes them: on a mesh with
+    a ``model`` axis they run expert-parallel (``moe.moe_apply``; the
+    experts are then this rank's rows), every other layer replicated.
+    ``tp`` (a ``launch/shardings.Layout``) reaches every layer instead:
+    the partitioned trunk on this rank's shards of the parameters, the
+    batch and the cache (module doc); the logits are then this rank's
+    vocabulary columns where the embedding is cut. Without a cache,
     ``remat`` (default ``cfg.remat``) recomputes each block in the
     backward (``torch.utils.checkpoint``). Returns (logits (B, S, V), cache), and
     with ``with_aux`` a third item ``{"moe_aux"}``: the MoE layers'
@@ -356,7 +370,7 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
                          "vision=")
     dtype = getattr(torch, cfg.dtype)
     if embeds is None:
-        x = L.embed(params["embed"], tokens, compute_dtype=dtype)
+        x = L.embed(params["embed"], tokens, compute_dtype=dtype, tp=tp)
     else:
         x = embeds.to(dtype)
     if positions is None:
@@ -368,14 +382,15 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
     for kind, p_l, idx, window in _layers(cfg, params):
         c = _at(cache, idx)
         if kind == "attn":
-            fn, args = _dense_block, (cfg, positions, window, c, cache_pos)
+            fn, args = _dense_block, (cfg, positions, window, c, cache_pos,
+                                      tp)
         elif kind == "moe":
             fn, args = _moe_block, (cfg, positions, c, cache_pos, mesh,
-                                    dp_axes)
+                                    dp_axes, tp)
         elif kind == "cross":
-            fn, args = _cross_block, (cfg, vision)
+            fn, args = _cross_block, (cfg, vision, tp)
         else:
-            fn, args = _ssm_block, (cfg, c, decode and c is not None)
+            fn, args = _ssm_block, (cfg, c, decode and c is not None, tp)
         if use_remat:
             y = checkpoint(fn, p_l, x, *args, use_reentrant=False,
                            preserve_rng_state=False)
@@ -387,7 +402,7 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
         else:
             x = y
     x = L.rmsnorm(params["final_norm"], x)
-    out = x if return_hidden else L.unembed(params["embed"], x)
+    out = x if return_hidden else L.unembed(params["embed"], x, tp)
     if with_aux:
         return out, cache, {"moe_aux": aux}
     return out, cache
@@ -430,23 +445,60 @@ def forward_paged(params: dict, cfg, *, tokens: torch.Tensor,
     return L.unembed(params["embed"], x), cache
 
 
+def token_nll(logits: torch.Tensor, labels: torch.Tensor,
+              tp=None) -> torch.Tensor:
+    """Each token's float32 −log softmax(logits)[label]. Under a
+    vocabulary-parallel ``tp`` the logits are this rank's columns: the
+    row maximum (all-reduce max) and sum of exponentials (all-reduce sum)
+    are taken over ``model``, and the label's logit from the rank that
+    holds it (an all-reduce sum of the one nonzero share)."""
+    lf = logits.float()
+    if tp is None or not tp.vocab:
+        logp = torch.log_softmax(lf, dim=-1)
+        return -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    n = lf.shape[-1]
+    mx = max_over(lf.amax(dim=-1, keepdim=True), tp.mesh, "model")
+    lse = (mx + torch.log(tp.sum(torch.exp(lf - mx).sum(
+        dim=-1, keepdim=True))))[..., 0]
+    local = labels.long() - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    picked = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return lse - tp.sum(torch.where(inside, picked, 0.0))
+
+
 def loss_fn(params: dict, cfg, batch: dict, *, mesh=None,
-            dp_axes: tuple = ()):
+            dp_axes: tuple = (), tp=None, batch_axes: tuple = ()):
     """Next-token cross-entropy over ``batch["tokens"]`` (B, S) against
     ``batch["labels"]`` (B, S): float32 log-softmax NLL, averaged over
     the tokens, or over ``batch["mask"]`` where given, plus
     ``router_aux_coef`` times the MoE auxiliary (0 without MoE layers). A
-    vlm reads ``batch["vision"]``; ``mesh`` and ``dp_axes`` as in
-    ``forward``. Returns (loss, {"ce", "moe_aux"})."""
+    vlm reads ``batch["vision"]``; ``mesh``, ``dp_axes`` and ``tp`` as in
+    ``forward``. Under ``tp`` the batch is this rank's rows of the one
+    cut over ``batch_axes``: the cross-entropy is the mean over the whole
+    batch and the auxiliary the mean of every data shard's, each summed
+    over ``batch_axes`` (replicated; the gradients are this rank's share,
+    which the step sums). Returns (loss, {"ce", "moe_aux"})."""
     logits, _, aux = forward(params, cfg, tokens=batch["tokens"],
                              vision=batch.get("vision"), mesh=mesh,
-                             dp_axes=dp_axes, with_aux=True)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+                             dp_axes=dp_axes, with_aux=True, tp=tp)
+    nll = token_nll(logits, batch["labels"], tp)
     mask = batch.get("mask")
-    if mask is None:
+    moe_aux = aux["moe_aux"]
+    if tp is not None:
+        shards = 1
+        for a in batch_axes:
+            shards *= axis_size(tp.mesh, a)
+        if mask is None:
+            den = float(nll.numel() * shards)
+        else:
+            nll = nll * mask
+            den = torch.clamp(sum_over(mask.sum().float(), tp.mesh,
+                                       batch_axes), min=1.0)
+        loss = sum_over(nll.sum(), tp.mesh, batch_axes) / den
+        moe_aux = sum_over(moe_aux, tp.mesh, batch_axes) / shards
+    elif mask is None:
         loss = nll.mean()
     else:
         loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    total = loss + cfg.router_aux_coef * aux["moe_aux"]
-    return total, {"ce": loss, "moe_aux": aux["moe_aux"]}
+    total = loss + cfg.router_aux_coef * moe_aux
+    return total, {"ce": loss, "moe_aux": moe_aux}

@@ -4,7 +4,10 @@
 Each optimizer holds a list of tensors and updates them in place from a
 list of gradients of the same length (``step(grads)``), so callers take
 gradients with ``torch.autograd.grad`` for exactly the tensors they
-train. State is float32, as in the reference.
+train. State is float32, as in the reference. A tensor may be a view:
+the partitioned train step (``launch/steps.Partitioned``, ZeRO-1) gives
+Adam each rank's ``data`` slice of a parameter, which it updates in
+place, with moments of the slice's shape.
 
 ``lr`` is a float or a schedule, a callable of an int step
 (``optim/schedules.py``): ``sgd`` evaluates it at the ``step`` its
